@@ -1,0 +1,205 @@
+"""Audio loading and resampling without external audio stacks.
+
+Replaces the reference's ffmpeg/soxr path (``utils/data_utils.py:12-32``,
+``processing_cm3p.py:306-360``): WAV files decode via a direct RIFF parser
+(one read + one numpy pass); other formats use the ``ffmpeg`` binary when
+present. Resampling is polyphase (scipy) — same role as soxr-HQ.
+"""
+from __future__ import annotations
+
+import functools
+import math
+import shutil
+import subprocess
+from fractions import Fraction
+from os import PathLike
+from pathlib import Path
+from typing import Optional, Union
+
+import numpy as np
+
+
+@functools.lru_cache(maxsize=64)
+def _resample_filter(up: int, down: int) -> np.ndarray:
+    """Cached float32 anti-aliasing FIR for ``resample_poly``.
+
+    half_len = 4 * max_rate (vs scipy's default 10x): measured mel-spectrum
+    deviation vs the 10x filter is below the rational-approximation error
+    that was already accepted (the capped fraction's ~6e-5 playback-rate
+    drift dominates), while the polyphase convolution runs ~3x faster.
+    Designing once per (up, down) also makes exact fractions affordable:
+    per-output work is 2*half_len_mult*down/up regardless of the cap, only
+    the one-time firwin design scales with max_rate.
+    """
+    from scipy.signal import firwin
+
+    max_rate = max(up, down)
+    half_len = 4 * max_rate
+    return firwin(2 * half_len + 1, 1.0 / max_rate, window=("kaiser", 5.0)).astype(np.float32)
+
+
+def _resample_plan(orig_rate: int, target_rate: int) -> Fraction:
+    """The (possibly capped) up/down fraction of the resample path."""
+    frac = Fraction(target_rate, orig_rate)
+    if max(frac.numerator, frac.denominator) > 512:
+        # Huge exact rationals (e.g. 7619/8000 for a 1.05x DT draw) need a
+        # proportionally huge one-time filter design: cap the fraction.
+        # q <= 128 bounds the playback-rate error by 1/(128*129) ~ 6e-5,
+        # far below mel-bin resolution; the output is trimmed/padded to the
+        # TRUE expected length below either way. Common pairs (44.1k/48k ->
+        # 16k) stay exact: their design is cheap and cached.
+        frac = frac.limit_denominator(128)
+    return frac
+
+
+def resample(audio: np.ndarray, orig_rate: int, target_rate: int) -> np.ndarray:
+    """High-quality polyphase resampling to ``target_rate``."""
+    if orig_rate == target_rate:
+        return np.asarray(audio, dtype=np.float32)
+    from scipy.signal import resample_poly
+
+    frac = _resample_plan(orig_rate, target_rate)
+    out = resample_poly(
+        np.asarray(audio, dtype=np.float32),
+        frac.numerator,
+        frac.denominator,
+        window=_resample_filter(frac.numerator, frac.denominator),
+    )
+    # fix off-by-a-sample lengths from the rational approximation
+    expected = int(math.ceil(len(audio) * target_rate / orig_rate))
+    if len(out) > expected:
+        out = out[:expected]
+    elif len(out) < expected:
+        out = np.pad(out, (0, expected - len(out)))
+    return np.asarray(out, dtype=np.float32)
+
+
+def to_mono(audio: np.ndarray) -> np.ndarray:
+    audio = np.asarray(audio)
+    if audio.ndim == 2:
+        # average over the smaller (channel) axis
+        axis = 0 if audio.shape[0] <= audio.shape[1] else 1
+        audio = audio.mean(axis=axis)
+    return audio
+
+
+def _load_wav(path: Union[str, PathLike]) -> tuple[np.ndarray, int]:
+    """Direct RIFF/WAVE decode (PCM 8/16/24/32 + IEEE float 32/64).
+
+    Bypasses the stdlib ``wave`` module, whose chunked ``readframes`` reads
+    at ~20 MB/s — a 0.4-0.5 s tax per track that dominated the audio host
+    path. One ``read_bytes`` + one numpy pass decodes the same file in ~50 ms.
+    """
+    return _load_wav_bytes(Path(path).read_bytes(), str(path))
+
+
+def _load_wav_bytes(buf: bytes, path: str = "<bytes>") -> tuple[np.ndarray, int]:
+    if len(buf) < 12 or buf[:4] != b"RIFF" or buf[8:12] != b"WAVE":
+        raise ValueError(f"Not a RIFF/WAVE file: {path}")
+    fmt = data = None
+    pos, n = 12, len(buf)
+    while pos + 8 <= n:
+        cid = buf[pos : pos + 4]
+        csize = int.from_bytes(buf[pos + 4 : pos + 8], "little")
+        if cid == b"fmt ":
+            fmt = buf[pos + 8 : pos + 8 + csize]
+        elif cid == b"data":
+            data = buf[pos + 8 : pos + 8 + csize]
+            if fmt is not None:
+                break
+        pos += 8 + csize + (csize & 1)  # chunks are word-aligned
+    if fmt is None or len(fmt) < 16 or data is None:
+        raise ValueError(f"Malformed WAV (missing fmt/data chunk): {path}")
+    audio_format = int.from_bytes(fmt[0:2], "little")
+    n_channels = max(1, int.from_bytes(fmt[2:4], "little"))
+    rate = int.from_bytes(fmt[4:8], "little")
+    sampwidth = int.from_bytes(fmt[14:16], "little") // 8
+    if audio_format == 0xFFFE and len(fmt) >= 26:  # WAVE_FORMAT_EXTENSIBLE
+        audio_format = int.from_bytes(fmt[24:26], "little")
+    block = sampwidth * n_channels
+    if block and len(data) % block:
+        data = data[: len(data) - len(data) % block]
+
+    if audio_format == 3:  # IEEE float
+        if sampwidth == 4:
+            out = np.frombuffer(data, dtype="<f4").astype(np.float32, copy=True)
+        elif sampwidth == 8:
+            out = np.frombuffer(data, dtype="<f8").astype(np.float32)
+        else:
+            raise ValueError(f"Unsupported float WAV width: {sampwidth}")
+    elif audio_format == 1:  # integer PCM
+        # cast + scale in ONE buffered pass (np.multiply with an output
+        # dtype) instead of astype-then-divide: halves the conversion cost
+        # on multi-minute tracks.
+        if sampwidth == 2:
+            out = np.multiply(np.frombuffer(data, dtype="<i2"), np.float32(1 / 32768.0), dtype=np.float32)
+        elif sampwidth == 4:
+            out = np.multiply(np.frombuffer(data, dtype="<i4"), np.float32(1 / 2147483648.0), dtype=np.float32)
+        elif sampwidth == 1:  # 8-bit WAV is unsigned
+            out = np.multiply(np.frombuffer(data, dtype=np.uint8), np.float32(1 / 128.0), dtype=np.float32)
+            out -= 1.0
+        elif sampwidth == 3:  # 24-bit: widen to i4, sign via the top byte
+            b = np.frombuffer(data, dtype=np.uint8).reshape(-1, 3)
+            wide = np.zeros((b.shape[0], 4), dtype=np.uint8)
+            wide[:, 1:] = b
+            out = np.multiply(wide.view("<i4").reshape(-1), np.float32(1 / 2147483648.0), dtype=np.float32)
+        else:
+            raise ValueError(f"Unsupported WAV sample width: {sampwidth}")
+    else:
+        raise ValueError(f"Unsupported WAV audio format: {audio_format}")
+    if n_channels > 1:
+        out = out.reshape(-1, n_channels).mean(axis=1)
+    return out, rate
+
+
+def _load_via_ffmpeg(path: Union[str, PathLike], sampling_rate: int) -> np.ndarray:
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        raise RuntimeError(
+            f"Cannot decode {path}: ffmpeg binary not found and the format is not WAV. "
+            "Install ffmpeg or provide raw waveform arrays."
+        )
+    cmd = [
+        ffmpeg,
+        "-i",
+        str(path),
+        "-ac",
+        "1",
+        "-ar",
+        str(sampling_rate),
+        "-f",
+        "f32le",
+        "-hide_banner",
+        "-loglevel",
+        "error",
+        "pipe:1",
+    ]
+    out = subprocess.run(cmd, capture_output=True, check=True).stdout
+    return np.frombuffer(out, dtype=np.float32).copy()
+
+
+def load_audio_file(path: Union[str, PathLike], sampling_rate: int, speed: float = 1.0) -> np.ndarray:
+    """Decode an audio file to a mono float32 waveform at ``sampling_rate``.
+
+    ``speed`` > 1 implements DT augmentation by decoding at a proportionally
+    lower rate and playing it back at the target rate (data_utils.py:12-32).
+    """
+    target = int(sampling_rate // speed)
+    path = str(path)
+    if path.lower().endswith(".wav"):
+        buf = Path(path).read_bytes()
+        data, rate = _load_wav_bytes(buf, path)
+        return resample(to_mono(data), rate, target)
+    return _load_via_ffmpeg(path, target)
+
+
+def prepare_waveform(
+    audio: np.ndarray,
+    audio_sampling_rate: Optional[int],
+    sampling_rate: int,
+) -> np.ndarray:
+    """Mono-ize and resample an in-memory waveform to the model rate."""
+    audio = to_mono(np.asarray(audio))
+    if audio_sampling_rate is not None and audio_sampling_rate != sampling_rate:
+        audio = resample(audio, audio_sampling_rate, sampling_rate)
+    return audio.astype(np.float32, copy=False)

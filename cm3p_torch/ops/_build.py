@@ -1,0 +1,97 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on first use into
+``cm3p_torch/_build/lib<name>-<hash>.so`` (the hash covers the source and the
+flags, so an edited source rebuilds). The libraries expose plain C entry
+points; wrappers pass ``data_ptr()`` values and the current stream as
+``c_void_p`` and raise when an entry point returns a CUDA error code.
+Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+KERNEL_SOURCES = ("attention", "fused_ffn")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}  # name -> nvcc's output (ptxas register/smem report)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
+    return path
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=KERNEL_SOURCES) -> dict[str, float]:
+    """Compile every missing library, one nvcc process per source, all at once.
+
+    Returns seconds spent per built source (0.0 where the library existed).
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    seconds = {}
+    t0 = time.perf_counter()
+    for name in names:
+        target = _target(name)
+        if target.exists():
+            seconds[name] = 0.0
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, target)
+    failures = []
+    for name, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, target)
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return seconds
+
+
+def library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed.
+
+    ``signatures`` maps entry-point names to their ctypes argtypes; every
+    entry point returns a C int (a cudaError_t).
+    """
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Imports torch only (no JAX), so it also runs where JAX is absent:
+``python -m pytest tests/test_torch_kernels.py --noconftest -q``. Tests marked
+``gpu`` skip without CUDA. Tolerances: 2e-2 abs on bf16 outputs of magnitude
+~1 (a bf16 ulp at 2-4 is 1.6e-2; the kernels sum in another order than the
+plain versions), and exactly 0 on queries that see no key.
+"""
+import pytest
+import torch
+
+from cm3p_torch.ops import fused_ln_ffn, fused_ln_ffn_plain, launch_counts, reset_launch_counts
+from cm3p_torch.ops.attention import (
+    segment_attention,
+    segment_attention_plain,
+    window_attention,
+    window_attention_plain,
+)
+
+ATOL = 2e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+def _qkv(b, length, heads, gen, device):
+    qkv = torch.randn(b, length, 3, heads, 64, generator=gen, device=device).to(torch.bfloat16)
+    return qkv.unbind(2)  # strided views, as the model passes them
+
+
+def _packed_segments(b, length, device):
+    seg = torch.zeros(b, length, dtype=torch.int32, device=device)
+    seg[0, :700], seg[0, 700:1900], seg[0, 1900:length - 150] = 1, 2, 3
+    seg[-1, : length // 3] = 1
+    return seg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["packed", "key_mask"])
+@pytest.mark.parametrize("window", [64, None])
+def test_attention_kernels_match_plain(cuda, kind, window):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    length = 2048 if kind == "packed" else 1500  # 1500: the audio shape, not a multiple of 64
+    q, k, v = _qkv(2, length, 8, gen, cuda)
+    if kind == "packed":
+        qseg = kseg = _packed_segments(2, length, cuda)
+    else:
+        qseg = torch.ones(2, length, dtype=torch.int32, device=cuda)
+        kseg = torch.ones_like(qseg)
+        kseg[1, 1100:] = 0
+    theta = 10000.0 if window else 160000.0
+    if window is None:
+        got = segment_attention(q, k, v, qseg, kseg, theta)
+        want = segment_attention_plain(q, k, v, qseg, kseg, theta)
+    else:
+        got = window_attention(q, k, v, qseg, kseg, window, theta)
+        want = window_attention_plain(q, k, v, qseg, kseg, window, theta)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    dead = qseg == 0
+    if dead.any():
+        assert got[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d, f", [(768, 1152), (512, 1024)])
+def test_fused_ffn_kernel_matches_plain(cuda, d, f):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(1000 + 7, d, generator=gen, device=cuda).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=cuda)
+    wi = (0.02 * torch.randn(2 * f, d, generator=gen, device=cuda)).to(torch.bfloat16)
+    wo = (0.02 * torch.randn(d, f, generator=gen, device=cuda)).to(torch.bfloat16)
+    got = fused_ln_ffn(x, scale, None, wi, wo, 1e-5)
+    want = fused_ln_ffn_plain(x, scale, None, wi, wo, 1e-5)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = _qkv(1, 128, 2, gen, cuda)
+    seg = torch.ones(1, 128, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        window_attention(q.float(), k.float(), v.float(), seg, seg, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        segment_attention(q[..., :32], k[..., :32], v[..., :32], seg, seg)
+    with pytest.raises(ValueError, match="int32"):
+        segment_attention(q, k, v, seg.long(), seg)
+    x = torch.zeros(4, 256, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(128, 256, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="D in"):
+        fused_ln_ffn(x, torch.ones(256, device=cuda), None, w, w.t().contiguous(), 1e-5)
+
+
+@pytest.mark.gpu
+def test_launch_counts_count_kernel_launches(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = _qkv(1, 256, 2, gen, cuda)
+    seg = torch.ones(1, 256, dtype=torch.int32, device=cuda)
+    reset_launch_counts()
+    window_attention(q, k, v, seg, seg, 64)
+    segment_attention(q, k, v, seg, seg)
+    segment_attention_plain(q, k, v, seg, seg)
+    assert launch_counts() == {"window_attention": 1, "segment_attention": 1, "fused_ln_ffn": 0}
+
+
+def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = _qkv(1, 100, 2, gen, "cpu")
+    seg = torch.ones(1, 100, dtype=torch.int32)
+    reset_launch_counts()
+    assert torch.equal(window_attention(q, k, v, seg, seg, 16), window_attention_plain(q, k, v, seg, seg, 16))
+    assert torch.equal(segment_attention(q, k, v, seg, seg), segment_attention_plain(q, k, v, seg, seg))
+    assert launch_counts() == {"window_attention": 0, "segment_attention": 0, "fused_ln_ffn": 0}

@@ -1,0 +1,165 @@
+"""The port's extraction pipeline on the CPU: processor parity, embed_beatmap
+parity with the JAX package, and the port's independence from JAX.
+
+The beatmap comes from the repo's ``resources/`` through this file's own
+fixture; waveforms are synthetic, from a numpy seed.
+"""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cm3p_tpu.configs import tiny_cm3p_config as jax_tiny_config
+from cm3p_tpu.inference import embed_beatmap as jax_embed_beatmap
+from cm3p_tpu.models import CM3PModule
+from cm3p_tpu.processing import CM3PProcessor as JaxProcessor
+from cm3p_torch.configs import tiny_cm3p_config
+from cm3p_torch.inference import embed_beatmap, load_model
+from cm3p_torch.interop import state_dict_from_jax
+from cm3p_torch.processing import CM3PProcessor
+
+REPO = Path(__file__).resolve().parent.parent
+BEATMAP = REPO / "resources" / "Denkishiki Karen Ongaku Shuudan - Aoki Kotou no Anguis (OliBomby) [Ardens Spes].osu"
+
+
+@pytest.fixture(scope="module")
+def bundled_beatmap() -> str:
+    assert BEATMAP.exists()
+    return str(BEATMAP)
+
+
+def _waveform(seconds: float, seed: int = 0) -> np.ndarray:
+    return (0.1 * np.random.default_rng(seed).standard_normal(int(seconds * 16000))).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [{}, {"window_length_sec": 16.0, "window_stride_sec": 16.0, "max_length": 4096}],
+    ids=["defaults", "16s-windows"],
+)
+def test_processor_matches_the_jax_package(bundled_beatmap, kwargs):
+    wav = _waveform(70.0)
+    ours = CM3PProcessor()(beatmap=bundled_beatmap, audio=wav, **kwargs)
+    ref = JaxProcessor()(beatmap=bundled_beatmap, audio=wav, **kwargs)
+    np.testing.assert_array_equal(ours["input_ids"], ref["input_ids"])
+    np.testing.assert_array_equal(ours["attention_mask"], ref["attention_mask"])
+    np.testing.assert_allclose(ours["input_features"], ref["input_features"], atol=1e-5)
+
+
+def test_processor_without_audio_matches(bundled_beatmap):
+    ours = CM3PProcessor()(beatmap=bundled_beatmap, window_length_sec=16.0, window_stride_sec=16.0)
+    ref = JaxProcessor()(beatmap=bundled_beatmap, window_length_sec=16.0, window_stride_sec=16.0)
+    np.testing.assert_array_equal(ours["input_ids"], ref["input_ids"])
+    assert "input_features" not in ours
+
+
+def _tiny_pair():
+    proc = CM3PProcessor()
+    tok = proc.beatmap_tokenizer
+    cfgs = []
+    for make in (jax_tiny_config, tiny_cm3p_config):
+        cfg = make()
+        cfg.beatmap_config.vocab_size = tok.vocab_size
+        cfg.beatmap_config.audio_token_id = tok.audio_token_id
+        cfgs.append(cfg)
+    return proc, cfgs
+
+
+def test_embed_beatmap_matches_the_jax_package(bundled_beatmap):
+    proc, (jcfg, tcfg) = _tiny_pair()
+    wav = _waveform(40.0, seed=1)
+    kwargs = dict(window_length_sec=16.0, window_stride_sec=16.0, max_length=512)
+    inputs = proc(beatmap=bundled_beatmap, audio=wav, **kwargs)
+    jmodel = CM3PModule(jcfg, dtype=jnp.float32, attn_impl="xla")
+    params = jmodel.init(
+        jax.random.PRNGKey(0), jnp.asarray(inputs["input_ids"][:1]),
+        input_features=jnp.asarray(inputs["input_features"][:1]),
+        attention_mask=jnp.asarray(inputs["attention_mask"][:1]), method=CM3PModule.get_beatmap_features,
+    )
+    expected = jax_embed_beatmap(jmodel, params, JaxProcessor(), bundled_beatmap, audio=wav, mean_pool=False, **kwargs)
+    model = load_model(tcfg, state_dict_from_jax(jax.tree.map(np.asarray, params)), device="cpu", dtype=torch.float32)
+    got = embed_beatmap(model, proc, bundled_beatmap, audio=wav, mean_pool=False, device="cpu", **kwargs)
+    assert got.shape == expected.shape and got.shape[0] >= 2
+    cos = (got * expected).sum(-1) / np.linalg.norm(got, axis=-1) / np.linalg.norm(expected, axis=-1)
+    assert cos.min() >= 0.99999
+    pooled = embed_beatmap(model, proc, bundled_beatmap, audio=wav, device="cpu", **kwargs)
+    np.testing.assert_allclose(np.linalg.norm(pooled), 1.0, atol=1e-5)
+
+
+def test_default_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_model(tiny_cm3p_config())
+    proc, (_, tcfg) = _tiny_pair()
+    model = load_model(tcfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        embed_beatmap(model, proc, str(BEATMAP))
+
+
+def test_embed_beatmap_leaves_jax_out_of_the_process(bundled_beatmap):
+    """A subprocess: this one has jax imported by the test harness."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        import numpy as np
+        import torch
+        from cm3p_torch.configs import tiny_cm3p_config
+        from cm3p_torch.inference import embed_beatmap, load_model
+        from cm3p_torch.interop import init_weights
+        from cm3p_torch.processing import CM3PProcessor
+
+        proc = CM3PProcessor()
+        cfg = tiny_cm3p_config()
+        cfg.beatmap_config.vocab_size = proc.beatmap_tokenizer.vocab_size
+        cfg.beatmap_config.audio_token_id = proc.beatmap_tokenizer.audio_token_id
+        model = load_model(cfg, init_weights(cfg, torch.Generator().manual_seed(0)), device="cpu")
+        wav = (0.1 * np.random.default_rng(0).standard_normal(20 * 16000)).astype(np.float32)
+        emb = embed_beatmap(model, proc, {str(bundled_beatmap)!r}, audio=wav, device="cpu", max_length=512)
+        assert emb.shape == (cfg.projection_dim,) and np.isfinite(emb).all()
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cm3p_tpu"))
+        print("LOADED", bad)
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+_FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "cm3p_tpu"}
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+_PORT_FILES = sorted(
+    p for p in (REPO / "cm3p_torch").rglob("*") if p.suffix in (".py", ".cu") and "_build" not in p.parts
+)
+
+
+@pytest.mark.parametrize("path", _PORT_FILES + [REPO / "chip_smoke.py"], ids=lambda p: str(p.relative_to(REPO)))
+def test_port_sources_import_no_jax(path):
+    """No module of the port (nor chip_smoke.py) imports JAX or the JAX package."""
+    if path.suffix == ".py":
+        assert not _imported_roots(path) & _FORBIDDEN_ROOTS
+    if path.parent != REPO:  # chip_smoke.py may name the TPU kernels it reports on
+        assert "cm3p_tpu" not in path.read_text()
