@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's beatmap-embedding path on one NVIDIA GPU.
+"""Drive the PyTorch port on one NVIDIA GPU: beatmap-embedding extraction and training.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is skipped):
   1. build   - nvcc builds every kernel of ``cm3p_torch/csrc`` (one process
                per source, all at once) into ``cm3p_torch/_build``.
-  2. kernels - each kernel against its plain PyTorch version at the shapes
-               the main path gives it (packed 4096-token beatmap rows with
+  2. kernels - each forward kernel against its plain PyTorch version at the
+               shapes the main path gives it (packed 4096-token beatmap rows with
                several segments and a padding tail, unpacked rows with a key
-               mask, the audio tower's L = 1500), bf16, seeded inputs.
+               mask, the audio tower's L = 1500; the FFN at the beatmap, audio and
+               metadata widths 768 / 512 / 256), bf16, seeded inputs.
                Tolerance: 2e-2 abs on outputs of magnitude ~1, and exactly 0
                on queries that see no key.
   3. slice   - full-width ``CM3PConfig()`` (vocab and [AUDIO] id from the
@@ -23,6 +24,31 @@ Phases (any failure exits non-zero; nothing is skipped):
   4. times   - kernel, plain-version and library (SDPA) milliseconds with CUDA
                events at the packed beatmap shape, bounds from this run's
                inputs, windows/s and tokens/s of the packed path.
+  5. backward - the forward kernels with lse and the four backward kernels
+               (dq and dkv, window and segment) against the plain forward and
+               backward, bf16, seeded q/k/v/dout, at the shapes of a
+               ``v8_packed`` training batch from the 17 maps: 10 packed rows of
+               4096 (H 12, window 64 and segment) and the metadata tower's
+               ``meta_pack`` rows (16 sequences of 128 per row, H 4, ragged key
+               masks). Tolerance: lse 1e-3 abs, dq/dk/dv 1e-2 of the largest
+               entry, dq exactly 0 on queries that see no key.
+  6. training - ``v8_packed`` at full width through the port's config loader
+               (bf16 compute, fp32 master weights, Muon): one micro-step with
+               exact launch counts (forward: window 14, segment 8 + 6 with lse;
+               backward: dq and dkv 14 each, window and segment); the loss on
+               one repeated batch falls over 5 steps; kernel path vs all-plain
+               path on a 2-row batch: loss within 1e-2, per-tensor gradient
+               cosine >= 0.99 outside the metadata tower and projection; in
+               them (gradients of near-identical variations cancel, so bf16
+               does not resolve them) a tensor below 0.99 must be no further
+               from the plain path in fp32 than the plain bf16 path is,
+               within 0.05; then
+               ``python -m cm3p_torch.train``'s ``main``
+               for 3 optimizer steps x 2 micro-steps, one eval batch (window
+               14, segment 14, FFN 22 + 6), a checkpoint and its reload. Prints
+               step ms, windows/s, tokens/s, peak memory, a profiler breakdown
+               of one step, and each backward kernel's ms, plain ms, bound and
+               library (SDPA backward) ms.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
@@ -30,9 +56,12 @@ last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
 from __future__ import annotations
 
 import glob
+import itertools
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -42,12 +71,28 @@ COS_MIN = 0.999
 ROW_LEN = 4096
 WINDOW_KW = dict(window_length_sec=16.0, window_stride_sec=16.0, max_length=ROW_LEN)
 PER_FORWARD = {"segment_attention": 8 + 2, "window_attention": 14 + 4, "fused_ln_ffn": 22 + 6}
+# v8_packed training: 14 window + 8 segment beatmap layers, 6 segment metadata layers
+PER_MICRO_STEP = {
+    "window_attention": 14, "segment_attention": 8 + 6,
+    "window_attention_dq": 14, "window_attention_dkv": 14,
+    "segment_attention_dq": 8 + 6, "segment_attention_dkv": 8 + 6,
+}
+PER_EVAL = {"window_attention": 14, "segment_attention": 8 + 6, "fused_ln_ffn": 22 + 6}
+LSE_TOL = 1e-3
+BWD_REL_TOL = 1e-2
+LOSS_REL_TOL = 1e-2
+GRAD_COS_MIN = 0.99
+NOISY_COS_MARGIN = 0.05
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense
 KERNEL_SOURCES = {
     "window_attention": ("cm3p_torch/csrc/attention.cu", "cm3p_tpu/ops/flash_attention.py:294"),
     "segment_attention": ("cm3p_torch/csrc/attention.cu", "cm3p_tpu/ops/flash_attention.py:513"),
     "fused_ln_ffn": ("cm3p_torch/csrc/fused_ffn.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
+    "window_attention_dq": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:435"),
+    "window_attention_dkv": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:530"),
+    "segment_attention_dq": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:227"),
+    "segment_attention_dkv": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:328"),
 }
 
 
@@ -107,6 +152,44 @@ def ffn_bound_ms(rows, d, f):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def attention_bwd_bound_ms(b, length, heads, d, pairs, outputs):
+    """dq (outputs=1) or dkv (outputs=2): q, k, v, dout, lse, delta read once and
+    the gradients written once; per visible pair and head the s and dp
+    recomputes plus one product per gradient, 2 * d flops each."""
+    bytes_moved = (4 + outputs) * b * length * heads * d * 2 + 2 * b * heads * length * 4
+    flops = (2 + outputs) * 2 * d * heads * pairs
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _dense_bias(seg, window, dtype):
+    import torch
+
+    mask = (seg[:, None, None, :] > 0) & (seg[:, None, :, None] == seg[:, None, None, :])
+    if window is not None:
+        idx = torch.arange(seg.shape[1], device=seg.device)
+        mask = mask & ((idx[:, None] - idx[None, :]).abs() <= window)
+    return torch.zeros(mask.shape, dtype=dtype, device=seg.device).masked_fill_(~mask, float("-inf"))
+
+
+def sdpa_bwd_ms(q, k, v, dout, seg, window, iters):
+    """The backward of one SDPA call (memory-efficient backend, same bias):
+    dq, dk and dv together (yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    bias = _dense_bias(seg, window, q.dtype)
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+    g = dout.transpose(1, 2).contiguous()
+    ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True), iters)
+    del out, bias, qt, kt, vt, g
+    return ms
+
+
 def sdpa_ms(q, k, v, seg, window, iters):
     """One PyTorch call over the same masked attention (yardstick only)."""
     import torch
@@ -132,6 +215,10 @@ def sdpa_ms(q, k, v, seg, window, iters):
 _CATEGORIES = (  # kernel-name fragment -> category, first match wins
     ("attention_kernel<true>", "window_attention (ours)"),
     ("attention_kernel<false>", "segment_attention (ours)"),
+    ("attention_dq_kernel<true>", "window_attention_dq (ours)"),
+    ("attention_dkv_kernel<true>", "window_attention_dkv (ours)"),
+    ("attention_dq_kernel<false>", "segment_attention_dq (ours)"),
+    ("attention_dkv_kernel<false>", "segment_attention_dkv (ours)"),
     ("fused_ln_ffn_kernel", "fused_ln_ffn (ours)"),
     ("conv", "convolution (cuDNN)"),
     ("gemm", "matmul (cuBLAS)"),
@@ -141,21 +228,29 @@ _CATEGORIES = (  # kernel-name fragment -> category, first match wins
 )
 
 
-def device_breakdown(torch, forward) -> None:
-    """Device time per kernel category over one forward (torch.profiler)."""
+def device_breakdown(torch, forward, label="one packed forward", grad=False) -> None:
+    """Device time per kernel category over one call of ``forward`` (torch.profiler)."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    ctx = contextlib.nullcontext() if grad else torch.no_grad()
+    with ctx, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         forward()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     sums: dict[str, float] = {}
     others: dict[str, float] = {}
+    spans: dict[str, float] = {}
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = evt.time_range.elapsed_us() / 1e3
+        if getattr(evt, "is_user_annotation", False):
+            # a span (the optimizer step) over kernels already counted
+            spans[evt.name] = spans.get(evt.name, 0.0) + ms
+            continue
         cat = next((c for frag, c in _CATEGORIES if frag in evt.name), None)
         if cat is None:
             cat = "other (elementwise, copies)"
@@ -165,16 +260,18 @@ def device_breakdown(torch, forward) -> None:
     if busy == 0.0:
         log("  profiler: no device time recorded (breakdown not measured)")
         return
-    log(f"  profiler, one packed forward: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+    log(f"  profiler, {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
         f"({100 * busy / wall_ms:.1f} %, idle {100 - 100 * busy / wall_ms:.1f} %)")
     for cat, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
         log(f"    {cat:30s} {ms:9.2f} ms  {100 * ms / busy:5.1f} % of device time")
     for kname, ms in sorted(others.items(), key=lambda kv: -kv[1])[:6]:
         log(f"      other: {ms:8.2f} ms  {kname[:110]}")
+    for kname, ms in sorted(spans.items(), key=lambda kv: -kv[1]):
+        log(f"    span {kname[:60]}: {ms:.2f} ms on the device (its kernels are counted above)")
 
 
-def check_kernels(torch, ops, cases, gen):
-    """Phase 2: kernels vs plain versions; returns max errors per kernel."""
+def check_kernels(torch, ops, cases, gen, meta_rows):
+    """Phase 2: forward kernels vs plain versions; returns max errors per kernel."""
     from cm3p_torch.ops.attention import segment_attention_plain, window_attention_plain
 
     errs = {name: 0.0 for name in PER_FORWARD}
@@ -200,7 +297,8 @@ def check_kernels(torch, ops, cases, gen):
             errs[name] = max(errs[name], err)
             del got, want
         del qkv, q, k, v
-    for d, f, rows in ((768, 1152, cases[0][1] * ROW_LEN), (512, 1024, cases[-1][1] * cases[-1][2])):
+    ffn_shapes = ((768, 1152, cases[0][1] * ROW_LEN), (512, 1024, cases[-1][1] * cases[-1][2]), (256, 512, meta_rows))
+    for d, f, rows in ffn_shapes:
         x = (0.5 * torch.randn(rows, d, generator=gen, device="cuda")).to(torch.bfloat16)
         scale = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
         wi = (0.02 * torch.randn(2 * f, d, generator=gen, device="cuda")).to(torch.bfloat16)
@@ -239,12 +337,291 @@ def check_embeddings(torch, label, emb, ref):
         fail(f"{label}: kernel path and plain path disagree (cosine {cos.min():.6f})")
 
 
-def expect_counts(ops, label, forwards):
+def expect_counts(ops, label, forwards, per_call=PER_FORWARD):
     counts = ops.launch_counts()
-    want = {name: n * forwards for name, n in PER_FORWARD.items()}
+    want = {name: per_call.get(name, 0) * forwards for name in ops.KERNELS}
     log(f"  {label} launches {counts} (want {want})")
     if counts != want:
         fail(f"{label}: the main path did not launch each kernel as expected")
+    return counts
+
+
+def meta_pack_segments(torch, batch, meta_pack, dev):
+    """(rows, meta_pack * L) key segments of the metadata tower's packed rows
+    (``CM3PModel.get_metadata_features``): 1..g per row, 0 where masked."""
+    mask = torch.as_tensor(batch["metadata_attention_mask"], device=dev)
+    length = mask.shape[-1]
+    mask = mask.reshape(-1, length)
+    n = mask.shape[0]
+    n_pad = -(-n // meta_pack) * meta_pack
+    mask = torch.cat([mask, mask.new_ones(n_pad - n, length)]).reshape(n_pad // meta_pack, meta_pack * length)
+    seg = torch.arange(1, meta_pack + 1, dtype=torch.int32, device=dev).repeat_interleave(length)
+    return torch.where(mask > 0, seg[None, :], torch.zeros_like(mask)).to(torch.int32).contiguous()
+
+
+def check_backward(torch, ops, label, seg, heads, windows, gen):
+    """Phase 5: forward with lse and the backward kernels vs the plain versions
+    at one shape; returns max errors per kernel and the inputs for timing."""
+    from cm3p_torch.ops.attention import (
+        _attention_bwd_plain,
+        attention_delta,
+        segment_attention_plain,
+        window_attention_plain,
+    )
+
+    b, length = seg.shape
+    q, k, v = torch.randn(b, length, 3, heads, 64, generator=gen, device=seg.device).to(torch.bfloat16).unbind(2)
+    dout = torch.randn(b, length, heads, 64, generator=gen, device=seg.device).to(torch.bfloat16)
+    dead = seg == 0
+    live = (~dead)[:, None, :].expand(b, heads, length)
+    errs = {}
+    for window in windows:
+        pre = "window_attention" if window else "segment_attention"
+        if window:
+            out, lse = ops.window_attention(q, k, v, seg, seg, window, return_lse=True)
+            want, want_lse = window_attention_plain(q, k, v, seg, seg, window, return_lse=True)
+        else:
+            out, lse = ops.segment_attention(q, k, v, seg, seg, return_lse=True)
+            want, want_lse = segment_attention_plain(q, k, v, seg, seg, return_lse=True)
+        torch.cuda.synchronize()
+        out_err = (out.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse)[live].abs().max().item()
+        dead_out = out[dead].abs().max().item() if bool(dead.any()) else 0.0
+        log(f"  {pre:22s} {label} with lse: out max_abs_err {out_err:.3e} (tol {TOL}), "
+            f"lse max_abs_err {lse_err:.3e} (tol {LSE_TOL}); masked rows max {dead_out}")
+        if not (out_err <= TOL and lse_err <= LSE_TOL and dead_out == 0.0):
+            fail(f"{pre} with lse disagrees with its plain version on {label}")
+        errs[pre] = max(errs.get(pre, 0.0), out_err)
+        delta = attention_delta(want, dout)
+        if window:
+            dq = ops.window_attention_dq(q, k, v, dout, want_lse, delta, seg, seg, window)
+            dk, dv = ops.window_attention_dkv(q, k, v, dout, want_lse, delta, seg, seg, window)
+        else:
+            dq = ops.segment_attention_dq(q, k, v, dout, want_lse, delta, seg, seg)
+            dk, dv = ops.segment_attention_dkv(q, k, v, dout, want_lse, delta, seg, seg)
+        ref = _attention_bwd_plain(q, k, v, dout, want_lse, delta, seg, seg, window)
+        torch.cuda.synchronize()
+        for gname, got, r in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
+            err = (got.float() - r.float()).abs().max().item()
+            scale = r.float().abs().max().item()
+            kname = f"{pre}_dq" if gname == "dq" else f"{pre}_dkv"
+            log(f"  {kname:22s} {label} {gname}: max_abs_err {err:.3e}, relative {err / scale:.2e} "
+                f"(tol {BWD_REL_TOL} of max |{gname}| {scale:.3e})")
+            if not err <= BWD_REL_TOL * scale:
+                fail(f"{kname} disagrees with the plain backward on {label} ({gname})")
+            errs[kname] = max(errs.get(kname, 0.0), err)
+        if bool(dead.any()):
+            dead_dq = dq[dead].abs().max().item()
+            dead_kv = max(dk[dead].abs().max().item(), dv[dead].abs().max().item())
+            log(f"  {pre} {label}: dq on queries that see no key max {dead_dq}, dk/dv on unseen keys max {dead_kv}")
+            if dead_dq != 0.0 or dead_kv != 0.0:
+                fail(f"{pre} backward is not 0 on masked positions ({label})")
+        del out, lse, want, want_lse, delta, dq, dk, dv, ref
+    return errs, (q, k, v, dout)
+
+
+def time_backward(torch, ops, seg, inputs, heads, label, windows):
+    """Phase 6 times: lse-mode forwards and the backward kernels at one shape."""
+    from cm3p_torch.ops.attention import _attention_bwd_plain, attention_delta
+
+    q, k, v, dout = inputs
+    b, length = seg.shape
+    rows = {}
+    for window in windows:
+        pre = "window_attention" if window else "segment_attention"
+        if window:
+            fwd = lambda: ops.window_attention(q, k, v, seg, seg, window, return_lse=True)  # noqa: E731
+        else:
+            fwd = lambda: ops.segment_attention(q, k, v, seg, seg, return_lse=True)  # noqa: E731
+        out, lse = fwd()
+        lse_ms = cuda_ms(fwd, 10)
+        if window:
+            nolse_ms = cuda_ms(lambda: ops.window_attention(q, k, v, seg, seg, window), 10)
+        else:
+            nolse_ms = cuda_ms(lambda: ops.segment_attention(q, k, v, seg, seg), 10)
+        delta = attention_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, seg, seg) + ((window,) if window else ())
+        dq_ms = cuda_ms(lambda: getattr(ops, f"{pre}_dq")(*args), 10)
+        dkv_ms = cuda_ms(lambda: getattr(ops, f"{pre}_dkv")(*args), 10)
+        plain_ms = cuda_ms(lambda: _attention_bwd_plain(q, k, v, dout, lse, delta, seg, seg, window), 1)
+        lib_ms = sdpa_bwd_ms(q, k, v, dout, seg, window, 3)
+        pairs = visible_pairs(seg, window)
+        for kname, ms, outputs in ((f"{pre}_dq", dq_ms, 1), (f"{pre}_dkv", dkv_ms, 2)):
+            bound, bound_by = attention_bwd_bound_ms(b, length, heads, 64, pairs, outputs)
+            rows[kname] = (ms, plain_ms, bound, bound_by, lib_ms)
+        log(f"  {label} {pre}: forward with lse {lse_ms:.3f} ms (without {nolse_ms:.3f} ms), "
+            f"dq {dq_ms:.3f} ms, dkv {dkv_ms:.3f} ms, "
+            f"plain backward (dq, dk, dv) {plain_ms:.3f} ms, SDPA backward {lib_ms:.3f} ms, {pairs} visible pairs")
+        del out, lse, delta
+    return rows
+
+
+def check_gradients(torch, step, batch):
+    """Kernel path vs all-plain path on one batch: loss and per-tensor cosine.
+
+    Every tensor outside the metadata side (its tower and projection) is held
+    to cosine >= ``GRAD_COS_MIN`` with the plain path. The metadata side's
+    gradients are not resolved in bf16 at random init: the 8 variations of a window differ in one token, so
+    their gradients nearly cancel and the rounding of either bf16 path decides
+    what is left. There the plain path in fp32 is the oracle: a tensor below
+    ``GRAD_COS_MIN`` must be no further from it on the kernel path than on the
+    plain bf16 path, within ``NOISY_COS_MARGIN``."""
+    from cm3p_torch import ops
+
+    model = step.model
+    loss_k, grads_k, _ = step.grads(batch)
+    model.set_plain(True)
+    ops.reset_launch_counts()
+    loss_p, grads_p, _ = step.grads(batch)
+    dtype = model.metadata_model.encoder.compute_dtype
+    model.set_compute_dtype(torch.float32)
+    loss_f, grads_f, _ = step.grads(batch)
+    model.set_compute_dtype(dtype)
+    model.set_plain(False)
+    if any(ops.launch_counts().values()):
+        fail("the plain training path launched a kernel")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+
+    def cos(a, b):
+        na, nb = a.float().norm().item(), b.float().norm().item()
+        return (a.float() * b.float()).sum().item() / max(na * nb, 1e-30)
+
+    rows = []
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    for name, gk, gp, gf in zip(names, grads_k, grads_p, grads_f):
+        if (gk is None) != (gp is None):
+            fail(f"{name}: a gradient on one path only")
+        if gk is None:
+            continue
+        if not bool(torch.isfinite(gk).all()):
+            fail(f"{name}: non-finite gradient on the kernel path")
+        if gk.float().norm().item() == 0.0 and gp.float().norm().item() == 0.0:
+            continue
+        rows.append((cos(gk, gp), cos(gk, gf), cos(gp, gf), gf.float().norm().item(), name))
+    rows.sort()
+    strict = [r for r in rows if not r[4].startswith("metadata")]
+    meta = [r for r in rows if r[4].startswith("metadata")]
+    low = [r for r in meta if r[0] < GRAD_COS_MIN]
+    log(f"  kernel vs all-plain path: loss {float(loss_k):.6f} vs {float(loss_p):.6f} (relative {rel:.2e}, "
+        f"tol {LOSS_REL_TOL}; fp32 plain {float(loss_f):.6f})")
+    log(f"  {len(strict)} gradients outside the metadata side: cosine(kernel, plain) min {strict[0][0]:.6f} "
+        f"at {strict[0][4]} (need >= {GRAD_COS_MIN})")
+    log(f"  metadata tower and projection: {len(low)} of {len(meta)} below {GRAD_COS_MIN}; for those "
+        f"cos(kernel, fp32) must be "
+        f">= cos(plain, fp32) - {NOISY_COS_MARGIN}")
+    for ck, ckf, cpf, norm, name in low[:8]:
+        log(f"    cos(kernel, plain) {ck:.6f}  cos(kernel, fp32) {ckf:.6f}  cos(plain, fp32) {cpf:.6f}  "
+            f"|g| {norm:.3e}  {name}")
+    if not rel <= LOSS_REL_TOL:
+        fail("kernel and plain training losses disagree")
+    if not strict[0][0] >= GRAD_COS_MIN:
+        fail(f"kernel and plain gradients disagree ({strict[0][4]})")
+    worse = [r for r in low if r[1] < r[2] - NOISY_COS_MARGIN]
+    if worse:
+        fail(f"the kernel path is further from the fp32 oracle than the plain path ({worse[0][4]})")
+
+
+def train_slice(torch, ops, dev, batch, batch2, map_dirs):
+    """Phase 6: the full-width v8_packed training path; returns its launch counts."""
+    from cm3p_torch.train import TrainStep, to_device
+    from cm3p_torch.train.__main__ import CONFIG_DIR, build_model, build_optimizer, main, model_config
+    from cm3p_torch.utils.config import load_config
+    from cm3p_torch.train.__main__ import build_processor
+
+    args = load_config(CONFIG_DIR, "v8_packed", [])
+    cfg = model_config(args, build_processor(args))
+    model = build_model(args, cfg, dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  model: {n_params / 1e6:.1f} M fp32 master parameters (compute {model.metadata_model.encoder.compute_dtype}), "
+        f"meta_pack {model.meta_pack}, "
+        f"batch {batch['input_ids'].shape[0]} rows x {batch['input_ids'].shape[1]}, "
+        f"{int(batch['window_valid'].sum())} windows, metadata {tuple(batch['metadata_ids'].shape)}")
+    step = TrainStep(model, build_optimizer(args, model), packed=True)
+    dev_batch = to_device(batch, dev, packed=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    metrics = step(dev_batch)
+    torch.cuda.synchronize()
+    expect_counts(ops, "one training micro-step", 1, PER_MICRO_STEP)
+    losses, norms, times = [float(metrics["loss"])], [float(metrics["grad_norm"])], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(4):
+        start.record()
+        metrics = step(dev_batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    fb_ms = []
+    for _ in range(2):
+        start.record()
+        step.grads(dev_batch)
+        end.record()
+        torch.cuda.synchronize()
+        fb_ms.append(start.elapsed_time(end))
+    log(f"  5 steps on one batch: losses {[round(x, 5) for x in losses]}, grad norms {[round(x, 4) for x in norms]}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail("non-finite loss or gradient norm")
+    if not losses[-1] < losses[0]:
+        fail("the loss on one repeated batch did not fall over 5 steps")
+    step_ms = sorted(times)[len(times) // 2]
+    windows = int(batch["window_valid"].sum())
+    tokens = int((batch["segment_ids"] > 0).sum())
+    log(f"  training step (forward, backward, Muon; CUDA events, median of 4): {step_ms:.1f} ms, "
+        f"{1e3 * windows / step_ms:.2f} windows/s, {1e3 * tokens / step_ms:.0f} tokens/s "
+        f"({windows} windows, {tokens} tokens); peak memory {peak / 2**30:.2f} GiB; forward + backward alone "
+        f"{min(fb_ms):.1f} ms, so the optimizer step takes the other {step_ms - min(fb_ms):.1f} ms")
+    device_breakdown(torch, lambda: step(dev_batch), "one training step", grad=True)
+
+    check_gradients(torch, step, to_device(batch2, dev, packed=True))
+    del step, model, dev_batch
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as out:
+        ops.reset_launch_counts()
+        argv = ["--config-name", "v8_packed", "--device", str(dev), f"training.output_dir={out}", "training.max_steps=3",
+                "training.gradient_accumulation_steps=2", "training.logging_steps=1", "training.eval_steps=0",
+                "training.max_eval_batches=1", "training.save_steps=3", "dataset.test_metadata_variations=8"]
+        for d in map_dirs:
+            argv += ["--beatmap-files", str(d)]
+        t0 = time.perf_counter()
+        trainer = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = {k: 6 * PER_MICRO_STEP.get(k, 0) + PER_EVAL.get(k, 0) for k in ops.KERNELS}
+        log(f"  trainer (3 steps x 2 micro-steps, 1 eval batch, checkpoint) in {wall:.1f} s: launches {counts} "
+            f"(want {want})")
+        if counts != want:
+            fail("the trainer did not launch each kernel as expected")
+        records = [json.loads(line) for line in (Path(out) / "train_log.jsonl").read_text().splitlines()]
+        train_records = [r for r in records if "loss" in r]
+        final = [r for r in records if "final_eval_loss" in r]
+        log(f"  train_log: {[(r['step'], round(r['loss'], 5), round(r['grad_norm'], 4)) for r in train_records]}; "
+            f"eval {final}")
+        if [r["step"] for r in train_records] != [1, 2, 3] or not final:
+            fail("the trainer's log lacks its steps or its evaluation")
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in train_records):
+            fail("non-finite loss or gradient norm in the trainer")
+        if not math.isfinite(final[0]["final_eval_loss"]):
+            fail("non-finite evaluation loss")
+        reloaded = build_model(args, cfg, dev, seed=1)
+        opt = build_optimizer(args, reloaded)
+        info = trainer.ckpt.restore(reloaded, opt)
+        same = all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                                     reloaded.state_dict().values()))
+        log(f"  checkpoint {trainer.ckpt.steps()} reloaded: step {info and info['step']}, micro-step "
+            f"{info and info['micro_step']}, parameters equal {same}, optimizer step "
+            f"{[g['step'] for g in opt.param_groups]}")
+        if not (info and info["step"] == 3 and info["micro_step"] == 6 and same):
+            fail("the checkpoint did not reload the trained state")
+        if any(g["step"] != 3 for g in opt.param_groups):
+            fail("the optimizer state did not reload")
+        del trainer, reloaded, opt
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -322,6 +699,28 @@ def main() -> int:
     mask_unpacked = torch.as_tensor(np.asarray(unp["attention_mask"]), dtype=torch.int32, device=dev)
     audio_b, audio_l = feats.shape[0], feats.shape[2] // 2
 
+    # ---- host: v8_packed training batches from the same 17 maps
+    from cm3p_torch.train.__main__ import CONFIG_DIR, beatmap_file_batches, beatmap_paths
+    from cm3p_torch.train.__main__ import build_processor as build_train_processor
+    from cm3p_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    map_dirs = [ROOT / "resources", ROOT / "resources" / "perf_corpus"]
+    train_args = load_config(CONFIG_DIR, "v8_packed", [])
+    train_proc = build_train_processor(train_args)
+    paths = beatmap_paths([str(d) for d in map_dirs])
+    if len(paths) != 17:
+        fail(f"expected 17 training maps, found {len(paths)}")
+    train_batch = next(iter(beatmap_file_batches(train_args, train_proc, paths, test=False)()))
+    args2 = load_config(CONFIG_DIR, "v8_packed",
+                        ["training.per_device_train_batch_size=2", "training.packed_max_windows=10"])
+    train_batch2 = next(iter(beatmap_file_batches(args2, train_proc, paths, test=False)()))
+    meta_seg = meta_pack_segments(torch, train_batch, int(train_args["meta_pack"]), dev)
+    log(f"host: v8_packed batches in {time.perf_counter() - t0:.1f} s: {tuple(train_batch['input_ids'].shape)} rows, "
+        f"{int(train_batch['window_valid'].sum())} of {train_batch['window_valid'].shape[0]} window slots, metadata "
+        f"{tuple(train_batch['metadata_ids'].shape)} -> meta_pack rows {tuple(meta_seg.shape)}; 2-row batch "
+        f"{int(train_batch2['window_valid'].sum())} windows")
+
     # ---- 2. kernels against their plain versions at the main path's shapes
     log("[2] kernels vs plain versions (bf16, seeded inputs)")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -332,7 +731,7 @@ def main() -> int:
         (f"audio {audio_b}x{audio_l} H8", audio_b, audio_l, 8,
          torch.ones(audio_b, audio_l, dtype=torch.int32, device=dev), True),
     ]
-    errs = check_kernels(torch, ops, cases, gen)
+    errs = check_kernels(torch, ops, cases, gen, meta_seg.numel())
 
     # ---- 3. the slice end to end
     log("[3] slice: full-width CM3PConfig, seeded random bf16 weights")
@@ -343,7 +742,7 @@ def main() -> int:
     model = load_model(cfg, init_weights(cfg, torch.Generator(device=dev).manual_seed(0)), device=dev)
     torch.cuda.synchronize()
     log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, built in {time.perf_counter() - t0:.1f} s")
-    main_counts = {name: 0 for name in PER_FORWARD}
+    main_counts = {name: 0 for name in ops.KERNELS}
 
     ops.reset_launch_counts()
     emb_unpacked = embed_beatmap(model, proc, bundled, audio=waves[bundled], mean_pool=False, device=dev, **WINDOW_KW)
@@ -429,6 +828,36 @@ def main() -> int:
         cuda_ms(lambda: ops.segment_attention(*audio_q, ones, ones, 160000.0), 10),
         cuda_ms(lambda: ops.fused_ln_ffn(xa, amlp.mlp_norm.weight, None, amlp.mlp.Wi.weight, amlp.mlp.Wo.weight, 1e-5), 5),
     ))
+
+    # ---- 5. backward kernels against the plain backward
+    log("[5] backward kernels and lse vs plain versions (bf16, seeded inputs)")
+    seg10 = torch.as_tensor(train_batch["segment_ids"], device=dev)
+    e_packed, packed_inputs = check_backward(torch, ops, f"packed {tuple(seg10.shape)} H12", seg10, 12, (64, None), gen)
+    e_meta, meta_inputs = check_backward(torch, ops, f"metadata {tuple(meta_seg.shape)} H4", meta_seg, 4, (None,), gen)
+    for kname, err in itertools.chain(e_packed.items(), e_meta.items()):
+        errs[kname] = max(errs.get(kname, 0.0), err)
+
+    # ---- 6. the training slice
+    log("[6] training: v8_packed at full width (bf16 compute, fp32 masters, Muon)")
+    for kname, n in train_slice(torch, ops, dev, train_batch, train_batch2, map_dirs).items():
+        main_counts[kname] += n
+    log("  times (CUDA events; packed v8 batch shape unless named)")
+    bwd = time_backward(torch, ops, seg10, packed_inputs, 12, f"packed {tuple(seg10.shape)} H12", (64, None))
+    time_backward(torch, ops, meta_seg, meta_inputs, 4, f"metadata {tuple(meta_seg.shape)} H4", (None,))
+    for kname, (ms, plain_ms, bound, bound_by, lib_ms) in bwd.items():
+        kernels.append((kname, ms, plain_ms, bound, bound_by, lib_ms))
+    del packed_inputs, meta_inputs
+    mrows = meta_seg.numel()
+    xm = (0.5 * torch.randn(mrows, 256, generator=gen, device=dev)).to(torch.bfloat16)
+    sm = 1 + 0.1 * torch.randn(256, generator=gen, device=dev)
+    wim = (0.02 * torch.randn(1024, 256, generator=gen, device=dev)).to(torch.bfloat16)
+    wom = (0.02 * torch.randn(256, 512, generator=gen, device=dev)).to(torch.bfloat16)
+    ffn_ms = cuda_ms(lambda: ops.fused_ln_ffn(xm, sm, None, wim, wom, 1e-5), 10)
+    ffn_plain = cuda_ms(lambda: ops.fused_ln_ffn_plain(xm, sm, None, wim, wom, 1e-5), 2)
+    ffn_bound, ffn_by = ffn_bound_ms(mrows, 256, 512)
+    log(f"  fused_ln_ffn at the metadata width ({mrows} rows x 256, F 512): {ffn_ms:.3f} ms, plain {ffn_plain:.3f} ms, "
+        f"bound {ffn_bound:.3f} ms ({ffn_by})")
+    del xm
 
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:

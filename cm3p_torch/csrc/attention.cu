@@ -3,7 +3,8 @@
 // Replaces the TPU kernels of the JAX package's ops/flash_attention.py
 //   _window_fused_kernel (driven by _window_fused_fwd)  -> cm3p_window_attention
 //   _seg_unrolled_kernel (driven by _seg_unrolled_fwd)  -> cm3p_segment_attention
-// forward only, no lse output, no Wo epilogue.
+// forward, with the optional lse output of the training path; no Wo epilogue.
+// Their backward is csrc/attention_bwd.cu.
 //
 // Semantics (the masks and rope of the TPU kernels, not their layout):
 //   q, k, v: head-minor (B, L, H, 64) bf16; a position stride is passed so
@@ -15,6 +16,10 @@
 //     the rotated values are rounded to bf16 like the plain version does.
 //   softmax scale 1/sqrt(64), fp32 scores and statistics, base-2 exponent.
 //   A query with no visible key writes 0, not NaN.
+//   lse (optional, fp32 (B, H, L)): the base-2 log-sum-exp of the scaled
+//     scores, m + log2(l), written only when the caller passes a buffer (the
+//     no-grad path passes none). A query with no visible key gets
+//     log2(1e-30), the TPU kernels' value; the backward masks it anyway.
 // The TPU kernels shift scores by a fixed power of two instead of tracking
 // a running max; that equals the max-stabilised softmax outside a clamp band
 // that LayerNormed activations never reach, so this port uses the running
@@ -148,6 +153,7 @@ struct AttnArgs {
   const int* tile_start;                      // (B, nq), segment kernel only
   const int* tile_count;
   __nv_bfloat16* out;                         // (B, L, H, 64) contiguous
+  float* lse;                                 // (B, H, L) or null
   int L, H, window;
 };
 
@@ -294,6 +300,14 @@ __global__ void __launch_bounds__(NTHREADS) attention_kernel(AttnArgs a) {
     l[hr] += __shfl_xor_sync(0xffffffff, l[hr], 2);
   }
   const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f, l[1] > 0.f ? 1.f / l[1] : 0.f};
+  if (a.lse != nullptr && t == 0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (qi[hr] < L)
+        a.lse[((long long)b * a.H + h) * L + qi[hr]] =
+            l[hr] > 0.f ? m[hr] + log2f(l[hr]) : -99.65784284662087f;  // log2(1e-30)
+    }
+  }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     if (qi[hr] >= L) continue;
@@ -319,7 +333,7 @@ int launch(const AttnArgs& a, int B, void* stream) {
 AttnArgs make_args(const void* q, const void* k, const void* v, long long q_bstride,
                    long long k_bstride, long long v_bstride, long long q_pstride,
                    long long k_pstride, long long v_pstride, const void* qseg, const void* kseg,
-                   const void* cos_t, const void* sin_t, void* out, int L, int H) {
+                   const void* cos_t, const void* sin_t, void* out, void* lse, int L, int H) {
   AttnArgs a;
   a.q = (const __nv_bfloat16*)q;
   a.k = (const __nv_bfloat16*)k;
@@ -337,6 +351,7 @@ AttnArgs make_args(const void* q, const void* k, const void* v, long long q_bstr
   a.tile_start = nullptr;
   a.tile_count = nullptr;
   a.out = (__nv_bfloat16*)out;
+  a.lse = (float*)lse;
   a.L = L;
   a.H = H;
   a.window = 0;
@@ -349,10 +364,10 @@ extern "C" int cm3p_window_attention(const void* q, const void* k, const void* v
                                      long long q_bstride, long long k_bstride, long long v_bstride,
                                      long long q_pstride, long long k_pstride, long long v_pstride,
                                      const void* qseg, const void* kseg, const void* cos_t,
-                                     const void* sin_t, void* out, int B, int L, int H,
-                                     int window, void* stream) {
+                                     const void* sin_t, void* out, void* lse, int B, int L,
+                                     int H, int window, void* stream) {
   AttnArgs a = make_args(q, k, v, q_bstride, k_bstride, v_bstride, q_pstride, k_pstride,
-                         v_pstride, qseg, kseg, cos_t, sin_t, out, L, H);
+                         v_pstride, qseg, kseg, cos_t, sin_t, out, lse, L, H);
   if (window < 0) return (int)cudaErrorInvalidValue;
   a.window = window;
   return launch<true>(a, B, stream);
@@ -363,10 +378,10 @@ extern "C" int cm3p_segment_attention(const void* q, const void* k, const void* 
                                       long long q_pstride, long long k_pstride, long long v_pstride,
                                       const void* qseg, const void* kseg, const void* cos_t,
                                       const void* sin_t, const void* tile_start,
-                                      const void* tile_count, void* out, int B, int L, int H,
-                                      void* stream) {
+                                      const void* tile_count, void* out, void* lse, int B,
+                                      int L, int H, void* stream) {
   AttnArgs a = make_args(q, k, v, q_bstride, k_bstride, v_bstride, q_pstride, k_pstride,
-                         v_pstride, qseg, kseg, cos_t, sin_t, out, L, H);
+                         v_pstride, qseg, kseg, cos_t, sin_t, out, lse, L, H);
   a.tile_start = (const int*)tile_start;
   a.tile_count = (const int*)tile_count;
   return launch<false>(a, B, stream);

@@ -2,7 +2,10 @@
 //     out = x + Wo( gelu_erf(a) * b ),   [a | b] = Wi( LN_fp32(x) )
 //
 // Replaces the TPU kernel of the JAX package's ops/fused_ffn.py _ffn_kernel (driven by
-// _pallas_ln_ffn) in its bf16 form (no int8 Wi / Wo).
+// _pallas_ln_ffn) in its bf16 form (no int8 Wi / Wo), at the three tower widths
+// DM = 768 (beatmap), 512 (audio) and 256 (metadata). The training path does
+// not run it: under autograd the layer runs the plain composition and its
+// analytic backward (ops/fused_ffn.py), as the JAX package does.
 //
 // Rounding points kept from the TPU kernel: LN statistics and output in
 // fp32 (flax formula, var = E[x^2] - E[x]^2), LN output cast to bf16 before
@@ -239,5 +242,6 @@ extern "C" int cm3p_fused_ln_ffn(const void* x, const void* scale, const void* b
   if (R <= 0 || F <= 0 || F % FC != 0) return (int)cudaErrorInvalidValue;
   if (DM == 768) return launch<768>(x, scale, bias, wi, wo, out, R, F, eps, stream);
   if (DM == 512) return launch<512>(x, scale, bias, wi, wo, out, R, F, eps, stream);
+  if (DM == 256) return launch<256>(x, scale, bias, wi, wo, out, R, F, eps, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,15 +2,16 @@
 
 :func:`state_dict_from_jax` takes the JAX package's ``{'params': ...}`` tree
 as nested dicts of numpy arrays and returns the port's state dict for
-:class:`~cm3p_torch.models.CM3PBeatmapModel`. Its naming and transposes are
-this module's own copy of the HF export mapping:
+:class:`~cm3p_torch.models.CM3PBeatmapModel` or, when the tree holds the
+metadata side, :class:`~cm3p_torch.models.CM3PModel`. Its naming and
+transposes are this module's own copy of the HF export mapping:
 
 * Dense kernels (in, out) are transposed to nn.Linear's (out, in);
 * conv kernels (k, in, out) become (out, in, k);
 * LayerNorm params live under ``LayerNorm_0`` (``scale`` -> ``weight``);
-* the audio encoder has no token table.
-
-Only the beatmap side is mapped; metadata-tower params are ignored.
+* the audio encoder has no token table;
+* the metadata encoder ``metadata_model`` becomes ``metadata_model.encoder.``;
+  ``metadata_projection`` and the scalar ``logit_scale`` keep their names.
 
 :func:`init_weights` makes the same state dict from a ``torch.Generator``
 with the JAX package's trunc-normal init scales (no JAX needed).
@@ -77,6 +78,10 @@ def state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
         kernel = ae["multi_modal_projector"][lin]["kernel"]
         out[f"beatmap_model.audio_encoder.multi_modal_projector.{lin}.weight"] = _t(kernel).T.contiguous()
     out["beatmap_projection.weight"] = _t(tree["beatmap_projection"]["kernel"]).T.contiguous()
+    if "metadata_model" in tree:
+        _encoder(tree["metadata_model"], "metadata_model.encoder.", out)
+        out["metadata_projection.weight"] = _t(tree["metadata_projection"]["kernel"]).T.contiguous()
+        out["logit_scale"] = _t(tree["logit_scale"]).reshape(())
     return out
 
 
@@ -111,8 +116,9 @@ def _init_encoder(cfg: EncoderConfig, prefix: str, token_embeddings: bool, gen, 
     norm(prefix + "final_norm")
 
 
-def init_weights(config: CM3PConfig, generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """A seeded fp32 state dict for ``CM3PBeatmapModel(config)`` on the generator's device."""
+def init_weights(config: CM3PConfig, generator: torch.Generator, with_metadata: bool = False) -> dict[str, torch.Tensor]:
+    """A seeded fp32 state dict on the generator's device: for
+    ``CM3PBeatmapModel(config)``, or with ``with_metadata`` for ``CM3PModel(config)``."""
     bc = config.beatmap_config
     ac = bc.audio_config
     out: dict[str, torch.Tensor] = {}
@@ -133,4 +139,11 @@ def init_weights(config: CM3PConfig, generator: torch.Generator) -> dict[str, to
     out["beatmap_projection.weight"] = _trunc_normal(
         (config.projection_dim, bc.hidden_size), bc.hidden_size**-0.5 * config.initializer_factor, 2.0, generator
     )
+    if with_metadata:
+        mc = config.metadata_config
+        _init_encoder(mc, "metadata_model.encoder.", True, generator, out)
+        out["metadata_projection.weight"] = _trunc_normal(
+            (config.projection_dim, mc.hidden_size), mc.hidden_size**-0.5 * config.initializer_factor, 2.0, generator
+        )
+        out["logit_scale"] = torch.tensor(config.logit_scale_init_value, device=generator.device)
     return out

@@ -1,20 +1,26 @@
-"""CM3P beatmap side: audio encoder, beatmap tower, projection and pooling.
+"""CM3P: audio encoder, beatmap and metadata towers, projections, losses.
 
-Counterpart of the beatmap half of the JAX package's ``models/cm3p.py``:
-``MultiModalProjector``, ``AudioEncoder``, ``BeatmapTransformer``, the
-packed audio scatter of ``_packed_hidden``, ``_pool_packed``,
-``l2_normalize`` and ``get_beatmap_features`` /
-``get_packed_beatmap_features``. Module paths follow the HF state-dict keys
-(``beatmap_model.audio_encoder.conv1.weight``, ``beatmap_projection.weight``).
+Counterpart of the JAX package's ``models/cm3p.py``: ``MultiModalProjector``,
+``AudioEncoder``, ``BeatmapTransformer``, the packed audio scatter of
+``_packed_hidden``, ``_pool_packed``, ``l2_normalize``,
+``_similarity_logits``, ``contrastive_loss``, ``cm3p_loss`` and
+``CM3PModule`` (:class:`CM3PModel`: ``get_metadata_features`` with
+``meta_pack``, ``forward_packed`` and the unpacked ``forward``).
+:class:`CM3PBeatmapModel` is the beatmap tower with its projection alone, the
+extraction model. Module paths follow the HF state-dict keys
+(``beatmap_model.audio_encoder.conv1.weight``, ``beatmap_projection.weight``,
+``metadata_model.encoder.layers.0.attn.Wqkv.weight``, ``logit_scale``).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..configs import AudioConfig, BeatmapConfig, CM3PConfig
-from .modernbert import ModernBertEncoder, pool_hidden
+from ..configs import AudioConfig, BeatmapConfig, CM3PConfig, MetadataConfig
+from .modernbert import ModernBertEncoder, linear, pool_hidden
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -45,7 +51,7 @@ class MultiModalProjector(nn.Module):
         self.linear_2 = nn.Linear(config.projector_dim, config.projector_dim, bias=False)
 
     def forward(self, x):
-        return self.linear_2(F.gelu(self.linear_1(x)))
+        return linear(F.gelu(linear(x, self.linear_1.weight)), self.linear_2.weight)
 
 
 class AudioEncoder(nn.Module):
@@ -62,9 +68,10 @@ class AudioEncoder(nn.Module):
 
     def forward(self, input_features: torch.Tensor) -> torch.Tensor:
         cfg = self.config
-        x = input_features.to(self.conv1.weight.dtype)  # (B, n_mels, frames)
-        x = F.gelu(self.conv1(x))
-        x = F.gelu(self.conv2(x))
+        dt = self.encoder.compute_dtype or self.conv1.weight.dtype
+        x = input_features.to(dt)  # (B, n_mels, frames)
+        x = F.gelu(F.conv1d(x, self.conv1.weight.to(dt), self.conv1.bias.to(dt), padding=1))
+        x = F.gelu(F.conv1d(x, self.conv2.weight.to(dt), self.conv2.bias.to(dt), stride=2, padding=1))
         hidden = self.encoder(inputs_embeds=x.transpose(1, 2).contiguous())
         b, length, h = hidden.shape
         group = cfg.projector_intermediate_size // cfg.hidden_size  # 4x token reduction
@@ -85,9 +92,11 @@ class BeatmapTransformer(nn.Module):
         self.audio_encoder = AudioEncoder(config.audio_config)
         self.encoder = ModernBertEncoder(config)
 
-    def forward(self, input_ids, input_features=None, attention_mask=None, segment_ids=None):
+    def forward(self, input_ids, input_features=None, attention_mask=None, segment_ids=None, position_ids=None):
         if input_features is None:
-            return self.encoder(input_ids=input_ids, attention_mask=attention_mask, segment_ids=segment_ids)
+            return self.encoder(
+                input_ids=input_ids, attention_mask=attention_mask, segment_ids=segment_ids, position_ids=position_ids
+            )
         audio_embeds = self.audio_encoder(input_features)  # (B, tokens_per_window, H)
         # the k-th [AUDIO] placeholder of row i receives audio_embeds[i, k]
         mask = input_ids == self.config.audio_token_id
@@ -95,7 +104,9 @@ class BeatmapTransformer(nn.Module):
         gathered = torch.gather(audio_embeds, 1, idx[:, :, None].expand(-1, -1, audio_embeds.shape[2]))
         embeds = self.encoder.embed(input_ids)
         embeds = torch.where(mask[:, :, None], gathered.to(embeds.dtype), embeds)
-        return self.encoder(inputs_embeds=embeds, attention_mask=attention_mask, segment_ids=segment_ids)
+        return self.encoder(
+            inputs_embeds=embeds, attention_mask=attention_mask, segment_ids=segment_ids, position_ids=position_ids
+        )
 
 
 class CM3PBeatmapModel(nn.Module):
@@ -112,23 +123,34 @@ class CM3PBeatmapModel(nn.Module):
         self.beatmap_model = BeatmapTransformer(bc)
         self.beatmap_projection = nn.Linear(bc.hidden_size, config.projection_dim, bias=False)
 
+    def encoders(self) -> list[ModernBertEncoder]:
+        bm = self.beatmap_model
+        return [bm.encoder, bm.audio_encoder.encoder]
+
     def set_plain(self, plain: bool) -> None:
         """Route every attention and FFN call to its plain version (the oracle)."""
-        self.beatmap_model.encoder.plain = plain
-        self.beatmap_model.audio_encoder.encoder.plain = plain
+        for enc in self.encoders():
+            enc.plain = plain
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        """Activation dtype of every tower (flax ``dtype``); parameters keep theirs."""
+        for enc in self.encoders():
+            enc.compute_dtype = dtype
 
     def get_beatmap_features(self, input_ids, input_features=None, attention_mask=None, normalize: bool = False):
         hidden = self.beatmap_model(input_ids, input_features=input_features, attention_mask=attention_mask)
         pooled = pool_hidden(hidden, attention_mask, self.config.beatmap_config.cls_embed)
-        feats = self.beatmap_projection(pooled)
+        feats = linear(pooled, self.beatmap_projection.weight)
         return l2_normalize(feats) if normalize else feats
 
-    def packed_hidden(self, input_ids, segment_ids, window_rows, window_segments, input_features=None):
+    def packed_hidden(self, input_ids, segment_ids, window_rows, window_segments, input_features=None,
+                      window_valid=None):
         """Encode packed rows, scattering per-window audio when present.
 
         Every window carries the same audio-token count ``n_tok``, so window
         w's j-th audio embedding lands at its row's (segment - 1) * n_tok + j
-        audio placeholder.
+        audio placeholder. ``window_valid`` (default: segment > 0) marks the
+        windows whose audio is scattered.
         """
         bm = self.beatmap_model
         key_mask = (segment_ids > 0).to(torch.int32)
@@ -137,7 +159,7 @@ class CM3PBeatmapModel(nn.Module):
         audio_embeds = bm.audio_encoder(input_features)
         w, n_tok, h = audio_embeds.shape
         rows, max_slots = input_ids.shape
-        valid = window_segments > 0
+        valid = window_valid > 0 if window_valid is not None else window_segments > 0
         slot = (window_segments - 1)[:, None] * n_tok + torch.arange(n_tok, device=input_ids.device)[None, :]
         slot = torch.where(valid[:, None], slot.clamp(0, max_slots - 1), torch.full_like(slot, max_slots - 1))
         flat_rows = window_rows.to(torch.int64).repeat_interleave(n_tok)
@@ -157,5 +179,197 @@ class CM3PBeatmapModel(nn.Module):
         """One embedding per window packed into rows (``processing/packing.py``)."""
         hidden = self.packed_hidden(input_ids, segment_ids, window_rows, window_segments, input_features)
         pooled = _pool_packed(hidden, segment_ids, window_rows, window_segments, self.config.beatmap_config.cls_embed)
-        feats = self.beatmap_projection(pooled)
+        feats = linear(pooled, self.beatmap_projection.weight)
         return l2_normalize(feats) if normalize else feats
+
+
+# --------------------------------------------------------------------- losses
+
+
+def similarity_logits(metadata_embeds: torch.Tensor, beatmap_embeds: torch.Tensor, logit_scale: torch.Tensor):
+    """Scaled cosine-similarity logits ``(..., b)`` in fp32 (``_similarity_logits``).
+
+    The products of the activation-dtype embeddings accumulate in fp32; the
+    scale exp(logit_scale) is rounded to the activation dtype first, as in
+    the JAX package.
+    """
+    scale = logit_scale.exp().to(metadata_embeds.dtype).float()
+    return torch.einsum("...p,bp->...b", metadata_embeds.float(), beatmap_embeds.float()) * scale
+
+
+def contrastive_loss(logits, target=None, row_valid=None, col_valid=None):
+    """Cross entropy against the diagonal (or explicit targets).
+
+    ``row_valid``/``col_valid`` mask padded rows out of the mean and padded
+    columns out of the softmax (packed batches with a padded window table).
+    """
+    if target is None:
+        target = torch.arange(logits.shape[0], device=logits.device)
+    logits = logits.float()
+    if col_valid is not None:
+        logits = torch.where(col_valid[None, :] > 0, logits, torch.full_like(logits, -1e30))
+    picked = -torch.log_softmax(logits, dim=-1).gather(-1, target[:, None])[:, 0]
+    if row_valid is not None:
+        picked = picked * row_valid
+        return picked.sum() / row_valid.sum().clamp_min(1.0)
+    return picked.mean()
+
+
+def cm3p_loss(similarity, metadata_variation_classes=None, valid=None):
+    """Symmetric CLIP loss; the 3-D form (metadata, variations, beatmaps) ranks
+    the original metadata (class 0) against its variations per beatmap.
+    ``valid`` (B,) masks padded window slots (rows skipped, columns -inf)."""
+    if similarity.dim() == 3:
+        m, v, b = similarity.shape
+        if metadata_variation_classes is None:
+            true_idx = torch.zeros(m, dtype=torch.int64, device=similarity.device)
+        else:
+            true_idx = (metadata_variation_classes == 0).to(torch.int32).argmax(dim=1)
+        metadata_loss = contrastive_loss(
+            similarity[torch.arange(m, device=similarity.device), true_idx], row_valid=valid, col_valid=valid
+        )
+        beatmap_similarity = similarity.permute(2, 0, 1).reshape(b, m * v)
+        target = torch.arange(0, m * v, v, device=similarity.device) + true_idx
+        col_valid = valid.repeat_interleave(v) if valid is not None else None
+        beatmap_loss = contrastive_loss(beatmap_similarity, target=target, row_valid=valid, col_valid=col_valid)
+    else:
+        metadata_loss = contrastive_loss(similarity, row_valid=valid, col_valid=valid)
+        beatmap_loss = contrastive_loss(similarity.t(), row_valid=valid, col_valid=valid)
+    return (metadata_loss + beatmap_loss) / 2.0
+
+
+# --------------------------------------------------------------------- full model
+
+
+class CM3POutput(NamedTuple):
+    loss: Optional[torch.Tensor] = None
+    logits_per_beatmap: Optional[torch.Tensor] = None
+    logits_per_metadata: Optional[torch.Tensor] = None
+    metadata_embeds: Optional[torch.Tensor] = None
+    beatmap_embeds: Optional[torch.Tensor] = None
+
+
+class MetadataTransformer(nn.Module):
+    """Holder of the metadata encoder (HF keys ``metadata_model.encoder.*``)."""
+
+    def __init__(self, config: MetadataConfig):
+        super().__init__()
+        self.encoder = ModernBertEncoder(config)
+
+
+class CM3PModel(CM3PBeatmapModel):
+    """Dual-tower contrastive model: the counterpart of ``CM3PModule``.
+
+    ``meta_pack`` packs that many metadata sequences per encoder row (0/1 =
+    off) with block-diagonal segments and restarting positions: the same
+    attention, in fewer, longer rows. The decoder head (``has_decoder_head``)
+    is not ported yet.
+    """
+
+    def __init__(self, config: CM3PConfig, meta_pack: int = 0):
+        super().__init__(config)
+        if config.has_decoder_head:
+            raise NotImplementedError("the port has no decoder head yet")
+        mc = config.metadata_config
+        self.meta_pack = int(meta_pack)
+        self.metadata_model = MetadataTransformer(mc)
+        self.metadata_projection = nn.Linear(mc.hidden_size, config.projection_dim, bias=False)
+        self.logit_scale = nn.Parameter(torch.tensor(config.logit_scale_init_value, dtype=torch.float32))
+
+    def encoders(self) -> list[ModernBertEncoder]:
+        return super().encoders() + [self.metadata_model.encoder]
+
+    def get_metadata_features(self, metadata_ids, metadata_attention_mask=None, normalize: bool = False):
+        is_3d = metadata_ids.dim() == 3
+        length = metadata_ids.shape[-1]
+        ids = metadata_ids.reshape(-1, length)
+        mask = None if metadata_attention_mask is None else metadata_attention_mask.reshape(-1, length)
+        n = ids.shape[0]
+        g = min(self.meta_pack, n)
+        encoder = self.metadata_model.encoder
+        if g > 1 and n > 1:
+            n_pad = -(-n // g) * g
+            ids_p, mask_p = ids, mask
+            if n_pad != n:
+                # pad rows carry id 0 and mask 1: an all-masked row has no key
+                ids_p = torch.cat([ids, ids.new_zeros(n_pad - n, length)])
+                if mask is not None:
+                    mask_p = torch.cat([mask, mask.new_ones(n_pad - n, length)])
+            rows = n_pad // g
+            dev = ids.device
+            seg = torch.arange(1, g + 1, dtype=torch.int32, device=dev).repeat_interleave(length)
+            hidden = encoder(
+                input_ids=ids_p.reshape(rows, g * length),
+                attention_mask=None if mask_p is None else mask_p.reshape(rows, g * length),
+                position_ids=torch.arange(length, device=dev).repeat(g),
+                segment_ids=seg[None, :].expand(rows, g * length),
+            )
+            hidden = hidden.reshape(n_pad, length, hidden.shape[-1])[:n]
+        else:
+            hidden = encoder(input_ids=ids, attention_mask=mask)
+        pooled = pool_hidden(hidden, mask, self.config.metadata_config.cls_embed)
+        feats = linear(pooled, self.metadata_projection.weight)
+        if is_3d:
+            feats = feats.reshape(*metadata_ids.shape[:2], -1)
+        return l2_normalize(feats) if normalize else feats
+
+    def _contrast(self, beatmap_embeds, metadata_ids, metadata_attention_mask, classes, valid, return_loss):
+        loss = beatmap_embeds.new_zeros((), dtype=torch.float32) if return_loss else None
+        if metadata_ids is None:
+            return CM3POutput(loss=loss, beatmap_embeds=beatmap_embeds)
+        metadata_embeds = self.get_metadata_features(metadata_ids, metadata_attention_mask, normalize=True)
+        logits_per_metadata = similarity_logits(metadata_embeds, beatmap_embeds, self.logit_scale)
+        logits_per_beatmap = (
+            logits_per_metadata.permute(2, 0, 1) if logits_per_metadata.dim() == 3 else logits_per_metadata.t()
+        )
+        if return_loss:
+            loss = cm3p_loss(logits_per_metadata, classes, valid=valid)
+        return CM3POutput(loss, logits_per_beatmap, logits_per_metadata, metadata_embeds, beatmap_embeds)
+
+    def forward_packed(
+        self,
+        input_ids,
+        segment_ids,
+        window_rows,
+        window_segments,
+        window_valid,
+        input_features=None,
+        metadata_ids=None,
+        metadata_attention_mask=None,
+        metadata_variation_classes=None,
+        return_loss: bool = True,
+    ) -> CM3POutput:
+        """Contrastive step over windows packed into rows (``packed_batches``).
+
+        Windows are padded to a fixed count; ``window_valid`` marks the real
+        ones, and dummy slots are excluded from the loss.
+        """
+        window_rows = window_rows.to(torch.int64)
+        window_segments = window_segments.to(torch.int64)
+        hidden = self.packed_hidden(
+            input_ids, segment_ids, window_rows, window_segments, input_features, window_valid=window_valid
+        )
+        pooled = _pool_packed(hidden, segment_ids, window_rows, window_segments, self.config.beatmap_config.cls_embed)
+        beatmap_embeds = l2_normalize(linear(pooled, self.beatmap_projection.weight))
+        return self._contrast(
+            beatmap_embeds, metadata_ids, metadata_attention_mask, metadata_variation_classes,
+            window_valid.to(torch.float32), return_loss,
+        )
+
+    def forward(
+        self,
+        input_ids,
+        input_features=None,
+        metadata_ids=None,
+        attention_mask=None,
+        metadata_attention_mask=None,
+        metadata_variation_classes=None,
+        return_loss: bool = True,
+    ) -> CM3POutput:
+        """The unpacked contrastive forward (``CM3PModule.__call__``)."""
+        beatmap_embeds = self.get_beatmap_features(
+            input_ids, input_features=input_features, attention_mask=attention_mask, normalize=True
+        )
+        return self._contrast(
+            beatmap_embeds, metadata_ids, metadata_attention_mask, metadata_variation_classes, None, return_loss
+        )

@@ -1,10 +1,11 @@
 """ModernBERT-style encoder as torch ``nn.Module``s.
 
-Counterpart of the JAX package's ``models/modernbert.py``, forward (no-grad
-extraction) only:
+Counterpart of the JAX package's ``models/modernbert.py``:
 
 * no position embeddings: rope inside attention, ``global_rope_theta`` on
-  global layers and ``local_rope_theta`` on local ones, arange positions;
+  global layers and ``local_rope_theta`` on local ones; arange positions
+  unless ``position_ids`` are given (the metadata tower's ``meta_pack`` rows
+  restart them per segment);
 * layer i is global iff ``i % global_attn_every_n_layers == 0``; local
   layers see |i - j| <= ``local_attention // 2``;
 * pre-norm blocks with fused Wqkv and a GeGLU MLP; layer 0 has no
@@ -13,21 +14,39 @@ extraction) only:
 
 Parameter names are the HF keys that ``flax_to_hf_state_dict`` emits
 (``layers.3.attn.Wqkv.weight``, ``layers.3.mlp.Wi.weight``, ...), so an
-HF-layout checkpoint loads without a second mapping. Attention goes through
-:func:`cm3p_torch.ops.attention` and the MLP half-block through
-:func:`cm3p_torch.ops.fused_ln_ffn`: kernels on CUDA at every length, plain
-versions on the CPU. ``plain=True`` on an encoder runs the plain versions on
-any device (the on-card oracle).
+HF-layout checkpoint loads without a second mapping.
+
+Precision follows flax ``dtype``/``param_dtype``: parameters keep their own
+dtype (fp32 masters in training) and every product casts its weight to the
+activation dtype at use; LayerNorms run in fp32. The activation dtype is the
+encoder's ``compute_dtype`` (None: the token embeddings' dtype, so a model
+whose weights were cast to bf16 computes in bf16).
+
+Routing. Without autograd, attention goes through
+:func:`cm3p_torch.ops.attention` (rope in the kernel for arange positions)
+and the MLP half-block through the :func:`cm3p_torch.ops.fused_ln_ffn` kernel.
+Under autograd (the JAX training route) rope is applied outside the kernels,
+attention runs the forward kernel with lse and the backward kernels, and the
+MLP runs :class:`~cm3p_torch.ops.fused_ffn.LnFfnFunction`. Kernels on CUDA at
+every length, plain versions on the CPU; ``plain=True`` on an encoder runs the
+plain versions on any device (the on-card oracle).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..configs import EncoderConfig
 from ..ops import attention, fused_ln_ffn, fused_ln_ffn_plain, layer_norm_f32
+from ..ops.fused_ffn import LnFfnFunction
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """Bias-free Dense in x's dtype (flax ``dtype``): the weight is cast at use."""
+    return F.linear(x, weight.to(x.dtype))
 
 
 class LayerNormF32(nn.Module):
@@ -54,12 +73,12 @@ class SelfAttention(nn.Module):
         self.Wqkv = nn.Linear(hidden, 3 * hidden, bias=False)
         self.Wo = nn.Linear(hidden, hidden, bias=False)
 
-    def forward(self, x, key_mask, segment_ids, window, rope_theta, plain: bool = False):
+    def forward(self, x, key_mask, segment_ids, window, rope_theta, plain: bool = False, positions=None):
         b, length, hidden = x.shape
-        qkv = self.Wqkv(x).view(b, length, 3, self.heads, self.head_dim)
+        qkv = linear(x, self.Wqkv.weight).view(b, length, 3, self.heads, self.head_dim)
         q, k, v = qkv.unbind(dim=2)  # head-minor (B, L, H, D) views, no copies
-        out = attention(q, k, v, key_mask, segment_ids, window, rope_theta, plain=plain)
-        return self.Wo(out.reshape(b, length, hidden))
+        out = attention(q, k, v, key_mask, segment_ids, window, rope_theta, plain=plain, positions=positions)
+        return linear(out.reshape(b, length, hidden), self.Wo.weight)
 
 
 class GeGLU(nn.Module):
@@ -84,14 +103,18 @@ class EncoderLayer(nn.Module):
         self.mlp_norm = LayerNormF32(config.hidden_size, config.norm_eps, config.norm_bias)
         self.mlp = GeGLU(config)
 
-    def forward(self, x, key_mask=None, segment_ids=None, plain: bool = False):
+    def forward(self, x, key_mask=None, segment_ids=None, plain: bool = False, positions=None):
         cfg = self.config
         window = None if self.is_global else cfg.local_attention // 2
         theta = cfg.global_rope_theta if self.is_global else cfg.local_rope_theta
         attn_in = x if self.attn_norm is None else self.attn_norm(x)
-        x = x + self.attn(attn_in, key_mask, segment_ids, window, theta, plain=plain)
+        x = x + self.attn(attn_in, key_mask, segment_ids, window, theta, plain=plain, positions=positions)
+        norm, mlp = self.mlp_norm, self.mlp
+        if torch.is_grad_enabled():
+            return LnFfnFunction.apply(x, norm.weight, norm.bias, mlp.Wi.weight, mlp.Wo.weight, cfg.norm_eps)
         ffn = fused_ln_ffn_plain if plain else fused_ln_ffn
-        return ffn(x, self.mlp_norm.weight, self.mlp_norm.bias, self.mlp.Wi.weight, self.mlp.Wo.weight, cfg.norm_eps)
+        dt = x.dtype
+        return ffn(x, norm.weight, norm.bias, mlp.Wi.weight.to(dt), mlp.Wo.weight.to(dt), cfg.norm_eps)
 
 
 class Embeddings(nn.Module):
@@ -120,10 +143,13 @@ class ModernBertEncoder(nn.Module):
         self.layers = nn.ModuleList(EncoderLayer(config, i) for i in range(config.num_hidden_layers))
         self.final_norm = LayerNormF32(config.hidden_size, config.norm_eps, config.norm_bias)
         self.plain = False
+        self.compute_dtype: Optional[torch.dtype] = None
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Raw token embeddings (pre-norm), for the audio-placeholder scatter."""
-        return self.embeddings.tok_embeddings(input_ids)
+        """Raw token embeddings (pre-norm) in the activation dtype, for the
+        audio-placeholder scatter."""
+        table = self.embeddings.tok_embeddings.weight
+        return F.embedding(input_ids, table).to(self.compute_dtype or table.dtype)
 
     def forward(
         self,
@@ -131,12 +157,13 @@ class ModernBertEncoder(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,
         inputs_embeds: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
+        position_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
-        x = self.embeddings.norm(inputs_embeds)
+        x = self.embeddings.norm(inputs_embeds.to(self.compute_dtype or inputs_embeds.dtype))
         for layer in self.layers:
-            x = layer(x, attention_mask, segment_ids, plain=self.plain)
+            x = layer(x, attention_mask, segment_ids, plain=self.plain, positions=position_ids)
         return self.final_norm(x)
 
 

@@ -1,11 +1,25 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version."""
-from .attention import attention, segment_attention, segment_attention_plain, window_attention, window_attention_plain
+from .attention import (
+    attention,
+    segment_attention,
+    segment_attention_dkv,
+    segment_attention_dq,
+    segment_attention_plain,
+    window_attention,
+    window_attention_dkv,
+    window_attention_dq,
+    window_attention_plain,
+)
 from .fused_ffn import fused_ln_ffn, fused_ln_ffn_plain, layer_norm_f32
 
 KERNELS = {
     "window_attention": window_attention,
     "segment_attention": segment_attention,
     "fused_ln_ffn": fused_ln_ffn,
+    "window_attention_dq": window_attention_dq,
+    "window_attention_dkv": window_attention_dkv,
+    "segment_attention_dq": segment_attention_dq,
+    "segment_attention_dkv": segment_attention_dkv,
 }
 
 
@@ -28,7 +42,11 @@ __all__ = [
     "layer_norm_f32",
     "reset_launch_counts",
     "segment_attention",
+    "segment_attention_dkv",
+    "segment_attention_dq",
     "segment_attention_plain",
     "window_attention",
+    "window_attention_dkv",
+    "window_attention_dq",
     "window_attention_plain",
 ]

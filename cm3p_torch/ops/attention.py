@@ -1,26 +1,41 @@
 """Window (local) and segment (global) attention: CUDA kernels and plain versions.
 
-Counterpart of the JAX package's ``ops/flash_attention.py``. Two public kernels, both
-over head-minor (B, L, H, D) tensors, the layout the fused Wqkv output
-reshapes to:
+Counterpart of the JAX package's ``ops/flash_attention.py`` and
+``ops/flash_attention_bwd.py``. Two mask types, both over head-minor
+(B, L, H, D) tensors, the layout the fused Wqkv output reshapes to:
 
-* :func:`window_attention` replaces ``_window_fused_kernel``: query i sees
-  key j iff |i - j| <= window, kseg[j] > 0 and qseg[i] == kseg[j];
-* :func:`segment_attention` replaces ``_seg_unrolled_kernel``: the same
-  without the window, visiting only the key tiles whose segment interval
-  meets the query tile's (:func:`segment_tile_ranges`, the work of
-  ``_block_ranges``).
+* window: query i sees key j iff |i - j| <= window, kseg[j] > 0 and
+  qseg[i] == kseg[j]. :func:`window_attention` replaces
+  ``_window_fused_kernel``; :func:`window_attention_dq` and
+  :func:`window_attention_dkv` replace ``_dq_fused_kernel`` and
+  ``_dkv_fused_kernel``;
+* segment: the same without the window, visiting only the tiles whose
+  segment interval meets the tile's (:func:`segment_tile_ranges`, the work of
+  ``_block_ranges`` and ``qb_index``). :func:`segment_attention` replaces
+  ``_seg_unrolled_kernel``; :func:`segment_attention_dq` and
+  :func:`segment_attention_dkv` replace ``_dq_unrolled_kernel`` and
+  ``_dkv_unrolled_kernel``.
 
-Both rotate raw q/k with rope (rotate-half, arange positions) when
+The forwards rotate raw q/k with rope (rotate-half, arange positions) when
 ``rope_theta`` is given, use the softmax scale 1/sqrt(D) with fp32 scores,
-and write 0 for a query that sees no key. :func:`attention` is the
-dispatch of ``flash_attention()``: it turns a key mask and segment ids into
-(qseg, kseg).
+write 0 for a query that sees no key and, with ``return_lse``, also return the
+base-2 log-sum-exp (B, H, L) fp32 the backward needs (log2(1e-30) for a query
+that sees no key, as the TPU kernels write). The backward recomputes
+p = exp2(s * log2(e) / sqrt(D) - lse) and gives dq, dk, dv; delta =
+rowsum(dout * out) is formed here in fp32.
+
+:func:`attention` is the dispatch of ``flash_attention()``: it turns a key
+mask and segment ids into (qseg, kseg). Without autograd it runs the forward
+kernel (rope in the kernel for arange positions). Under autograd it follows
+the JAX training route: rope is applied outside the kernels (autograd of that
+rope is the counter-rotation of dq/dk) and :class:`AttentionFunction` ties the
+forward with lse to the backward kernels.
 
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA tensor it
-launches the kernel (``csrc/attention.cu``) or raises. The plain versions are
-also the oracle the kernels are held against on the card. The source note on
-the kernels' design and bound is in ``csrc/attention.cu``.
+launches the kernel (``csrc/attention.cu``, ``csrc/attention_bwd.cu``) or
+raises. The plain versions are also the oracle the kernels are held against on
+the card. The source notes on the kernels' design and bound are in the ``.cu``
+files.
 """
 from __future__ import annotations
 
@@ -33,73 +48,153 @@ import torch
 
 from . import _build
 
-TILE = 64  # query and key tile of csrc/attention.cu
+TILE = 64  # query and key tile of csrc/attention.cu and csrc/attention_bwd.cu
 HEAD_DIM = 64  # the kernels' head dim
+LOG2E = 1.4426950408889634
+EMPTY_LSE = math.log2(1e-30)  # lse of a query that sees no key
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cm3p_window_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "cm3p_segment_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "cm3p_window_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cm3p_segment_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+_BWD_ARGTYPES = [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_BWD_SIGNATURES = {
+    name: _BWD_ARGTYPES
+    for name in (
+        "cm3p_window_attention_dq", "cm3p_window_attention_dkv",
+        "cm3p_segment_attention_dq", "cm3p_segment_attention_dkv",
+    )
 }
 
 
 @functools.lru_cache(maxsize=64)
 def rope_tables(length: int, head_dim: int, theta: float, device: str) -> tuple[torch.Tensor, torch.Tensor]:
     """fp32 (L, head_dim // 2) cos and sin of ``position * theta**(-2i/head_dim)``."""
+    return _rope_at(torch.arange(length), head_dim, theta, device)
+
+
+def _rope_at(positions: torch.Tensor, head_dim: int, theta: float, device) -> tuple[torch.Tensor, torch.Tensor]:
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim))
-    freqs = torch.arange(length, dtype=torch.float32)[:, None] * inv_freq[None, :]
+    freqs = positions.to(torch.float32)[..., None] * inv_freq.to(positions.device)
     return freqs.cos().to(device).contiguous(), freqs.sin().to(device).contiguous()
 
 
-def apply_rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotate-half rope at arange positions over (B, L, H, D); fp32 math, result in x's dtype."""
+def apply_rope(x: torch.Tensor, theta: float, positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rotate-half rope over (B, L, H, D); fp32 math, result in x's dtype.
+
+    ``positions`` (L,) or (B, L) int; None means arange(L).
+    """
     _, length, _, d = x.shape
-    cos, sin = rope_tables(length, d, float(theta), str(x.device))
-    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    if positions is None:
+        cos, sin = rope_tables(length, d, float(theta), str(x.device))
+    else:
+        cos, sin = _rope_at(positions, d, float(theta), x.device)
+    cos, sin = cos[..., None, :], sin[..., None, :]  # (L, 1, D/2) or (B, L, 1, D/2)
     xf = x.float()
     x1, x2 = xf[..., : d // 2], xf[..., d // 2 :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _attention_plain(q, k, v, qseg, kseg, window: Optional[int], rope_theta: Optional[float]):
+def _visible(qseg, kseg, window, r0, r1, near):
+    ks = kseg[r0:r1, None, None, :]
+    mask = (ks > 0) & (qseg[r0:r1, None, :, None] == ks)
+    return mask & near if near is not None else mask
+
+
+def _near(length, window, device):
+    if window is None:
+        return None
+    idx = torch.arange(length, device=device)
+    return (idx[:, None] - idx[None, :]).abs() <= window
+
+
+def _row_step(heads: int, length: int, copies: int = 1) -> int:
+    # bound each (rows, H, L, L) fp32 score block to ~1 GiB / copies
+    return max(1, (1 << 30) // (copies * heads * length * length * 4))
+
+
+def _attention_plain(q, k, v, qseg, kseg, window: Optional[int], rope_theta: Optional[float], return_lse: bool):
     b, length, heads, d = q.shape
     if rope_theta is not None:
         q, k = apply_rope(q, rope_theta), apply_rope(k, rope_theta)
     out = torch.empty(b, length, heads, d, dtype=q.dtype, device=q.device)
-    idx = torch.arange(length, device=q.device)
-    near = (idx[:, None] - idx[None, :]).abs() <= window if window is not None else None
-    # bound the (rows, H, L, L) fp32 score block to ~1 GiB
-    step = max(1, (1 << 30) // (heads * length * length * 4))
+    lse = torch.empty(b, heads, length, dtype=torch.float32, device=q.device) if return_lse else None
+    near = _near(length, window, q.device)
+    step = _row_step(heads, length)
     for r0 in range(0, b, step):
         r1 = min(b, r0 + step)
         qf = q[r0:r1].float().transpose(1, 2)
         kf = k[r0:r1].float().transpose(1, 2)
         vf = v[r0:r1].float().transpose(1, 2)
         s = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
-        ks = kseg[r0:r1, None, None, :]
-        mask = (ks > 0) & (qseg[r0:r1, None, :, None] == ks)
-        if near is not None:
-            mask = mask & near
-        s = s.masked_fill(~mask, float("-inf"))
+        s = s.masked_fill(~_visible(qseg, kseg, window, r0, r1, near), float("-inf"))
         m = s.amax(dim=-1, keepdim=True)
         m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
         p = torch.exp(s - m)
         denom = p.sum(dim=-1, keepdim=True)
         o = (p.to(q.dtype).float() @ vf) / torch.where(denom > 0, denom, torch.ones_like(denom))
         out[r0:r1] = o.transpose(1, 2).to(q.dtype)
-    return out
+        if return_lse:
+            lse2 = (m + torch.log(denom)) * LOG2E
+            lse[r0:r1] = torch.where(denom > 0, lse2, torch.full_like(lse2, EMPTY_LSE))[..., 0]
+    return (out, lse) if return_lse else out
 
 
-def window_attention_plain(q, k, v, qseg, kseg, window: int, rope_theta: Optional[float] = None):
+def window_attention_plain(q, k, v, qseg, kseg, window: int, rope_theta: Optional[float] = None,
+                           return_lse: bool = False):
     """Plain PyTorch version of :func:`window_attention` (dense masked scores)."""
-    return _attention_plain(q, k, v, qseg, kseg, window, rope_theta)
+    return _attention_plain(q, k, v, qseg, kseg, window, rope_theta, return_lse)
 
 
-def segment_attention_plain(q, k, v, qseg, kseg, rope_theta: Optional[float] = None):
+def segment_attention_plain(q, k, v, qseg, kseg, rope_theta: Optional[float] = None, return_lse: bool = False):
     """Plain PyTorch version of :func:`segment_attention` (dense masked scores)."""
-    return _attention_plain(q, k, v, qseg, kseg, None, rope_theta)
+    return _attention_plain(q, k, v, qseg, kseg, None, rope_theta, return_lse)
+
+
+def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dout * out) per head in fp32: (B, H, L) contiguous."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window: Optional[int]):
+    """dq, dk, dv from the saved lse and delta, chunked over rows like the forward.
+
+    Rounding points of the kernels: p and ds in the activation dtype before
+    their products, fp32 accumulation, outputs in the activation dtype.
+    """
+    b, length, heads, d = q.shape
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(d)
+    dq, dk, dv = (torch.empty(b, length, heads, d, dtype=dt, device=q.device) for _ in range(3))
+    near = _near(length, window, q.device)
+    step = _row_step(heads, length, copies=4)
+    for r0 in range(0, b, step):
+        r1 = min(b, r0 + step)
+        qf, kf, vf, dof = (x[r0:r1].float().transpose(1, 2) for x in (q, k, v, dout))
+        s2 = (qf @ kf.transpose(-1, -2)) * (scale * LOG2E)
+        vis = _visible(qseg, kseg, window, r0, r1, near)
+        p = torch.where(vis, torch.exp2(s2 - lse[r0:r1, :, :, None]), torch.zeros_like(s2))
+        del s2
+        dv[r0:r1] = (p.to(dt).float().transpose(-1, -2) @ dof).transpose(1, 2).to(dt)
+        ds = p * ((dof @ vf.transpose(-1, -2)) - delta[r0:r1, :, :, None])
+        del p
+        ds = ds.to(dt).float()
+        dq[r0:r1] = ((ds @ kf) * scale).transpose(1, 2).to(dt)
+        dk[r0:r1] = ((ds.transpose(-1, -2) @ qf) * scale).transpose(1, 2).to(dt)
+    return dq, dk, dv
+
+
+def window_attention_bwd_plain(q, k, v, out, dout, lse, qseg, kseg, window: int):
+    """Plain PyTorch backward of :func:`window_attention` (q, k already rotated)."""
+    return _attention_bwd_plain(q, k, v, dout, lse, attention_delta(out, dout), qseg, kseg, window)
+
+
+def segment_attention_bwd_plain(q, k, v, out, dout, lse, qseg, kseg):
+    """Plain PyTorch backward of :func:`segment_attention` (q, k already rotated)."""
+    return _attention_bwd_plain(q, k, v, dout, lse, attention_delta(out, dout), qseg, kseg, None)
 
 
 def segment_tile_ranges(qseg: torch.Tensor, kseg: torch.Tensor, tile: int = TILE):
@@ -153,57 +248,190 @@ def _check(q, k, v, qseg, kseg):
             raise ValueError(f"{name} must be contiguous int32 (B, L) on q's device")
 
 
+def _check_bwd(q, k, v, dout, lse, delta, qseg, kseg):
+    _check(q, k, v, qseg, kseg)
+    b, length, heads, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != torch.bfloat16 or not dout.is_contiguous() or dout.device != q.device:
+        raise ValueError("dout must be contiguous bfloat16 of q's shape on q's device")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (b, heads, length) or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous float32 (B, H, L) on q's device")
+
+
+def _qkv_args(q, k, v):
+    strides = (q.stride(0), k.stride(0), v.stride(0), q.stride(1), k.stride(1), v.stride(1))
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides)
+
+
 def _common_args(q, k, v, qseg, kseg, rope_theta):
     if rope_theta is not None:
         cos, sin = rope_tables(q.shape[1], q.shape[3], float(rope_theta), str(q.device))
         tables = (cos.data_ptr(), sin.data_ptr())
     else:
         tables = (None, None)
-    strides = (q.stride(0), k.stride(0), v.stride(0), q.stride(1), k.stride(1), v.stride(1))
-    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), *strides, qseg.data_ptr(), kseg.data_ptr(), *tables)
+    return (*_qkv_args(q, k, v), qseg.data_ptr(), kseg.data_ptr(), *tables)
 
 
 def _lib():
     return _build.library("attention", _SIGNATURES)
 
 
-def window_attention(q, k, v, qseg, kseg, window: int, rope_theta: Optional[float] = None):
-    """Local attention (|i - j| <= window) over head-minor (B, L, H, D)."""
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _outputs(q, return_lse: bool):
+    b, length, heads, d = q.shape
+    out = torch.empty(b, length, heads, d, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b, heads, length, dtype=torch.float32, device=q.device) if return_lse else None
+    return out, lse
+
+
+def window_attention(q, k, v, qseg, kseg, window: int, rope_theta: Optional[float] = None,
+                     return_lse: bool = False):
+    """Local attention (|i - j| <= window) over head-minor (B, L, H, D); with
+    ``return_lse`` returns ``(out, lse)``."""
     if q.device.type == "cpu":
-        return window_attention_plain(q, k, v, qseg, kseg, window, rope_theta)
+        return window_attention_plain(q, k, v, qseg, kseg, window, rope_theta, return_lse)
     _check(q, k, v, qseg, kseg)
     if window < 0:
         raise ValueError("window must be >= 0")
-    b, length, heads, d = q.shape
-    out = torch.empty(b, length, heads, d, dtype=q.dtype, device=q.device)
+    b, length, heads, _ = q.shape
+    out, lse = _outputs(q, return_lse)
     err = _lib().cm3p_window_attention(
-        *_common_args(q, k, v, qseg, kseg, rope_theta), out.data_ptr(), b, length, heads, int(window),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *_common_args(q, k, v, qseg, kseg, rope_theta), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, length, heads, int(window), _stream(q),
     )
     _build.check(err, "cm3p_window_attention")
     window_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-def segment_attention(q, k, v, qseg, kseg, rope_theta: Optional[float] = None):
-    """Global attention within segments over head-minor (B, L, H, D)."""
+def segment_attention(q, k, v, qseg, kseg, rope_theta: Optional[float] = None, return_lse: bool = False):
+    """Global attention within segments over head-minor (B, L, H, D); with
+    ``return_lse`` returns ``(out, lse)``."""
     if q.device.type == "cpu":
-        return segment_attention_plain(q, k, v, qseg, kseg, rope_theta)
+        return segment_attention_plain(q, k, v, qseg, kseg, rope_theta, return_lse)
     _check(q, k, v, qseg, kseg)
-    b, length, heads, d = q.shape
+    b, length, heads, _ = q.shape
     start, count = segment_tile_ranges(qseg, kseg)
-    out = torch.empty(b, length, heads, d, dtype=q.dtype, device=q.device)
+    out, lse = _outputs(q, return_lse)
     err = _lib().cm3p_segment_attention(
         *_common_args(q, k, v, qseg, kseg, rope_theta), start.data_ptr(), count.data_ptr(),
-        out.data_ptr(), b, length, heads, torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, length, heads, _stream(q),
     )
     _build.check(err, "cm3p_segment_attention")
     segment_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-window_attention.launches = 0
-segment_attention.launches = 0
+def _launch_bwd(entry, q, k, v, dout, lse, delta, qseg, kseg, window, ranges, dq=None, dk=None, dv=None):
+    _check_bwd(q, k, v, dout, lse, delta, qseg, kseg)
+    b, length, heads, _ = q.shape
+    start, count = ranges if ranges is not None else (None, None)
+    err = getattr(_build.library("attention_bwd", _BWD_SIGNATURES), entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        *_qkv_args(q, k, v)[3:], lse.data_ptr(), delta.data_ptr(), qseg.data_ptr(), kseg.data_ptr(),
+        None if start is None else start.data_ptr(), None if count is None else count.data_ptr(),
+        None if dq is None else dq.data_ptr(), None if dk is None else dk.data_ptr(),
+        None if dv is None else dv.data_ptr(), b, length, heads, int(window or 0), _stream(q),
+    )
+    _build.check(err, entry)
+
+
+def window_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, window: int):
+    """dq of :func:`window_attention` (q, k rotated; lse from its forward;
+    delta from :func:`attention_delta`)."""
+    if q.device.type == "cpu":
+        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window)[0]
+    if window < 0:
+        raise ValueError("window must be >= 0")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("cm3p_window_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, window, None, dq=dq)
+    window_attention_dq.launches += 1
+    return dq
+
+
+def window_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, window: int):
+    """(dk, dv) of :func:`window_attention`."""
+    if q.device.type == "cpu":
+        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window)[1:]
+    if window < 0:
+        raise ValueError("window must be >= 0")
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    _launch_bwd("cm3p_window_attention_dkv", q, k, v, dout, lse, delta, qseg, kseg, window, None, dk=dk, dv=dv)
+    window_attention_dkv.launches += 1
+    return dk, dv
+
+
+def segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg):
+    """dq of :func:`segment_attention`, visiting the key tiles of
+    ``segment_tile_ranges(qseg, kseg)``."""
+    if q.device.type == "cpu":
+        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, None)[0]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ranges = segment_tile_ranges(qseg, kseg)
+    _launch_bwd("cm3p_segment_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, dq=dq)
+    segment_attention_dq.launches += 1
+    return dq
+
+
+def segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg):
+    """(dk, dv) of :func:`segment_attention`, visiting the query tiles of
+    ``segment_tile_ranges(kseg, qseg)`` (the q/k roles swapped)."""
+    if q.device.type == "cpu":
+        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, None)[1:]
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+    ranges = segment_tile_ranges(kseg, qseg)
+    _launch_bwd("cm3p_segment_attention_dkv", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, dk=dk, dv=dv)
+    segment_attention_dkv.launches += 1
+    return dk, dv
+
+
+for _fn in (window_attention, segment_attention, window_attention_dq, window_attention_dkv,
+            segment_attention_dq, segment_attention_dkv):
+    _fn.launches = 0
+
+
+def attention_bwd(q, k, v, out, dout, lse, qseg, kseg, window: Optional[int], plain: bool = False):
+    """(dq, dk, dv) of the forward with lse: the dq and dkv kernels on CUDA,
+    the plain backward on the CPU or with ``plain=True``."""
+    dout = dout.contiguous()
+    delta = attention_delta(out, dout)
+    if plain:
+        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window)
+    if window is None:
+        dq = segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg)
+        return (dq, *segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg))
+    dq = window_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, window)
+    return (dq, *window_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, window))
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Attention with autograd: the forward with lse, then :func:`attention_bwd`.
+
+    q and k arrive rotated (the training route applies rope outside), so no
+    rope runs here. ``window`` None = segment attention; ``plain`` runs the
+    plain versions on any device (the oracle of the training path).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, qseg, kseg, window, plain):
+        if window is None:
+            fn = segment_attention_plain if plain else segment_attention
+            out, lse = fn(q, k, v, qseg, kseg, return_lse=True)
+        else:
+            fn = window_attention_plain if plain else window_attention
+            out, lse = fn(q, k, v, qseg, kseg, window, return_lse=True)
+        ctx.save_for_backward(q, k, v, qseg, kseg, out, lse)
+        ctx.window, ctx.plain = window, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, qseg, kseg, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_bwd(q, k, v, out, dout, lse, qseg, kseg, ctx.window, ctx.plain)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(
@@ -213,13 +441,17 @@ def attention(
     window: Optional[int] = None,
     rope_theta: Optional[float] = None,
     plain: bool = False,
+    positions: Optional[torch.Tensor] = None,
 ):
     """The dispatch of ``flash_attention()``: masks -> (qseg, kseg) -> kernel.
 
     With ``segment_ids`` the key segments are the ids masked by the key mask
     and queries share them; with only a key mask queries are segment 1; with
     neither everything is segment 1. ``window`` None = global attention.
-    ``plain=True`` runs the plain versions on any device (the oracle).
+    ``positions`` (rope positions other than arange) and the autograd route
+    rotate q/k here, outside the kernels; otherwise the forward kernel rotates
+    them itself. ``plain=True`` runs the plain versions on any device (the
+    oracle).
     """
     b, length = q.shape[:2]
     if segment_ids is not None:
@@ -232,6 +464,12 @@ def attention(
         kseg = key_mask.to(torch.int32).contiguous()
     else:
         qseg = kseg = torch.ones(b, length, dtype=torch.int32, device=q.device)
+    train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if rope_theta is not None and (train or positions is not None):
+        q, k = apply_rope(q, rope_theta, positions), apply_rope(k, rope_theta, positions)
+        rope_theta = None
+    if train:
+        return AttentionFunction.apply(q, k, v, qseg, kseg, window, plain)
     if window is not None:
         fn = window_attention_plain if plain else window_attention
         return fn(q, k, v, qseg, kseg, window, rope_theta)

@@ -11,9 +11,18 @@ accumulation throughout. Weights use the nn.Linear layout: ``wi`` is
 (2F, D) and ``wo`` is (D, F).
 
 On a CPU tensor the wrapper runs :func:`fused_ln_ffn_plain`; on a CUDA
-tensor it launches ``csrc/fused_ffn.cu`` (bf16, D in {512, 768}, F a
+tensor it launches ``csrc/fused_ffn.cu`` (bf16, D in {256, 512, 768}, F a
 multiple of 64) or raises. The source note on the kernel's design and bound
 is in ``csrc/fused_ffn.cu``.
+
+The kernel is the no-grad path. Under autograd :class:`LnFfnFunction` runs the
+JAX package's training composition (``_ln_ffn_fwd``: LN in fp32, matmuls in
+the activation dtype, saving ``x`` and the pre-split ``h``) and its analytic
+backward (``_ln_ffn_bwd``), with these rounding points: gelu(a) * b and the
+elementwise backward in fp32, ``dh`` and every matmul input in the activation
+dtype, the weight gradients of the two products in the activation dtype (the
+JAX package accumulates them to fp32; the difference is one rounding of a
+gradient that Muon orthogonalises in bf16).
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "cm3p_fused_ln_ffn": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
 }
-KERNEL_WIDTHS = (512, 768)
+KERNEL_WIDTHS = (256, 512, 768)
 
 
 def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
@@ -90,3 +99,57 @@ def fused_ln_ffn(x, scale, bias, wi, wo, eps: float):
 
 
 fused_ln_ffn.launches = 0
+
+
+_SQRT_HALF = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
+
+
+def _gelu_grad(u: torch.Tensor) -> torch.Tensor:
+    return 0.5 * (1.0 + torch.erf(u * _SQRT_HALF)) + u * torch.exp(-0.5 * u * u) * _INV_SQRT_2PI
+
+
+class LnFfnFunction(torch.autograd.Function):
+    """``x + Wo(gelu(a) * b)``, ``[a | b] = Wi(LN(x))`` with the JAX package's
+    training forward and analytic backward (nn.Linear weight layout)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, wi, wo, eps):
+        dt = x.dtype
+        y = layer_norm_f32(x, scale, bias, eps).to(dt)
+        h = y @ wi.to(dt).t()
+        f = wo.shape[1]
+        g = (F.gelu(h[..., :f].float()) * h[..., f:].float()).to(dt)
+        ctx.save_for_backward(x, scale, bias, wi, wo, h)
+        ctx.eps = eps
+        return x + g @ wo.to(dt).t()
+
+    @staticmethod
+    def backward(ctx, go):
+        x, scale, bias, wi, wo, h = ctx.saved_tensors
+        dt = x.dtype
+        d, f = x.shape[-1], wo.shape[1]
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        r = torch.rsqrt(var + ctx.eps)
+        xhat = (xf - mu) * r
+        yb = xhat * scale
+        yb = (yb + bias if bias is not None else yb).to(dt)
+        inp, gate = h[..., :f].float(), h[..., f:].float()
+        a = F.gelu(inp)
+        gb = (a * gate).to(dt)
+        go = go.contiguous()
+        g2 = go.reshape(-1, d)
+        dwo = g2.t() @ gb.reshape(-1, f)
+        dgb = (go @ wo.to(dt)).float()
+        dh = torch.cat([dgb * gate * _gelu_grad(inp), dgb * a], dim=-1).to(dt)
+        dwi = dh.reshape(-1, 2 * f).t() @ yb.reshape(-1, d)
+        dy = (dh @ wi.to(dt)).float()
+        rows = tuple(range(dy.dim() - 1))
+        dscale = (dy * xhat).sum(dim=rows)
+        dbias = dy.sum(dim=rows) if bias is not None else None
+        dxhat = dy * scale
+        dxf = r * (dxhat - dxhat.mean(dim=-1, keepdim=True) - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+        dx = dxf.to(dt) + go
+        return dx, dscale, dbias, dwi.to(wi.dtype), dwo.to(wo.dtype), None

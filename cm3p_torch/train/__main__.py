@@ -1,0 +1,291 @@
+"""Contrastive training from the composed YAML config: the port's ``train.py``.
+
+    python -m cm3p_torch.train --config-name v8_packed --beatmap-files resources --beatmap-files resources/perf_corpus
+    python -m cm3p_torch.train --config-name smoke --device cpu      # synthetic data, tiny model
+
+Builds the processor, the model (seeded fp32 master weights; bf16 compute on
+the GPU, fp32 on the CPU), the optimizer (Muon + AdamW, or AdamW) and the
+batch source from ``configs/train/<name>.yaml`` with ``a.b=c`` overrides,
+then runs :class:`~cm3p_torch.train.trainer.Trainer` and a final evaluation.
+Batches are synthetic (``dataset.synthetic``) or come from local ``.osu``
+files (``--beatmap-files``: files or directories of them), processed with
+generated metadata and packed when ``training.packed`` is set. Runs on
+``cuda`` unless ``--device cpu``; without a GPU it raises unless asked for
+the CPU.
+
+Not ported yet: the MMRS dataset loader, audio from beatmap folders,
+``from_pretrained``, freezing, the MLM and classifier heads, multi-device
+training and rematerialisation (``remat`` is ignored with a warning).
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import logging
+import os
+import sys
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..audio import LogMelExtractor
+from ..beatmap import BeatmapEventParser
+from ..configs import BeatmapConfig, CM3PConfig, MetadataConfig, save_config
+from ..data import packed_batches
+from ..inference import resolve_device
+from ..interop import init_weights
+from ..models import CM3PModel
+from ..processing import CM3PProcessor
+from ..tokenize import BeatmapTokenizer, MetadataTokenizer
+from ..utils.config import load_config
+from .muon import MuonAdamW, flax_layouts
+from .step import lr_schedule
+from .trainer import Trainer
+
+logger = logging.getLogger(__name__)
+
+CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs" / "train"
+SYNTHETIC_VOCAB = {
+    "modes": {0: "osu", 1: "taiko", 2: "fruits", 3: "mania"},
+    "statuses": {1: "ranked", -2: "graveyard"},
+    "mappers": {0: "mapper_a", 1: "mapper_b"},
+    "tags": {1: {"name": "jump"}, 2: {"name": "stream"}},
+}
+
+
+def build_processor(args: dict) -> CM3PProcessor:
+    proc_cfg = args["processor"]
+    metadata_tok_cfg = dict(proc_cfg["metadata_tokenizer"])
+    if args["dataset"].get("synthetic"):
+        # deterministic small vocabularies for synthetic runs
+        for key, value in SYNTHETIC_VOCAB.items():
+            metadata_tok_cfg.setdefault(key, value)
+    metadata_tok_cfg = {k: v for k, v in metadata_tok_cfg.items() if v is not None}
+    return CM3PProcessor(
+        audio_feature_extractor=LogMelExtractor(**proc_cfg["audio_feature_extractor"]),
+        beatmap_parser=BeatmapEventParser(**proc_cfg["beatmap_parser"]),
+        beatmap_tokenizer=BeatmapTokenizer(**proc_cfg["beatmap_tokenizer"]),
+        metadata_tokenizer=MetadataTokenizer(**metadata_tok_cfg),
+        default_kwargs=proc_cfg.get("default_kwargs"),
+    )
+
+
+def model_config(args: dict, processor: CM3PProcessor) -> CM3PConfig:
+    """``CM3PConfig`` from ``args["model"]`` with the tokenizers' vocab sizes and ids."""
+    model = args["model"]
+    cfg = CM3PConfig(
+        metadata_config=MetadataConfig(**model["metadata_config"]),
+        beatmap_config=BeatmapConfig(**model["beatmap_config"]),
+        **{k: v for k, v in model.items() if k not in ("metadata_config", "beatmap_config")},
+    )
+    bt, mt = processor.beatmap_tokenizer, processor.metadata_tokenizer
+    bc, mc = cfg.beatmap_config, cfg.metadata_config
+    bc.vocab_size, bc.pad_token_id = bt.vocab_size, bt.pad_token_id
+    bc.bos_token_id, bc.eos_token_id = bt.bos_token_id, bt.eos_token_id
+    bc.audio_sos_token_id = bt.convert_tokens_to_ids(bt.audio_bos_token)
+    bc.audio_eos_token_id = bt.convert_tokens_to_ids(bt.audio_eos_token)
+    bc.audio_token_id = bt.audio_token_id
+    mc.vocab_size, mc.pad_token_id = mt.vocab_size, mt.pad_token_id
+    mc.bos_token_id, mc.eos_token_id = mt.bos_token_id, mt.eos_token_id
+    return cfg
+
+
+def build_model(args: dict, cfg: CM3PConfig, device: torch.device, seed: int) -> CM3PModel:
+    """Seeded fp32 master weights on ``device``; bf16 compute unless on the CPU."""
+    if args.get("model_cls", "CM3PModule") != "CM3PModule":
+        raise NotImplementedError(f"the port trains the contrastive model only, not {args['model_cls']}")
+    if args.get("remat"):
+        logger.warning("remat=%s: the port has no rematerialisation; training without it", args["remat"])
+    model = CM3PModel(cfg, meta_pack=int(args.get("meta_pack", 0)))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model.load_state_dict(init_weights(cfg, gen, with_metadata=True))
+    model.to(device)
+    model.set_compute_dtype(torch.bfloat16 if device.type != "cpu" else torch.float32)
+    return model
+
+
+def build_optimizer(args: dict, model: torch.nn.Module) -> MuonAdamW:
+    training = args["training"]
+    if args.get("freeze_beatmap_model") or args.get("freeze_metadata_model"):
+        raise NotImplementedError("freezing a tower is not ported yet")
+    schedule = lr_schedule(training["learning_rate"], training["max_steps"], training.get("warmup_steps", 0))
+    betas = (training.get("adam_beta1", 0.9), training.get("adam_beta2", 0.999))
+    common = dict(
+        adamw_betas=betas, adamw_eps=training.get("adam_epsilon", 1e-8),
+        adamw_weight_decay=training.get("weight_decay", 0.0),
+    )
+    named, layouts = list(model.named_parameters()), flax_layouts(model)
+    if training.get("optim") == "muon":
+        return MuonAdamW(named, layouts, schedule, adamw_lr_ratio=0.25,
+                         compat_adamw_lr=bool(training.get("muon_compat_adamw_lr", False)), **common)
+    # plain AdamW: every tensor on the AdamW branch at the full rate
+    return MuonAdamW(named, layouts, schedule, adamw_lr_ratio=1.0, label_fn=lambda *_: "adamw", **common)
+
+
+def synthetic_batches(args: dict, cfg: CM3PConfig, test: bool, seed: int = 0):
+    """Random fixed-shape unpacked batches of the processor's contract (``train.py``'s)."""
+    training, dataset = args["training"], args["dataset"]
+    bsz = training["per_device_eval_batch_size" if test else "per_device_train_batch_size"]
+    kwargs = args["processor"]["default_kwargs"]
+    seq = kwargs["beatmap_kwargs"]["max_length"]
+    mel_frames = kwargs["audio_kwargs"]["pad_to_multiple_of"] // kwargs["audio_kwargs"]["hop_length"]
+    variations = dataset["test_metadata_variations" if test else "train_metadata_variations"]
+    bc = cfg.beatmap_config
+    rng = np.random.default_rng(seed + int(test))
+
+    def gen():
+        n_audio = mel_frames // 8
+        for _ in range(10_000):
+            ids = rng.integers(5, min(bc.vocab_size - 20, 3000), (bsz, seq)).astype(np.int32)
+            ids[:, 0] = bc.audio_sos_token_id
+            ids[:, 1 : 1 + n_audio] = bc.audio_token_id
+            ids[:, 1 + n_audio] = bc.audio_eos_token_id
+            batch = {
+                "input_ids": ids,
+                "attention_mask": np.ones((bsz, seq), np.int32),
+                "input_features": rng.standard_normal((bsz, bc.audio_config.n_mels, mel_frames)).astype(np.float32),
+            }
+            if dataset["include_metadata"]:
+                mv = max(variations, 1)
+                batch["metadata_ids"] = rng.integers(0, cfg.metadata_config.vocab_size, (bsz, mv, 24)).astype(np.int32)
+                batch["metadata_attention_mask"] = np.ones((bsz, mv, 24), np.int32)
+                classes = np.ones((bsz, mv), np.int32)
+                classes[:, 0] = 0
+                batch["metadata_variation_classes"] = classes
+            yield batch
+
+    return gen
+
+
+def beatmap_paths(specs: list[str]) -> list[str]:
+    """``.osu`` files named directly or found (non-recursively) in named directories."""
+    paths: list[str] = []
+    for spec in specs:
+        if os.path.isdir(spec):
+            paths.extend(sorted(glob.glob(os.path.join(spec, "*.osu"))))
+        else:
+            paths.append(spec)
+    if not paths:
+        raise FileNotFoundError(f"no .osu files in {specs}")
+    return paths
+
+
+def beatmap_file_batches(args: dict, processor: CM3PProcessor, paths: list[str], test: bool, seed: int = 0):
+    """Batches from local ``.osu`` files: every window with metadata generated from
+    its beatmap and ``*_metadata_variations`` variations; packed rows when
+    ``training.packed`` (``packed_batches``), else stacked windows. Each pass over
+    the files reseeds the processor from (seed, test, pass)."""
+    training, dataset = args["training"], args["dataset"]
+    if dataset.get("include_audio"):
+        raise NotImplementedError("batches from .osu files carry no audio: set dataset.include_audio=false")
+    bsz = training["per_device_eval_batch_size" if test else "per_device_train_batch_size"]
+    variations = dataset["test_metadata_variations" if test else "train_metadata_variations"]
+    dropout = 0.0 if test else dataset.get("metadata_dropout_prob", 0.0)
+    seq_len = args["processor"]["default_kwargs"]["beatmap_kwargs"]["max_length"]
+    passes = {"n": 0}
+
+    def samples():
+        for path in paths:
+            out = dict(processor(
+                beatmap=path, populate_metadata=True, multiply_metadata=True, metadata_variations=variations,
+                metadata_dropout_prob=dropout, padding="max_length",
+            ))
+            for i in range(len(out["input_ids"])):
+                yield {k: v[i] for k, v in out.items()}
+
+    def factory():
+        processor.rng = np.random.default_rng([seed, int(test), passes["n"]])
+        passes["n"] += 1
+        if training.get("packed", False):
+            return packed_batches(
+                samples(), rows=bsz, seq_len=seq_len, pad_id=processor.beatmap_tokenizer.pad_token_id,
+                max_windows=training.get("packed_max_windows", bsz * 8),
+            )
+        return _stacked(samples(), bsz)
+
+    return factory
+
+
+def _stacked(samples, bsz: int):
+    buf: list[dict] = []
+    for sample in samples:
+        buf.append(sample)
+        if len(buf) == bsz:
+            yield {k: np.stack([s[k] for s in buf]) for k in buf[0]}
+            buf = []
+
+
+def main(argv: Optional[list[str]] = None) -> Trainer:
+    parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--config-name", "-cn", default="v1")
+    parser.add_argument("--config-dir", default=str(CONFIG_DIR))
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--beatmap-files", action="append", default=None, metavar="PATH",
+                        help="an .osu file or a directory of them (repeatable)")
+    parser.add_argument("overrides", nargs="*", help="dotted config overrides a.b=c")
+    cli = parser.parse_args(argv)
+    logging.basicConfig(
+        format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
+        handlers=[logging.StreamHandler(sys.stdout)], level=logging.INFO,
+    )
+
+    device = resolve_device(cli.device)
+    args = load_config(cli.config_dir, cli.config_name, cli.overrides)
+    training = args["training"]
+    seed = int(training["seed"])
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+
+    processor = build_processor(args)
+    cfg = model_config(args, processor)
+    model = build_model(args, cfg, device, seed)
+    packed = bool(training.get("packed", False))
+    if args["dataset"].get("synthetic"):
+        if packed:
+            raise NotImplementedError("synthetic batches are unpacked; set training.packed=false")
+        train_factory = synthetic_batches(args, cfg, test=False, seed=seed)
+        eval_factory = synthetic_batches(args, cfg, test=True, seed=seed)
+    elif cli.beatmap_files:
+        paths = beatmap_paths(cli.beatmap_files)
+        train_factory = beatmap_file_batches(args, processor, paths, test=False, seed=seed)
+        eval_factory = beatmap_file_batches(args, processor, paths, test=True, seed=seed)
+    else:
+        raise NotImplementedError("the MMRS dataset loader is not ported yet: pass --beatmap-files "
+                                  "or set dataset.synthetic=true")
+
+    output_dir = Path(training["output_dir"])
+    trainer = Trainer(
+        model, build_optimizer(args, model), train_factory, eval_factory,
+        device=device,
+        packed=packed,
+        output_dir=str(output_dir),
+        max_steps=training["max_steps"],
+        gradient_accumulation_steps=training["gradient_accumulation_steps"],
+        logging_steps=training["logging_steps"],
+        eval_steps=training["eval_steps"],
+        max_eval_batches=training.get("max_eval_batches", 50),
+        save_steps=training["save_steps"],
+        save_total_limit=training["save_total_limit"],
+        resume=not training.get("overwrite_output_dir", False),
+        load_best_model_at_end=training.get("load_best_model_at_end", False),
+    )
+    try:
+        results = trainer.train()
+        final = trainer.evaluate()
+        trainer._log({"step": results["final_step"],
+                      **{f"final_eval_{k}": v for k, v in final.items() if v is not None}})
+        model_dir = output_dir / "model"
+        model_dir.mkdir(parents=True, exist_ok=True)
+        torch.save(model.state_dict(), model_dir / "model.pt")
+        save_config(cfg, model_dir)
+        processor.save_pretrained(str(output_dir / "processor"))
+    finally:
+        trainer.close()
+    logger.info("Training complete; artifacts in %s", output_dir)
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

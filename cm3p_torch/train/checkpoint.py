@@ -1,0 +1,82 @@
+"""Checkpoints: atomic ``torch.save`` of model, optimizer and step, with retention.
+
+The port's counterpart of the JAX package's ``train/checkpoint.py`` (Orbax):
+``<directory>/step_<n>.pt`` holds the model's state dict, the optimizer's, the
+optimizer step ``n`` and the micro-step counter. A save writes a temporary
+file and renames it, so a reader never sees half a checkpoint. At most
+``max_to_keep`` checkpoints stay, oldest removed first, except the one
+:meth:`CheckpointManager.protect` pins (the best evaluation).
+"""
+from __future__ import annotations
+
+import os
+import re
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_NAME = re.compile(r"^step_(\d+)\.pt$")
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, save_interval_steps: int = 1000, max_to_keep: int = 3):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.save_interval_steps = save_interval_steps
+        self.max_to_keep = max_to_keep
+        self._protected_step: Optional[int] = None
+
+    def path(self, step: int) -> Path:
+        return self.directory / f"step_{step}.pt"
+
+    def steps(self) -> list[int]:
+        found = (_NAME.match(p.name) for p in self.directory.iterdir())
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def protect(self, step: Optional[int]) -> None:
+        """Pin ``step`` (the current best) so retention never deletes it."""
+        self._protected_step = step
+
+    def should_save(self, step: int) -> bool:
+        return self.save_interval_steps > 0 and step % self.save_interval_steps == 0 and step not in self.steps()
+
+    def save(self, step: int, model: torch.nn.Module, optimizer: torch.optim.Optimizer, micro_step: int) -> Path:
+        target = self.path(step)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        state = {
+            "step": step,
+            "micro_step": micro_step,
+            "model": model.state_dict(),
+            "optimizer": optimizer.state_dict(),
+        }
+        torch.save(state, tmp)
+        os.replace(tmp, target)
+        self._prune()
+        return target
+
+    def _prune(self) -> None:
+        if self.max_to_keep is None or self.max_to_keep <= 0:
+            return
+        steps = [s for s in self.steps() if s != self._protected_step]
+        keep = self.max_to_keep - (1 if self._protected_step in self.steps() else 0)
+        for step in steps[: max(len(steps) - max(keep, 1), 0)]:
+            self.path(step).unlink(missing_ok=True)
+
+    def restore(self, model: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer] = None,
+                step: Optional[int] = None) -> Optional[dict]:
+        """Load checkpoint ``step`` (default: the latest) into ``model`` and
+        ``optimizer``; returns its ``{"step", "micro_step"}`` or None if absent."""
+        step = self.latest_step() if step is None else step
+        if step is None or not self.path(step).exists():
+            return None
+        device = next(model.parameters()).device
+        state = torch.load(self.path(step), map_location=device, weights_only=True)
+        model.load_state_dict(state["model"])
+        if optimizer is not None:
+            optimizer.load_state_dict(state["optimizer"])
+        return {"step": state["step"], "micro_step": state["micro_step"]}

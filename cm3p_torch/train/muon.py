@@ -1,0 +1,184 @@
+"""Muon (momentum + Newton-Schulz orthogonalisation) with AdamW, as one torch optimizer.
+
+The port's counterpart of the JAX package's ``train/muon.py`` (an optax
+``multi_transform`` of Muon and AdamW):
+
+* Muon: Nesterov momentum 0.95, then NS5 in bfloat16 (6 steps), scaled by
+  ``max(1, rows / cols) ** 0.5``, times the learning rate;
+* AdamW (optax ``adamw``: bias-corrected moments, eps outside the sqrt,
+  decoupled weight decay) at ``learning_rate * adamw_lr_ratio``, or at the full
+  rate with ``compat_adamw_lr`` (the reference's quirk);
+* routing by :func:`default_muon_label_fn`: names holding ``embed`` or
+  ``proj_out``, tensors of rank <= 1 and first dims >= 10000 take AdamW.
+
+Orientation. The JAX package works on flax kernels: a Dense kernel is
+(in, out), a Conv kernel (k, in, out) reshaped to (k, in * out). A torch
+``Linear.weight`` is (out, in) and a ``Conv1d.weight`` (out, in, k), so the
+routing, the NS5 input and its scale are taken on the flax view of each tensor
+(:func:`flax_layouts`); otherwise Wqkv would be scaled by sqrt(3) where the JAX
+package has 1.
+
+Parameters whose ``grad`` is None take no update and keep no state (the audio
+tower of a run without audio). The step counter is shared, as optax's counts
+are: the learning rate of update ``t`` (0-based) is ``lr_schedule(t)``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterable, Optional
+
+import torch
+from torch import nn
+
+NS_COEFFS = (3.4445, -4.7750, 2.0315)
+
+
+def zeropower_via_newtonschulz5(g: torch.Tensor, steps: int = 6, eps: float = 1e-7) -> torch.Tensor:
+    """Quintic Newton-Schulz orthogonalisation in bfloat16 (returns bf16)."""
+    assert g.dim() == 2
+    a, b, c = NS_COEFFS
+    x = g.to(torch.bfloat16)
+    x = x / (torch.linalg.vector_norm(x.float()).to(torch.bfloat16) + eps)
+    transpose = g.shape[0] > g.shape[1]
+    if transpose:
+        x = x.t()
+    for _ in range(steps):
+        xxt = x @ x.t()
+        bmat = b * xxt + c * (xxt @ xxt)
+        x = a * x + bmat @ x
+    if transpose:
+        x = x.t()
+    return x
+
+
+def default_muon_label_fn(name: str, flax_shape: tuple) -> str:
+    """``"muon"`` for internal >= 2-D weights, ``"adamw"`` for the rest (on the flax shape)."""
+    name = name.lower()
+    if "embed" in name or "proj_out" in name:
+        return "adamw"
+    if len(flax_shape) <= 1:
+        return "adamw"
+    if flax_shape[0] >= 10000:
+        return "adamw"
+    return "muon"
+
+
+def flax_layouts(model: nn.Module) -> dict[str, str]:
+    """Parameter name -> ``"linear"``, ``"conv"`` or ``"same"``: how its flax view is taken."""
+    layouts = {name: "same" for name, _ in model.named_parameters()}
+    for mname, module in model.named_modules():
+        prefix = f"{mname}." if mname else ""
+        if isinstance(module, nn.Linear):
+            layouts[prefix + "weight"] = "linear"
+        elif isinstance(module, nn.Conv1d):
+            layouts[prefix + "weight"] = "conv"
+    return layouts
+
+
+def to_flax(t: torch.Tensor, layout: str) -> torch.Tensor:
+    """The flax view of a torch tensor; each view is its own inverse."""
+    if layout == "linear":
+        return t.t()
+    if layout == "conv":
+        return t.permute(2, 1, 0)
+    return t
+
+
+def flax_shape(t: torch.Tensor, layout: str) -> tuple:
+    return tuple(to_flax(t, layout).shape)
+
+
+class MuonAdamW(torch.optim.Optimizer):
+    """Muon on the weights :func:`default_muon_label_fn` routes to it, AdamW on the rest.
+
+    ``named_params`` are (name, parameter) pairs, ``layouts`` the
+    :func:`flax_layouts` of their model, ``lr_schedule`` maps the 0-based
+    update count to the Muon learning rate.
+    """
+
+    def __init__(
+        self,
+        named_params: Iterable[tuple[str, nn.Parameter]],
+        layouts: dict[str, str],
+        lr_schedule: Callable[[int], float],
+        *,
+        momentum: float = 0.95,
+        nesterov: bool = True,
+        ns_steps: int = 6,
+        adamw_lr_ratio: float = 0.25,
+        adamw_betas: tuple[float, float] = (0.95, 0.95),
+        adamw_eps: float = 1e-8,
+        adamw_weight_decay: float = 0.0,
+        label_fn: Optional[Callable[[str, tuple], str]] = None,
+        compat_adamw_lr: bool = False,
+    ):
+        label_fn = label_fn or default_muon_label_fn
+        groups = {"muon": {"params": [], "names": [], "layouts": []}, "adamw": {"params": [], "names": [], "layouts": []}}
+        for name, p in named_params:
+            if not p.requires_grad:
+                continue
+            layout = layouts.get(name, "same")
+            g = groups[label_fn(name, flax_shape(p, layout))]
+            g["params"].append(p)
+            g["names"].append(name)
+            g["layouts"].append(layout)
+        param_groups = [dict(label=label, step=0, **g) for label, g in groups.items() if g["params"]]
+        defaults = dict(
+            momentum=momentum, nesterov=nesterov, ns_steps=ns_steps,
+            adamw_lr_ratio=1.0 if compat_adamw_lr else adamw_lr_ratio,
+            betas=adamw_betas, eps=adamw_eps, weight_decay=adamw_weight_decay,
+        )
+        super().__init__(param_groups, defaults)
+        self.lr_schedule = lr_schedule
+
+    def labels(self) -> dict[str, str]:
+        return {n: g["label"] for g in self.param_groups for n in g["names"]}
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("MuonAdamW takes no closure")
+        for group in self.param_groups:
+            lr = float(self.lr_schedule(group["step"]))
+            if group["label"] == "muon":
+                self._muon(group, lr)
+            else:
+                self._adamw(group, lr * group["adamw_lr_ratio"])
+            group["step"] += 1
+
+    def _muon(self, group, lr):
+        mom = group["momentum"]
+        for p, layout in zip(group["params"], group["layouts"]):
+            if p.grad is None:
+                continue
+            g = p.grad
+            state = self.state[p]
+            if "momentum" not in state:
+                state["momentum"] = torch.zeros_like(p)
+            buf = state["momentum"]
+            buf.mul_(mom).add_(g)
+            eff = g + mom * buf if group["nesterov"] else buf
+            k = to_flax(eff, layout)
+            k2 = k.reshape(k.shape[0], -1)
+            ortho = zeropower_via_newtonschulz5(k2, steps=group["ns_steps"])
+            ortho = ortho * max(1.0, k2.shape[0] / k2.shape[1]) ** 0.5
+            update = to_flax(ortho.reshape(k.shape), layout).to(p.dtype)
+            p.add_(update * -lr)
+
+    def _adamw(self, group, lr):
+        b1, b2 = group["betas"]
+        count = group["step"] + 1
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            g = p.grad
+            state = self.state[p]
+            if "mu" not in state:
+                state["mu"] = torch.zeros_like(p)
+                state["nu"] = torch.zeros_like(p)
+            mu, nu = state["mu"], state["nu"]
+            mu.mul_(b1).add_(g, alpha=1.0 - b1)
+            nu.mul_(b2).add_(g * g, alpha=1.0 - b2)
+            update = (mu / (1.0 - b1**count)) / (torch.sqrt(nu / (1.0 - b2**count)) + group["eps"])
+            if group["weight_decay"]:
+                update = update + group["weight_decay"] * p
+            p.add_(update * -lr)

@@ -1,0 +1,112 @@
+"""The training and evaluation steps: the port's counterpart of ``train/train_state.py``.
+
+:class:`TrainStep` is one micro-step of ``make_train_step``: the forward
+(``CM3PModel.forward_packed`` for packed batches, ``forward`` otherwise), the
+loss, the gradients of every trainable parameter, their global norm, and, on
+the last micro-step of an accumulation window, the optimizer step on the mean
+gradient (``optax.MultiSteps``). :func:`eval_step` is the no-grad forward.
+:func:`lr_schedule` is ``train.py``'s schedule: an optional linear warmup from
+0, then a linear decay from ``lr`` to 0 over ``max_steps - warmup`` updates.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+PACKED_KEYS = (
+    "input_ids", "segment_ids", "window_rows", "window_segments", "window_valid", "input_features",
+    "metadata_ids", "metadata_attention_mask", "metadata_variation_classes",
+)
+UNPACKED_KEYS = (
+    "input_ids", "input_features", "metadata_ids", "attention_mask", "metadata_attention_mask",
+    "metadata_variation_classes",
+)
+
+
+def lr_schedule(lr: float, max_steps: int, warmup_steps: int = 0) -> Callable[[int], float]:
+    """Learning rate of the 0-based update ``t`` (optax ``linear_schedule``/``join_schedules``)."""
+    decay_steps = max(max_steps - warmup_steps, 1)
+
+    def schedule(t: int) -> float:
+        if warmup_steps > 0 and t < warmup_steps:
+            return lr * t / warmup_steps
+        done = min(max(t - warmup_steps, 0), decay_steps)
+        return lr * (1.0 - done / decay_steps)
+
+    return schedule
+
+
+def to_device(batch: dict, device, packed: bool) -> dict:
+    """The model's arguments from a numpy batch: ints as int64, floats as fp32."""
+    keys = PACKED_KEYS if packed else UNPACKED_KEYS
+    out = {}
+    for key in keys:
+        if key not in batch:
+            continue
+        arr = np.asarray(batch[key])
+        dtype = torch.float32 if np.issubdtype(arr.dtype, np.floating) else torch.int64
+        out[key] = torch.as_tensor(arr).to(device=device, dtype=dtype, non_blocking=True)
+    return out
+
+
+def forward(model: nn.Module, batch: dict, packed: bool):
+    return model.forward_packed(**batch) if packed else model(**batch)
+
+
+def global_norm(grads) -> torch.Tensor:
+    """fp32 L2 norm over every gradient that is not None (``optax.global_norm``)."""
+    sq = [g.float().square().sum() for g in grads if g is not None]
+    return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
+
+
+class TrainStep:
+    """One micro-step per call; every ``accumulation_steps`` calls the optimizer steps.
+
+    Returns ``{"loss", "grad_norm", "applied"}``: the micro-batch's loss and
+    gradient norm as 0-d tensors (no host sync), and whether the optimizer ran.
+    """
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer, packed: bool,
+                 accumulation_steps: int = 1):
+        self.model = model
+        self.optimizer = optimizer
+        self.packed = packed
+        self.accumulation_steps = max(int(accumulation_steps), 1)
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self._sum: Optional[list] = None
+        self._count = 0
+
+    def grads(self, batch: dict):
+        """(loss, gradients aligned with ``self.params`` (None where unused), norm)."""
+        out = forward(self.model, batch, self.packed)
+        grads = torch.autograd.grad(out.loss, self.params, allow_unused=True)
+        return out.loss.detach(), grads, global_norm(grads)
+
+    def __call__(self, batch: dict) -> dict:
+        self.model.train()
+        loss, grads, norm = self.grads(batch)
+        if self._sum is None:
+            self._sum = list(grads)
+        else:
+            self._sum = [
+                a if g is None else (g if a is None else a.add_(g)) for a, g in zip(self._sum, grads)
+            ]
+        self._count += 1
+        applied = self._count == self.accumulation_steps
+        if applied:
+            for p, g in zip(self.params, self._sum):
+                p.grad = None if g is None else g / self._count
+            self.optimizer.step()
+            for p in self.params:
+                p.grad = None
+            self._sum, self._count = None, 0
+        return {"loss": loss, "grad_norm": norm, "applied": applied}
+
+
+@torch.no_grad()
+def eval_step(model: nn.Module, batch: dict, packed: bool):
+    model.eval()
+    return forward(model, batch, packed)

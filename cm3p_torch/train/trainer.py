@@ -1,0 +1,190 @@
+"""Training loop: micro-steps with gradient accumulation, logs, evaluation, checkpoints.
+
+The port's counterpart of the JAX package's ``train/trainer.py`` on one
+device: :class:`~cm3p_torch.train.step.TrainStep` per micro-batch, one
+optimizer step every ``gradient_accumulation_steps`` micro-steps (on the mean
+gradient), a ``train_log.jsonl`` record every ``logging_steps`` optimizer
+steps, evaluation every ``eval_steps`` (zero-shot variation ranking and loss,
+``MetricAccumulator``), checkpoints every ``save_steps`` with
+``save_total_limit`` retention and resume of the latest, and
+``train_results.json`` / ``eval_results.json`` at the end. Losses stay on the
+device until a log record needs them.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import time
+from pathlib import Path
+from typing import Callable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from .checkpoint import CheckpointManager
+from .metrics import MetricAccumulator
+from .step import TrainStep, eval_step, to_device
+
+logger = logging.getLogger(__name__)
+
+
+class Trainer:
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        optimizer: torch.optim.Optimizer,
+        train_iter_factory: Callable[[], Iterator[dict]],
+        eval_iter_factory: Optional[Callable[[], Iterator[dict]]] = None,
+        *,
+        device,
+        packed: bool = False,
+        output_dir: str = "output",
+        max_steps: int = 1000,
+        gradient_accumulation_steps: int = 1,
+        logging_steps: int = 10,
+        eval_steps: int = 1000,
+        max_eval_batches: int = 50,
+        save_steps: int = 1000,
+        save_total_limit: int = 3,
+        resume: bool = True,
+        load_best_model_at_end: bool = False,
+    ):
+        self.model = model
+        self.optimizer = optimizer
+        self.train_iter_factory = train_iter_factory
+        self.eval_iter_factory = eval_iter_factory
+        self.device = torch.device(device)
+        self.packed = packed
+        self.output_dir = Path(output_dir)
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        self.max_steps = max_steps
+        self.grad_accum = max(int(gradient_accumulation_steps), 1)
+        self.logging_steps = logging_steps
+        self.eval_steps = eval_steps
+        self.max_eval_batches = max_eval_batches
+        self.resume = resume
+        self.load_best_model_at_end = load_best_model_at_end
+        self.step_fn = TrainStep(model, optimizer, packed, self.grad_accum)
+        self.ckpt = CheckpointManager(
+            str(self.output_dir / "checkpoints"), save_interval_steps=save_steps, max_to_keep=save_total_limit
+        )
+        self._log_file = open(self.output_dir / "train_log.jsonl", "a")
+        self._best_eval_loss: Optional[float] = None
+        self._best_eval_step: Optional[int] = None
+        self._last_eval: dict = {}
+        self.micro_step = 0
+        self.results: dict = {}
+
+    def _log(self, record: dict) -> None:
+        record = {k: (float(v) if hasattr(v, "item") else v) for k, v in record.items()}
+        self._log_file.write(json.dumps(record) + "\n")
+        self._log_file.flush()
+        logger.info(" ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}" for k, v in record.items()))
+
+    def _save(self, opt_step: int) -> None:
+        self.ckpt.save(opt_step, self.model, self.optimizer, self.micro_step)
+
+    def train(self) -> dict:
+        """Run to ``max_steps`` optimizer steps; returns the ``train_results.json`` record."""
+        start = self.ckpt.restore(self.model, self.optimizer) if self.resume else None
+        self.micro_step = start["micro_step"] if start else 0
+        if start:
+            logger.info("Resuming from checkpoint step %d", start["step"])
+        data_iter = iter(self.train_iter_factory())
+        # replay the stream so micro-step k + 1 trains on batch k, as an
+        # uninterrupted run would
+        for _ in range(self.micro_step):
+            data_iter = self._advance(data_iter)[1]
+
+        window_t0 = time.perf_counter()
+        window_count = 0
+        window_samples = 0
+        window_loss = 0.0
+        pending: list[torch.Tensor] = []
+        while self.micro_step < self.max_steps * self.grad_accum:
+            batch, data_iter = self._advance(data_iter)
+            dev_batch = to_device(batch, self.device, self.packed)
+            metrics = self.step_fn(dev_batch)
+            self.micro_step += 1
+            pending.append(metrics["loss"])
+            window_count += 1
+            window_samples += int(dev_batch["input_ids"].shape[0])
+            if not metrics["applied"]:
+                continue
+            opt_step = self.micro_step // self.grad_accum
+            if opt_step % max(self.logging_steps, 1) == 0:
+                window_loss = float(torch.stack(pending).float().mean())
+                pending = []
+                dt = max(time.perf_counter() - window_t0, 1e-9)
+                self._log({
+                    "step": opt_step,
+                    "loss": window_loss,
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "steps_per_sec": window_count / self.grad_accum / dt,
+                    "samples_per_sec": window_samples / dt,
+                })
+                window_t0, window_count, window_samples = time.perf_counter(), 0, 0
+            if self.eval_iter_factory is not None and self.eval_steps > 0 and opt_step % self.eval_steps == 0:
+                eval_metrics = self.evaluate()
+                self._log({"step": opt_step, **{f"eval_{k}": v for k, v in eval_metrics.items() if v is not None}})
+                self._last_eval = eval_metrics
+                eval_loss = eval_metrics.get("loss")
+                if eval_loss is not None and (self._best_eval_loss is None or eval_loss < self._best_eval_loss):
+                    self._best_eval_loss, self._best_eval_step = float(eval_loss), opt_step
+                    self.ckpt.protect(opt_step)
+                    if self.ckpt.latest_step() != opt_step:
+                        self._save(opt_step)
+            if self.ckpt.should_save(opt_step):
+                self._save(opt_step)
+        if pending:
+            window_loss = float(torch.stack(pending).float().mean())
+
+        final_step = self.micro_step // self.grad_accum
+        if self.ckpt.latest_step() != final_step:
+            self._save(final_step)
+        results = {
+            "final_step": final_step,
+            "train_loss": window_loss,
+            "best_eval_loss": self._best_eval_loss,
+            "best_eval_step": self._best_eval_step,
+        }
+        (self.output_dir / "train_results.json").write_text(json.dumps(results, indent=2))
+        if self._last_eval:
+            (self.output_dir / "eval_results.json").write_text(
+                json.dumps({k: v for k, v in self._last_eval.items() if v is not None}, indent=2)
+            )
+        if self.load_best_model_at_end and self._best_eval_step not in (None, final_step):
+            if self.ckpt.restore(self.model, step=self._best_eval_step) is not None:
+                logger.info("restored the best checkpoint (step %d, eval_loss %.5g)",
+                            self._best_eval_step, self._best_eval_loss)
+        self.results = results
+        return results
+
+    def _advance(self, data_iter):
+        try:
+            return next(data_iter), data_iter
+        except StopIteration:
+            data_iter = iter(self.train_iter_factory())
+            return next(data_iter), data_iter
+
+    def evaluate(self) -> dict:
+        """Loss and zero-shot ranking over at most ``max_eval_batches`` eval batches."""
+        acc = MetricAccumulator()
+        losses = []
+        for i, batch in enumerate(self.eval_iter_factory()):
+            if i >= self.max_eval_batches:
+                break
+            out = eval_step(self.model, to_device(batch, self.device, self.packed), self.packed)
+            if out.loss is not None:
+                losses.append(float(out.loss))
+            if out.logits_per_beatmap is not None and "metadata_variation_classes" in batch:
+                acc.update_zero_shot(
+                    out.logits_per_beatmap.float().cpu().numpy(), np.asarray(batch["metadata_variation_classes"])
+                )
+        result = acc.result()
+        if losses:
+            result["loss"] = float(np.mean(losses))
+        return result
+
+    def close(self) -> None:
+        self._log_file.close()

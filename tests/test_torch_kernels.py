@@ -4,20 +4,29 @@ Imports torch only (no JAX), so it also runs where JAX is absent:
 ``python -m pytest tests/test_torch_kernels.py --noconftest -q``. Tests marked
 ``gpu`` skip without CUDA. Tolerances: 2e-2 abs on bf16 outputs of magnitude
 ~1 (a bf16 ulp at 2-4 is 1.6e-2; the kernels sum in another order than the
-plain versions), and exactly 0 on queries that see no key.
+plain versions), and exactly 0 on queries that see no key. The backward
+kernels: 1e-2 of the largest gradient entry (bf16 outputs, p and ds rounded
+to bf16 before their products in both), lse 1e-3 abs (fp32 statistics).
 """
 import pytest
 import torch
 
-from cm3p_torch.ops import fused_ln_ffn, fused_ln_ffn_plain, launch_counts, reset_launch_counts
+from cm3p_torch.ops import KERNELS, fused_ln_ffn, fused_ln_ffn_plain, launch_counts, reset_launch_counts
 from cm3p_torch.ops.attention import (
+    _attention_bwd_plain,
+    attention_delta,
     segment_attention,
+    segment_attention_dkv,
+    segment_attention_dq,
     segment_attention_plain,
     window_attention,
+    window_attention_dkv,
+    window_attention_dq,
     window_attention_plain,
 )
 
 ATOL = 2e-2
+_NONE = {name: 0 for name in KERNELS}
 
 
 @pytest.fixture
@@ -67,7 +76,7 @@ def test_attention_kernels_match_plain(cuda, kind, window):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d, f", [(768, 1152), (512, 1024)])
+@pytest.mark.parametrize("d, f", [(768, 1152), (512, 1024), (256, 512)])
 def test_fused_ffn_kernel_matches_plain(cuda, d, f):
     gen = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(1000 + 7, d, generator=gen, device=cuda).to(torch.bfloat16)
@@ -91,10 +100,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         segment_attention(q[..., :32], k[..., :32], v[..., :32], seg, seg)
     with pytest.raises(ValueError, match="int32"):
         segment_attention(q, k, v, seg.long(), seg)
-    x = torch.zeros(4, 256, dtype=torch.bfloat16, device=cuda)
-    w = torch.zeros(128, 256, dtype=torch.bfloat16, device=cuda)
+    x = torch.zeros(4, 384, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(128, 384, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="D in"):
-        fused_ln_ffn(x, torch.ones(256, device=cuda), None, w, w.t().contiguous(), 1e-5)
+        fused_ln_ffn(x, torch.ones(384, device=cuda), None, w, w.t().contiguous(), 1e-5)
 
 
 @pytest.mark.gpu
@@ -106,7 +115,7 @@ def test_launch_counts_count_kernel_launches(cuda):
     window_attention(q, k, v, seg, seg, 64)
     segment_attention(q, k, v, seg, seg)
     segment_attention_plain(q, k, v, seg, seg)
-    assert launch_counts() == {"window_attention": 1, "segment_attention": 1, "fused_ln_ffn": 0}
+    assert launch_counts() == {**_NONE, "window_attention": 1, "segment_attention": 1}
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
@@ -116,4 +125,79 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     reset_launch_counts()
     assert torch.equal(window_attention(q, k, v, seg, seg, 16), window_attention_plain(q, k, v, seg, seg, 16))
     assert torch.equal(segment_attention(q, k, v, seg, seg), segment_attention_plain(q, k, v, seg, seg))
-    assert launch_counts() == {"window_attention": 0, "segment_attention": 0, "fused_ln_ffn": 0}
+    assert launch_counts() == _NONE
+
+
+def _metadata_segments(rows, g, length, device):
+    """meta_pack rows: g sequences of ``length`` per row, ragged key masks."""
+    gen = torch.Generator().manual_seed(5)
+    seg = torch.arange(1, g + 1, dtype=torch.int32).repeat_interleave(length).repeat(rows, 1)
+    keep = torch.arange(length)[None, None, :] < torch.randint(5, length + 1, (rows, g, 1), generator=gen)
+    return torch.where(keep.reshape(rows, g * length), seg, torch.zeros_like(seg)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["packed", "metadata"])
+@pytest.mark.parametrize("window", [64, None])
+def test_lse_and_backward_kernels_match_plain(cuda, kind, window):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    if kind == "packed":
+        seg = _packed_segments(2, 2048, cuda)
+    else:
+        seg = _metadata_segments(3, 16, 32, cuda)
+    b, length = seg.shape
+    q, k, v = _qkv(b, length, 4, gen, cuda)
+    dout = torch.randn(b, length, 4, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    if window is None:
+        out, lse = segment_attention(q, k, v, seg, seg, return_lse=True)
+        want_out, want_lse = segment_attention_plain(q, k, v, seg, seg, return_lse=True)
+    else:
+        out, lse = window_attention(q, k, v, seg, seg, window, return_lse=True)
+        want_out, want_lse = window_attention_plain(q, k, v, seg, seg, window, return_lse=True)
+    live = (seg > 0)[:, None, :].expand_as(lse)
+    assert (out.float() - want_out.float()).abs().max().item() <= ATOL
+    assert (lse - want_lse)[live].abs().max().item() <= 1e-3
+    delta = attention_delta(want_out, dout)
+    if window is None:
+        dq = segment_attention_dq(q, k, v, dout, want_lse, delta, seg, seg)
+        dk, dv = segment_attention_dkv(q, k, v, dout, want_lse, delta, seg, seg)
+    else:
+        dq = window_attention_dq(q, k, v, dout, want_lse, delta, seg, seg, window)
+        dk, dv = window_attention_dkv(q, k, v, dout, want_lse, delta, seg, seg, window)
+    want = _attention_bwd_plain(q, k, v, dout, want_lse, delta, seg, seg, window)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    dead = seg == 0
+    assert dq[dead].abs().max().item() == 0.0
+    assert dk[dead].abs().max().item() == 0.0 and dv[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = _qkv(1, 128, 2, gen, cuda)
+    seg = torch.ones(1, 128, dtype=torch.int32, device=cuda)
+    dout = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros(1, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match="dout"):
+        window_attention_dq(q, k, v, dout.float(), lse, lse, seg, seg, 64)
+    with pytest.raises(ValueError, match="lse"):
+        segment_attention_dkv(q, k, v, dout, lse[:, :1], lse, seg, seg)
+    with pytest.raises(ValueError, match="window"):
+        window_attention_dkv(q, k, v, dout, lse, lse, seg, seg, -1)
+
+
+def test_backward_wrappers_on_cpu_take_the_plain_version_and_launch_nothing():
+    gen = torch.Generator().manual_seed(8)
+    q, k, v = _qkv(1, 100, 2, gen, "cpu")
+    seg = torch.ones(1, 100, dtype=torch.int32)
+    dout = torch.randn(1, 100, 2, 64, generator=gen).to(torch.bfloat16)
+    out, lse = window_attention(q, k, v, seg, seg, 16, return_lse=True)
+    delta = attention_delta(out, dout)
+    reset_launch_counts()
+    want = _attention_bwd_plain(q, k, v, dout, lse, delta, seg, seg, 16)
+    assert torch.equal(window_attention_dq(q, k, v, dout, lse, delta, seg, seg, 16), want[0])
+    dk, dv = window_attention_dkv(q, k, v, dout, lse, delta, seg, seg, 16)
+    assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+    assert launch_counts() == _NONE

@@ -138,6 +138,29 @@ def test_embed_beatmap_leaves_jax_out_of_the_process(bundled_beatmap):
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
+def test_training_cli_leaves_jax_out_of_the_process(tmp_path):
+    """``python -m cm3p_torch.train`` (smoke config, two steps) loads no JAX module."""
+    script = textwrap.dedent(
+        f"""
+        import sys
+        from cm3p_torch.train.__main__ import main
+
+        main(["--config-name", "smoke", "--device", "cpu", "training.output_dir={tmp_path}",
+              "training.max_steps=2", "training.gradient_accumulation_steps=1", "training.eval_steps=2"])
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cm3p_tpu"))
+        print("LOADED", bad)
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+    assert (tmp_path / "train_log.jsonl").exists()
+
+
 _FORBIDDEN_ROOTS = {"jax", "jaxlib", "flax", "optax", "cm3p_tpu"}
 
 
