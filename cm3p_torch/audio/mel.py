@@ -18,7 +18,7 @@ import numpy as np
 
 from ..utils.io import JsonConfigMixin
 
-# torch.stft alternative backend (CM3P_TORCH_MEL=1 opts in): MKL's batched
+# torch.stft alternative backend (set TORCH_STFT = True before the first mel): MKL's batched
 # FFT with fused windowing vs the scipy pipeline. Numerics: same float32
 # rFFT math, |logmel diff| ~1e-6 vs the scipy path — 100x inside the 1e-4
 # Whisper-parity budget (tests/test_audio_parity.py covers both), and
@@ -30,13 +30,14 @@ from ..utils.io import JsonConfigMixin
 # where MKL's batched FFT does win.
 # torch is imported lazily on first use so loader workers that never touch
 # audio keep their fast boot (~1 s import on this host).
+TORCH_STFT = False  # the JAX package's CM3P_TORCH_MEL option, as a module setting
 _TORCH = None  # None = not yet probed, False = unavailable/disabled
 
 
 def _torch_stft():
     global _TORCH
     if _TORCH is None:
-        if os.environ.get("CM3P_TORCH_MEL", "0") != "1":
+        if not TORCH_STFT:
             _TORCH = False
         else:
             try:

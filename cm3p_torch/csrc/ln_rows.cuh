@@ -1,0 +1,107 @@
+// Row front ends shared by the fused LN kernels: one warp owns one row of DM
+// bf16 values, lane l holding columns i * 64 + 2 * l + {0, 1} for i < DM / 64.
+//
+// * ln_row_f32: the flax LayerNorm in fp32 (var = max(E[x^2] - E[x]^2, 0)),
+//   as _ln_f32 of the JAX package's ops/fused_ffn.py.
+// * quant_row_int8: the per-row symmetric int8 quantiser of _quant_rows_int8:
+//   sa = max(amax, 1e-30) * (1 / 127), code = clip(rint(y / sa), +-127), with a
+//   true division and round-half-even so that the plain PyTorch version
+//   gives the same codes. Do not build with -use_fast_math.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cm3p {
+
+constexpr float kInv127 = 0.007874015748031496f;  // float32(1.0 / 127.0)
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint32_t lds32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// int8 x int8 -> int32, 16 x 8 x 32. Each A/B register holds four consecutive k.
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Loads row xr into y as fp32; with scale != nullptr applies the LayerNorm.
+template <int DM>
+__device__ __forceinline__ void ln_row_f32(const __nv_bfloat16* __restrict__ xr,
+                                           const float* __restrict__ scale,
+                                           const float* __restrict__ bias, float eps, int lane,
+                                           float2 (&y)[DM / 64]) {
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < DM / 64; ++i) {
+    y[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + i * 64 + lane * 2));
+    s1 += y[i].x + y[i].y;
+    s2 += y[i].x * y[i].x + y[i].y * y[i].y;
+  }
+  if (scale == nullptr) return;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffff, s1, off);
+    s2 += __shfl_xor_sync(0xffffffff, s2, off);
+  }
+  const float mu = s1 / DM;
+  const float var = fmaxf(s2 / DM - mu * mu, 0.f);
+  const float rstd = rsqrtf(var + eps);
+#pragma unroll
+  for (int i = 0; i < DM / 64; ++i) {
+    const int c = i * 64 + lane * 2;
+    const float b0 = bias ? bias[c] : 0.f, b1 = bias ? bias[c + 1] : 0.f;
+    y[i].x = (y[i].x - mu) * (rstd * scale[c]) + b0;
+    y[i].y = (y[i].y - mu) * (rstd * scale[c + 1]) + b1;
+  }
+}
+
+__device__ __forceinline__ int quant_code(float v, float sa) {
+  return max(-127, min(127, __float2int_rn(v / sa)));
+}
+
+// Quantises the row in y to int8 codes at dst (DM bytes, 2-byte aligned) and,
+// when codes_out != nullptr, at codes_out too; returns the row scale sa.
+template <int DM>
+__device__ __forceinline__ float quant_row_int8(const float2 (&y)[DM / 64], int lane, int8_t* dst,
+                                                int8_t* codes_out) {
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < DM / 64; ++i) amax = fmaxf(amax, fmaxf(fabsf(y[i].x), fabsf(y[i].y)));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffff, amax, off));
+  const float sa = fmaxf(amax, 1e-30f) * kInv127;
+#pragma unroll
+  for (int i = 0; i < DM / 64; ++i) {
+    const int c = i * 64 + lane * 2;
+    char2 q;
+    q.x = (signed char)quant_code(y[i].x, sa);
+    q.y = (signed char)quant_code(y[i].y, sa);
+    *reinterpret_cast<char2*>(dst + c) = q;
+    if (codes_out) *reinterpret_cast<char2*>(codes_out + c) = q;
+  }
+  return sa;
+}
+
+}  // namespace cm3p

@@ -1,4 +1,17 @@
-"""Batch assembly for training: the packing collator."""
+"""Data loading: the loose-file dataset, the worker loader, the packing collator."""
+from .beatmap_files_dataset import BeatmapFilesDataset, build_metadata_dataframe, build_metadata_rows
+from .data_utils import filter_mmrs_metadata, load_mmrs_metadata
+from .loader import SampleLoader, batch_samples, batched_loader
 from .packing_collator import packed_batches
 
-__all__ = ["packed_batches"]
+__all__ = [
+    "BeatmapFilesDataset",
+    "SampleLoader",
+    "batch_samples",
+    "batched_loader",
+    "build_metadata_dataframe",
+    "build_metadata_rows",
+    "filter_mmrs_metadata",
+    "load_mmrs_metadata",
+    "packed_batches",
+]

@@ -1,0 +1,395 @@
+"""Batch embedding extraction to parquet: the port's ``extract_beatmap_embeddings.py``.
+
+    python -m cm3p_torch.extract --model-dir out/model --beatmap-files path/to/maps --output embeddings.parquet
+
+Iterates loose ``.osu`` / ``.osz`` files through the processor (optionally in
+worker processes), packs the windows into fixed rows with segment ids, runs
+the packed forward on each flush of ``--flush-rows`` rows, mean-pools the
+per-window embeddings per beatmap id, re-normalises, joins the metadata
+columns and writes a parquet file, optionally merged into an existing one
+(new rows win). Runs on ``cuda`` unless ``--device cpu``; without a GPU it
+raises unless asked for the CPU.
+
+The model computes with the JAX tool's production options unless ``--precise``:
+``w8a8`` (int8 Wi in every MLP half-block). ``--fused-lnmm`` adds the fused
+LN-matmul routes of the QKV and out-projections (int8 QKV under ``w8a8``) and
+``--w8a8-wo`` the int8 Wo forms; see :class:`~cm3p_torch.models.EncoderOptions`.
+The JAX tool's other production default, the Wo epilogue inside the attention
+kernels, changes no number and is not ported yet.
+
+:func:`extract_embeddings` is the core and needs no pandas; the DataFrame and
+parquet work lives in :func:`write_output`.
+
+Not ported: MMRS dataset roots (``--dataset-path``), the int8 and PCM mel wires,
+the data-parallel mesh, and what only exists for XLA (the AOT executable cache,
+``--prewarm``, shape padding against recompiles).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+from pathlib import Path
+from typing import Any, Iterable, Optional, Union
+
+import numpy as np
+import torch
+
+from .configs import CM3PConfig, tiny_cm3p_config
+from .data import BeatmapFilesDataset, SampleLoader, batched_loader
+from .inference import load_model, load_pretrained, resolve_device
+from .interop import init_weights
+from .models import CM3PBeatmapModel, EncoderOptions
+from .processing.packing import pack_windows
+from .processing.processor import CM3PProcessor
+
+logger = logging.getLogger(__name__)
+
+PRODUCTION_OPTIONS = EncoderOptions(w8a8=True)
+_DROPPED_KEYS = ("metadata_ids", "metadata_attention_mask", "metadata_variation_classes", "labels")
+
+
+class BeatmapFilesDatasetFactory:
+    """Picklable dataset factory for loose .osu/.osz extraction (worker processes are spawned)."""
+
+    def __init__(self, paths, processor, include_audio: bool):
+        self.paths = paths
+        self.processor = processor
+        self.include_audio = include_audio
+
+    def __call__(self, worker_id, num_workers):
+        return BeatmapFilesDataset(
+            self.paths, self.processor, include_audio=self.include_audio, include_metadata=False,
+            worker_id=worker_id, num_workers=num_workers,
+        )
+
+
+def default_batch_size(pack: bool, row_len: int, device: torch.device) -> int:
+    """Packed rows (the JAX tool's 192 x 4096 token budget at any row length,
+    32..256 rows) or dense windows (32) per device batch; 16 at most on the CPU."""
+    size = min(256, max(32, (192 * 4096 // row_len) // 32 * 32)) if pack else 32
+    return min(size, 16) if device.type == "cpu" else size
+
+
+def _beatmap_key(bid) -> int:
+    return int(bid[-1]) if isinstance(bid, (tuple, list)) else int(bid)
+
+
+@torch.no_grad()
+def extract_embeddings(
+    model: CM3PBeatmapModel,
+    processor: CM3PProcessor,
+    samples: Iterable[dict],
+    device: Optional[Union[str, torch.device]] = None,
+    pack: bool = True,
+    batch_size: int = 0,
+    flush_rows: int = 0,
+    stats: Optional[dict] = None,
+    windows_out: Optional[dict] = None,
+) -> dict[int, np.ndarray]:
+    """One unit-norm embedding per beatmap id from a stream of window samples.
+
+    ``samples`` yields the dataset's per-window dicts (``input_ids``,
+    ``attention_mask``, ``beatmap_id``, optionally ``input_features``). Packed
+    (default): windows are first-fit into rows of the processor's
+    ``max_length``; a device batch is dispatched as soon as ``flush_rows`` rows
+    have filled (default min(64, ``batch_size``)), never more than
+    ``batch_size`` rows, and the previous batch is fetched while the next is
+    being assembled. Dense (``pack=False``): ``batch_size`` windows per call.
+    Window embeddings are summed per beatmap id, divided by the count and
+    re-normalised. ``stats`` receives counts and seconds per stage (and the
+    device milliseconds of the forwards on CUDA); ``windows_out`` receives each
+    beatmap's window embeddings in arrival order.
+    """
+    device = resolve_device(device)
+    param = model.beatmap_projection.weight
+    if param.device.type != device.type:
+        raise ValueError(f"model lies on {param.device}, inputs were asked on {device}")
+    wire = param.dtype  # mel features travel in the towers' weight dtype
+    seq_len = processor.default_kwargs["beatmap_kwargs"].get("max_length", 4000)
+    batch_size = batch_size or default_batch_size(pack, seq_len, device)
+    flush_rows = flush_rows or min(64, batch_size)
+    pad_id = processor.beatmap_tokenizer.pad_token_id
+    accumulator: dict[Any, dict[str, Any]] = {}
+    stage = {"loader": 0.0, "pack": 0.0, "dispatch": 0.0, "drain": 0.0}
+    counts = {"windows": 0, "tokens": 0, "flushes": 0, "rows": 0, "device_ms": 0.0}
+    inflight: list = []
+    t0 = time.perf_counter()
+
+    def accumulate(embeds: np.ndarray, ids: list) -> None:
+        for i, bid in enumerate(ids):
+            key = _beatmap_key(bid)
+            slot = accumulator.get(key)
+            if slot is None:
+                accumulator[key] = {"sum": embeds[i].copy(), "count": 1}
+            else:
+                slot["sum"] += embeds[i]
+                slot["count"] += 1
+            if windows_out is not None:
+                windows_out.setdefault(key, []).append(embeds[i].copy())
+
+    def to_dev(array, dtype):
+        return torch.as_tensor(np.asarray(array), device=device).to(dtype)
+
+    def dispatch(call, n: int, ids: list) -> None:
+        t_dispatch = time.perf_counter()
+        events = None
+        if device.type == "cuda":
+            events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        out = call()
+        if events:
+            events[1].record()
+        stage["dispatch"] += time.perf_counter() - t_dispatch
+        # double-buffer: leave this batch in flight and fetch the previous one
+        inflight.append((out, n, ids, events))
+        if len(inflight) > 1:
+            drain(inflight.pop(0))
+        counts["windows"] += n
+        counts["flushes"] += 1
+
+    def drain(item) -> None:
+        out, n, ids, events = item
+        t_drain = time.perf_counter()
+        embeds = out.float().cpu().numpy()[:n]
+        if events:
+            counts["device_ms"] += events[0].elapsed_time(events[1])
+        stage["drain"] += time.perf_counter() - t_drain
+        accumulate(embeds, ids)
+
+    def flush(pending: list) -> None:
+        if not pending:
+            return
+        t_flush = time.perf_counter()
+        seqs = [p[0] for p in pending]
+        packed = pack_windows(seqs, seq_len, pad_id=pad_id)
+        if packed["input_ids"].shape[0] > batch_size and len(pending) > 1:
+            # the arrival-order simulation under-estimates rows when first-fit
+            # fragments: bisect so that no device batch exceeds the row budget
+            stage["pack"] += time.perf_counter() - t_flush
+            mid = len(pending) // 2
+            flush(pending[:mid])
+            flush(pending[mid:])
+            return
+        features = None
+        if pending[0][2] is not None:
+            features = to_dev(np.stack([np.asarray(p[2], np.float32) for p in pending]), wire)
+        args = dict(
+            input_ids=to_dev(packed["input_ids"], torch.int64),
+            segment_ids=to_dev(packed["segment_ids"], torch.int32),
+            window_rows=to_dev(packed["window_to_row"], torch.int64),
+            window_segments=to_dev(packed["window_segment"], torch.int64),
+            input_features=features,
+        )
+        rows = packed["input_ids"].shape[0]
+        counts["rows"] += rows
+        counts["tokens"] += int(sum(len(s) for s in seqs))
+        stage["pack"] += time.perf_counter() - t_flush
+        logger.info("flush: rows=%d windows=%d", rows, len(seqs))
+        dispatch(lambda: model.get_packed_beatmap_features(**args, normalize=True), len(seqs), [p[1] for p in pending])
+
+    sample_it = iter(samples)
+
+    def next_item(it):
+        t_wait = time.perf_counter()
+        item = next(it, None)
+        stage["loader"] += time.perf_counter() - t_wait
+        return item
+
+    if pack:
+        pending: list = []
+        sim_space: list[int] = []  # free tokens per simulated packed row, in arrival order
+        while (sample := next_item(sample_it)) is not None:
+            length = int(np.asarray(sample["attention_mask"]).sum())
+            seq = np.asarray(sample["input_ids"])[:length]
+            need = min(len(seq), seq_len)
+            for r, free in enumerate(sim_space):
+                if free >= need:
+                    sim_space[r] = free - need
+                    break
+            else:
+                if len(sim_space) >= flush_rows and pending:
+                    flush(pending)
+                    pending, sim_space = [], []
+                sim_space.append(seq_len - need)
+            pending.append((seq, sample.get("beatmap_id"), sample.get("input_features")))
+        flush(pending)
+    else:
+        batch_it = batched_loader(sample_it, batch_size, drop_last=False)
+        while (batch := next_item(batch_it)) is not None:
+            ids = batch.pop("beatmap_id")
+            for key in _DROPPED_KEYS:
+                batch.pop(key, None)
+            args = dict(
+                input_ids=to_dev(batch["input_ids"], torch.int64),
+                attention_mask=to_dev(batch["attention_mask"], torch.int32),
+                input_features=to_dev(batch["input_features"], wire) if "input_features" in batch else None,
+            )
+            counts["tokens"] += int(np.asarray(batch["attention_mask"]).sum())
+            counts["rows"] += len(ids)
+            dispatch(lambda: model.get_beatmap_features(**args, normalize=True), len(ids), np.asarray(ids).tolist())
+    while inflight:
+        drain(inflight.pop(0))
+
+    dt = time.perf_counter() - t0
+    logger.info(
+        "%s %d window embeddings in %.1fs (%.1f windows/s)",
+        "Packed-extracted" if pack else "Extracted", counts["windows"], dt, counts["windows"] / max(dt, 1e-9),
+    )
+    logger.info(
+        "Stage breakdown: %s (accounted %.1fs of %.1fs wall)",
+        ", ".join(f"{k} {v:.1f}s" for k, v in stage.items()), sum(stage.values()), dt,
+    )
+    if stats is not None:
+        stats.update(counts, seconds=dt, stage_seconds=stage)
+    if windows_out is not None:
+        for key, chunks in windows_out.items():
+            windows_out[key] = np.stack(chunks)
+
+    # mean-pool per beatmap + re-normalize
+    out: dict[int, np.ndarray] = {}
+    for key, slot in accumulator.items():
+        mean_vec = slot["sum"] / slot["count"]
+        norm = float((mean_vec**2).sum() ** 0.5)
+        out[key] = mean_vec / norm if norm > 0 else mean_vec
+    return out
+
+
+def write_output(embeddings: dict[int, np.ndarray], metadata, output, merge_with=None) -> None:
+    """Join the embeddings with the metadata table and write the parquet file.
+
+    ``metadata`` is the dataset's DataFrame indexed by (BeatmapSetId, Id). With
+    ``merge_with`` the rows of that existing parquet are kept except where this
+    run produced a row with the same ``Id``.
+    """
+    import pandas as pd
+
+    rows = [{"beatmap_id": int(bid), "embedding": vec.tolist()} for bid, vec in embeddings.items()]
+    embeddings_df = pd.DataFrame(rows)
+
+    meta_df = metadata.reset_index()
+    if "Id" in meta_df.columns:
+        meta_df["Id"] = meta_df["Id"].astype("int64")
+        merged_df = embeddings_df.merge(meta_df, left_on="beatmap_id", right_on="Id", how="left")
+    else:
+        merged_df = embeddings_df
+
+    final_df = merged_df
+    if merge_with:
+        try:
+            existing_df = pd.read_parquet(merge_with)
+            existing_df["Id"] = existing_df["Id"].astype("int64")
+            for col in merged_df.columns:
+                if col not in existing_df.columns:
+                    existing_df[col] = pd.NA
+            existing_idx = existing_df.set_index("Id").reindex(columns=merged_df.columns.drop("Id"))
+            merged_idx = merged_df.set_index("Id").reindex(columns=existing_idx.columns)
+            final_df = merged_idx.combine_first(existing_idx).reset_index()
+            logger.info("Merged: existing=%d new=%d result=%d", len(existing_df), len(merged_df), len(final_df))
+        except Exception as e:
+            logger.warning("Merge with %s failed: %s", merge_with, e)
+
+    output_path = Path(output)
+    final_df.to_parquet(output_path, index=False)
+    logger.info("Saved %d beatmap embeddings to %s", len(final_df), output_path.resolve())
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="python -m cm3p_torch.extract", description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model-dir", default=None, help="HF-layout model dir (config.json + model.safetensors)")
+    parser.add_argument("--processor-dir", default=None, help="saved processor dir")
+    parser.add_argument("--beatmap-files", action="append", default=None, required=True,
+                        help=".osu/.osz files or dirs (repeatable)")
+    parser.add_argument("--output", required=True, help="output parquet")
+    parser.add_argument("--merge-with", default=None, help="existing embeddings parquet to merge into")
+    parser.add_argument("--batch-size", type=int, default=0,
+                        help="device batch cap: packed rows (default: a 192 x 4096 token budget) or dense windows (32)")
+    parser.add_argument("--flush-rows", type=int, default=0,
+                        help="packed rows that trigger a device batch (default min(64, --batch-size))")
+    parser.add_argument("--num-workers", type=int, default=0, help="loader worker processes (0 = inline)")
+    parser.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                        help="weight and activation dtype (default bfloat16; float32 with --tiny-model)")
+    parser.add_argument("--no-audio", action="store_true")
+    parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--max-length", type=int, default=None, help="override beatmap token max_length")
+    parser.add_argument("--window-length", type=float, default=None,
+                        help="override window_length_sec; the stride follows unless --window-stride is given")
+    parser.add_argument("--window-stride", type=float, default=None, help="override window_stride_sec")
+    parser.add_argument("--tiny-model", action="store_true", help="seeded random tiny model (smoke runs)")
+    parser.add_argument("--no-pack", dest="pack", action="store_false",
+                        help="per-window dense batches instead of packed rows")
+    parser.add_argument("--precise", action="store_true",
+                        help="exact bf16 math: turn the production option (int8 FFN Wi) off")
+    parser.add_argument("--fused-lnmm", action="store_true",
+                        help="fused LN-matmul kernels for the QKV projection (int8 unless --precise) and the "
+                        "out-projection with its residual")
+    parser.add_argument("--w8a8-wo", action="store_true",
+                        help="int8 Wo in the MLP and, with --fused-lnmm, in the attention out-projection")
+    return parser
+
+
+def options_from_args(ns: argparse.Namespace) -> EncoderOptions:
+    return EncoderOptions(
+        w8a8=not ns.precise, w8a8_wo=ns.w8a8_wo, fused_lnmm_qkv=ns.fused_lnmm, fused_lnmm_wo=ns.fused_lnmm
+    )
+
+
+def _random_model(processor: CM3PProcessor, tiny: bool, device, dtype, options) -> CM3PBeatmapModel:
+    cfg = tiny_cm3p_config() if tiny else CM3PConfig()
+    bt = processor.beatmap_tokenizer
+    cfg.beatmap_config.vocab_size = bt.vocab_size
+    cfg.beatmap_config.audio_token_id = bt.audio_token_id
+    weights = init_weights(cfg, torch.Generator().manual_seed(0))
+    return load_model(cfg, weights, device=device, dtype=dtype, options=options)
+
+
+def main(argv=None) -> dict[int, np.ndarray]:
+    ns = build_parser().parse_args(argv)
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout)
+    device = resolve_device(ns.device)
+    options = options_from_args(ns)
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32, None: None}[ns.dtype]
+
+    processor = None
+    if ns.model_dir and not ns.tiny_model:
+        processor, model = load_pretrained(
+            ns.model_dir, processor_dir=ns.processor_dir, device=device, dtype=dtype, options=options
+        )
+    if processor is None:
+        processor = CM3PProcessor.from_pretrained(ns.processor_dir) if ns.processor_dir else CM3PProcessor()
+        if not ns.tiny_model:
+            logger.warning("No --model-dir given: using a randomly initialized full-width model")
+        model = _random_model(
+            processor, ns.tiny_model, device, dtype or (torch.float32 if ns.tiny_model else torch.bfloat16), options
+        )
+    bk = processor.default_kwargs["beatmap_kwargs"]
+    if ns.max_length:
+        bk["max_length"] = ns.max_length
+    if ns.window_length:
+        bk["window_length_sec"] = ns.window_length
+        bk["window_stride_sec"] = ns.window_stride or ns.window_length
+    elif ns.window_stride:
+        bk["window_stride_sec"] = ns.window_stride
+
+    include_audio = not ns.no_audio
+    factory = BeatmapFilesDatasetFactory(ns.beatmap_files, processor, include_audio)
+    metadata = BeatmapFilesDataset(ns.beatmap_files, processor, include_audio=False).metadata
+    try:
+        n_cores = len(os.sched_getaffinity(0))
+    except AttributeError:  # pragma: no cover - non-linux
+        n_cores = os.cpu_count() or 1
+    if ns.num_workers > n_cores:
+        logger.info("Capping --num-workers %d to the %d available core(s)", ns.num_workers, n_cores)
+        ns.num_workers = n_cores
+    loader = SampleLoader(factory, num_workers=ns.num_workers)
+    embeddings = extract_embeddings(
+        model, processor, loader, device=device, pack=ns.pack, batch_size=ns.batch_size, flush_rows=ns.flush_rows
+    )
+    write_output(embeddings, metadata, ns.output, ns.merge_with)
+    return embeddings
+
+
+if __name__ == "__main__":
+    main()

@@ -10,12 +10,13 @@ from .cm3p import (
     l2_normalize,
     similarity_logits,
 )
-from .modernbert import EncoderLayer, LayerNormF32, ModernBertEncoder, SelfAttention, pool_hidden
+from .modernbert import EncoderLayer, EncoderOptions, LayerNormF32, ModernBertEncoder, SelfAttention, pool_hidden
 
 __all__ = [
     "AudioEncoder",
     "BeatmapTransformer",
     "CM3PBeatmapModel",
+    "EncoderOptions",
     "CM3PModel",
     "CM3POutput",
     "EncoderLayer",

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import AudioConfig, BeatmapConfig, CM3PConfig, MetadataConfig
-from .modernbert import ModernBertEncoder, linear, pool_hidden
+from .modernbert import EncoderOptions, ModernBertEncoder, linear, pool_hidden
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -131,6 +131,11 @@ class CM3PBeatmapModel(nn.Module):
         """Route every attention and FFN call to its plain version (the oracle)."""
         for enc in self.encoders():
             enc.plain = plain
+
+    def set_options(self, options: EncoderOptions) -> None:
+        """Extraction options (W8A8, fused LN-matmul routes) of every tower."""
+        for enc in self.encoders():
+            enc.set_options(options)
 
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
         """Activation dtype of every tower (flax ``dtype``); parameters keep theirs."""

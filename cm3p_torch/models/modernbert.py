@@ -30,9 +30,21 @@ attention runs the forward kernel with lse and the backward kernels, and the
 MLP runs :class:`~cm3p_torch.ops.fused_ffn.LnFfnFunction`. Kernels on CUDA at
 every length, plain versions on the CPU; ``plain=True`` on an encoder runs the
 plain versions on any device (the on-card oracle).
+
+:class:`EncoderOptions` carries the extraction options that the JAX package
+reads from the environment. They act on no-grad forwards only (under
+autograd every projection is the exact unfused module, as in the JAX
+package): ``fused_lnmm_qkv`` sends raw ``x`` and the attention pre-norm's
+parameters to :func:`~cm3p_torch.ops.fused_ln_matmul` (its W8A8 form when
+``w8a8``) on every layer but layer 0, which has no pre-norm; ``fused_lnmm_wo``
+sends the out-projection with its residual there (its W8A8 form when
+``w8a8_wo``); the MLP half-block gets ``w8a8`` / ``w8a8_wo``. int8 weights are
+made from the parameters at first use and again whenever a parameter changes
+(reload, cast, move), never per forward.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -40,8 +52,46 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import EncoderConfig
-from ..ops import attention, fused_ln_ffn, fused_ln_ffn_plain, layer_norm_f32
-from ..ops.fused_ffn import LnFfnFunction
+from ..ops import (
+    attention,
+    fused_ln_ffn,
+    fused_ln_ffn_plain,
+    fused_ln_matmul,
+    fused_ln_matmul_plain,
+    fused_ln_matmul_q,
+    fused_ln_matmul_q_plain,
+    layer_norm_f32,
+    lnmm_fusable,
+    quantize_weight_int8,
+)
+from ..ops.fused_ffn import LnFfnFunction, ffn_fusable
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderOptions:
+    """Extraction options of an encoder (no-grad forwards only).
+
+    Each field stands for an environment variable of the JAX package:
+
+    * ``w8a8`` - ``CM3P_W8A8``: int8 Wi in the MLP half-block, and int8 QKV
+      projection where ``fused_lnmm_qkv`` routes it through the fused kernel;
+    * ``w8a8_wo`` - ``CM3P_W8A8_WO``: int8 Wo in the MLP half-block, and int8
+      attention out-projection where ``fused_lnmm_wo`` routes it;
+    * ``fused_lnmm_qkv`` - ``CM3P_FUSED_LNMM_QKV`` (or the master
+      ``CM3P_FUSED_LNMM``): attention pre-norm fused into the QKV projection;
+    * ``fused_lnmm_wo`` - ``CM3P_FUSED_LNMM_WO`` (or ``CM3P_FUSED_LNMM``):
+      attention out-projection fused with its residual add.
+
+    The port reads no environment variable: callers pass this object.
+    """
+
+    w8a8: bool = False
+    w8a8_wo: bool = False
+    fused_lnmm_qkv: bool = False
+    fused_lnmm_wo: bool = False
+
+
+EXACT = EncoderOptions()
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -73,12 +123,34 @@ class SelfAttention(nn.Module):
         self.Wqkv = nn.Linear(hidden, 3 * hidden, bias=False)
         self.Wo = nn.Linear(hidden, hidden, bias=False)
 
-    def forward(self, x, key_mask, segment_ids, window, rope_theta, plain: bool = False, positions=None):
+    def forward(self, x, key_mask, segment_ids, window, rope_theta, plain: bool = False, positions=None,
+                pre_norm: Optional[LayerNormF32] = None, residual: Optional[torch.Tensor] = None,
+                options: EncoderOptions = EXACT, quantised=None):
+        """``pre_norm``: ``x`` is raw and the norm is fused into the QKV projection.
+        ``residual``: the out-projection adds it (the caller must not add it again).
+        ``quantised(name, weight)`` returns the cached int8 form of a weight."""
         b, length, hidden = x.shape
-        qkv = linear(x, self.Wqkv.weight).view(b, length, 3, self.heads, self.head_dim)
-        q, k, v = qkv.unbind(dim=2)  # head-minor (B, L, H, D) views, no copies
+        dt = x.dtype
+        if pre_norm is not None:
+            norm = dict(scale=pre_norm.weight, bias=pre_norm.bias, eps=pre_norm.eps)
+            if options.w8a8:
+                lnmm_q = fused_ln_matmul_q_plain if plain else fused_ln_matmul_q
+                qkv = lnmm_q(x, self.Wqkv.weight, w_q=quantised("Wqkv", self.Wqkv.weight), **norm)
+            else:
+                lnmm = fused_ln_matmul_plain if plain else fused_ln_matmul
+                qkv = lnmm(x, self.Wqkv.weight.to(dt), **norm)
+        else:
+            qkv = linear(x, self.Wqkv.weight)
+        q, k, v = qkv.view(b, length, 3, self.heads, self.head_dim).unbind(dim=2)  # head-minor views, no copies
         out = attention(q, k, v, key_mask, segment_ids, window, rope_theta, plain=plain, positions=positions)
-        return linear(out.reshape(b, length, hidden), self.Wo.weight)
+        out = out.reshape(b, length, hidden)
+        if residual is None:
+            return linear(out, self.Wo.weight)
+        if options.w8a8_wo:
+            lnmm_q = fused_ln_matmul_q_plain if plain else fused_ln_matmul_q
+            return lnmm_q(out, self.Wo.weight, residual=residual, w_q=quantised("Wo", self.Wo.weight))
+        lnmm = fused_ln_matmul_plain if plain else fused_ln_matmul
+        return lnmm(out, self.Wo.weight.to(dt), residual=residual)
 
 
 class GeGLU(nn.Module):
@@ -102,19 +174,49 @@ class EncoderLayer(nn.Module):
         self.attn = SelfAttention(config)
         self.mlp_norm = LayerNormF32(config.hidden_size, config.norm_eps, config.norm_bias)
         self.mlp = GeGLU(config)
+        self.options = EXACT
+        self._quantised: dict = {}
+
+    def quantised(self, name: str, weight: torch.Tensor):
+        """(int8 codes, fp32 scales) of ``weight``, made once and again only
+        when the parameter has changed (reloaded, cast or moved)."""
+        key = (weight.data_ptr(), weight._version, weight.dtype, weight.device)
+        hit = self._quantised.get(name)
+        if hit is None or hit[0] != key:
+            hit = (key, quantize_weight_int8(weight.detach()))
+            self._quantised[name] = hit
+        return hit[1]
 
     def forward(self, x, key_mask=None, segment_ids=None, plain: bool = False, positions=None):
         cfg = self.config
+        hidden = cfg.hidden_size
         window = None if self.is_global else cfg.local_attention // 2
         theta = cfg.global_rope_theta if self.is_global else cfg.local_rope_theta
-        attn_in = x if self.attn_norm is None else self.attn_norm(x)
-        x = x + self.attn(attn_in, key_mask, segment_ids, window, theta, plain=plain, positions=positions)
         norm, mlp = self.mlp_norm, self.mlp
         if torch.is_grad_enabled():
+            attn_in = x if self.attn_norm is None else self.attn_norm(x)
+            x = x + self.attn(attn_in, key_mask, segment_ids, window, theta, plain=plain, positions=positions)
             return LnFfnFunction.apply(x, norm.weight, norm.bias, mlp.Wi.weight, mlp.Wo.weight, cfg.norm_eps)
+        opts = self.options
+        fuse_qkv = opts.fused_lnmm_qkv and self.attn_norm is not None and lnmm_fusable(hidden, 3 * hidden)
+        fuse_wo = opts.fused_lnmm_wo and lnmm_fusable(hidden, hidden)
+        attn_in = x if fuse_qkv or self.attn_norm is None else self.attn_norm(x)
+        attn_out = self.attn(
+            attn_in, key_mask, segment_ids, window, theta, plain=plain, positions=positions,
+            pre_norm=self.attn_norm if fuse_qkv else None, residual=x if fuse_wo else None,
+            options=opts, quantised=self.quantised,
+        )
+        x = attn_out if fuse_wo else x + attn_out
         ffn = fused_ln_ffn_plain if plain else fused_ln_ffn
         dt = x.dtype
-        return ffn(x, norm.weight, norm.bias, mlp.Wi.weight.to(dt), mlp.Wo.weight.to(dt), cfg.norm_eps)
+        quant_ok = ffn_fusable(hidden, cfg.intermediate_size)  # as the JAX package: else the exact MLP
+        w8a8, w8a8_wo = opts.w8a8 and quant_ok, opts.w8a8_wo and quant_ok
+        return ffn(
+            x, norm.weight, norm.bias, mlp.Wi.weight.to(dt), mlp.Wo.weight.to(dt), cfg.norm_eps,
+            w8a8=w8a8, w8a8_wo=w8a8_wo,
+            wi_q=self.quantised("Wi", mlp.Wi.weight) if w8a8 else None,
+            wo_q=self.quantised("Wo", mlp.Wo.weight) if w8a8_wo else None,
+        )
 
 
 class Embeddings(nn.Module):
@@ -144,6 +246,14 @@ class ModernBertEncoder(nn.Module):
         self.final_norm = LayerNormF32(config.hidden_size, config.norm_eps, config.norm_bias)
         self.plain = False
         self.compute_dtype: Optional[torch.dtype] = None
+        self.options = EXACT
+
+    def set_options(self, options: EncoderOptions) -> None:
+        """Set the extraction options of every layer (int8 weights are remade at next use)."""
+        self.options = options
+        for layer in self.layers:
+            layer.options = options
+            layer._quantised.clear()
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Raw token embeddings (pre-norm) in the activation dtype, for the

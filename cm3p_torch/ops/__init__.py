@@ -10,7 +10,15 @@ from .attention import (
     window_attention_dq,
     window_attention_plain,
 )
-from .fused_ffn import fused_ln_ffn, fused_ln_ffn_plain, layer_norm_f32
+from .fused_ffn import fused_ln_ffn, fused_ln_ffn_plain, fused_ln_ffn_q, layer_norm_f32
+from .fused_ln_matmul import (
+    fused_ln_matmul,
+    fused_ln_matmul_plain,
+    fused_ln_matmul_q,
+    fused_ln_matmul_q_plain,
+    lnmm_fusable,
+)
+from .quant import int8_matmul, quant_rows_int8, quantize_weight_int8
 
 KERNELS = {
     "window_attention": window_attention,
@@ -20,6 +28,9 @@ KERNELS = {
     "window_attention_dkv": window_attention_dkv,
     "segment_attention_dq": segment_attention_dq,
     "segment_attention_dkv": segment_attention_dkv,
+    "fused_ln_ffn_q": fused_ln_ffn_q,
+    "fused_ln_matmul": fused_ln_matmul,
+    "fused_ln_matmul_q": fused_ln_matmul_q,
 }
 
 
@@ -38,8 +49,17 @@ __all__ = [
     "attention",
     "fused_ln_ffn",
     "fused_ln_ffn_plain",
+    "fused_ln_ffn_q",
+    "fused_ln_matmul",
+    "fused_ln_matmul_plain",
+    "fused_ln_matmul_q",
+    "fused_ln_matmul_q_plain",
+    "int8_matmul",
     "launch_counts",
     "layer_norm_f32",
+    "lnmm_fusable",
+    "quant_rows_int8",
+    "quantize_weight_int8",
     "reset_launch_counts",
     "segment_attention",
     "segment_attention_dkv",

@@ -1,8 +1,8 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on first use into
-``cm3p_torch/_build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source rebuilds). The libraries expose plain C entry
+``cm3p_torch/_build/lib<name>-<hash>.so`` (the hash covers the source, the
+shared ``csrc/*.cuh`` headers and the flags, so an edited source rebuilds). The libraries expose plain C entry
 points; wrappers pass ``data_ptr()`` values and the current stream as
 ``c_void_p`` and raise when an entry point returns a CUDA error code.
 Nothing here runs at import time.
@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNEL_SOURCES = ("attention", "attention_bwd", "fused_ffn")
+KERNEL_SOURCES = ("attention", "attention_bwd", "fused_ffn", "fused_ln_matmul")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -40,6 +40,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -15,14 +15,22 @@ tensor it launches ``csrc/fused_ffn.cu`` (bf16, D in {256, 512, 768}, F a
 multiple of 64) or raises. The source note on the kernel's design and bound
 is in ``csrc/fused_ffn.cu``.
 
+The W8A8 extraction options follow the TPU kernel: ``w8a8`` quantises the
+fp32 LN output per row to int8 and multiplies by an int8 Wi (per output
+channel), ``h = bf16(acc * sa * swi)``; ``w8a8_wo`` quantises the fp32
+``gelu(a) * b`` row over all F columns and multiplies by an int8 Wo. The
+quantised weights may be passed in (``wi_q``/``wo_q`` = (codes, scales) from
+:func:`~cm3p_torch.ops.quant.quantize_weight_int8`, made once per model) or
+are made from ``wi``/``wo`` on the fly. The int8 forms count their launches
+on :func:`fused_ln_ffn_q`'s counter, the bf16 form on :func:`fused_ln_ffn`'s.
+
 The kernel is the no-grad path. Under autograd :class:`LnFfnFunction` runs the
 JAX package's training composition (``_ln_ffn_fwd``: LN in fp32, matmuls in
 the activation dtype, saving ``x`` and the pre-split ``h``) and its analytic
 backward (``_ln_ffn_bwd``), with these rounding points: gelu(a) * b and the
 elementwise backward in fp32, ``dh`` and every matmul input in the activation
-dtype, the weight gradients of the two products in the activation dtype (the
-JAX package accumulates them to fp32; the difference is one rounding of a
-gradient that Muon orthogonalises in bf16).
+dtype, the weight gradients of the two products accumulated and returned in
+fp32 (``preferred_element_type=float32`` in ``_ln_ffn_bwd``).
 """
 from __future__ import annotations
 
@@ -33,12 +41,25 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .quant import int8_matmul, quant_rows_int8, quantize_weight_int8
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "cm3p_fused_ln_ffn": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P],
+    "cm3p_fused_ln_ffn_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                            ctypes.c_int, ctypes.c_int, _P],
 }
 KERNEL_WIDTHS = (256, 512, 768)
+
+
+def ffn_fusable(d_model: int, d_ff: int) -> bool:
+    """The JAX package's shape rule for its fused MLP kernel (lane-aligned widths).
+
+    The port's MLP half-block always goes through :func:`fused_ln_ffn`; this
+    only decides whether the W8A8 options apply to a layer, since the JAX
+    package falls back to its exact unfused MLP at other shapes.
+    """
+    return d_model % 128 == 0 and d_ff % 128 == 0
 
 
 def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
@@ -50,29 +71,33 @@ def layer_norm_f32(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.T
     return y + bias.float() if bias is not None else y
 
 
-def fused_ln_ffn_plain(x, scale, bias, wi, wo, eps: float):
+def fused_ln_ffn_plain(x, scale, bias, wi, wo, eps: float, w8a8: bool = False, w8a8_wo: bool = False,
+                       wi_q=None, wo_q=None):
     """Plain PyTorch version of :func:`fused_ln_ffn`, with the kernel's rounding points."""
     dt = x.dtype
-    y = layer_norm_f32(x, scale, bias, eps).to(dt)
-    h = (y.float() @ wi.to(dt).float().t()).to(dt)
     f = wo.shape[1]
-    g = (F.gelu(h[..., :f].float()) * h[..., f:].float()).to(dt)
-    o = (g.float() @ wo.to(dt).float().t()).to(dt)
+    y = layer_norm_f32(x, scale, bias, eps)
+    if w8a8:
+        wiq, swi = wi_q if wi_q is not None else quantize_weight_int8(wi)
+        q, sa = quant_rows_int8(y)
+        h = (int8_matmul(q, wiq) * sa * swi).to(dt)
+    else:
+        h = (y.to(dt).float() @ wi.to(dt).float().t()).to(dt)
+    gf = F.gelu(h[..., :f].float()) * h[..., f:].float()
+    if w8a8_wo:
+        woq, swo = wo_q if wo_q is not None else quantize_weight_int8(wo)
+        gq, sg = quant_rows_int8(gf)
+        o = (int8_matmul(gq, woq) * sg * swo).to(dt)
+    else:
+        o = (gf.to(dt).float() @ wo.to(dt).float().t()).to(dt)
     return x + o
 
 
-def _check(x, scale, bias, wi, wo):
-    d = x.shape[-1]
-    f = wo.shape[-1] if wo.dim() == 2 else -1
-    for name, t in (("x", x), ("wi", wi), ("wo", wo)):
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"{name} must lie on x's CUDA device")
-        if t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous bfloat16")
+def _check_common(x, scale, bias, d, f):
+    if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous bfloat16 CUDA tensor")
     if d not in KERNEL_WIDTHS or f % 64 or f <= 0:
         raise ValueError(f"the kernel takes D in {KERNEL_WIDTHS} and F a multiple of 64, got D={d}, F={f}")
-    if wi.shape != (2 * f, d) or wo.shape != (d, f):
-        raise ValueError(f"wi must be (2F, D) and wo (D, F), got {tuple(wi.shape)}, {tuple(wo.shape)}")
     for name, t in (("scale", scale), ("bias", bias)):
         if t is None and name == "bias":
             continue
@@ -80,10 +105,29 @@ def _check(x, scale, bias, wi, wo):
             raise ValueError(f"{name} must be contiguous float32 (D,) on x's device")
 
 
-def fused_ln_ffn(x, scale, bias, wi, wo, eps: float):
-    """``x + Wo(gelu(a) * b)`` with ``[a | b] = Wi(LN(x))`` over (..., D)."""
+def _check_weight(name, w, shape, dtype, device):
+    if w.device != device or w.dtype != dtype or not w.is_contiguous() or tuple(w.shape) != shape:
+        raise ValueError(f"{name} must be contiguous {dtype} of shape {shape} on x's device, got "
+                         f"{w.dtype} {tuple(w.shape)} on {w.device}")
+
+
+def _check(x, scale, bias, wi, wo):
+    d = x.shape[-1]
+    f = wo.shape[-1] if wo.dim() == 2 else -1
+    _check_common(x, scale, bias, d, f)
+    _check_weight("wi", wi, (2 * f, d), torch.bfloat16, x.device)
+    _check_weight("wo", wo, (d, f), torch.bfloat16, x.device)
+
+
+def fused_ln_ffn(x, scale, bias, wi, wo, eps: float, w8a8: bool = False, w8a8_wo: bool = False,
+                 wi_q=None, wo_q=None):
+    """``x + Wo(gelu(a) * b)`` with ``[a | b] = Wi(LN(x))`` over (..., D).
+
+    ``w8a8`` / ``w8a8_wo`` select the int8 forms (see the module docstring)."""
     if x.device.type == "cpu":
-        return fused_ln_ffn_plain(x, scale, bias, wi, wo, eps)
+        return fused_ln_ffn_plain(x, scale, bias, wi, wo, eps, w8a8, w8a8_wo, wi_q, wo_q)
+    if w8a8 or w8a8_wo:
+        return fused_ln_ffn_q(x, scale, bias, wi, wo, eps, w8a8, w8a8_wo, wi_q, wo_q)
     _check(x, scale, bias, wi, wo)
     d = x.shape[-1]
     rows = x.numel() // d
@@ -99,6 +143,66 @@ def fused_ln_ffn(x, scale, bias, wi, wo, eps: float):
 
 
 fused_ln_ffn.launches = 0
+
+
+def fused_ln_ffn_q(x, scale, bias, wi, wo, eps: float, w8a8: bool = True, w8a8_wo: bool = False,
+                   wi_q=None, wo_q=None, codes_y=None, codes_g=None):
+    """The int8 forms of :func:`fused_ln_ffn` on a CUDA tensor (the kernel or an error).
+
+    A weight whose option is on is passed to the kernel as int8 codes with its
+    fp32 per-channel scales, the other as bf16. ``codes_y`` (int8, x's shape)
+    and ``codes_g`` (int8, (..., F)) receive the activation codes the kernel
+    used: for comparing its quantisers with the plain version's, not used by
+    the model.
+    """
+    if not (w8a8 or w8a8_wo):
+        raise ValueError("fused_ln_ffn_q needs w8a8 or w8a8_wo; the bf16 form is fused_ln_ffn")
+    d = x.shape[-1]
+    f = wo.shape[-1] if wo.dim() == 2 else -1
+    _check_common(x, scale, bias, d, f)
+    swi = swo = None
+    if w8a8:
+        wi, swi = wi_q if wi_q is not None else quantize_weight_int8(wi)
+        _check_weight("wi scales", swi, (2 * f,), torch.float32, x.device)
+    if w8a8_wo:
+        wo, swo = wo_q if wo_q is not None else quantize_weight_int8(wo)
+        _check_weight("wo scales", swo, (d,), torch.float32, x.device)
+    _check_weight("wi", wi, (2 * f, d), torch.int8 if w8a8 else torch.bfloat16, x.device)
+    _check_weight("wo", wo, (d, f), torch.int8 if w8a8_wo else torch.bfloat16, x.device)
+    for name, t, width in (("codes_y", codes_y, d), ("codes_g", codes_g, f)):
+        if t is not None and (t.dtype != torch.int8 or t.shape != x.shape[:-1] + (width,) or t.device != x.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int8 (..., {width}) on x's device")
+    rows = x.numel() // d
+    out = torch.empty_like(x)
+    err = _build.library("fused_ffn", _SIGNATURES).cm3p_fused_ln_ffn_q(
+        x.data_ptr(), scale.data_ptr(), None if bias is None else bias.data_ptr(),
+        wi.data_ptr(), None if swi is None else swi.data_ptr(),
+        wo.data_ptr(), None if swo is None else swo.data_ptr(), out.data_ptr(),
+        None if codes_y is None else codes_y.data_ptr(), None if codes_g is None else codes_g.data_ptr(),
+        rows, d, f, float(eps), int(w8a8), int(w8a8_wo),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "cm3p_fused_ln_ffn_q")
+    fused_ln_ffn_q.launches += 1
+    return out
+
+
+fused_ln_ffn_q.launches = 0
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` accumulated and returned in fp32 (a weight gradient for an fp32 master).
+
+    bf16 operands on CUDA go through ``torch.mm(..., out_dtype=float32)`` where
+    this PyTorch has it (no upcast copies); otherwise the operands are upcast,
+    which gives the same sums (a bf16 x bf16 product is exact in fp32).
+    """
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda and hasattr(torch.ops.aten.mm, "dtype"):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
 
 
 _SQRT_HALF = 0.7071067811865476
@@ -141,10 +245,10 @@ class LnFfnFunction(torch.autograd.Function):
         gb = (a * gate).to(dt)
         go = go.contiguous()
         g2 = go.reshape(-1, d)
-        dwo = g2.t() @ gb.reshape(-1, f)
+        dwo = _mm_f32(g2.t(), gb.reshape(-1, f))
         dgb = (go @ wo.to(dt)).float()
         dh = torch.cat([dgb * gate * _gelu_grad(inp), dgb * a], dim=-1).to(dt)
-        dwi = dh.reshape(-1, 2 * f).t() @ yb.reshape(-1, d)
+        dwi = _mm_f32(dh.reshape(-1, 2 * f).t(), yb.reshape(-1, d))
         dy = (dh @ wi.to(dt)).float()
         rows = tuple(range(dy.dim() - 1))
         dscale = (dy * xhat).sum(dim=rows)

@@ -7,11 +7,28 @@ Imports torch only (no JAX), so it also runs where JAX is absent:
 plain versions), and exactly 0 on queries that see no key. The backward
 kernels: 1e-2 of the largest gradient entry (bf16 outputs, p and ds rounded
 to bf16 before their products in both), lse 1e-3 abs (fp32 statistics).
+The int8 forms: 2e-2 abs on the outputs; the activation codes a kernel
+exports may differ from the plain quantiser's by one at most (LN's reduction
+order can move a value across a .5 boundary), on a share of 1e-3 at most.
 """
 import pytest
 import torch
 
-from cm3p_torch.ops import KERNELS, fused_ln_ffn, fused_ln_ffn_plain, launch_counts, reset_launch_counts
+from cm3p_torch.ops import (
+    KERNELS,
+    fused_ln_ffn,
+    fused_ln_ffn_plain,
+    fused_ln_ffn_q,
+    fused_ln_matmul,
+    fused_ln_matmul_plain,
+    fused_ln_matmul_q,
+    fused_ln_matmul_q_plain,
+    launch_counts,
+    layer_norm_f32,
+    quant_rows_int8,
+    quantize_weight_int8,
+    reset_launch_counts,
+)
 from cm3p_torch.ops.attention import (
     _attention_bwd_plain,
     attention_delta,
@@ -26,6 +43,7 @@ from cm3p_torch.ops.attention import (
 )
 
 ATOL = 2e-2
+CODE_SHARE_MAX = 1e-3
 _NONE = {name: 0 for name in KERNELS}
 
 
@@ -200,4 +218,105 @@ def test_backward_wrappers_on_cpu_take_the_plain_version_and_launch_nothing():
     assert torch.equal(window_attention_dq(q, k, v, dout, lse, delta, seg, seg, 16), want[0])
     dk, dv = window_attention_dkv(q, k, v, dout, lse, delta, seg, seg, 16)
     assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+    assert launch_counts() == _NONE
+
+
+ROWS = 4037  # not a multiple of the 64- and 32-row tiles
+ZERO_ROWS = slice(1000, 1100)
+
+
+def _rows_and_weight(d, n_out, gen, device):
+    x = (0.5 * torch.randn(ROWS, d, generator=gen, device=device)).to(torch.bfloat16)
+    x[ZERO_ROWS] = 0
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=device)
+    w = (0.02 * torch.randn(n_out, d, generator=gen, device=device)).to(torch.bfloat16)
+    return x, scale, w
+
+
+def _assert_codes_agree(got, want):
+    diff = (got.short() - want.short()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) <= CODE_SHARE_MAX
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d, n_out, with_ln, with_bias", [
+    (768, 2304, True, False), (512, 1536, True, False), (768, 768, False, False), (512, 512, False, False),
+    (768, 2304, True, True), (256, 768, True, True), (256, 256, False, False),
+])
+def test_fused_ln_matmul_kernels_match_plain(cuda, d, n_out, with_ln, with_bias):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x, scale, w = _rows_and_weight(d, n_out, gen, cuda)
+    res = None if with_ln else (0.5 * torch.randn(ROWS, n_out, generator=gen, device=cuda)).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(d, generator=gen, device=cuda) if with_bias else None
+    kw = dict(scale=scale if with_ln else None, bias=bias, residual=res)
+    w_q = quantize_weight_int8(w)
+    codes = torch.empty_like(x, dtype=torch.int8)
+    reset_launch_counts()
+    got = fused_ln_matmul(x, w, **kw)
+    got_q = fused_ln_matmul_q(x, w, w_q=w_q, codes_out=codes, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, "fused_ln_matmul": 1, "fused_ln_matmul_q": 1}
+    assert (got.float() - fused_ln_matmul_plain(x, w, **kw).float()).abs().max().item() <= ATOL
+    assert (got_q.float() - fused_ln_matmul_q_plain(x, w, w_q=w_q, **kw).float()).abs().max().item() <= ATOL
+    assert torch.isfinite(got).all() and torch.isfinite(got_q).all()
+    if not with_bias:  # a zero row gives a zero product: the residual, or 0
+        want_zero = 0 if res is None else res[ZERO_ROWS].float()
+        assert (got[ZERO_ROWS].float() - want_zero).abs().max().item() == 0.0
+        assert (got_q[ZERO_ROWS].float() - want_zero).abs().max().item() == 0.0
+    y = layer_norm_f32(x, scale, bias, 1e-5) if with_ln else x.float()
+    _assert_codes_agree(codes, quant_rows_int8(y)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w8a8, w8a8_wo", [(True, False), (True, True), (False, True)])
+@pytest.mark.parametrize("d, f", [(768, 1152), (512, 1024), (256, 512)])
+def test_fused_ffn_int8_forms_match_plain(cuda, d, f, w8a8, w8a8_wo):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x, scale, wi = _rows_and_weight(d, 2 * f, gen, cuda)
+    wo = (0.02 * torch.randn(d, f, generator=gen, device=cuda)).to(torch.bfloat16)
+    kw = dict(w8a8=w8a8, w8a8_wo=w8a8_wo, wi_q=quantize_weight_int8(wi) if w8a8 else None,
+              wo_q=quantize_weight_int8(wo) if w8a8_wo else None)
+    codes_y = torch.empty(ROWS, d, dtype=torch.int8, device=cuda) if w8a8 else None
+    reset_launch_counts()
+    got = fused_ln_ffn_q(x, scale, None, wi, wo, 1e-5, **kw, codes_y=codes_y)
+    again = fused_ln_ffn(x, scale, None, wi, wo, 1e-5, **kw)  # the public wrapper routes to the same kernel
+    want = fused_ln_ffn_plain(x, scale, None, wi, wo, 1e-5, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, "fused_ln_ffn_q": 2}
+    assert torch.equal(got, again)
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[ZERO_ROWS], x[ZERO_ROWS])
+    if w8a8:
+        _assert_codes_agree(codes_y, quant_rows_int8(layer_norm_f32(x, scale, None, 1e-5))[0])
+
+
+@pytest.mark.gpu
+def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(8, 768, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(768, 768, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_ln_matmul(x.float(), w.float())
+    with pytest.raises(ValueError, match="multiple of"):
+        fused_ln_matmul(x, w[:100].contiguous())
+    with pytest.raises(ValueError, match="D in"):
+        fused_ln_matmul_q(x[:, :384].contiguous(), w[:, :384].contiguous())
+    with pytest.raises(ValueError, match="residual"):
+        fused_ln_matmul(x, w, residual=x[:4])
+    with pytest.raises(ValueError, match="w8a8"):
+        fused_ln_ffn_q(x, torch.ones(768, device=cuda), None, w, w, 1e-5, w8a8=False, w8a8_wo=False)
+
+
+def test_quant_wrappers_on_cpu_take_the_plain_version_and_launch_nothing():
+    gen = torch.Generator().manual_seed(11)
+    x, scale, w = _rows_and_weight(128, 256, gen, "cpu")
+    wo = (0.02 * torch.randn(128, 128, generator=gen)).to(torch.bfloat16)
+    reset_launch_counts()
+    assert torch.equal(fused_ln_matmul(x, w, scale=scale), fused_ln_matmul_plain(x, w, scale=scale))
+    assert torch.equal(fused_ln_matmul_q(x, w, scale=scale), fused_ln_matmul_q_plain(x, w, scale=scale))
+    assert torch.equal(
+        fused_ln_ffn(x, scale, None, w, wo, 1e-5, w8a8=True, w8a8_wo=True),
+        fused_ln_ffn_plain(x, scale, None, w, wo, 1e-5, w8a8=True, w8a8_wo=True),
+    )
     assert launch_counts() == _NONE

@@ -226,3 +226,145 @@ class TestBeatmapFeatures:
 
 def test_model_class_is_the_port():
     assert isinstance(load_model(tiny_cm3p_config(), device="cpu"), CM3PBeatmapModel)
+
+
+# ----------------------------------------------------------- extraction options
+
+
+def _options_case(seed=0, layers=3, length=160):
+    """A tower the fused routes accept (widths multiples of 128): layer 0 global
+    without pre-norm, then local and global layers with one."""
+    from cm3p_tpu.configs import MetadataConfig as JaxMetadataConfig
+    from cm3p_torch.configs import MetadataConfig
+
+    kw = dict(
+        vocab_size=128, hidden_size=128, num_hidden_layers=layers, num_attention_heads=2, intermediate_size=128,
+        max_position_embeddings=256, global_attn_every_n_layers=2, local_attention=128,
+    )
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 128, (2, length)).astype(np.int32)
+    mask = np.ones((2, length), np.int32)
+    mask[1, length - 30:] = 0
+    return JaxMetadataConfig(**kw), MetadataConfig(**kw), ids, mask
+
+
+_OPTION_SETS = {
+    "exact": {},
+    "w8a8": dict(w8a8=True),
+    "lnmm": dict(fused_lnmm_qkv=True, fused_lnmm_wo=True),
+    "w8a8+lnmm": dict(w8a8=True, fused_lnmm_qkv=True, fused_lnmm_wo=True),
+    "w8a8+w8a8_wo+lnmm": dict(w8a8=True, w8a8_wo=True, fused_lnmm_qkv=True, fused_lnmm_wo=True),
+    "w8a8_wo+lnmm_wo": dict(w8a8_wo=True, fused_lnmm_wo=True),
+}
+
+
+def _set_jax_gates(monkeypatch, fields):
+    """The JAX package reads its options from module constants (set from the environment at import)."""
+    import functools
+
+    import jax.experimental.pallas as pl
+
+    from cm3p_tpu.ops import flash_attention as fa
+    from cm3p_tpu.ops import fused_ffn as jffn
+    from cm3p_tpu.ops import fused_ln_matmul as lnmm
+
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    monkeypatch.setattr(lnmm, "FUSED_LNMM_QKV_ENABLED", fields.get("fused_lnmm_qkv", False))
+    monkeypatch.setattr(lnmm, "FUSED_LNMM_WO_ENABLED", fields.get("fused_lnmm_wo", False))
+    monkeypatch.setattr(lnmm, "W8A8_ENABLED", fields.get("w8a8", False))
+    monkeypatch.setattr(jffn, "W8A8_WO_ENABLED", fields.get("w8a8_wo", False))
+    monkeypatch.setattr(fa, "FUSED_WO_ENABLED", False)  # the Wo epilogue of the attention kernels is not ported
+
+
+class TestEncoderOptions:
+    @pytest.mark.parametrize("name", sorted(_OPTION_SETS))
+    def test_encoder_with_options_matches_jax_gates(self, name, monkeypatch):
+        """The port's encoder with each option set against the JAX encoder (Pallas
+        kernels in interpret mode) with the matching gates, fp32, non-padding
+        positions. Exact routes: 2e-4. Quantised routes: an int8 code may land
+        on the other side of a rounding boundary (summation order), which moves
+        a hidden value by about a hundredth of the row's largest: 5e-2 absolute
+        and cosine >= 0.9999 per position."""
+        from cm3p_torch.models import EncoderOptions
+
+        fields = _OPTION_SETS[name]
+        jcfg, tcfg, ids, mask = _options_case()
+        _set_jax_gates(monkeypatch, fields)
+        jenc = JaxEncoder(jcfg, dtype=jnp.float32, attn_impl="pallas")
+        kw = dict(input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+        params = jenc.init(jax.random.PRNGKey(2), **kw)
+        expected = np.asarray(jenc.apply(params, **kw))
+
+        enc = ModernBertEncoder(tcfg).eval()
+        enc.load_state_dict(encoder_state_dict_from_jax(jax.tree.map(np.asarray, params)["params"]))
+        enc.set_options(EncoderOptions(**fields))
+        with torch.no_grad():
+            got = enc(input_ids=torch.as_tensor(ids, dtype=torch.int64), attention_mask=torch.as_tensor(mask)).numpy()
+        valid = mask > 0
+        quantised = fields.get("w8a8") or fields.get("w8a8_wo")
+        np.testing.assert_allclose(got[valid], expected[valid], atol=5e-2 if quantised else 2e-4, rtol=1e-4)
+        assert _cos(got[valid], expected[valid]).min() >= (0.9999 if quantised else COS_MIN)
+
+    def test_bf16_route_combinations_agree(self):
+        """Every (fused_lnmm_qkv, fused_lnmm_wo) combination gives the same encoder
+        output: the routes differ in where the work is done, not in the math
+        (the JAX package's ``TestGateCombos`` property, for the port)."""
+        import itertools
+
+        from cm3p_torch.models import EncoderOptions
+
+        _, tcfg, ids, mask = _options_case(seed=1)
+        enc = ModernBertEncoder(tcfg).eval()
+        args = dict(input_ids=torch.as_tensor(ids, dtype=torch.int64), attention_mask=torch.as_tensor(mask))
+        outs = []
+        with torch.no_grad():
+            for qkv_on, wo_on in itertools.product([False, True], repeat=2):
+                enc.set_options(EncoderOptions(fused_lnmm_qkv=qkv_on, fused_lnmm_wo=wo_on))
+                outs.append(enc(**args))
+        for out in outs[1:]:
+            torch.testing.assert_close(out, outs[0], atol=1e-5, rtol=0)
+
+    def test_quantised_options_change_the_output_and_grad_mode_ignores_them(self):
+        from cm3p_torch.models import EncoderOptions
+
+        _, tcfg, ids, mask = _options_case(seed=2)
+        enc = ModernBertEncoder(tcfg).eval()
+        args = dict(input_ids=torch.as_tensor(ids, dtype=torch.int64), attention_mask=torch.as_tensor(mask))
+        with torch.no_grad():
+            exact = enc(**args)
+            enc.set_options(EncoderOptions(w8a8=True, w8a8_wo=True, fused_lnmm_qkv=True, fused_lnmm_wo=True))
+            quant = enc(**args)
+        assert not torch.equal(exact, quant)
+        assert _cos(quant.numpy()[mask > 0], exact.numpy()[mask > 0]).min() > 0.999
+        trained = enc(**args)  # autograd on: the exact unfused modules, whatever the options
+        torch.testing.assert_close(trained.detach(), exact, atol=1e-5, rtol=0)
+
+    def test_int8_weights_are_cached_and_follow_the_parameters(self):
+        from cm3p_torch.models import EncoderOptions
+
+        _, tcfg, ids, mask = _options_case(seed=3, layers=2, length=64)
+        enc = ModernBertEncoder(tcfg).eval()
+        enc.set_options(EncoderOptions(w8a8=True))
+        args = dict(input_ids=torch.as_tensor(ids, dtype=torch.int64), attention_mask=torch.as_tensor(mask))
+        layer = enc.layers[1]
+        with torch.no_grad():
+            first = enc(**args)
+            cached = layer._quantised["Wi"][1][0]
+            enc(**args)
+            assert layer._quantised["Wi"][1][0] is cached  # made once, not per forward
+            state = {k: v.clone() for k, v in enc.state_dict().items()}
+            state["layers.1.mlp.Wi.weight"] *= 0.5
+            enc.load_state_dict(state)
+            second = enc(**args)
+        assert layer._quantised["Wi"][1][0] is not cached  # remade after the parameters were loaded again
+        assert not torch.equal(first, second)
+
+    def test_model_options_reach_both_towers(self):
+        from cm3p_torch.models import EncoderOptions
+
+        model = load_model(tiny_cm3p_config(), device="cpu", options=EncoderOptions(w8a8=True, fused_lnmm_wo=True))
+        for enc in model.encoders():
+            assert enc.options.w8a8 and enc.options.fused_lnmm_wo
+            assert all(layer.options is enc.options for layer in enc.layers)
+        model.set_options(EncoderOptions())
+        assert not any(layer.options.w8a8 for enc in model.encoders() for layer in enc.layers)

@@ -175,7 +175,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 _PORT_FILES = sorted(
-    p for p in (REPO / "cm3p_torch").rglob("*") if p.suffix in (".py", ".cu") and "_build" not in p.parts
+    p for p in (REPO / "cm3p_torch").rglob("*") if p.suffix in (".py", ".cu", ".cuh") and "_build" not in p.parts
 )
 
 
@@ -186,3 +186,50 @@ def test_port_sources_import_no_jax(path):
         assert not _imported_roots(path) & _FORBIDDEN_ROOTS
     if path.parent != REPO:  # chip_smoke.py may name the TPU kernels it reports on
         assert "cm3p_tpu" not in path.read_text()
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in _PORT_FILES if p.suffix == ".py"], ids=lambda p: str(p.relative_to(REPO))
+)
+def test_port_reads_no_environment_option(path):
+    """The JAX package takes its options from ``CM3P_*`` environment variables;
+    the port takes them as arguments (``EncoderOptions``) and reads none."""
+    text = path.read_text()
+    tree = ast.parse(text, filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and node.value.startswith("CM3P_"):
+            # naming a variable in prose is fine; using it as a key is not
+            assert "\n" in node.value or " " in node.value, f"{path}: reads {node.value!r}"
+    env_reads = [
+        node for node in ast.walk(tree)
+        if isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv")
+        and isinstance(node.value, ast.Name) and node.value.id == "os"
+    ]
+    assert not env_reads, f"{path}: reads the environment"
+
+
+_LAZY_ONLY = {"pandas", "pyarrow", "safetensors"}
+
+
+@pytest.mark.parametrize(
+    "path", [p for p in _PORT_FILES if p.suffix == ".py"] + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_port_imports_dataframe_packages_only_inside_functions(path):
+    """pandas, pyarrow and safetensors may be missing where the port runs: no module imports them at import time."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            assert not {a.name.split(".")[0] for a in node.names} & _LAZY_ONLY, path
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            assert node.module.split(".")[0] not in _LAZY_ONLY, path
+    assert "safetensors" not in _imported_roots(path)  # the port has its own reader and writer
+
+
+def test_port_covers_the_new_modules():
+    names = {str(p.relative_to(REPO)) for p in _PORT_FILES}
+    for rel in ("cm3p_torch/extract.py", "cm3p_torch/ops/quant.py", "cm3p_torch/ops/fused_ln_matmul.py",
+                "cm3p_torch/csrc/fused_ln_matmul.cu", "cm3p_torch/interop/safetensors_io.py",
+                "cm3p_torch/interop/hf_config.py", "cm3p_torch/data/loader.py",
+                "cm3p_torch/data/beatmap_files_dataset.py", "cm3p_torch/data/data_utils.py"):
+        assert rel in names, rel

@@ -143,6 +143,16 @@ def test_training_dispatch_rotates_outside_and_counter_rotates():
 
 
 def test_ffn_backward_matches_jax_vjp():
+    """fp32: 1e-4 of the largest entry. bf16 activations with fp32 master weights:
+    the weight gradients are fp32 products of bf16 operands (not rounded to
+    bf16), as ``_ln_ffn_bwd`` asks; 1e-2 of the largest entry, since an
+    operand that rounds to the other bf16 neighbour in one framework moves a
+    sum by 2^-9 of one summand."""
+    for dtype in ("float32", "bfloat16"):
+        _check_ffn_backward(dtype)
+
+
+def _check_ffn_backward(dtype):
     rng = np.random.default_rng(3)
     rows, d, f = 37, 64, 96
     x = rng.standard_normal((rows, d)).astype(np.float32)
@@ -150,18 +160,25 @@ def test_ffn_backward_matches_jax_vjp():
     wi = (0.1 * rng.standard_normal((d, 2 * f))).astype(np.float32)  # flax (in, out)
     wo = (0.1 * rng.standard_normal((f, d))).astype(np.float32)
     g = rng.standard_normal((rows, d)).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
     out_j, vjp = jax.vjp(
         lambda x_, s_, wi_, wo_: jax_fused_ln_ffn(x_, s_, None, wi_, wo_, eps=1e-5),
-        *(jnp.asarray(a) for a in (x, scale, wi, wo)),
+        jnp.asarray(x, jdt), *(jnp.asarray(a) for a in (scale, wi, wo)),
     )
-    dx_j, ds_j, dwi_j, dwo_j = (np.asarray(a) for a in vjp(jnp.asarray(g)))
-    xt, st = _t(x).requires_grad_(), _t(scale).requires_grad_()
+    dx_j, ds_j, dwi_j, dwo_j = (np.asarray(a, np.float32) for a in vjp(jnp.asarray(g, jdt)))
+    xt, st = _t(x).to(tdt).requires_grad_(), _t(scale).requires_grad_()
     wit, wot = _t(wi.T.copy()).requires_grad_(), _t(wo.T.copy()).requires_grad_()
     out = LnFfnFunction.apply(xt, st, None, wit, wot, 1e-5)
-    dx, ds, dwi, dwo = torch.autograd.grad(out, (xt, st, wit, wot), _t(g))
-    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j), atol=1e-5)
+    dx, ds, dwi, dwo = torch.autograd.grad(out, (xt, st, wit, wot), _t(g).to(tdt))
+    assert dwi.dtype == torch.float32 and dwo.dtype == torch.float32 and dx.dtype == tdt
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(out.detach().float().numpy(), np.asarray(out_j, np.float32),
+                               atol=1e-5 if dtype == "float32" else 2e-2)
     for got, want in ((dx, dx_j), (ds, ds_j), (dwi, dwi_j.T), (dwo, dwo_j.T)):
-        np.testing.assert_allclose(got.numpy(), want, atol=1e-4 * np.abs(want).max())
+        np.testing.assert_allclose(got.float().numpy(), want, atol=tol * np.abs(want).max())
+    if dtype == "bfloat16":
+        for grad in (dwi, dwo):  # fp32 sums, not bf16 values: almost none is representable in bf16
+            assert (grad.bfloat16().float() != grad).float().mean() > 0.9
 
 
 @pytest.mark.parametrize("shape", ["2d", "3d"])
