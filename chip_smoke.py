@@ -58,7 +58,10 @@ Phases (any failure exits non-zero; nothing is skipped):
                shape for the times. Tolerance 2e-2 abs; the int8 activation
                codes the kernels export may differ from the plain quantiser's
                by one at most, on a share of 1e-3 at most (5e-2 for
-               ``gelu(a) * b`` behind a bf16 Wi product).
+               ``gelu(a) * b`` behind a bf16 Wi product). Each form that a setting of
+               phase 8 runs (with LN / the out-projection with its residual;
+               the FFN with a bf16 / an int8 Wo) is counted, timed and bounded
+               on its own and has its own entry in the ``kernels`` line.
   8. extraction - a seeded full-width bundle through ``save_pretrained`` and
                ``load_pretrained`` (bit-equal), the 17 maps as folders with
                audio files through the worker loader, then
@@ -66,8 +69,8 @@ Phases (any failure exits non-zero; nothing is skipped):
                fused LN-matmul routes) and in the tool's settings A
                (``w8a8``), B (A + fused LN-matmul QKV and Wo) and C (B +
                ``w8a8_wo``): exact launch counts per forward, per-window
-               cosine >= 0.999 to the all-plain path with the same options,
-               drift to exact bf16 held to cosine >= 0.99, one unit-norm
+               cosine >= 0.9999 to the all-plain path with the same options,
+               drift to exact bf16 held to cosine >= 0.9995, one unit-norm
                embedding per beatmap, windows/s and tokens/s, a profiler
                breakdown of one pass.
 
@@ -76,7 +79,6 @@ last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
 """
 from __future__ import annotations
 
-import argparse
 import glob
 import itertools
 import json
@@ -118,6 +120,10 @@ KERNEL_SOURCES = {
     "fused_ln_matmul": ("cm3p_torch/csrc/fused_ln_matmul.cu", "cm3p_tpu/ops/fused_ln_matmul.py:79"),
     "fused_ln_matmul_q": ("cm3p_torch/csrc/fused_ln_matmul.cu", "cm3p_tpu/ops/fused_ln_matmul.py:276"),
     "fused_ln_ffn_q": ("cm3p_torch/csrc/fused_ffn.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
+    # further forms of the three kernels above, each counted, timed and bounded on its own
+    "fused_ln_matmul_wo": ("cm3p_torch/csrc/fused_ln_matmul.cu", "cm3p_tpu/ops/fused_ln_matmul.py:79"),
+    "fused_ln_matmul_q_wo": ("cm3p_torch/csrc/fused_ln_matmul.cu", "cm3p_tpu/ops/fused_ln_matmul.py:276"),
+    "fused_ln_ffn_q_wo": ("cm3p_torch/csrc/fused_ffn.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
 }
 
 
@@ -658,18 +664,25 @@ def train_slice(torch, ops, dev, batch, batch2, map_dirs):
 INT8_OPS_PER_S = 1979e12  # H100 SXM, dense
 CODE_SHARE_MAX = 1e-3   # share of int8 codes that may differ by one where only LN's reduction order differs
 G_CODE_SHARE_MAX = 5e-2  # the same for gelu(a) * b codes behind a bf16 Wi product (h flips at bf16 roundings)
-DRIFT_COS_MIN = 0.99    # int8 settings against exact bf16, per window, at seeded random weights
+# Phase 8's limits are set from readings at these seeded weights on an H100 (kernel path to plain path min
+# 0.999971, drift min 0.999957 in the int8 settings): 1 - cosine may grow about 3x and 10x before a run fails, so
+# a wrong scale or rounding in a quantiser shows. The tool's documented drift of 0.99998 is the published
+# model's; random weights need not reach it.
+EXTRACT_COS_MIN = 0.9999  # kernel path against the all-plain path with the same options, per window
+DRIFT_COS_MIN = 0.9995    # int8 settings against exact bf16, per window
 EXTRACT_ATTENTION = {"segment_attention": 8 + 2, "window_attention": 14 + 4}
-# per forward: 22 + 6 MLP half-blocks; QKV on every layer but layer 0 of each tower (21 + 5); Wo on all 28
+# per forward: 22 + 6 MLP half-blocks; QKV on every layer but layer 0 of each tower (21 + 5); Wo on all 28.
+# Launches are counted by form: "_wo" is the LN-matmul without LN (out-projection + residual), and the FFN
+# with an int8 Wo.
 EXTRACT_SETTINGS = {
     "precise": (dict(), {"fused_ln_ffn": 28}),
     "precise + fused_lnmm": (dict(fused_lnmm_qkv=True, fused_lnmm_wo=True),
-                             {"fused_ln_ffn": 28, "fused_ln_matmul": 26 + 28}),
+                             {"fused_ln_ffn": 28, "fused_ln_matmul": 26, "fused_ln_matmul_wo": 28}),
     "A": (dict(w8a8=True), {"fused_ln_ffn_q": 28}),
     "B": (dict(w8a8=True, fused_lnmm_qkv=True, fused_lnmm_wo=True),
-          {"fused_ln_ffn_q": 28, "fused_ln_matmul_q": 26, "fused_ln_matmul": 28}),
+          {"fused_ln_ffn_q": 28, "fused_ln_matmul_q": 26, "fused_ln_matmul_wo": 28}),
     "C": (dict(w8a8=True, w8a8_wo=True, fused_lnmm_qkv=True, fused_lnmm_wo=True),
-          {"fused_ln_ffn_q": 28, "fused_ln_matmul_q": 26 + 28}),
+          {"fused_ln_ffn_q_wo": 28, "fused_ln_matmul_q": 26, "fused_ln_matmul_q_wo": 28}),
 }
 
 
@@ -714,7 +727,8 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows):
     from cm3p_torch.ops.fused_ffn import fused_ln_ffn_q, layer_norm_f32
     from cm3p_torch.ops.quant import quant_rows_int8, quantize_weight_int8
 
-    errs = {"fused_ln_matmul": 0.0, "fused_ln_matmul_q": 0.0, "fused_ln_ffn_q": 0.0}
+    errs = dict.fromkeys(("fused_ln_matmul", "fused_ln_matmul_wo", "fused_ln_matmul_q", "fused_ln_matmul_q_wo",
+                          "fused_ln_ffn_q", "fused_ln_ffn_q_wo"), 0.0)
     rows_small = 4037  # not a multiple of the 64- and 32-row tiles
     zero = slice(1000, 1100)  # a block of all-zero rows
 
@@ -730,6 +744,7 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows):
     log("  fused LN-matmul, bf16 and W8A8 forms (max abs difference; tolerance %g)" % TOL)
     for d, n_out, with_ln in ((768, 2304, True), (512, 1536, True), (768, 768, False), (512, 512, False)):
         form = "LN -> QKV" if with_ln else "Wo + residual"
+        suffix = "" if with_ln else "_wo"
         for rows in (rows_small, full_rows if d == 768 else full_rows // 4):
             x, scale, w = inputs(rows, d, n_out)
             res = None if with_ln else (0.5 * torch.randn(rows, n_out, generator=gen, device=dev)).to(torch.bfloat16)
@@ -752,8 +767,8 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows):
                 _code_report(f"{form} {d} activation codes", codes, quant_rows_int8(y)[0], CODE_SHARE_MAX)
                 if not (err <= TOL and err_q <= TOL and finite and zero_out == 0.0):
                     fail(f"fused_ln_matmul disagrees with its plain version ({form}, D={d})")
-                errs["fused_ln_matmul"] = max(errs["fused_ln_matmul"], err)
-                errs["fused_ln_matmul_q"] = max(errs["fused_ln_matmul_q"], err_q)
+                errs["fused_ln_matmul" + suffix] = max(errs["fused_ln_matmul" + suffix], err)
+                errs["fused_ln_matmul_q" + suffix] = max(errs["fused_ln_matmul_q" + suffix], err_q)
                 del got, want, got_q, want_q, codes, y
             else:
                 ms = cuda_ms(lambda: ops.fused_ln_matmul(x, w, **kw), 5)
@@ -766,9 +781,10 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows):
                 log(f"    {form} {d} -> {n_out}, {rows} rows: bf16 {ms:.3f} ms (plain {plain:.3f}, bound {b:.3f} {by}"
                     f"{'' if lib is None else f', torch.addmm {lib:.3f}'}); W8A8 {ms_q:.3f} ms (plain {plain_q:.3f}, "
                     f"bound {bq:.3f} {byq})")
-                if d == 768 and with_ln:
-                    report["fused_ln_matmul"] = (ms, plain, b, by, None)
-                    report["fused_ln_matmul_q"] = (ms_q, plain_q, bq, byq, None)
+                if d == 768:
+                    # one PyTorch call gives the bf16 out-projection form (addmm); none fuses LN or the quantiser
+                    report["fused_ln_matmul" + suffix] = (ms, plain, b, by, lib)
+                    report["fused_ln_matmul_q" + suffix] = (ms_q, plain_q, bq, byq, None)
             del x, w, res, w_q
 
     log("  fused LN-FFN, int8 forms (max abs difference; tolerance %g)" % TOL)
@@ -805,7 +821,8 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows):
                                      CODE_SHARE_MAX if w8a8 else G_CODE_SHARE_MAX, rows_ok)
                     if not (err <= TOL and bool(torch.isfinite(got).all()) and zero_out == 0.0):
                         fail(f"fused_ln_ffn_q ({form}) disagrees with its plain version at D={d}")
-                    errs["fused_ln_ffn_q"] = max(errs["fused_ln_ffn_q"], err)
+                    kname = "fused_ln_ffn_q_wo" if w8a8_wo else "fused_ln_ffn_q"
+                    errs[kname] = max(errs[kname], err)
                     del got, want, y, h
                 else:
                     ms = cuda_ms(lambda: ops.fused_ln_ffn(*args, **kw), 5)
@@ -814,8 +831,8 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows):
                     exact_ms = cuda_ms(lambda: ops.fused_ln_ffn(*args), 5)
                     log(f"    {form} D {d} F {f}, {rows} rows: {ms:.3f} ms (plain {plain:.3f}, bound {b:.3f} {by}; "
                         f"the bf16 form on the same inputs {exact_ms:.3f} ms)")
-                    if d == 768 and w8a8 and not w8a8_wo:
-                        report["fused_ln_ffn_q"] = (ms, plain, b, by, None)
+                    if d == 768 and w8a8:  # the two forms the tool's settings run
+                        report["fused_ln_ffn_q_wo" if w8a8_wo else "fused_ln_ffn_q"] = (ms, plain, b, by, None)
                 del x, wi, wo, wi_q, wo_q
     return errs, report
 
@@ -885,7 +902,7 @@ def extract_slice(torch, ops, dev, maps, waves, exact, tmp):
     n_audio = sum("input_features" in s for s in samples)
     log(f"  loader: {len(samples)} windows from {len(maps)} folders with 4 worker processes in {t_load:.1f} s "
         f"({len(samples) / t_load:.1f} windows/s on the host), {n_audio} with audio")
-    if n_audio != len(samples) or (exact is not None and len(samples) != exact[0].shape[0]):
+    if n_audio != len(samples) or len(samples) != exact[0].shape[0]:
         fail("the file loader did not give every window of the 17 maps with its audio")
 
     def run(plain):
@@ -921,26 +938,24 @@ def extract_slice(torch, ops, dev, maps, waves, exact, tmp):
         vecs = np.stack([emb[k] for k in sorted(emb)])
         norms = np.linalg.norm(vecs, axis=1)
         log(f"    {len(emb)} beatmaps, norms in [{norms.min():.6f}, {norms.max():.6f}]; per-window cosine to the "
-            f"all-plain path with the same options min {cos.min():.6f} (need >= {COS_MIN})")
+            f"all-plain path with the same options min {cos.min():.6f} (need >= {EXTRACT_COS_MIN})")
         if len(emb) != len(maps) or not np.isfinite(vecs).all() or np.abs(norms - 1).max() > 1e-3:
             fail(f"setting {label}: not one finite unit-norm embedding per beatmap")
-        if not bool((cos >= COS_MIN).all()):
+        if not bool((cos >= EXTRACT_COS_MIN).all()):
             fail(f"setting {label}: kernel path and plain path disagree")
         if label == "precise":
             precise_windows = windows
-            if exact is not None:
-                ref, map_ids = exact
-                # phase 4 processed the maps in order; worker processes deliver them in any order
-                got = torch.cat([torch.as_tensor(windows[k]) for k in map_ids])
-                c4 = cosines(got, ref)
-                log(f"    per-window cosine to phase 4's packed forward (other packing, same windows) min {c4.min():.6f}")
-                if not bool((c4 >= COS_MIN).all()):
-                    fail("the extraction entry point and phase 4 disagree on exact bf16 embeddings")
+            ref, map_ids = exact
+            # phase 4 processed the maps in order; worker processes deliver them in any order
+            got = torch.cat([torch.as_tensor(windows[k]) for k in map_ids])
+            c4 = cosines(got, ref)
+            log(f"    per-window cosine to phase 4's packed forward (other packing, same windows) min {c4.min():.6f}")
+            if not bool((c4 >= COS_MIN).all()):
+                fail("the extraction entry point and phase 4 disagree on exact bf16 embeddings")
         else:
             drift = window_cos(windows, precise_windows)
             log(f"    drift: per-window cosine to the exact unfused bf16 setting min {drift.min():.6f}, mean "
-                f"{drift.mean():.6f} (held to >= {DRIFT_COS_MIN}: seeded random weights, so the published "
-                f"model's drift need not be reached)")
+                f"{drift.mean():.6f} (held to >= {DRIFT_COS_MIN})")
             if not bool((drift >= DRIFT_COS_MIN).all()):
                 fail(f"setting {label}: drift from exact bf16 beyond the limit")
         dev_s = max(stats["device_ms"], 1e-9) / 1e3
@@ -952,13 +967,7 @@ def extract_slice(torch, ops, dev, maps, waves, exact, tmp):
     return total
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phases", default=None,
-                        help="comma-separated phases to run besides the build (default: all), e.g. 7,8")
-    ns = parser.parse_args(argv)
-    phases = set(range(2, 9)) if ns.phases is None else {int(x) for x in ns.phases.split(",")}
-    early = bool(phases & set(range(2, 7)))
+def main() -> int:
     try:
         import torch
     except ImportError:
@@ -1035,182 +1044,178 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     kernels, errs = [], {}
     main_counts = {name: 0 for name in ops.KERNELS}
-    exact = None  # phase 4's exact-bf16 window embeddings with the maps' beatmap ids in its order
-    if early:
-        # ---- host: v8_packed training batches from the same 17 maps
-        from cm3p_torch.train.__main__ import CONFIG_DIR, beatmap_file_batches, beatmap_paths
-        from cm3p_torch.train.__main__ import build_processor as build_train_processor
-        from cm3p_torch.utils.config import load_config
+    # ---- host: v8_packed training batches from the same 17 maps
+    from cm3p_torch.train.__main__ import CONFIG_DIR, beatmap_file_batches, beatmap_paths
+    from cm3p_torch.train.__main__ import build_processor as build_train_processor
+    from cm3p_torch.utils.config import load_config
 
-        t0 = time.perf_counter()
-        map_dirs = [ROOT / "resources", ROOT / "resources" / "perf_corpus"]
-        train_args = load_config(CONFIG_DIR, "v8_packed", [])
-        train_proc = build_train_processor(train_args)
-        paths = beatmap_paths([str(d) for d in map_dirs])
-        if len(paths) != 17:
-            fail(f"expected 17 training maps, found {len(paths)}")
-        train_batch = next(iter(beatmap_file_batches(train_args, train_proc, paths, test=False)()))
-        args2 = load_config(CONFIG_DIR, "v8_packed",
-                            ["training.per_device_train_batch_size=2", "training.packed_max_windows=10"])
-        train_batch2 = next(iter(beatmap_file_batches(args2, train_proc, paths, test=False)()))
-        meta_seg = meta_pack_segments(torch, train_batch, int(train_args["meta_pack"]), dev)
-        log(f"host: v8_packed batches in {time.perf_counter() - t0:.1f} s: {tuple(train_batch['input_ids'].shape)} rows, "
-            f"{int(train_batch['window_valid'].sum())} of {train_batch['window_valid'].shape[0]} window slots, metadata "
-            f"{tuple(train_batch['metadata_ids'].shape)} -> meta_pack rows {tuple(meta_seg.shape)}; 2-row batch "
-            f"{int(train_batch2['window_valid'].sum())} windows")
+    t0 = time.perf_counter()
+    map_dirs = [ROOT / "resources", ROOT / "resources" / "perf_corpus"]
+    train_args = load_config(CONFIG_DIR, "v8_packed", [])
+    train_proc = build_train_processor(train_args)
+    paths = beatmap_paths([str(d) for d in map_dirs])
+    if len(paths) != 17:
+        fail(f"expected 17 training maps, found {len(paths)}")
+    train_batch = next(iter(beatmap_file_batches(train_args, train_proc, paths, test=False)()))
+    args2 = load_config(CONFIG_DIR, "v8_packed",
+                        ["training.per_device_train_batch_size=2", "training.packed_max_windows=10"])
+    train_batch2 = next(iter(beatmap_file_batches(args2, train_proc, paths, test=False)()))
+    meta_seg = meta_pack_segments(torch, train_batch, int(train_args["meta_pack"]), dev)
+    log(f"host: v8_packed batches in {time.perf_counter() - t0:.1f} s: {tuple(train_batch['input_ids'].shape)} rows, "
+        f"{int(train_batch['window_valid'].sum())} of {train_batch['window_valid'].shape[0]} window slots, metadata "
+        f"{tuple(train_batch['metadata_ids'].shape)} -> meta_pack rows {tuple(meta_seg.shape)}; 2-row batch "
+        f"{int(train_batch2['window_valid'].sum())} windows")
 
-        # ---- 2. kernels against their plain versions at the main path's shapes
-        log("[2] kernels vs plain versions (bf16, seeded inputs)")
-        cases = [
-            (f"packed {n_rows}x{ROW_LEN} H12", n_rows, ROW_LEN, 12, seg_packed, False),
-            (f"unpacked {tuple(mask_unpacked.shape)} H12", mask_unpacked.shape[0], mask_unpacked.shape[1], 12,
-             mask_unpacked, True),
-            (f"audio {audio_b}x{audio_l} H8", audio_b, audio_l, 8,
-             torch.ones(audio_b, audio_l, dtype=torch.int32, device=dev), True),
-        ]
-        errs = check_kernels(torch, ops, cases, gen, meta_seg.numel())
+    # ---- 2. kernels against their plain versions at the main path's shapes
+    log("[2] kernels vs plain versions (bf16, seeded inputs)")
+    cases = [
+        (f"packed {n_rows}x{ROW_LEN} H12", n_rows, ROW_LEN, 12, seg_packed, False),
+        (f"unpacked {tuple(mask_unpacked.shape)} H12", mask_unpacked.shape[0], mask_unpacked.shape[1], 12,
+         mask_unpacked, True),
+        (f"audio {audio_b}x{audio_l} H8", audio_b, audio_l, 8,
+         torch.ones(audio_b, audio_l, dtype=torch.int32, device=dev), True),
+    ]
+    errs = check_kernels(torch, ops, cases, gen, meta_seg.numel())
 
-        # ---- 3. the slice end to end
-        log("[3] slice: full-width CM3PConfig, seeded random bf16 weights")
-        cfg = CM3PConfig()
-        cfg.beatmap_config.vocab_size = tok.vocab_size
-        cfg.beatmap_config.audio_token_id = tok.audio_token_id
-        t0 = time.perf_counter()
-        model = load_model(cfg, init_weights(cfg, torch.Generator(device=dev).manual_seed(0)), device=dev)
-        torch.cuda.synchronize()
-        log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, built in {time.perf_counter() - t0:.1f} s")
+    # ---- 3. the slice end to end
+    log("[3] slice: full-width CM3PConfig, seeded random bf16 weights")
+    cfg = CM3PConfig()
+    cfg.beatmap_config.vocab_size = tok.vocab_size
+    cfg.beatmap_config.audio_token_id = tok.audio_token_id
+    t0 = time.perf_counter()
+    model = load_model(cfg, init_weights(cfg, torch.Generator(device=dev).manual_seed(0)), device=dev)
+    torch.cuda.synchronize()
+    log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, built in {time.perf_counter() - t0:.1f} s")
 
+    ops.reset_launch_counts()
+    emb_unpacked = embed_beatmap(model, proc, bundled, audio=waves[bundled], mean_pool=False, device=dev, **WINDOW_KW)
+    torch.cuda.synchronize()
+    for k, v in expect_counts(ops, "unpacked embed_beatmap", 1).items():
+        main_counts[k] += v
+    model.set_plain(True)
+    ops.reset_launch_counts()
+    ref_unpacked = embed_beatmap(model, proc, bundled, audio=waves[bundled], mean_pool=False, device=dev, **WINDOW_KW)
+    model.set_plain(False)
+    if any(ops.launch_counts().values()):
+        fail("the plain path launched a kernel")
+    check_embeddings(torch, "unpacked", emb_unpacked, ref_unpacked)
+
+    batch = dict(
+        input_ids=torch.as_tensor(packed["input_ids"], dtype=torch.int64, device=dev),
+        segment_ids=seg_packed,
+        window_rows=torch.as_tensor(packed["window_to_row"], dtype=torch.int64, device=dev),
+        window_segments=torch.as_tensor(packed["window_segment"], dtype=torch.int64, device=dev),
+        input_features=torch.as_tensor(feats, device=dev),
+    )
+    with torch.no_grad():
         ops.reset_launch_counts()
-        emb_unpacked = embed_beatmap(model, proc, bundled, audio=waves[bundled], mean_pool=False, device=dev, **WINDOW_KW)
+        emb_packed = model.get_packed_beatmap_features(**batch, normalize=True)
         torch.cuda.synchronize()
-        for k, v in expect_counts(ops, "unpacked embed_beatmap", 1).items():
+        for k, v in expect_counts(ops, "packed get_packed_beatmap_features", 1).items():
             main_counts[k] += v
         model.set_plain(True)
-        ops.reset_launch_counts()
-        ref_unpacked = embed_beatmap(model, proc, bundled, audio=waves[bundled], mean_pool=False, device=dev, **WINDOW_KW)
+        ref_packed = model.get_packed_beatmap_features(**batch, normalize=True)
         model.set_plain(False)
-        if any(ops.launch_counts().values()):
-            fail("the plain path launched a kernel")
-        check_embeddings(torch, "unpacked", emb_unpacked, ref_unpacked)
+    check_embeddings(torch, "packed", emb_packed.cpu(), ref_packed.cpu())
+    # the exact-bf16 window embeddings with the maps' beatmap ids in this order, for phase 8
+    exact = (emb_packed.float().cpu(), [int(load_beatmap(path).beatmap_id) for path in maps])
+    n_bundled = emb_unpacked.shape[0]
+    cross = cosines(emb_packed[:n_bundled].cpu(), torch.as_tensor(emb_unpacked))
+    log(f"  packed vs unpacked, bundled map's {n_bundled} windows: cosine min {cross.min():.6f}")
+    if not bool((cross >= COS_MIN).all()):
+        fail("packed and unpacked embeddings of the same windows disagree")
+    del ref_packed
 
-        batch = dict(
-            input_ids=torch.as_tensor(packed["input_ids"], dtype=torch.int64, device=dev),
-            segment_ids=seg_packed,
-            window_rows=torch.as_tensor(packed["window_to_row"], dtype=torch.int64, device=dev),
-            window_segments=torch.as_tensor(packed["window_segment"], dtype=torch.int64, device=dev),
-            input_features=torch.as_tensor(feats, device=dev),
-        )
-        with torch.no_grad():
-            ops.reset_launch_counts()
-            emb_packed = model.get_packed_beatmap_features(**batch, normalize=True)
-            torch.cuda.synchronize()
-            for k, v in expect_counts(ops, "packed get_packed_beatmap_features", 1).items():
-                main_counts[k] += v
-            model.set_plain(True)
-            ref_packed = model.get_packed_beatmap_features(**batch, normalize=True)
-            model.set_plain(False)
-        check_embeddings(torch, "packed", emb_packed.cpu(), ref_packed.cpu())
-        exact = (emb_packed.float().cpu(), [int(load_beatmap(path).beatmap_id) for path in maps])
-        n_bundled = emb_unpacked.shape[0]
-        cross = cosines(emb_packed[:n_bundled].cpu(), torch.as_tensor(emb_unpacked))
-        log(f"  packed vs unpacked, bundled map's {n_bundled} windows: cosine min {cross.min():.6f}")
-        if not bool((cross >= COS_MIN).all()):
-            fail("packed and unpacked embeddings of the same windows disagree")
-        del ref_packed
+    # ---- 4. times
+    log("[4] times (CUDA events; packed beatmap shape unless named)")
+    with torch.no_grad():
+        t_fwd = cuda_ms(lambda: model.get_packed_beatmap_features(**batch, normalize=True), 3) / 1e3
+    log(f"  packed path: {n_windows / t_fwd:.2f} windows/s, {n_tokens / t_fwd:.0f} tokens/s "
+        f"({t_fwd * 1e3:.1f} ms per forward of {n_windows} windows, {n_rows} rows, audio included)")
+    device_breakdown(torch, lambda: model.get_packed_beatmap_features(**batch, normalize=True))
 
-        # ---- 4. times
-        log("[4] times (CUDA events; packed beatmap shape unless named)")
-        with torch.no_grad():
-            t_fwd = cuda_ms(lambda: model.get_packed_beatmap_features(**batch, normalize=True), 3) / 1e3
-        log(f"  packed path: {n_windows / t_fwd:.2f} windows/s, {n_tokens / t_fwd:.0f} tokens/s "
-            f"({t_fwd * 1e3:.1f} ms per forward of {n_windows} windows, {n_rows} rows, audio included)")
-        device_breakdown(torch, lambda: model.get_packed_beatmap_features(**batch, normalize=True))
+    from cm3p_torch.ops.attention import segment_attention_plain, window_attention_plain
 
-        from cm3p_torch.ops.attention import segment_attention_plain, window_attention_plain
+    b, length, heads = n_rows, ROW_LEN, 12
+    qkv = torch.randn(b, length, 3, heads, 64, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    kernels = []
+    for kname, window, theta in (("window_attention", 64, 10000.0), ("segment_attention", None, 160000.0)):
+        if window:
+            run = lambda: ops.window_attention(q, k, v, seg_packed, seg_packed, window, theta)  # noqa: E731
+            plain = lambda: window_attention_plain(q, k, v, seg_packed, seg_packed, window, theta)  # noqa: E731
+        else:
+            run = lambda: ops.segment_attention(q, k, v, seg_packed, seg_packed, theta)  # noqa: E731
+            plain = lambda: segment_attention_plain(q, k, v, seg_packed, seg_packed, theta)  # noqa: E731
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(plain, 1)
+        lib_ms = sdpa_ms(q, k, v, seg_packed, window, 5)
+        pairs = visible_pairs(seg_packed, window)
+        bound, bound_by = attention_bound_ms(b, length, heads, 64, pairs)
+        kernels.append((kname, ms, plain_ms, bound, bound_by, lib_ms))
+    del qkv, q, k, v
+    rows = n_rows * ROW_LEN
+    x = (0.5 * torch.randn(rows, 768, generator=gen, device=dev)).to(torch.bfloat16)
+    mlp = model.beatmap_model.encoder.layers[1]
+    args = (x, mlp.mlp_norm.weight, None, mlp.mlp.Wi.weight, mlp.mlp.Wo.weight, 1e-5)
+    ms = cuda_ms(lambda: ops.fused_ln_ffn(*args), 5)
+    plain_ms = cuda_ms(lambda: ops.fused_ln_ffn_plain(*args), 1)
+    bound, bound_by = ffn_bound_ms(rows, 768, 1152)
+    kernels.append(("fused_ln_ffn", ms, plain_ms, bound, bound_by, None))
+    del x
 
-        b, length, heads = n_rows, ROW_LEN, 12
-        qkv = torch.randn(b, length, 3, heads, 64, generator=gen, device=dev).to(torch.bfloat16)
-        q, k, v = qkv.unbind(2)
-        kernels = []
-        for kname, window, theta in (("window_attention", 64, 10000.0), ("segment_attention", None, 160000.0)):
-            if window:
-                run = lambda: ops.window_attention(q, k, v, seg_packed, seg_packed, window, theta)  # noqa: E731
-                plain = lambda: window_attention_plain(q, k, v, seg_packed, seg_packed, window, theta)  # noqa: E731
-            else:
-                run = lambda: ops.segment_attention(q, k, v, seg_packed, seg_packed, theta)  # noqa: E731
-                plain = lambda: segment_attention_plain(q, k, v, seg_packed, seg_packed, theta)  # noqa: E731
-            ms = cuda_ms(run, 20)
-            plain_ms = cuda_ms(plain, 1)
-            lib_ms = sdpa_ms(q, k, v, seg_packed, window, 5)
-            pairs = visible_pairs(seg_packed, window)
-            bound, bound_by = attention_bound_ms(b, length, heads, 64, pairs)
-            kernels.append((kname, ms, plain_ms, bound, bound_by, lib_ms))
-        del qkv, q, k, v
-        rows = n_rows * ROW_LEN
-        x = (0.5 * torch.randn(rows, 768, generator=gen, device=dev)).to(torch.bfloat16)
-        mlp = model.beatmap_model.encoder.layers[1]
-        args = (x, mlp.mlp_norm.weight, None, mlp.mlp.Wi.weight, mlp.mlp.Wo.weight, 1e-5)
-        ms = cuda_ms(lambda: ops.fused_ln_ffn(*args), 5)
-        plain_ms = cuda_ms(lambda: ops.fused_ln_ffn_plain(*args), 1)
-        bound, bound_by = ffn_bound_ms(rows, 768, 1152)
-        kernels.append(("fused_ln_ffn", ms, plain_ms, bound, bound_by, None))
-        del x
+    audio_q = torch.randn(audio_b, audio_l, 3, 8, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
+    ones = torch.ones(audio_b, audio_l, dtype=torch.int32, device=dev)
+    xa = (0.5 * torch.randn(audio_b * audio_l, 512, generator=gen, device=dev)).to(torch.bfloat16)
+    amlp = model.beatmap_model.audio_encoder.encoder.layers[1]
+    log("  audio tower shapes: window %.3f ms, segment %.3f ms, fused_ln_ffn %.3f ms" % (
+        cuda_ms(lambda: ops.window_attention(*audio_q, ones, ones, 64, 10000.0), 10),
+        cuda_ms(lambda: ops.segment_attention(*audio_q, ones, ones, 160000.0), 10),
+        cuda_ms(lambda: ops.fused_ln_ffn(xa, amlp.mlp_norm.weight, None, amlp.mlp.Wi.weight, amlp.mlp.Wo.weight, 1e-5), 5),
+    ))
 
-        audio_q = torch.randn(audio_b, audio_l, 3, 8, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
-        ones = torch.ones(audio_b, audio_l, dtype=torch.int32, device=dev)
-        xa = (0.5 * torch.randn(audio_b * audio_l, 512, generator=gen, device=dev)).to(torch.bfloat16)
-        amlp = model.beatmap_model.audio_encoder.encoder.layers[1]
-        log("  audio tower shapes: window %.3f ms, segment %.3f ms, fused_ln_ffn %.3f ms" % (
-            cuda_ms(lambda: ops.window_attention(*audio_q, ones, ones, 64, 10000.0), 10),
-            cuda_ms(lambda: ops.segment_attention(*audio_q, ones, ones, 160000.0), 10),
-            cuda_ms(lambda: ops.fused_ln_ffn(xa, amlp.mlp_norm.weight, None, amlp.mlp.Wi.weight, amlp.mlp.Wo.weight, 1e-5), 5),
-        ))
+    # ---- 5. backward kernels against the plain backward
+    log("[5] backward kernels and lse vs plain versions (bf16, seeded inputs)")
+    seg10 = torch.as_tensor(train_batch["segment_ids"], device=dev)
+    e_packed, packed_inputs = check_backward(torch, ops, f"packed {tuple(seg10.shape)} H12", seg10, 12, (64, None), gen)
+    e_meta, meta_inputs = check_backward(torch, ops, f"metadata {tuple(meta_seg.shape)} H4", meta_seg, 4, (None,), gen)
+    for kname, err in itertools.chain(e_packed.items(), e_meta.items()):
+        errs[kname] = max(errs.get(kname, 0.0), err)
 
-        # ---- 5. backward kernels against the plain backward
-        log("[5] backward kernels and lse vs plain versions (bf16, seeded inputs)")
-        seg10 = torch.as_tensor(train_batch["segment_ids"], device=dev)
-        e_packed, packed_inputs = check_backward(torch, ops, f"packed {tuple(seg10.shape)} H12", seg10, 12, (64, None), gen)
-        e_meta, meta_inputs = check_backward(torch, ops, f"metadata {tuple(meta_seg.shape)} H4", meta_seg, 4, (None,), gen)
-        for kname, err in itertools.chain(e_packed.items(), e_meta.items()):
-            errs[kname] = max(errs.get(kname, 0.0), err)
-
-        # ---- 6. the training slice
-        log("[6] training: v8_packed at full width (bf16 compute, fp32 masters, Muon)")
-        for kname, n in train_slice(torch, ops, dev, train_batch, train_batch2, map_dirs).items():
-            main_counts[kname] += n
-        log("  times (CUDA events; packed v8 batch shape unless named)")
-        bwd = time_backward(torch, ops, seg10, packed_inputs, 12, f"packed {tuple(seg10.shape)} H12", (64, None))
-        time_backward(torch, ops, meta_seg, meta_inputs, 4, f"metadata {tuple(meta_seg.shape)} H4", (None,))
-        for kname, (ms, plain_ms, bound, bound_by, lib_ms) in bwd.items():
-            kernels.append((kname, ms, plain_ms, bound, bound_by, lib_ms))
-        del packed_inputs, meta_inputs
-        mrows = meta_seg.numel()
-        xm = (0.5 * torch.randn(mrows, 256, generator=gen, device=dev)).to(torch.bfloat16)
-        sm = 1 + 0.1 * torch.randn(256, generator=gen, device=dev)
-        wim = (0.02 * torch.randn(1024, 256, generator=gen, device=dev)).to(torch.bfloat16)
-        wom = (0.02 * torch.randn(256, 512, generator=gen, device=dev)).to(torch.bfloat16)
-        ffn_ms = cuda_ms(lambda: ops.fused_ln_ffn(xm, sm, None, wim, wom, 1e-5), 10)
-        ffn_plain = cuda_ms(lambda: ops.fused_ln_ffn_plain(xm, sm, None, wim, wom, 1e-5), 2)
-        ffn_bound, ffn_by = ffn_bound_ms(mrows, 256, 512)
-        log(f"  fused_ln_ffn at the metadata width ({mrows} rows x 256, F 512): {ffn_ms:.3f} ms, plain {ffn_plain:.3f} ms, "
-            f"bound {ffn_bound:.3f} ms ({ffn_by})")
-        del xm
+    # ---- 6. the training slice
+    log("[6] training: v8_packed at full width (bf16 compute, fp32 masters, Muon)")
+    for kname, n in train_slice(torch, ops, dev, train_batch, train_batch2, map_dirs).items():
+        main_counts[kname] += n
+    log("  times (CUDA events; packed v8 batch shape unless named)")
+    bwd = time_backward(torch, ops, seg10, packed_inputs, 12, f"packed {tuple(seg10.shape)} H12", (64, None))
+    time_backward(torch, ops, meta_seg, meta_inputs, 4, f"metadata {tuple(meta_seg.shape)} H4", (None,))
+    for kname, (ms, plain_ms, bound, bound_by, lib_ms) in bwd.items():
+        kernels.append((kname, ms, plain_ms, bound, bound_by, lib_ms))
+    del packed_inputs, meta_inputs
+    mrows = meta_seg.numel()
+    xm = (0.5 * torch.randn(mrows, 256, generator=gen, device=dev)).to(torch.bfloat16)
+    sm = 1 + 0.1 * torch.randn(256, generator=gen, device=dev)
+    wim = (0.02 * torch.randn(1024, 256, generator=gen, device=dev)).to(torch.bfloat16)
+    wom = (0.02 * torch.randn(256, 512, generator=gen, device=dev)).to(torch.bfloat16)
+    ffn_ms = cuda_ms(lambda: ops.fused_ln_ffn(xm, sm, None, wim, wom, 1e-5), 10)
+    ffn_plain = cuda_ms(lambda: ops.fused_ln_ffn_plain(xm, sm, None, wim, wom, 1e-5), 2)
+    ffn_bound, ffn_by = ffn_bound_ms(mrows, 256, 512)
+    log(f"  fused_ln_ffn at the metadata width ({mrows} rows x 256, F 512): {ffn_ms:.3f} ms, plain {ffn_plain:.3f} ms, "
+        f"bound {ffn_bound:.3f} ms ({ffn_by})")
+    del xm
 
     # ---- 7. the LN-matmul kernels and the int8 FFN forms against their plain versions
-    new_kernels = ("fused_ln_matmul", "fused_ln_matmul_q", "fused_ln_ffn_q")
-    if 7 in phases:
-        log("[7] fused LN-matmul and int8 FFN kernels vs plain versions (bf16 inputs, seeded)")
-        e7, rows7 = check_quant_kernels(torch, ops, gen, dev, n_rows * ROW_LEN)
-        errs.update(e7)
-        for kname in new_kernels:
-            kernels.append((kname, *rows7[kname]))
+    log("[7] fused LN-matmul and int8 FFN kernels vs plain versions (bf16 inputs, seeded)")
+    e7, rows7 = check_quant_kernels(torch, ops, gen, dev, n_rows * ROW_LEN)
+    errs.update(e7)
+    for kname, row in rows7.items():
+        kernels.append((kname, *row))
 
     # ---- 8. the extraction entry point at full width
-    if 8 in phases:
-        log("[8] extraction: save_pretrained -> load_pretrained -> extract_embeddings, full-width CM3PConfig")
-        with tempfile.TemporaryDirectory() as tmp:
-            for kname, n in extract_slice(torch, ops, dev, maps, waves, exact, tmp).items():
-                main_counts[kname] += n
+    log("[8] extraction: save_pretrained -> load_pretrained -> extract_embeddings, full-width CM3PConfig")
+    with tempfile.TemporaryDirectory() as tmp:
+        for kname, n in extract_slice(torch, ops, dev, maps, waves, exact, tmp).items():
+            main_counts[kname] += n
 
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:
@@ -1222,7 +1227,7 @@ def main(argv=None) -> int:
             "launches": main_counts[kname], "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
         })
-    if ns.phases is None and any(r["launches"] == 0 for r in report):
+    if any(r["launches"] == 0 for r in report):
         fail(f"kernels never launched on a main path: {[r['name'] for r in report if r['launches'] == 0]}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": report}))

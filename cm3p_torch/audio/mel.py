@@ -11,46 +11,11 @@ Runs host-side in data workers; the arrays it emits feed the TPU audio tower.
 from __future__ import annotations
 
 
-import os
 from typing import Optional
 
 import numpy as np
 
 from ..utils.io import JsonConfigMixin
-
-# torch.stft alternative backend (set TORCH_STFT = True before the first mel): MKL's batched
-# FFT with fused windowing vs the scipy pipeline. Numerics: same float32
-# rFFT math, |logmel diff| ~1e-6 vs the scipy path — 100x inside the 1e-4
-# Whisper-parity budget (tests/test_audio_parity.py covers both), and
-# sparse==dense bit-exactness holds within the backend. Quiet-machine A/B
-# (2026-08-20, loadavg 0.02, 3 process-isolated alternated runs at the
-# production shape R=256k/total=480k): scipy median 4.0-5.6 ms vs torch
-# 4.9-5.9 ms, global min scipy 3.74 vs torch 4.65 — torch shows no win, so
-# scipy STAYS the default; the gate remains as an escape hatch for hosts
-# where MKL's batched FFT does win.
-# torch is imported lazily on first use so loader workers that never touch
-# audio keep their fast boot (~1 s import on this host).
-TORCH_STFT = False  # the JAX package's CM3P_TORCH_MEL option, as a module setting
-_TORCH = None  # None = not yet probed, False = unavailable/disabled
-
-
-def _torch_stft():
-    global _TORCH
-    if _TORCH is None:
-        if not TORCH_STFT:
-            _TORCH = False
-        else:
-            try:
-                import torch
-
-                # single-threaded: mel runs in per-core loader workers; letting
-                # torch spawn threads only adds contention (and nondeterminism
-                # in timing, not values)
-                torch.set_num_threads(1)
-                _TORCH = torch
-            except Exception:
-                _TORCH = False
-    return _TORCH
 
 
 def hertz_to_mel_slaney(freq: np.ndarray) -> np.ndarray:
@@ -165,21 +130,6 @@ class LogMelExtractor(JsonConfigMixin):
 
     def _stft_power(self, waveform: np.ndarray) -> np.ndarray:
         """Centered power spectrogram, shape (num_frames, 1 + n_fft//2)."""
-        torch = _torch_stft()
-        if torch is not False:
-            spec = torch.stft(
-                torch.from_numpy(np.ascontiguousarray(waveform, dtype=np.float32)),
-                n_fft=self.n_fft,
-                hop_length=self.hop_length,
-                window=torch.from_numpy(self.window),
-                center=True,
-                pad_mode="reflect",
-                return_complex=True,
-            )  # (freq, frames) complex64
-            ri = torch.view_as_real(spec)  # (freq, frames, 2), a view we own
-            power = ri.square_().sum(-1)
-            return power.transpose(0, 1).contiguous().numpy()
-
         from scipy.fft import rfft  # float32-native (numpy's is pathologically slow)
 
         pad = self.n_fft // 2

@@ -4,9 +4,9 @@ The layout: 8 bytes holding the header's length N as a little-endian unsigned
 integer, N bytes of JSON mapping each tensor name to ``{"dtype", "shape",
 "data_offsets": [begin, end]}`` (plus an optional ``"__metadata__"`` map of
 strings), then the tensors' raw little-endian C-contiguous buffers, offsets
-relative to the end of the header. This module handles F64, F32, F16, BF16,
-I64, I32, U8, I8 and BOOL; numpy has no bfloat16, so BF16 tensors are read
-as float32 (exact) and written from float32 with round-to-nearest-even.
+relative to the end of the header. This module handles F32, BF16 and I64, the
+types a checkpoint bundle holds; numpy has no bfloat16, so BF16 tensors are
+read as float32 (exact) and written from float32 with round-to-nearest-even.
 """
 from __future__ import annotations
 
@@ -17,10 +17,7 @@ from typing import Optional, Union
 
 import numpy as np
 
-_DTYPES = {
-    "F64": np.float64, "F32": np.float32, "F16": np.float16, "I64": np.int64, "I32": np.int32,
-    "U8": np.uint8, "I8": np.int8, "BOOL": np.bool_,
-}
+_DTYPES = {"F32": np.float32, "I64": np.int64}
 _NAMES = {np.dtype(v): k for k, v in _DTYPES.items()}
 
 

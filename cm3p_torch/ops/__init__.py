@@ -10,16 +10,19 @@ from .attention import (
     window_attention_dq,
     window_attention_plain,
 )
-from .fused_ffn import fused_ln_ffn, fused_ln_ffn_plain, fused_ln_ffn_q, layer_norm_f32
+from .fused_ffn import fused_ln_ffn, fused_ln_ffn_plain, fused_ln_ffn_q, fused_ln_ffn_q_wo, layer_norm_f32
 from .fused_ln_matmul import (
     fused_ln_matmul,
     fused_ln_matmul_plain,
     fused_ln_matmul_q,
     fused_ln_matmul_q_plain,
+    fused_ln_matmul_q_wo,
+    fused_ln_matmul_wo,
     lnmm_fusable,
 )
 from .quant import int8_matmul, quant_rows_int8, quantize_weight_int8
 
+# one name per kernel, and per form of a kernel whose work differs: what holds each name's launch count
 KERNELS = {
     "window_attention": window_attention,
     "segment_attention": segment_attention,
@@ -31,17 +34,20 @@ KERNELS = {
     "fused_ln_ffn_q": fused_ln_ffn_q,
     "fused_ln_matmul": fused_ln_matmul,
     "fused_ln_matmul_q": fused_ln_matmul_q,
+    "fused_ln_ffn_q_wo": fused_ln_ffn_q_wo,
+    "fused_ln_matmul_wo": fused_ln_matmul_wo,
+    "fused_ln_matmul_q_wo": fused_ln_matmul_q_wo,
 }
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches counted by each wrapper since the last reset."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: counter.launches for name, counter in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for counter in KERNELS.values():
+        counter.launches = 0
 
 
 __all__ = [

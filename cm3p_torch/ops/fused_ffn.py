@@ -184,11 +184,20 @@ def fused_ln_ffn_q(x, scale, bias, wi, wo, eps: float, w8a8: bool = True, w8a8_w
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "cm3p_fused_ln_ffn_q")
-    fused_ln_ffn_q.launches += 1
+    (fused_ln_ffn_q_wo if w8a8_wo else fused_ln_ffn_q).launches += 1
     return out
 
 
-fused_ln_ffn_q.launches = 0
+fused_ln_ffn_q.launches = 0  # the forms with a bf16 Wo
+
+
+class FormLaunches:
+    """Launch count of one further form of a kernel (``ops.KERNELS`` reads and resets it)."""
+
+    launches = 0
+
+
+fused_ln_ffn_q_wo = FormLaunches()  # fused_ln_ffn_q with an int8 Wo: it runs the Wi product twice
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .fused_ffn import KERNEL_WIDTHS, layer_norm_f32
+from .fused_ffn import KERNEL_WIDTHS, FormLaunches, layer_norm_f32
 from .quant import int8_matmul, quant_rows_int8, quantize_weight_int8
 
 _P = ctypes.c_void_p
@@ -39,6 +39,10 @@ _SIGNATURES = {
     "cm3p_ln_matmul_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
 }
 COLUMN_TILE = 128
+
+
+fused_ln_matmul_wo = FormLaunches()  # fused_ln_matmul without LN: the out-projection with its residual
+fused_ln_matmul_q_wo = FormLaunches()  # the same form of fused_ln_matmul_q
 
 
 def lnmm_fusable(d_in: int, d_out: int) -> bool:
@@ -114,7 +118,7 @@ def fused_ln_matmul(x, w, scale=None, bias=None, residual=None, eps: float = 1e-
         rows, d, n, float(eps), int(scale is not None), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "cm3p_ln_matmul")
-    fused_ln_matmul.launches += 1
+    (fused_ln_matmul if scale is not None else fused_ln_matmul_wo).launches += 1
     return out
 
 
@@ -148,7 +152,7 @@ def fused_ln_matmul_q(x, w, scale=None, bias=None, residual=None, eps: float = 1
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "cm3p_ln_matmul_q")
-    fused_ln_matmul_q.launches += 1
+    (fused_ln_matmul_q if scale is not None else fused_ln_matmul_q_wo).launches += 1
     return out
 
 
