@@ -10,12 +10,15 @@ columns and writes a parquet file, optionally merged into an existing one
 (new rows win). Runs on ``cuda`` unless ``--device cpu``; without a GPU it
 raises unless asked for the CPU.
 
-The model computes with the JAX tool's production options unless ``--precise``:
-``w8a8`` (int8 Wi in every MLP half-block). ``--fused-lnmm`` adds the fused
-LN-matmul routes of the QKV and out-projections (int8 QKV under ``w8a8``) and
-``--w8a8-wo`` the int8 Wo forms; see :class:`~cm3p_torch.models.EncoderOptions`.
-The JAX tool's other production default, the Wo epilogue inside the attention
-kernels, changes no number and is not ported yet.
+The model computes with the JAX tool's default options unless ``--precise``:
+``w8a8`` (int8 Wi in every MLP half-block) and ``fused_wo`` (the attention
+kernels apply the out-projection and its residual add themselves, which
+changes no number). ``--precise`` turns both off (exact bf16). ``--no-fused-wo``
+turns the epilogue off (the JAX tool's ``CM3P_FUSED_WO=0``), ``--fused-wo-q``
+runs it in int8, ``--fused-lnmm`` adds the fused LN-matmul routes of the QKV
+and out-projections (int8 QKV under ``w8a8``; the epilogue keeps the
+out-projection where it applies) and ``--w8a8-wo`` the int8 Wo forms; see
+:class:`~cm3p_torch.models.EncoderOptions`.
 
 :func:`extract_embeddings` is the core and needs no pandas; the DataFrame and
 parquet work lives in :func:`write_output`.
@@ -47,7 +50,7 @@ from .processing.processor import CM3PProcessor
 
 logger = logging.getLogger(__name__)
 
-PRODUCTION_OPTIONS = EncoderOptions(w8a8=True)
+DEFAULT_OPTIONS = EncoderOptions(w8a8=True, fused_wo=True)  # the JAX tool's default
 _DROPPED_KEYS = ("metadata_ids", "metadata_attention_mask", "metadata_variation_classes", "labels")
 
 
@@ -321,18 +324,27 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-pack", dest="pack", action="store_false",
                         help="per-window dense batches instead of packed rows")
     parser.add_argument("--precise", action="store_true",
-                        help="exact bf16 math: turn the production option (int8 FFN Wi) off")
+                        help="exact bf16 math: turn the default options (int8 FFN Wi, the attention kernels' "
+                        "out-projection epilogue) off")
+    parser.add_argument("--no-fused-wo", dest="fused_wo", action="store_false",
+                        help="out-projection and residual add outside the attention kernels")
+    parser.add_argument("--fused-wo-q", action="store_true",
+                        help="the attention kernels' out-projection epilogue in int8 (not with --precise or "
+                        "--no-fused-wo)")
     parser.add_argument("--fused-lnmm", action="store_true",
                         help="fused LN-matmul kernels for the QKV projection (int8 unless --precise) and the "
-                        "out-projection with its residual")
+                        "out-projection with its residual where the attention epilogue does not apply")
     parser.add_argument("--w8a8-wo", action="store_true",
                         help="int8 Wo in the MLP and, with --fused-lnmm, in the attention out-projection")
     return parser
 
 
 def options_from_args(ns: argparse.Namespace) -> EncoderOptions:
+    """The tool's options: ``DEFAULT_OPTIONS`` changed by the flags."""
+    fused_wo = ns.fused_wo and not ns.precise
     return EncoderOptions(
-        w8a8=not ns.precise, w8a8_wo=ns.w8a8_wo, fused_lnmm_qkv=ns.fused_lnmm, fused_lnmm_wo=ns.fused_lnmm
+        w8a8=not ns.precise, w8a8_wo=ns.w8a8_wo, fused_lnmm_qkv=ns.fused_lnmm, fused_lnmm_wo=ns.fused_lnmm,
+        fused_wo=fused_wo, fused_wo_q=ns.fused_wo_q and fused_wo,
     )
 
 

@@ -36,11 +36,14 @@ reads from the environment. They act on no-grad forwards only (under
 autograd every projection is the exact unfused module, as in the JAX
 package): ``fused_lnmm_qkv`` sends raw ``x`` and the attention pre-norm's
 parameters to :func:`~cm3p_torch.ops.fused_ln_matmul` (its W8A8 form when
-``w8a8``) on every layer but layer 0, which has no pre-norm; ``fused_lnmm_wo``
-sends the out-projection with its residual there (its W8A8 form when
-``w8a8_wo``); the MLP half-block gets ``w8a8`` / ``w8a8_wo``. int8 weights are
-made from the parameters at first use and again whenever a parameter changes
-(reload, cast, move), never per forward.
+``w8a8``) on every layer but layer 0, which has no pre-norm; the
+out-projection with its residual goes to the attention kernel's epilogue
+(``fused_wo``, int8 with ``fused_wo_q``) where :func:`wo_epilogue` admits it,
+else to the LN-matmul kernel (``fused_lnmm_wo``, its W8A8 form when
+``w8a8_wo``), else to ``residual + x @ Wo^T``; the MLP half-block gets
+``w8a8`` / ``w8a8_wo``. int8 weights are made from the parameters at first use
+and again whenever a parameter changes (reload, cast, move), never per
+forward.
 """
 from __future__ import annotations
 
@@ -63,6 +66,8 @@ from ..ops import (
     layer_norm_f32,
     lnmm_fusable,
     quantize_weight_int8,
+    wo_fusable,
+    wo_shape_ok,
 )
 from ..ops.fused_ffn import LnFfnFunction, ffn_fusable
 
@@ -80,7 +85,14 @@ class EncoderOptions:
     * ``fused_lnmm_qkv`` - ``CM3P_FUSED_LNMM_QKV`` (or the master
       ``CM3P_FUSED_LNMM``): attention pre-norm fused into the QKV projection;
     * ``fused_lnmm_wo`` - ``CM3P_FUSED_LNMM_WO`` (or ``CM3P_FUSED_LNMM``):
-      attention out-projection fused with its residual add.
+      attention out-projection fused with its residual add;
+    * ``fused_wo`` - ``CM3P_FUSED_WO``: the attention kernel applies the
+      out-projection and the residual add itself (``residual + o @ Wo^T``, o
+      never stored); it takes precedence over ``fused_lnmm_wo`` on every layer
+      :func:`wo_epilogue` admits;
+    * ``fused_wo_q`` - ``CM3P_FUSED_WO_Q``: that epilogue in int8 (o quantised
+      per row, int8 Wo per output channel); acts only with ``fused_wo``.
+      ``w8a8_wo`` does not reach the epilogue, as in the JAX package.
 
     The port reads no environment variable: callers pass this object.
     """
@@ -89,9 +101,32 @@ class EncoderOptions:
     w8a8_wo: bool = False
     fused_lnmm_qkv: bool = False
     fused_lnmm_wo: bool = False
+    fused_wo: bool = False
+    fused_wo_q: bool = False
 
 
 EXACT = EncoderOptions()
+
+
+def wo_epilogue(options: EncoderOptions, window: Optional[int], hidden: int, length: int) -> Optional[str]:
+    """The form of the attention kernels' out-projection epilogue that a layer
+    runs under ``options``: "int8", "bf16", or None (no epilogue).
+
+    The JAX package applies the epilogue where its ``wo_fusable`` admits the
+    layer (:func:`~cm3p_torch.ops.wo_fusable`), in int8 iff ``fused_wo_q``. It
+    declines two kinds of layer. Those of another shape (a window wider than
+    the single-pass kernel, widths not multiples of 128) get no epilogue here
+    either. Global layers longer than 2048 tokens decline for the TPU's VMEM
+    alone; the JAX route there is the LN-matmul (int8 iff ``w8a8_wo``) or the
+    exact ``residual + o @ Wo`` in the activation dtype. Where it is exact,
+    the bf16 epilogue gives the same numbers and runs here; where it is int8,
+    the LN-matmul route runs as in the JAX package.
+    """
+    if not options.fused_wo or not wo_shape_ok(window, hidden, hidden, length, length):
+        return None
+    if wo_fusable(window, hidden, hidden, length, length):
+        return "int8" if options.fused_wo_q else "bf16"
+    return None if options.fused_lnmm_wo and options.w8a8_wo else "bf16"
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -127,7 +162,10 @@ class SelfAttention(nn.Module):
                 pre_norm: Optional[LayerNormF32] = None, residual: Optional[torch.Tensor] = None,
                 options: EncoderOptions = EXACT, quantised=None):
         """``pre_norm``: ``x`` is raw and the norm is fused into the QKV projection.
-        ``residual``: the out-projection adds it (the caller must not add it again).
+        ``residual``: the out-projection adds it (the caller must not add it
+        again), by the route of the JAX package's order: the attention
+        kernel's epilogue where :func:`wo_epilogue` gives a form, else the
+        LN-matmul kernel under ``fused_lnmm_wo``, else ``residual + out @ Wo^T``.
         ``quantised(name, weight)`` returns the cached int8 form of a weight."""
         b, length, hidden = x.shape
         dt = x.dtype
@@ -142,10 +180,19 @@ class SelfAttention(nn.Module):
         else:
             qkv = linear(x, self.Wqkv.weight)
         q, k, v = qkv.view(b, length, 3, self.heads, self.head_dim).unbind(dim=2)  # head-minor views, no copies
+        form = wo_epilogue(options, window, hidden, length) if residual is not None else None
+        if form is not None:
+            return attention(
+                q, k, v, key_mask, segment_ids, window, rope_theta, plain=plain, positions=positions,
+                residual=residual, wo=self.Wo.weight.to(dt) if form == "bf16" else None,
+                wo_q=quantised("Wo", self.Wo.weight) if form == "int8" else None,
+            )
         out = attention(q, k, v, key_mask, segment_ids, window, rope_theta, plain=plain, positions=positions)
         out = out.reshape(b, length, hidden)
         if residual is None:
             return linear(out, self.Wo.weight)
+        if not options.fused_lnmm_wo:
+            return residual + linear(out, self.Wo.weight)
         if options.w8a8_wo:
             lnmm_q = fused_ln_matmul_q_plain if plain else fused_ln_matmul_q
             return lnmm_q(out, self.Wo.weight, residual=residual, w_q=quantised("Wo", self.Wo.weight))
@@ -199,7 +246,7 @@ class EncoderLayer(nn.Module):
             return LnFfnFunction.apply(x, norm.weight, norm.bias, mlp.Wi.weight, mlp.Wo.weight, cfg.norm_eps)
         opts = self.options
         fuse_qkv = opts.fused_lnmm_qkv and self.attn_norm is not None and lnmm_fusable(hidden, 3 * hidden)
-        fuse_wo = opts.fused_lnmm_wo and lnmm_fusable(hidden, hidden)
+        fuse_wo = (opts.fused_lnmm_wo or opts.fused_wo) and lnmm_fusable(hidden, hidden)
         attn_in = x if fuse_qkv or self.attn_norm is None else self.attn_norm(x)
         attn_out = self.attn(
             attn_in, key_mask, segment_ids, window, theta, plain=plain, positions=positions,

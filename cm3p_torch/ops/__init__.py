@@ -5,10 +5,20 @@ from .attention import (
     segment_attention_dkv,
     segment_attention_dq,
     segment_attention_plain,
+    segment_attention_wo,
+    segment_attention_wo_plain,
+    segment_attention_wo_q,
+    segment_attention_wo_q_plain,
     window_attention,
     window_attention_dkv,
     window_attention_dq,
     window_attention_plain,
+    window_attention_wo,
+    window_attention_wo_plain,
+    window_attention_wo_q,
+    window_attention_wo_q_plain,
+    wo_fusable,
+    wo_shape_ok,
 )
 from .fused_ffn import fused_ln_ffn, fused_ln_ffn_plain, fused_ln_ffn_q, fused_ln_ffn_q_wo, layer_norm_f32
 from .fused_ln_matmul import (
@@ -37,6 +47,10 @@ KERNELS = {
     "fused_ln_ffn_q_wo": fused_ln_ffn_q_wo,
     "fused_ln_matmul_wo": fused_ln_matmul_wo,
     "fused_ln_matmul_q_wo": fused_ln_matmul_q_wo,
+    "window_attention_wo": window_attention_wo,
+    "window_attention_wo_q": window_attention_wo_q,
+    "segment_attention_wo": segment_attention_wo,
+    "segment_attention_wo_q": segment_attention_wo_q,
 }
 
 
@@ -71,8 +85,18 @@ __all__ = [
     "segment_attention_dkv",
     "segment_attention_dq",
     "segment_attention_plain",
+    "segment_attention_wo",
+    "segment_attention_wo_plain",
+    "segment_attention_wo_q",
+    "segment_attention_wo_q_plain",
     "window_attention",
     "window_attention_dkv",
     "window_attention_dq",
     "window_attention_plain",
+    "window_attention_wo",
+    "window_attention_wo_plain",
+    "window_attention_wo_q",
+    "window_attention_wo_q_plain",
+    "wo_fusable",
+    "wo_shape_ok",
 ]

@@ -24,18 +24,31 @@ that sees no key, as the TPU kernels write). The backward recomputes
 p = exp2(s * log2(e) / sqrt(D) - lse) and gives dq, dk, dv; delta =
 rowsum(dout * out) is formed here in fp32.
 
+The out-projection epilogue (the JAX package's ``CM3P_FUSED_WO`` and
+``CM3P_FUSED_WO_Q`` gates, no-grad only): :func:`window_attention_wo`,
+:func:`segment_attention_wo` and their int8 forms ``..._wo_q`` return
+``residual + o @ Wo^T`` with the rounding points of ``fused_ln_matmul`` (o in
+the activation dtype, fp32 accumulation, cast, then the residual), or of
+``fused_ln_matmul_q`` (o quantised per row over all H*D columns, int8 Wo per
+output channel); o never reaches device memory (``csrc/attention_wo.cu``).
+Their plain versions compose the plain attention with those plain products.
+:func:`wo_fusable` is the JAX package's rule for where its kernels apply the
+epilogue; :func:`wo_shape_ok` is its shape part without the TPU's VMEM limit.
+
 :func:`attention` is the dispatch of ``flash_attention()``: it turns a key
 mask and segment ids into (qseg, kseg). Without autograd it runs the forward
-kernel (rope in the kernel for arange positions). Under autograd it follows
-the JAX training route: rope is applied outside the kernels (autograd of that
-rope is the counter-rotation of dq/dk) and :class:`AttentionFunction` ties the
-forward with lse to the backward kernels.
+kernel (rope in the kernel for arange positions), with ``residual`` its
+epilogue form. Under autograd it follows the JAX training route: rope is
+applied outside the kernels (autograd of that rope is the counter-rotation of
+dq/dk) and :class:`AttentionFunction` ties the forward with lse to the
+backward kernels.
 
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA tensor it
 launches the kernel (``csrc/attention.cu``, ``csrc/attention_bwd.cu``) or
 raises. The plain versions are also the oracle the kernels are held against on
 the card. The source notes on the kernels' design and bound are in the ``.cu``
-files.
+files. The epilogue kernels take H*D in ``WO_KERNEL_WIDTHS`` and an output
+width that is a multiple of 128.
 """
 from __future__ import annotations
 
@@ -47,11 +60,14 @@ from typing import Optional
 import torch
 
 from . import _build
+from .fused_ln_matmul import COLUMN_TILE, fused_ln_matmul_plain, fused_ln_matmul_q_plain
 
 TILE = 64  # query and key tile of csrc/attention.cu and csrc/attention_bwd.cu
 HEAD_DIM = 64  # the kernels' head dim
 LOG2E = 1.4426950408889634
 EMPTY_LSE = math.log2(1e-30)  # lse of a query that sees no key
+WO_KERNEL_WIDTHS = (256, 512, 768)  # H * D that csrc/attention_wo.cu takes
+WO_GLOBAL_MAX_LEN = 2048  # the JAX package's VMEM limit on its global epilogue kernel
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -59,6 +75,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "cm3p_window_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cm3p_segment_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
+_WO_SIGNATURES = {
+    "cm3p_attention_wo": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _P],
 }
 _BWD_ARGTYPES = [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _BWD_SIGNATURES = {
@@ -388,8 +408,151 @@ def segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg):
     return dk, dv
 
 
+# ------------------------------------------------------------ Wo epilogue
+
+
+def wo_shape_ok(window: Optional[int], hd: int, dm: int, lq: int, lk: int) -> bool:
+    """The shape part of :func:`wo_fusable`: square q/k, widths that are
+    multiples of 128, and a window the single-pass kernel takes (at most 128
+    on each side at the dispatcher's 128-row blocks)."""
+    if lq != lk or hd % 128 or dm % 128:
+        return False
+    return window is None or -(-(128 + 2 * window) // 128) + 1 <= 4
+
+
+def wo_fusable(window: Optional[int], hd: int, dm: int, lq: int, lk: int) -> bool:
+    """The JAX package's ``wo_fusable`` at its dispatcher's automatic blocks:
+    where its attention kernels apply the Wo epilogue. Global layers above
+    ``WO_GLOBAL_MAX_LEN`` tokens decline for the TPU's VMEM alone."""
+    return wo_shape_ok(window, hd, dm, lq, lk) and (window is not None or lq <= WO_GLOBAL_MAX_LEN)
+
+
+def window_attention_wo_plain(q, k, v, qseg, kseg, window: int, wo, residual, rope_theta: Optional[float] = None):
+    """Plain version of :func:`window_attention_wo`: the plain attention, then
+    ``fused_ln_matmul_plain(o, wo, residual=residual)``."""
+    o = window_attention_plain(q, k, v, qseg, kseg, window, rope_theta)
+    return fused_ln_matmul_plain(o.flatten(2), wo, residual=residual)
+
+
+def window_attention_wo_q_plain(q, k, v, qseg, kseg, window: int, w_q, residual,
+                                rope_theta: Optional[float] = None):
+    """Plain version of :func:`window_attention_wo_q`: the plain attention, then
+    ``fused_ln_matmul_q_plain(o, None, residual=residual, w_q=w_q)``."""
+    o = window_attention_plain(q, k, v, qseg, kseg, window, rope_theta)
+    return fused_ln_matmul_q_plain(o.flatten(2), None, residual=residual, w_q=w_q)
+
+
+def segment_attention_wo_plain(q, k, v, qseg, kseg, wo, residual, rope_theta: Optional[float] = None):
+    """Plain version of :func:`segment_attention_wo`."""
+    o = segment_attention_plain(q, k, v, qseg, kseg, rope_theta)
+    return fused_ln_matmul_plain(o.flatten(2), wo, residual=residual)
+
+
+def segment_attention_wo_q_plain(q, k, v, qseg, kseg, w_q, residual, rope_theta: Optional[float] = None):
+    """Plain version of :func:`segment_attention_wo_q`."""
+    o = segment_attention_plain(q, k, v, qseg, kseg, rope_theta)
+    return fused_ln_matmul_q_plain(o.flatten(2), None, residual=residual, w_q=w_q)
+
+
+def _check_wo(q, weight, w_dtype, sw, residual, o_out, codes_out):
+    b, length, heads, d = q.shape
+    hd = heads * d
+    n = weight.shape[0]
+    if hd not in WO_KERNEL_WIDTHS:
+        raise ValueError(f"the epilogue kernels take H * D in {WO_KERNEL_WIDTHS}, got {hd}")
+    if (weight.device != q.device or weight.dtype != w_dtype or not weight.is_contiguous()
+            or weight.dim() != 2 or weight.shape[1] != hd or n % COLUMN_TILE or n <= 0):
+        raise ValueError(f"Wo must be contiguous {w_dtype} (N, H * D) with N a multiple of {COLUMN_TILE} on "
+                         f"q's device, got {weight.dtype} {tuple(weight.shape)}")
+    if sw is not None and (sw.device != q.device or sw.dtype != torch.float32 or not sw.is_contiguous()
+                           or sw.shape != (n,)):
+        raise ValueError("the Wo scales must be contiguous float32 (N,) on q's device")
+    if (residual.device != q.device or residual.dtype != torch.bfloat16 or not residual.is_contiguous()
+            or residual.shape != (b, length, n)):
+        raise ValueError("residual must be contiguous bfloat16 (B, L, N) on q's device")
+    for name, t, dt in (("o_out", o_out, torch.bfloat16), ("codes_out", codes_out, torch.int8)):
+        if t is not None and (t.device != q.device or t.dtype != dt or not t.is_contiguous()
+                              or t.numel() != b * length * hd):
+            raise ValueError(f"{name} must be contiguous {dt} with B * L * H * D elements on q's device")
+
+
+def _launch_wo(q, k, v, qseg, kseg, window, weight, sw, residual, rope_theta, o_out, codes_out):
+    _check(q, k, v, qseg, kseg)
+    _check_wo(q, weight, torch.int8 if sw is not None else torch.bfloat16, sw, residual, o_out, codes_out)
+    b, length, heads, _ = q.shape
+    n = weight.shape[0]
+    start, count = segment_tile_ranges(qseg, kseg) if window is None else (None, None)
+    out = torch.empty(b, length, n, dtype=q.dtype, device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _build.library("attention_wo", _WO_SIGNATURES).cm3p_attention_wo(
+        *_common_args(q, k, v, qseg, kseg, rope_theta), ptr(start), ptr(count), weight.data_ptr(), ptr(sw),
+        residual.data_ptr(), out.data_ptr(), ptr(o_out), ptr(codes_out), b, length, heads, n,
+        -1 if window is None else int(window), int(sw is not None), _stream(q),
+    )
+    _build.check(err, "cm3p_attention_wo")
+    return out
+
+
+def _reject_check_outputs_on_cpu(o_out, codes_out):
+    if o_out is not None or codes_out is not None:
+        raise ValueError("o_out and codes_out are outputs of the CUDA kernel")
+
+
+def window_attention_wo(q, k, v, qseg, kseg, window: int, wo, residual, rope_theta: Optional[float] = None,
+                        o_out=None):
+    """``residual + bf16(window_attention(...)) @ wo.T`` in one kernel: (B, L, N).
+
+    ``wo`` (N, H * D) in the activation dtype; ``o_out`` (bf16, B * L * H * D
+    elements) receives the attention output the epilogue used, for checks only.
+    """
+    if q.device.type == "cpu":
+        _reject_check_outputs_on_cpu(o_out, None)
+        return window_attention_wo_plain(q, k, v, qseg, kseg, window, wo, residual, rope_theta)
+    if window < 0:
+        raise ValueError("window must be >= 0")
+    out = _launch_wo(q, k, v, qseg, kseg, window, wo, None, residual, rope_theta, o_out, None)
+    window_attention_wo.launches += 1
+    return out
+
+
+def window_attention_wo_q(q, k, v, qseg, kseg, window: int, w_q, residual, rope_theta: Optional[float] = None,
+                          o_out=None, codes_out=None):
+    """The int8 form of :func:`window_attention_wo`: ``w_q`` = (int8 codes (N, H * D),
+    fp32 scales (N,)); ``codes_out`` (int8) receives the o codes, for checks only."""
+    if q.device.type == "cpu":
+        _reject_check_outputs_on_cpu(o_out, codes_out)
+        return window_attention_wo_q_plain(q, k, v, qseg, kseg, window, w_q, residual, rope_theta)
+    if window < 0:
+        raise ValueError("window must be >= 0")
+    out = _launch_wo(q, k, v, qseg, kseg, window, w_q[0], w_q[1], residual, rope_theta, o_out, codes_out)
+    window_attention_wo_q.launches += 1
+    return out
+
+
+def segment_attention_wo(q, k, v, qseg, kseg, wo, residual, rope_theta: Optional[float] = None, o_out=None):
+    """``residual + bf16(segment_attention(...)) @ wo.T`` in one kernel: (B, L, N)."""
+    if q.device.type == "cpu":
+        _reject_check_outputs_on_cpu(o_out, None)
+        return segment_attention_wo_plain(q, k, v, qseg, kseg, wo, residual, rope_theta)
+    out = _launch_wo(q, k, v, qseg, kseg, None, wo, None, residual, rope_theta, o_out, None)
+    segment_attention_wo.launches += 1
+    return out
+
+
+def segment_attention_wo_q(q, k, v, qseg, kseg, w_q, residual, rope_theta: Optional[float] = None, o_out=None,
+                           codes_out=None):
+    """The int8 form of :func:`segment_attention_wo`."""
+    if q.device.type == "cpu":
+        _reject_check_outputs_on_cpu(o_out, codes_out)
+        return segment_attention_wo_q_plain(q, k, v, qseg, kseg, w_q, residual, rope_theta)
+    out = _launch_wo(q, k, v, qseg, kseg, None, w_q[0], w_q[1], residual, rope_theta, o_out, codes_out)
+    segment_attention_wo_q.launches += 1
+    return out
+
+
 for _fn in (window_attention, segment_attention, window_attention_dq, window_attention_dkv,
-            segment_attention_dq, segment_attention_dkv):
+            segment_attention_dq, segment_attention_dkv, window_attention_wo, window_attention_wo_q,
+            segment_attention_wo, segment_attention_wo_q):
     _fn.launches = 0
 
 
@@ -442,6 +605,9 @@ def attention(
     rope_theta: Optional[float] = None,
     plain: bool = False,
     positions: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    wo: Optional[torch.Tensor] = None,
+    wo_q: Optional[tuple] = None,
 ):
     """The dispatch of ``flash_attention()``: masks -> (qseg, kseg) -> kernel.
 
@@ -451,7 +617,9 @@ def attention(
     ``positions`` (rope positions other than arange) and the autograd route
     rotate q/k here, outside the kernels; otherwise the forward kernel rotates
     them itself. ``plain=True`` runs the plain versions on any device (the
-    oracle).
+    oracle). With ``residual`` (B, L, N) the out-projection epilogue runs and
+    (B, L, N) is returned: its bf16 form with ``wo`` (N, H * D), its int8 form
+    with ``wo_q`` = (codes, scales); no-grad only.
     """
     b, length = q.shape[:2]
     if segment_ids is not None:
@@ -469,7 +637,21 @@ def attention(
         q, k = apply_rope(q, rope_theta, positions), apply_rope(k, rope_theta, positions)
         rope_theta = None
     if train:
+        if residual is not None:
+            raise ValueError("the Wo epilogue is a no-grad route")
         return AttentionFunction.apply(q, k, v, qseg, kseg, window, plain)
+    if residual is not None:
+        if window is not None:
+            if wo_q is not None:
+                fn = window_attention_wo_q_plain if plain else window_attention_wo_q
+                return fn(q, k, v, qseg, kseg, window, wo_q, residual, rope_theta)
+            fn = window_attention_wo_plain if plain else window_attention_wo
+            return fn(q, k, v, qseg, kseg, window, wo, residual, rope_theta)
+        if wo_q is not None:
+            fn = segment_attention_wo_q_plain if plain else segment_attention_wo_q
+            return fn(q, k, v, qseg, kseg, wo_q, residual, rope_theta)
+        fn = segment_attention_wo_plain if plain else segment_attention_wo
+        return fn(q, k, v, qseg, kseg, wo, residual, rope_theta)
     if window is not None:
         fn = window_attention_plain if plain else window_attention
         return fn(q, k, v, qseg, kseg, window, rope_theta)

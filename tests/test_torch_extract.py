@@ -29,7 +29,14 @@ from cm3p_tpu.processing import CM3PProcessor as JaxProcessor
 from cm3p_torch.audio.loading import load_audio_file
 from cm3p_torch.configs import AudioConfig, BeatmapConfig, CM3PConfig, MetadataConfig
 from cm3p_torch.data import BeatmapFilesDataset, SampleLoader
-from cm3p_torch.extract import BeatmapFilesDatasetFactory, extract_embeddings, main, options_from_args, build_parser
+from cm3p_torch.extract import (
+    DEFAULT_OPTIONS,
+    BeatmapFilesDatasetFactory,
+    build_parser,
+    extract_embeddings,
+    main,
+    options_from_args,
+)
 from cm3p_torch.inference import embed_beatmap, load_model, load_pretrained, save_pretrained
 from cm3p_torch.interop import init_weights
 from cm3p_torch.interop.safetensors_io import load_file, save_file
@@ -286,25 +293,35 @@ def test_cli_default_is_the_tools_quantised_setting(bundle, map_folders, tmp_pat
     pytest.importorskip("pyarrow")
     precise = _run_cli(bundle, map_folders, tmp_path / "p.parquet", "--precise", "--no-audio")
     default = _run_cli(bundle, map_folders, tmp_path / "d.parquet", "--no-audio")
+    unfused = _run_cli(bundle, map_folders, tmp_path / "u.parquet", "--no-audio", "--no-fused-wo")
     lnmm = _run_cli(bundle, map_folders, tmp_path / "l.parquet", "--no-audio", "--fused-lnmm", "--w8a8-wo",
                     "--flush-rows", "1", "--num-workers", "2")
+    assert sorted(default) == [9500, 9504]
     for bid in precise:
         assert not np.array_equal(default[bid], precise[bid])  # w8a8 is on unless --precise
         assert _cos(default[bid], precise[bid]) > 0.999
+        np.testing.assert_allclose(np.linalg.norm(default[bid]), 1.0, atol=1e-5)
+        np.testing.assert_allclose(default[bid], unfused[bid], atol=1e-6)  # the bf16 epilogue changes no number
         assert not np.array_equal(lnmm[bid], default[bid])
         assert _cos(lnmm[bid], precise[bid]) > 0.999
 
 
 @pytest.mark.parametrize("argv,want", [
-    ([], EncoderOptions(w8a8=True)),
+    ([], EncoderOptions(w8a8=True, fused_wo=True)),  # the JAX tool's default: CM3P_W8A8=1, CM3P_FUSED_WO=1
     (["--precise"], EncoderOptions()),
-    (["--fused-lnmm"], EncoderOptions(w8a8=True, fused_lnmm_qkv=True, fused_lnmm_wo=True)),
+    (["--fused-lnmm"], EncoderOptions(w8a8=True, fused_lnmm_qkv=True, fused_lnmm_wo=True, fused_wo=True)),
     (["--precise", "--fused-lnmm", "--w8a8-wo"],
      EncoderOptions(w8a8_wo=True, fused_lnmm_qkv=True, fused_lnmm_wo=True)),
+    (["--fused-wo-q"], EncoderOptions(w8a8=True, fused_wo=True, fused_wo_q=True)),
+    (["--no-fused-wo"], EncoderOptions(w8a8=True)),
+    (["--no-fused-wo", "--fused-wo-q"], EncoderOptions(w8a8=True)),  # fused_wo_q acts only with fused_wo
+    (["--precise", "--fused-wo-q"], EncoderOptions()),
 ])
 def test_cli_flags_map_to_encoder_options(argv, want):
     ns = build_parser().parse_args(["--beatmap-files", "x", "--output", "y", *argv])
     assert options_from_args(ns) == want
+    if not argv:
+        assert want == DEFAULT_OPTIONS
 
 
 def test_cli_merge_with_prefers_new_rows(bundle, map_folders, tmp_path):

@@ -10,6 +10,9 @@ to bf16 before their products in both), lse 1e-3 abs (fp32 statistics).
 The int8 forms: 2e-2 abs on the outputs; the activation codes a kernel
 exports may differ from the plain quantiser's by one at most (LN's reduction
 order can move a value across a .5 boundary), on a share of 1e-3 at most.
+The attention kernels with the Wo epilogue: 2e-2 abs on outputs and on the
+attention output they export; the residual exactly on rows that see no key;
+the int8 codes of the exported attention output as for the LN forms.
 """
 import pytest
 import torch
@@ -36,10 +39,18 @@ from cm3p_torch.ops.attention import (
     segment_attention_dkv,
     segment_attention_dq,
     segment_attention_plain,
+    segment_attention_wo,
+    segment_attention_wo_plain,
+    segment_attention_wo_q,
+    segment_attention_wo_q_plain,
     window_attention,
     window_attention_dkv,
     window_attention_dq,
     window_attention_plain,
+    window_attention_wo,
+    window_attention_wo_plain,
+    window_attention_wo_q,
+    window_attention_wo_q_plain,
 )
 
 ATOL = 2e-2
@@ -321,3 +332,64 @@ def test_quant_wrappers_on_cpu_take_the_plain_version_and_launch_nothing():
         fused_ln_ffn_plain(x, scale, None, w, wo, 1e-5, w8a8=True, w8a8_wo=True),
     )
     assert launch_counts() == _NONE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [12, 8, 4])
+@pytest.mark.parametrize("window", [64, None])
+def test_attention_wo_kernels_match_plain(cuda, window, heads):
+    """The four epilogue forms at 2 x 1000 tokens (not a multiple of 64), packed
+    segments with padding rows, H * D 768 / 512 / 256."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    b, length, hd = 2, 1000, heads * 64
+    q, k, v = _qkv(b, length, heads, gen, cuda)
+    seg = torch.zeros(b, length, dtype=torch.int32, device=cuda)
+    seg[0, :300], seg[0, 300:820], seg[1, :450] = 1, 2, 1
+    res = (0.5 * torch.randn(b, length, hd, generator=gen, device=cuda)).to(torch.bfloat16)
+    wo = (0.02 * torch.randn(hd, hd, generator=gen, device=cuda)).to(torch.bfloat16)
+    w_q = quantize_weight_int8(wo)
+    theta = 10000.0 if window else 160000.0
+    o_out = torch.empty(b, length, hd, dtype=torch.bfloat16, device=cuda)
+    codes = torch.empty(b, length, hd, dtype=torch.int8, device=cuda)
+    reset_launch_counts()
+    if window:
+        got = window_attention_wo(q, k, v, seg, seg, window, wo, res, theta)
+        got_q = window_attention_wo_q(q, k, v, seg, seg, window, w_q, res, theta, o_out=o_out, codes_out=codes)
+        want = window_attention_wo_plain(q, k, v, seg, seg, window, wo, res, theta)
+        want_q = window_attention_wo_q_plain(q, k, v, seg, seg, window, w_q, res, theta)
+        want_o = window_attention_plain(q, k, v, seg, seg, window, theta)
+        name = "window_attention_wo"
+    else:
+        got = segment_attention_wo(q, k, v, seg, seg, wo, res, theta)
+        got_q = segment_attention_wo_q(q, k, v, seg, seg, w_q, res, theta, o_out=o_out, codes_out=codes)
+        want = segment_attention_wo_plain(q, k, v, seg, seg, wo, res, theta)
+        want_q = segment_attention_wo_q_plain(q, k, v, seg, seg, w_q, res, theta)
+        want_o = segment_attention_plain(q, k, v, seg, seg, theta)
+        name = "segment_attention_wo"
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, name: 1, name + "_q": 1}
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    assert (got_q.float() - want_q.float()).abs().max().item() <= ATOL
+    assert (o_out.float() - want_o.flatten(2).float()).abs().max().item() <= ATOL
+    dead = seg == 0
+    assert torch.equal(got[dead], res[dead]) and torch.equal(got_q[dead], res[dead])
+    _assert_codes_agree(codes, quant_rows_int8(o_out.float())[0])
+
+
+@pytest.mark.gpu
+def test_attention_wo_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = _qkv(1, 128, 2, gen, cuda)
+    seg = torch.ones(1, 128, dtype=torch.int32, device=cuda)
+    res = torch.zeros(1, 128, 128, dtype=torch.bfloat16, device=cuda)
+    wo = torch.zeros(128, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="H \\* D in"):
+        window_attention_wo(q, k, v, seg, seg, 64, wo, res)
+    q, k, v = _qkv(1, 128, 4, gen, cuda)
+    res = torch.zeros(1, 128, 256, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="Wo must be"):
+        segment_attention_wo(q, k, v, seg, seg, torch.zeros(256, 256, device=cuda), res)
+    with pytest.raises(ValueError, match="residual"):
+        segment_attention_wo(q, k, v, seg, seg, torch.zeros(256, 256, dtype=torch.bfloat16, device=cuda), res[:, :64])
+    with pytest.raises(ValueError, match="Wo must be"):
+        window_attention_wo_q(q, k, v, seg, seg, 64, quantize_weight_int8(wo), res)

@@ -255,6 +255,12 @@ _OPTION_SETS = {
     "w8a8+lnmm": dict(w8a8=True, fused_lnmm_qkv=True, fused_lnmm_wo=True),
     "w8a8+w8a8_wo+lnmm": dict(w8a8=True, w8a8_wo=True, fused_lnmm_qkv=True, fused_lnmm_wo=True),
     "w8a8_wo+lnmm_wo": dict(w8a8_wo=True, fused_lnmm_wo=True),
+    "fused_wo": dict(fused_wo=True),
+    "w8a8+fused_wo": dict(w8a8=True, fused_wo=True),  # the extraction tools' default
+    "w8a8+fused_wo+fused_wo_q": dict(w8a8=True, fused_wo=True, fused_wo_q=True),
+    # the epilogue takes precedence over the LN-matmul Wo route, and w8a8_wo does not reach it
+    "fused_wo+fused_wo_q+lnmm+w8a8_wo": dict(fused_wo=True, fused_wo_q=True, fused_lnmm_qkv=True,
+                                             fused_lnmm_wo=True, w8a8_wo=True),
 }
 
 
@@ -273,7 +279,8 @@ def _set_jax_gates(monkeypatch, fields):
     monkeypatch.setattr(lnmm, "FUSED_LNMM_WO_ENABLED", fields.get("fused_lnmm_wo", False))
     monkeypatch.setattr(lnmm, "W8A8_ENABLED", fields.get("w8a8", False))
     monkeypatch.setattr(jffn, "W8A8_WO_ENABLED", fields.get("w8a8_wo", False))
-    monkeypatch.setattr(fa, "FUSED_WO_ENABLED", False)  # the Wo epilogue of the attention kernels is not ported
+    monkeypatch.setattr(fa, "FUSED_WO_ENABLED", fields.get("fused_wo", False))
+    monkeypatch.setattr(fa, "FUSED_WO_Q", fields.get("fused_wo_q", False))
 
 
 class TestEncoderOptions:
@@ -301,14 +308,14 @@ class TestEncoderOptions:
         with torch.no_grad():
             got = enc(input_ids=torch.as_tensor(ids, dtype=torch.int64), attention_mask=torch.as_tensor(mask)).numpy()
         valid = mask > 0
-        quantised = fields.get("w8a8") or fields.get("w8a8_wo")
+        quantised = fields.get("w8a8") or fields.get("w8a8_wo") or fields.get("fused_wo_q")
         np.testing.assert_allclose(got[valid], expected[valid], atol=5e-2 if quantised else 2e-4, rtol=1e-4)
         assert _cos(got[valid], expected[valid]).min() >= (0.9999 if quantised else COS_MIN)
 
     def test_bf16_route_combinations_agree(self):
-        """Every (fused_lnmm_qkv, fused_lnmm_wo) combination gives the same encoder
-        output: the routes differ in where the work is done, not in the math
-        (the JAX package's ``TestGateCombos`` property, for the port)."""
+        """Every (fused_lnmm_qkv, fused_lnmm_wo, fused_wo) combination gives the
+        same encoder output: the routes differ in where the work is done, not in
+        the math (the JAX package's ``TestGateCombos`` property, for the port)."""
         import itertools
 
         from cm3p_torch.models import EncoderOptions
@@ -318,8 +325,8 @@ class TestEncoderOptions:
         args = dict(input_ids=torch.as_tensor(ids, dtype=torch.int64), attention_mask=torch.as_tensor(mask))
         outs = []
         with torch.no_grad():
-            for qkv_on, wo_on in itertools.product([False, True], repeat=2):
-                enc.set_options(EncoderOptions(fused_lnmm_qkv=qkv_on, fused_lnmm_wo=wo_on))
+            for qkv_on, wo_on, epilogue_on in itertools.product([False, True], repeat=3):
+                enc.set_options(EncoderOptions(fused_lnmm_qkv=qkv_on, fused_lnmm_wo=wo_on, fused_wo=epilogue_on))
                 outs.append(enc(**args))
         for out in outs[1:]:
             torch.testing.assert_close(out, outs[0], atol=1e-5, rtol=0)
