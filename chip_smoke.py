@@ -31,24 +31,37 @@ Phases (any failure exits non-zero; nothing is skipped):
                4096 (H 12, window 64 and segment) and the metadata tower's
                ``meta_pack`` rows (16 sequences of 128 per row, H 4, ragged key
                masks). Tolerance: lse 1e-3 abs, dq/dk/dv 1e-2 of the largest
-               entry, dq exactly 0 on queries that see no key.
+               entry, dq exactly 0 on queries that see no key. Then, on the
+               10 x 4096 rows, the forward with rope and lse (raw q/k, theta
+               10k window / 160k segment) against the plain forward, and the
+               four rope forms of the backward kernels (raw q/k, dq/dk
+               counter-rotated: ``*_rope``) against the plain rope backward,
+               at the same tolerances; and the window kernels at w = 192 and
+               256 (the TPU's streaming route, rows 4 and 9: forward with lse,
+               dq, dkv) against their plain versions, timed as ``*_wide``.
   6. training - ``v8_packed`` at full width through the port's config loader
                (bf16 compute, fp32 master weights, Muon): one micro-step with
                exact launch counts (forward: window 14, segment 8 + 6 with lse;
-               backward: dq and dkv 14 each, window and segment); the loss on
-               one repeated batch falls over 5 steps; kernel path vs all-plain
-               path on a 2-row batch: loss within 1e-2, per-tensor gradient
-               cosine >= 0.99 outside the metadata tower and projection; in
-               them (gradients of near-identical variations cancel, so bf16
-               does not resolve them) a tensor below 0.99 must be no further
-               from the plain path in fp32 than the plain bf16 path is,
-               within 0.05; then
-               ``python -m cm3p_torch.train``'s ``main``
-               for 3 optimizer steps x 2 micro-steps, one eval batch (window
-               14, segment 14, FFN 22 + 6), a checkpoint and its reload. Prints
-               step ms, windows/s, tokens/s, peak memory, a profiler breakdown
-               of one step, and each backward kernel's ms, plain ms, bound and
-               library (SDPA backward) ms.
+               backward: the beatmap tower's layers keep rope inside the
+               kernels, so the rope forms ``*_rope`` 14 / 14 / 8 / 8, and the
+               metadata tower's 6 segment layers the plain forms); step ms,
+               windows/s, peak memory and a profiler breakdown, and the same
+               for the route it replaced (rope outside the kernels, timed in
+               the same run for the record); the loss on one repeated batch
+               falls over 14 steps; the kernel path (rope inside) vs the
+               all-plain path (rope outside) on a second batch after 6 steps:
+               loss within 1e-2, per-tensor gradient cosine >= 0.99 outside
+               the metadata tower and projection; in them (gradients of
+               near-identical variations cancel, so bf16 does not resolve
+               them) a tensor below 0.99 must be no further from the plain
+               path in fp32 than the plain bf16 path is, within 0.05; the same
+               comparison again after 14 steps on one batch, with that fp32
+               rule for every tensor below 0.99; then
+               ``python -m cm3p_torch.train``'s ``main`` for 3 optimizer steps
+               x 2 micro-steps with one eval batch (window 14, segment 14, FFN
+               22 + 6), a checkpoint and its reload. Prints each backward
+               kernel's (and rope form's) ms, plain ms, bound and library
+               (SDPA backward) ms.
   7. quant kernels - the fused LN-matmul kernels (bf16 and W8A8: LN -> QKV at
                768 -> 2304 and 512 -> 1536, Wo + residual at 768 -> 768 and
                512 -> 512) and the int8 forms of the FFN kernel (``w8a8``,
@@ -92,6 +105,7 @@ last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
 """
 from __future__ import annotations
 
+import contextlib
 import glob
 import itertools
 import json
@@ -108,18 +122,29 @@ COS_MIN = 0.999
 ROW_LEN = 4096
 WINDOW_KW = dict(window_length_sec=16.0, window_stride_sec=16.0, max_length=ROW_LEN)
 PER_FORWARD = {"segment_attention": 8 + 2, "window_attention": 14 + 4, "fused_ln_ffn": 22 + 6}
-# v8_packed training: 14 window + 8 segment beatmap layers, 6 segment metadata layers
+# v8_packed training: 14 window + 8 segment beatmap layers (rope inside the kernels: the rope forms of the backward
+# kernels), 6 segment metadata layers (meta_pack rows restart positions: rope outside, the plain forms)
 PER_MICRO_STEP = {
     "window_attention": 14, "segment_attention": 8 + 6,
-    "window_attention_dq": 14, "window_attention_dkv": 14,
-    "segment_attention_dq": 8 + 6, "segment_attention_dkv": 8 + 6,
+    "window_attention_dq_rope": 14, "window_attention_dkv_rope": 14,
+    "segment_attention_dq_rope": 8, "segment_attention_dkv_rope": 8,
+    "segment_attention_dq": 6, "segment_attention_dkv": 6,
 }
 PER_EVAL = {"window_attention": 14, "segment_attention": 8 + 6, "fused_ln_ffn": 22 + 6}
+THETA = {64: 10000.0, None: 160000.0}  # v8_packed's local / global rope theta
+WIDE_WINDOWS = (192, 256)  # windows the TPU dispatcher streams (rows 4 and 9); reported at the first
+# entries of the kernels line that no main path launches: the window kernels driven at a window no shipped
+# configuration has (their launches on the main path are counted under window_attention*), and the window backward
+# kernels without rope (every window layer of a shipped configuration trains with rope inside the kernels; they
+# serve window layers with other positions, other head dims or an odd head count)
+OFF_PATH = ("window_attention_wide", "window_attention_dq_wide", "window_attention_dkv_wide",
+            "window_attention_dq", "window_attention_dkv")
 LSE_TOL = 1e-3
 BWD_REL_TOL = 1e-2
 LOSS_REL_TOL = 1e-2
 GRAD_COS_MIN = 0.99
 NOISY_COS_MARGIN = 0.05
+GRAD_DRIFT_STEPS = 14  # steps on one batch before the second gradient comparison
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense
 KERNEL_SOURCES = {
@@ -142,6 +167,15 @@ KERNEL_SOURCES = {
     "window_attention_wo_q": ("cm3p_torch/csrc/attention_wo.cu", "cm3p_tpu/ops/flash_attention.py:294"),
     "segment_attention_wo": ("cm3p_torch/csrc/attention_wo.cu", "cm3p_tpu/ops/flash_attention.py:513"),
     "segment_attention_wo_q": ("cm3p_torch/csrc/attention_wo.cu", "cm3p_tpu/ops/flash_attention.py:513"),
+    # the rope forms of the backward kernels (the fuse_rope branch of each TPU kernel)
+    "window_attention_dq_rope": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:455"),
+    "window_attention_dkv_rope": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:551"),
+    "segment_attention_dq_rope": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:247"),
+    "segment_attention_dkv_rope": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:346"),
+    # the window kernels at windows the TPU streams: its _fa_kernel, _dq_kernel and _dkv_kernel
+    "window_attention_wide": ("cm3p_torch/csrc/attention.cu", "cm3p_tpu/ops/flash_attention.py:168"),
+    "window_attention_dq_wide": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:179"),
+    "window_attention_dkv_wide": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:129"),
 }
 
 
@@ -201,11 +235,13 @@ def ffn_bound_ms(rows, d, f):
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def attention_bwd_bound_ms(b, length, heads, d, pairs, outputs):
-    """dq (outputs=1) or dkv (outputs=2): q, k, v, dout, lse, delta read once and
-    the gradients written once; per visible pair and head the s and dp
-    recomputes plus one product per gradient, 2 * d flops each."""
+def attention_bwd_bound_ms(b, length, heads, d, pairs, outputs, rope=False):
+    """dq (outputs=1) or dkv (outputs=2): q, k, v, dout, lse, delta (and the rope
+    forms' two (L, d / 2) fp32 tables) read once and the gradients written once;
+    per visible pair and head the s and dp recomputes plus one product per
+    gradient, 2 * d flops each (the rotations are elementwise work on top)."""
     bytes_moved = (4 + outputs) * b * length * heads * d * 2 + 2 * b * heads * length * 4
+    bytes_moved += 2 * length * (d // 2) * 4 if rope else 0
     flops = (2 + outputs) * 2 * d * heads * pairs
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
@@ -266,10 +302,14 @@ _CATEGORIES = (  # kernel-name fragment -> category, first match wins
     ("attention_wo_kernel<false", "segment_attention_wo (ours)"),
     ("attention_kernel<true>", "window_attention (ours)"),
     ("attention_kernel<false>", "segment_attention (ours)"),
-    ("attention_dq_kernel<true>", "window_attention_dq (ours)"),
-    ("attention_dkv_kernel<true>", "window_attention_dkv (ours)"),
-    ("attention_dq_kernel<false>", "segment_attention_dq (ours)"),
-    ("attention_dkv_kernel<false>", "segment_attention_dkv (ours)"),
+    ("attention_dq_kernel<true, false>", "window_attention_dq (ours)"),
+    ("attention_dkv_kernel<true, false>", "window_attention_dkv (ours)"),
+    ("attention_dq_kernel<false, false>", "segment_attention_dq (ours)"),
+    ("attention_dkv_kernel<false, false>", "segment_attention_dkv (ours)"),
+    ("attention_dq_kernel<true, true>", "window_attention_dq_rope (ours)"),
+    ("attention_dkv_kernel<true, true>", "window_attention_dkv_rope (ours)"),
+    ("attention_dq_kernel<false, true>", "segment_attention_dq_rope (ours)"),
+    ("attention_dkv_kernel<false, true>", "segment_attention_dkv_rope (ours)"),
     ("fused_ln_ffn_kernel", "fused_ln_ffn (ours)"),
     ("fused_ln_ffn_q_kernel", "fused_ln_ffn_q (ours)"),
     ("ln_matmul_kernel", "fused_ln_matmul (ours)"),
@@ -284,8 +324,6 @@ _CATEGORIES = (  # kernel-name fragment -> category, first match wins
 
 def device_breakdown(torch, forward, label="one packed forward", grad=False) -> None:
     """Device time per kernel category over one call of ``forward`` (torch.profiler)."""
-    import contextlib
-
     from torch.profiler import ProfilerActivity, profile
 
     ctx = contextlib.nullcontext() if grad else torch.no_grad()
@@ -474,6 +512,164 @@ def check_backward(torch, ops, label, seg, heads, windows, gen):
     return errs, (q, k, v, dout)
 
 
+def check_rope_backward(torch, ops, label, seg, heads, gen):
+    """Phase 5: the forward kernels with rope and lse and the rope forms of the
+    backward kernels (raw q/k, dq/dk counter-rotated) against the plain forward
+    and the plain rope backward; returns max errors per form and the inputs."""
+    from cm3p_torch.ops.attention import (
+        attention_bwd_rope_plain,
+        attention_delta,
+        segment_attention_plain,
+        window_attention_plain,
+    )
+
+    b, length = seg.shape
+    q, k, v = torch.randn(b, length, 3, heads, 64, generator=gen, device=seg.device).to(torch.bfloat16).unbind(2)
+    dout = torch.randn(b, length, heads, 64, generator=gen, device=seg.device).to(torch.bfloat16)
+    dead = seg == 0
+    live = (~dead)[:, None, :].expand(b, heads, length)
+    errs = {}
+    for window in (64, None):
+        theta = THETA[window]
+        pre = "window_attention" if window else "segment_attention"
+        wargs = (window,) if window else ()
+        plain_fwd = window_attention_plain if window else segment_attention_plain
+        out, lse = getattr(ops, pre)(q, k, v, seg, seg, *wargs, theta, return_lse=True)
+        want, want_lse = plain_fwd(q, k, v, seg, seg, *wargs, theta, return_lse=True)
+        torch.cuda.synchronize()
+        out_err = (out.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse)[live].abs().max().item()
+        dead_out = out[dead].abs().max().item() if bool(dead.any()) else 0.0
+        log(f"  {pre:22s} {label} with rope (theta {theta:g}) and lse: out max_abs_err {out_err:.3e} (tol {TOL}), "
+            f"lse max_abs_err {lse_err:.3e} (tol {LSE_TOL}); masked rows max {dead_out}")
+        if not (out_err <= TOL and lse_err <= LSE_TOL and dead_out == 0.0):
+            fail(f"{pre} with rope and lse disagrees with its plain version on {label}")
+        delta = attention_delta(want, dout)
+        args = (q, k, v, dout, want_lse, delta, seg, seg, *wargs)
+        dq = getattr(ops, f"{pre}_dq")(*args, rope_theta=theta)
+        dk, dv = getattr(ops, f"{pre}_dkv")(*args, rope_theta=theta)
+        ref = attention_bwd_rope_plain(q, k, v, dout, want_lse, delta, seg, seg, window, theta)
+        torch.cuda.synchronize()
+        for gname, got, r in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
+            err = (got.float() - r.float()).abs().max().item()
+            scale = r.float().abs().max().item()
+            kname = f"{pre}_dq_rope" if gname == "dq" else f"{pre}_dkv_rope"
+            log(f"  {kname:26s} {label} {gname}: max_abs_err {err:.3e}, relative {err / scale:.2e} "
+                f"(tol {BWD_REL_TOL} of max |{gname}| {scale:.3e})")
+            if not err <= BWD_REL_TOL * scale:
+                fail(f"{kname} disagrees with the plain rope backward on {label} ({gname})")
+            errs[kname] = max(errs.get(kname, 0.0), err)
+        if bool(dead.any()):
+            dead_dq = dq[dead].abs().max().item()
+            dead_kv = max(dk[dead].abs().max().item(), dv[dead].abs().max().item())
+            log(f"  {pre} rope forms {label}: dq on queries that see no key max {dead_dq}, dk/dv on unseen keys "
+                f"max {dead_kv}")
+            if dead_dq != 0.0 or dead_kv != 0.0:
+                fail(f"{pre} rope backward is not 0 on masked positions ({label})")
+        del out, lse, want, want_lse, delta, dq, dk, dv, ref
+    return errs, (q, k, v, dout)
+
+
+def check_wide_windows(torch, ops, label, seg, heads, gen):
+    """Phase 5: the window kernels at windows the TPU streams (rows 4 and 9: its
+    _fa_kernel, _dq_kernel and _dkv_kernel) against their plain versions, and
+    their times; returns max errors and the report rows at ``WIDE_WINDOWS[0]``."""
+    from cm3p_torch.ops.attention import _attention_bwd_plain, attention_delta, window_attention_plain
+
+    b, length = seg.shape
+    q, k, v = torch.randn(b, length, 3, heads, 64, generator=gen, device=seg.device).to(torch.bfloat16).unbind(2)
+    dout = torch.randn(b, length, heads, 64, generator=gen, device=seg.device).to(torch.bfloat16)
+    dead = seg == 0
+    live = (~dead)[:, None, :].expand(b, heads, length)
+    errs, rows = {}, {}
+    for window in WIDE_WINDOWS:
+        out, lse = ops.window_attention(q, k, v, seg, seg, window, return_lse=True)
+        want, want_lse = window_attention_plain(q, k, v, seg, seg, window, return_lse=True)
+        torch.cuda.synchronize()
+        out_err = (out.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse)[live].abs().max().item()
+        dead_out = out[dead].abs().max().item() if bool(dead.any()) else 0.0
+        log(f"  window_attention_wide   {label} w {window} with lse: out max_abs_err {out_err:.3e} (tol {TOL}), "
+            f"lse max_abs_err {lse_err:.3e} (tol {LSE_TOL}); masked rows max {dead_out}")
+        if not (out_err <= TOL and lse_err <= LSE_TOL and dead_out == 0.0):
+            fail(f"window_attention at w = {window} disagrees with its plain version on {label}")
+        errs["window_attention_wide"] = max(errs.get("window_attention_wide", 0.0), out_err)
+        delta = attention_delta(want, dout)
+        args = (q, k, v, dout, want_lse, delta, seg, seg, window)
+        dq = ops.window_attention_dq(*args)
+        dk, dv = ops.window_attention_dkv(*args)
+        ref = _attention_bwd_plain(q, k, v, dout, want_lse, delta, seg, seg, window)
+        torch.cuda.synchronize()
+        for gname, got, r in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
+            err = (got.float() - r.float()).abs().max().item()
+            scale = r.float().abs().max().item()
+            kname = "window_attention_dq_wide" if gname == "dq" else "window_attention_dkv_wide"
+            log(f"  {kname:26s} {label} w {window} {gname}: max_abs_err {err:.3e}, relative {err / scale:.2e} "
+                f"(tol {BWD_REL_TOL} of max |{gname}| {scale:.3e})")
+            if not err <= BWD_REL_TOL * scale:
+                fail(f"window_attention backward at w = {window} disagrees with the plain backward ({gname})")
+            errs[kname] = max(errs.get(kname, 0.0), err)
+        if bool(dead.any()) and (dq[dead].abs().max().item() != 0.0 or dk[dead].abs().max().item() != 0.0
+                                 or dv[dead].abs().max().item() != 0.0):
+            fail(f"window_attention backward at w = {window} is not 0 on masked positions")
+        del out, lse, dq, dk, dv, ref
+        ms = cuda_ms(lambda: ops.window_attention(q, k, v, seg, seg, window), 10)
+        lse_ms = cuda_ms(lambda: ops.window_attention(q, k, v, seg, seg, window, return_lse=True), 10)
+        plain_ms = cuda_ms(lambda: window_attention_plain(q, k, v, seg, seg, window), 1)
+        lib_ms = sdpa_ms(q, k, v, seg, window, 3)
+        dq_ms = cuda_ms(lambda: ops.window_attention_dq(*args), 10)
+        dkv_ms = cuda_ms(lambda: ops.window_attention_dkv(*args), 10)
+        plain_bwd_ms = cuda_ms(lambda: _attention_bwd_plain(q, k, v, dout, want_lse, delta, seg, seg, window), 1)
+        lib_bwd_ms = sdpa_bwd_ms(q, k, v, dout, seg, window, 3)
+        pairs = visible_pairs(seg, window)
+        fwd_bound, fwd_by = attention_bound_ms(b, length, heads, 64, pairs)
+        dq_bound, dq_by = attention_bwd_bound_ms(b, length, heads, 64, pairs, 1)
+        dkv_bound, dkv_by = attention_bwd_bound_ms(b, length, heads, 64, pairs, 2)
+        log(f"  {label} w {window}: forward {ms:.3f} ms (with lse {lse_ms:.3f}; plain {plain_ms:.3f}, bound "
+            f"{fwd_bound:.3f} {fwd_by}, SDPA {lib_ms:.3f}), dq {dq_ms:.3f} ms (bound {dq_bound:.3f} {dq_by}), "
+            f"dkv {dkv_ms:.3f} ms (bound {dkv_bound:.3f} {dkv_by}); plain backward {plain_bwd_ms:.3f} ms, "
+            f"SDPA backward {lib_bwd_ms:.3f} ms; {pairs} visible pairs")
+        if window == WIDE_WINDOWS[0]:
+            rows["window_attention_wide"] = (ms, plain_ms, fwd_bound, fwd_by, lib_ms)
+            rows["window_attention_dq_wide"] = (dq_ms, plain_bwd_ms, dq_bound, dq_by, lib_bwd_ms)
+            rows["window_attention_dkv_wide"] = (dkv_ms, plain_bwd_ms, dkv_bound, dkv_by, lib_bwd_ms)
+        del want, want_lse, delta, args
+    del q, k, v, dout
+    torch.cuda.empty_cache()
+    return errs, rows
+
+
+def time_rope_backward(torch, ops, seg, inputs, heads, label, library_ms):
+    """Phase 6 times of the rope route at one shape: the forward with rope and
+    lse and the rope forms; ``library_ms`` per window is the SDPA backward timed
+    for the plain forms on the same shape."""
+    from cm3p_torch.ops.attention import attention_bwd_rope_plain, attention_delta
+
+    q, k, v, dout = inputs
+    b, length = seg.shape
+    rows = {}
+    for window in (64, None):
+        theta = THETA[window]
+        pre = "window_attention" if window else "segment_attention"
+        wargs = (window,) if window else ()
+        fwd = lambda: getattr(ops, pre)(q, k, v, seg, seg, *wargs, theta, return_lse=True)  # noqa: E731
+        out, lse = fwd()
+        fwd_ms = cuda_ms(fwd, 10)
+        delta = attention_delta(out, dout)
+        args = (q, k, v, dout, lse, delta, seg, seg, *wargs)
+        dq_ms = cuda_ms(lambda: getattr(ops, f"{pre}_dq")(*args, rope_theta=theta), 10)
+        dkv_ms = cuda_ms(lambda: getattr(ops, f"{pre}_dkv")(*args, rope_theta=theta), 10)
+        plain_ms = cuda_ms(lambda: attention_bwd_rope_plain(q, k, v, dout, lse, delta, seg, seg, window, theta), 1)
+        pairs = visible_pairs(seg, window)
+        for kname, ms, outputs in ((f"{pre}_dq_rope", dq_ms, 1), (f"{pre}_dkv_rope", dkv_ms, 2)):
+            bound, bound_by = attention_bwd_bound_ms(b, length, heads, 64, pairs, outputs, rope=True)
+            rows[kname] = (ms, plain_ms, bound, bound_by, library_ms[window])
+        log(f"  {label} {pre}, rope inside (theta {theta:g}): forward with rope and lse {fwd_ms:.3f} ms, "
+            f"dq_rope {dq_ms:.3f} ms, dkv_rope {dkv_ms:.3f} ms, plain rope backward (dq, dk, dv) {plain_ms:.3f} ms")
+        del out, lse, delta
+    return rows
+
+
 def time_backward(torch, ops, seg, inputs, heads, label, windows):
     """Phase 6 times: lse-mode forwards and the backward kernels at one shape."""
     from cm3p_torch.ops.attention import _attention_bwd_plain, attention_delta
@@ -510,77 +706,156 @@ def time_backward(torch, ops, seg, inputs, heads, label, windows):
     return rows
 
 
-def check_gradients(torch, step, batch):
-    """Kernel path vs all-plain path on one batch: loss and per-tensor cosine.
+def path_grads(torch, step, batch, plain=False, fp32=False):
+    """(loss, gradients) of one micro-batch on one route of the model, which is put back as it was."""
+    model = step.model
+    dtype = model.metadata_model.encoder.compute_dtype
+    model.set_plain(plain)
+    if fp32:
+        model.set_compute_dtype(torch.float32)
+    try:
+        loss, grads, _ = step.grads(batch)
+    finally:
+        model.set_compute_dtype(dtype)
+        model.set_plain(False)
+    return loss, grads
 
-    Every tensor outside the metadata side (its tower and projection) is held
-    to cosine >= ``GRAD_COS_MIN`` with the plain path. The metadata side's
-    gradients are not resolved in bf16 at random init: the 8 variations of a window differ in one token, so
-    their gradients nearly cancel and the rounding of either bf16 path decides
-    what is left. There the plain path in fp32 is the oracle: a tensor below
-    ``GRAD_COS_MIN`` must be no further from it on the kernel path than on the
-    plain bf16 path, within ``NOISY_COS_MARGIN``."""
+
+def check_gradients(torch, step, batch, label, oracle_everywhere=False):
+    """The kernel path (rope inside the kernels on the beatmap tower) against the
+    all-plain path (rope outside), on one batch and the same weights.
+
+    Loss within ``LOSS_REL_TOL``. Every tensor outside the metadata side (its
+    tower and projection) is held to cosine >= ``GRAD_COS_MIN`` between the two.
+    The metadata side's gradients are not resolved in bf16 at random init: the
+    8 variations of a window differ in one token, so their gradients nearly
+    cancel and the rounding of either bf16 route decides what is left. There the
+    plain path in fp32 is the oracle: a tensor below ``GRAD_COS_MIN`` must be no
+    further from it on the kernel path than on the plain bf16 path, within
+    ``NOISY_COS_MARGIN``. With ``oracle_everywhere`` (after many steps on one
+    batch) that rule replaces the cosine limit outside the metadata side too,
+    and the tensors there that fall below it are printed with their readings."""
     from cm3p_torch import ops
 
-    model = step.model
-    loss_k, grads_k, _ = step.grads(batch)
-    model.set_plain(True)
+    names = [n for n, p in step.model.named_parameters() if p.requires_grad]
+    loss_k, grads_k = path_grads(torch, step, batch)
     ops.reset_launch_counts()
-    loss_p, grads_p, _ = step.grads(batch)
-    dtype = model.metadata_model.encoder.compute_dtype
-    model.set_compute_dtype(torch.float32)
-    loss_f, grads_f, _ = step.grads(batch)
-    model.set_compute_dtype(dtype)
-    model.set_plain(False)
+    loss_p, grads_p = path_grads(torch, step, batch, plain=True)
+    loss_f, grads_f = path_grads(torch, step, batch, plain=True, fp32=True)
     if any(ops.launch_counts().values()):
         fail("the plain training path launched a kernel")
     rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
 
-    def cos(a, b):
-        na, nb = a.float().norm().item(), b.float().norm().item()
-        return (a.float() * b.float()).sum().item() / max(na * nb, 1e-30)
+    def cos(x, y):
+        nx, ny = x.float().norm().item(), y.float().norm().item()
+        return (x.float() * y.float()).sum().item() / max(nx * ny, 1e-30)
 
     rows = []
-    names = [n for n, p in model.named_parameters() if p.requires_grad]
     for name, gk, gp, gf in zip(names, grads_k, grads_p, grads_f):
         if (gk is None) != (gp is None):
             fail(f"{name}: a gradient on one path only")
         if gk is None:
             continue
         if not bool(torch.isfinite(gk).all()):
-            fail(f"{name}: non-finite gradient on the kernel path")
+            fail(f"{name}: non-finite gradient on the kernel path ({label})")
         if gk.float().norm().item() == 0.0 and gp.float().norm().item() == 0.0:
             continue
         rows.append((cos(gk, gp), cos(gk, gf), cos(gp, gf), gf.float().norm().item(), name))
     rows.sort()
     strict = [r for r in rows if not r[4].startswith("metadata")]
     meta = [r for r in rows if r[4].startswith("metadata")]
-    low = [r for r in meta if r[0] < GRAD_COS_MIN]
-    log(f"  kernel vs all-plain path: loss {float(loss_k):.6f} vs {float(loss_p):.6f} (relative {rel:.2e}, "
+    low = [r for r in (rows if oracle_everywhere else meta) if r[0] < GRAD_COS_MIN]
+    log(f"  kernel vs all-plain path, {label}: loss {float(loss_k):.6f} vs {float(loss_p):.6f} (relative {rel:.2e}, "
         f"tol {LOSS_REL_TOL}; fp32 plain {float(loss_f):.6f})")
     log(f"  {len(strict)} gradients outside the metadata side: cosine(kernel, plain) min {strict[0][0]:.6f} "
-        f"at {strict[0][4]} (need >= {GRAD_COS_MIN})")
-    log(f"  metadata tower and projection: {len(low)} of {len(meta)} below {GRAD_COS_MIN}; for those "
-        f"cos(kernel, fp32) must be "
+        f"at {strict[0][4]} (need >= {GRAD_COS_MIN}{' or the oracle rule' if oracle_everywhere else ''})")
+    log(f"  {'all tensors' if oracle_everywhere else 'metadata tower and projection'}: {len(low)} of "
+        f"{len(rows) if oracle_everywhere else len(meta)} below {GRAD_COS_MIN}; for those cos(kernel, fp32) must be "
         f">= cos(plain, fp32) - {NOISY_COS_MARGIN}")
-    for ck, ckf, cpf, norm, name in low[:8]:
+    shown = strict[:3] + [r for r in low if r not in strict[:3]][:8]  # the lowest outside the metadata side, always
+    for ck, ckf, cpf, norm, name in shown:
         log(f"    cos(kernel, plain) {ck:.6f}  cos(kernel, fp32) {ckf:.6f}  cos(plain, fp32) {cpf:.6f}  "
             f"|g| {norm:.3e}  {name}")
     if not rel <= LOSS_REL_TOL:
-        fail("kernel and plain training losses disagree")
-    if not strict[0][0] >= GRAD_COS_MIN:
-        fail(f"kernel and plain gradients disagree ({strict[0][4]})")
+        fail(f"{label}: kernel and plain training losses disagree")
+    if not oracle_everywhere and not strict[0][0] >= GRAD_COS_MIN:
+        fail(f"{label}: kernel and plain gradients disagree ({strict[0][4]})")
     worse = [r for r in low if r[1] < r[2] - NOISY_COS_MARGIN]
     if worse:
-        fail(f"the kernel path is further from the fp32 oracle than the plain path ({worse[0][4]})")
+        fail(f"{label}: the kernel path is further from the fp32 oracle than the plain path ({worse[0][4]})")
+
+
+def run_trainer(torch, ops, dev, args, cfg, map_dirs, steps, accum):
+    """``python -m cm3p_torch.train``'s ``main`` at full width: exact launches, its log, a checkpoint
+    and its reload; returns the launches it counted."""
+    from cm3p_torch.train.__main__ import build_model, build_optimizer, main
+
+    with tempfile.TemporaryDirectory() as out:
+        ops.reset_launch_counts()
+        argv = ["--config-name", "v8_packed", "--device", str(dev), f"training.output_dir={out}",
+                f"training.max_steps={steps}", f"training.gradient_accumulation_steps={accum}",
+                "training.logging_steps=1", "training.eval_steps=0", "training.max_eval_batches=1",
+                f"training.save_steps={steps}", "dataset.test_metadata_variations=8"]
+        for d in map_dirs:
+            argv += ["--beatmap-files", str(d)]
+        t0 = time.perf_counter()
+        trainer = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = {k: steps * accum * PER_MICRO_STEP.get(k, 0) + PER_EVAL.get(k, 0) for k in ops.KERNELS}
+        label = f"trainer ({steps} steps x {accum} micro-steps, 1 eval batch, checkpoint)"
+        log(f"  {label} in {wall:.1f} s: launches {counts} (want {want})")
+        if counts != want:
+            fail(f"{label}: the trainer did not launch each kernel as expected")
+        records = [json.loads(line) for line in (Path(out) / "train_log.jsonl").read_text().splitlines()]
+        train_records = [r for r in records if "loss" in r]
+        final = [r for r in records if "final_eval_loss" in r]
+        log(f"  train_log: {[(r['step'], round(r['loss'], 5), round(r['grad_norm'], 4)) for r in train_records]}; "
+            f"eval {final}")
+        if [r["step"] for r in train_records] != list(range(1, steps + 1)) or not final:
+            fail(f"{label}: the log lacks its steps or its evaluation")
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in train_records):
+            fail(f"{label}: non-finite loss or gradient norm")
+        if not math.isfinite(final[0]["final_eval_loss"]):
+            fail(f"{label}: non-finite evaluation loss")
+        reloaded = build_model(args, cfg, dev, seed=1)
+        opt = build_optimizer(args, reloaded)
+        info = trainer.ckpt.restore(reloaded, opt)
+        same = all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
+                                                     reloaded.state_dict().values()))
+        log(f"  checkpoint {trainer.ckpt.steps()} reloaded: step {info and info['step']}, micro-step "
+            f"{info and info['micro_step']}, parameters equal {same}, optimizer step "
+            f"{[g['step'] for g in opt.param_groups]}")
+        if not (info and info["step"] == steps and info["micro_step"] == steps * accum and same):
+            fail(f"{label}: the checkpoint did not reload the trained state")
+        if any(g["step"] != steps for g in opt.param_groups):
+            fail(f"{label}: the optimizer state did not reload")
+        del trainer, reloaded, opt
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def replaced_route():
+    """Rope outside the kernels on every training layer, the route that rope inside the kernels replaced: for
+    timing it beside the training route in one run, never for a check."""
+    import importlib
+
+    attention_mod = importlib.import_module("cm3p_torch.ops.attention")  # the package exports a function by that name
+    admit = attention_mod.rope_in_kernels
+    attention_mod.rope_in_kernels = lambda *args: False
+    try:
+        yield
+    finally:
+        attention_mod.rope_in_kernels = admit
 
 
 def train_slice(torch, ops, dev, batch, batch2, map_dirs):
-    """Phase 6: the full-width v8_packed training path; returns its launch counts."""
+    """Phase 6: the full-width v8_packed training path; returns the launch counts of its trainer run."""
     from cm3p_torch.train import TrainStep, to_device
-    from cm3p_torch.train.__main__ import CONFIG_DIR, build_model, build_optimizer, main, model_config
+    from cm3p_torch.train.__main__ import CONFIG_DIR, build_model, build_optimizer, build_processor, model_config
     from cm3p_torch.utils.config import load_config
-    from cm3p_torch.train.__main__ import build_processor
 
     args = load_config(CONFIG_DIR, "v8_packed", [])
     cfg = model_config(args, build_processor(args))
@@ -592,91 +867,65 @@ def train_slice(torch, ops, dev, batch, batch2, map_dirs):
         f"{int(batch['window_valid'].sum())} windows, metadata {tuple(batch['metadata_ids'].shape)}")
     step = TrainStep(model, build_optimizer(args, model), packed=True)
     dev_batch = to_device(batch, dev, packed=True)
+    dev_batch2 = to_device(batch2, dev, packed=True)
 
-    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     metrics = step(dev_batch)
     torch.cuda.synchronize()
     expect_counts(ops, "one training micro-step", 1, PER_MICRO_STEP)
-    losses, norms, times = [float(metrics["loss"])], [float(metrics["grad_norm"])], []
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(4):
+    losses, norms = [float(metrics["loss"])], [float(metrics["grad_norm"])]
+    windows = int(batch["window_valid"].sum())
+    tokens = int((batch["segment_ids"] > 0).sum())
+    inside, outside = "rope inside the kernels (the training route)", "rope outside (the route it replaced)"
+    routes = {inside: [[], [], 0], outside: [[], [], 0]}  # step ms, forward + backward ms, peak bytes
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        metrics = step(dev_batch)
+        out = fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["grad_norm"]))
-    peak = torch.cuda.max_memory_allocated()
-    fb_ms = []
-    for _ in range(2):
-        start.record()
-        step.grads(dev_batch)
-        end.record()
-        torch.cuda.synchronize()
-        fb_ms.append(start.elapsed_time(end))
-    log(f"  5 steps on one batch: losses {[round(x, 5) for x in losses]}, grad norms {[round(x, 4) for x in norms]}")
+        return out, start.elapsed_time(end)
+
+    def measure(label, n):
+        """n timed optimizer steps on the repeated batch and 2 timed forward + backward passes."""
+        times, fb_ms, _ = routes[label]
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(n):
+            metrics, ms = timed(lambda: step(dev_batch))
+            times.append(ms)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        fb_ms += [timed(lambda: step.grads(dev_batch))[1] for _ in range(2)]
+        routes[label][2] = max(routes[label][2], torch.cuda.max_memory_allocated())
+
+    measure(inside, 4)
+    device_breakdown(torch, lambda: step(dev_batch), f"one training step, {inside}", grad=True)
+    check_gradients(torch, step, dev_batch2, "after 6 steps on one batch")
+    with replaced_route():
+        measure(outside, 4)
+        device_breakdown(torch, lambda: step(dev_batch), f"one training step, {outside}", grad=True)
+    measure(inside, GRAD_DRIFT_STEPS - 11)
+    log(f"  {len(losses)} logged steps on one batch: losses {[round(x, 5) for x in losses]}, "
+        f"grad norms {[round(x, 4) for x in norms]}")
     if not all(math.isfinite(x) for x in losses + norms):
         fail("non-finite loss or gradient norm")
     if not losses[-1] < losses[0]:
-        fail("the loss on one repeated batch did not fall over 5 steps")
-    step_ms = sorted(times)[len(times) // 2]
-    windows = int(batch["window_valid"].sum())
-    tokens = int((batch["segment_ids"] > 0).sum())
-    log(f"  training step (forward, backward, Muon; CUDA events, median of 4): {step_ms:.1f} ms, "
-        f"{1e3 * windows / step_ms:.2f} windows/s, {1e3 * tokens / step_ms:.0f} tokens/s "
-        f"({windows} windows, {tokens} tokens); peak memory {peak / 2**30:.2f} GiB; forward + backward alone "
-        f"{min(fb_ms):.1f} ms, so the optimizer step takes the other {step_ms - min(fb_ms):.1f} ms")
-    device_breakdown(torch, lambda: step(dev_batch), "one training step", grad=True)
-
-    check_gradients(torch, step, to_device(batch2, dev, packed=True))
-    del step, model, dev_batch
+        fail("the loss on one repeated batch did not fall")
+    for label, (times, fb_ms, peak) in routes.items():
+        step_ms = sorted(times)[len(times) // 2]
+        log(f"  training step, {label} (forward, backward, Muon; CUDA events, median of {len(times)}): "
+            f"{step_ms:.1f} ms (all {[round(t, 1) for t in times]}), {1e3 * windows / step_ms:.2f} windows/s, "
+            f"{1e3 * tokens / step_ms:.0f} tokens/s ({windows} windows, {tokens} tokens); peak memory "
+            f"{peak / 2**30:.2f} GiB; forward + backward alone {min(fb_ms):.1f} ms "
+            f"(all {[round(t, 1) for t in fb_ms]}), so the optimizer step takes the other {step_ms - min(fb_ms):.1f} ms")
+    # the same comparison further from the seeded weights: on one repeated batch some small tensors' bf16
+    # gradients drift apart on both bf16 routes, so there the fp32 oracle decides every tensor below the limit
+    check_gradients(torch, step, dev_batch2, f"after {GRAD_DRIFT_STEPS} steps on one batch", oracle_everywhere=True)
+    del step, model, dev_batch, dev_batch2
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as out:
-        ops.reset_launch_counts()
-        argv = ["--config-name", "v8_packed", "--device", str(dev), f"training.output_dir={out}", "training.max_steps=3",
-                "training.gradient_accumulation_steps=2", "training.logging_steps=1", "training.eval_steps=0",
-                "training.max_eval_batches=1", "training.save_steps=3", "dataset.test_metadata_variations=8"]
-        for d in map_dirs:
-            argv += ["--beatmap-files", str(d)]
-        t0 = time.perf_counter()
-        trainer = main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        want = {k: 6 * PER_MICRO_STEP.get(k, 0) + PER_EVAL.get(k, 0) for k in ops.KERNELS}
-        log(f"  trainer (3 steps x 2 micro-steps, 1 eval batch, checkpoint) in {wall:.1f} s: launches {counts} "
-            f"(want {want})")
-        if counts != want:
-            fail("the trainer did not launch each kernel as expected")
-        records = [json.loads(line) for line in (Path(out) / "train_log.jsonl").read_text().splitlines()]
-        train_records = [r for r in records if "loss" in r]
-        final = [r for r in records if "final_eval_loss" in r]
-        log(f"  train_log: {[(r['step'], round(r['loss'], 5), round(r['grad_norm'], 4)) for r in train_records]}; "
-            f"eval {final}")
-        if [r["step"] for r in train_records] != [1, 2, 3] or not final:
-            fail("the trainer's log lacks its steps or its evaluation")
-        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in train_records):
-            fail("non-finite loss or gradient norm in the trainer")
-        if not math.isfinite(final[0]["final_eval_loss"]):
-            fail("non-finite evaluation loss")
-        reloaded = build_model(args, cfg, dev, seed=1)
-        opt = build_optimizer(args, reloaded)
-        info = trainer.ckpt.restore(reloaded, opt)
-        same = all(torch.equal(a, b) for a, b in zip(trainer.model.state_dict().values(),
-                                                     reloaded.state_dict().values()))
-        log(f"  checkpoint {trainer.ckpt.steps()} reloaded: step {info and info['step']}, micro-step "
-            f"{info and info['micro_step']}, parameters equal {same}, optimizer step "
-            f"{[g['step'] for g in opt.param_groups]}")
-        if not (info and info["step"] == 3 and info["micro_step"] == 6 and same):
-            fail("the checkpoint did not reload the trained state")
-        if any(g["step"] != 3 for g in opt.param_groups):
-            fail("the optimizer state did not reload")
-        del trainer, reloaded, opt
-    torch.cuda.empty_cache()
-    return counts
+    return run_trainer(torch, ops, dev, args, cfg, map_dirs, steps=3, accum=2)
 
 
 # ---------------------------------------------------------------- phases 7 and 8
@@ -1307,7 +1556,9 @@ def main() -> int:
     seg10 = torch.as_tensor(train_batch["segment_ids"], device=dev)
     e_packed, packed_inputs = check_backward(torch, ops, f"packed {tuple(seg10.shape)} H12", seg10, 12, (64, None), gen)
     e_meta, meta_inputs = check_backward(torch, ops, f"metadata {tuple(meta_seg.shape)} H4", meta_seg, 4, (None,), gen)
-    for kname, err in itertools.chain(e_packed.items(), e_meta.items()):
+    e_rope, rope_inputs = check_rope_backward(torch, ops, f"packed {tuple(seg10.shape)} H12", seg10, 12, gen)
+    e_wide, wide_rows = check_wide_windows(torch, ops, f"packed {tuple(seg10.shape)} H12", seg10, 12, gen)
+    for kname, err in itertools.chain(e_packed.items(), e_meta.items(), e_rope.items(), e_wide.items()):
         errs[kname] = max(errs.get(kname, 0.0), err)
 
     # ---- 6. the training slice
@@ -1317,9 +1568,12 @@ def main() -> int:
     log("  times (CUDA events; packed v8 batch shape unless named)")
     bwd = time_backward(torch, ops, seg10, packed_inputs, 12, f"packed {tuple(seg10.shape)} H12", (64, None))
     time_backward(torch, ops, meta_seg, meta_inputs, 4, f"metadata {tuple(meta_seg.shape)} H4", (None,))
-    for kname, (ms, plain_ms, bound, bound_by, lib_ms) in bwd.items():
+    library_ms = {64: bwd["window_attention_dq"][4], None: bwd["segment_attention_dq"][4]}
+    rope = time_rope_backward(torch, ops, seg10, rope_inputs, 12, f"packed {tuple(seg10.shape)} H12", library_ms)
+    for kname, (ms, plain_ms, bound, bound_by, lib_ms) in itertools.chain(bwd.items(), rope.items(),
+                                                                          wide_rows.items()):
         kernels.append((kname, ms, plain_ms, bound, bound_by, lib_ms))
-    del packed_inputs, meta_inputs
+    del packed_inputs, meta_inputs, rope_inputs
     mrows = meta_seg.numel()
     xm = (0.5 * torch.randn(mrows, 256, generator=gen, device=dev)).to(torch.bfloat16)
     sm = 1 + 0.1 * torch.randn(256, generator=gen, device=dev)
@@ -1352,16 +1606,18 @@ def main() -> int:
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:
         src, replaces = KERNEL_SOURCES[kname]
-        log(f"  {kname:18s} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  bound {bound:8.3f} ms ({bound_by})  "
-            f"library {'-' if lib_ms is None else f'{lib_ms:.3f} ms'}  launches {main_counts[kname]}"
+        launches = main_counts.get(kname, 0)
+        log(f"  {kname:26s} {ms:9.3f} ms  plain {plain_ms:9.3f} ms  bound {bound:8.3f} ms ({bound_by})  "
+            f"library {'-' if lib_ms is None else f'{lib_ms:.3f} ms'}  launches {launches}"
             + (f"  unfused pair {unfused_ms[kname]:.3f} ms" if kname in unfused_ms else ""))
         report.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": main_counts[kname], "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain_ms,
+            "launches": launches, "max_abs_err": errs[kname], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
         })
-    if any(r["launches"] == 0 for r in report):
-        fail(f"kernels never launched on a main path: {[r['name'] for r in report if r['launches'] == 0]}")
+    missing = [r["name"] for r in report if r["launches"] == 0 and r["name"] not in OFF_PATH]
+    if missing or set(KERNEL_SOURCES) != {r["name"] for r in report}:
+        fail(f"kernels never launched on a main path, or not reported: {missing}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": report}))
     smi = subprocess.run(

@@ -6,9 +6,16 @@
 //       -> cm3p_window_attention_dq, cm3p_window_attention_dkv
 //   _dq_unrolled_kernel, _dkv_unrolled_kernel (driven by _global_unrolled_bwd)
 //       -> cm3p_segment_attention_dq, cm3p_segment_attention_dkv
-// without their in-kernel rope: the training path rotates q/k outside the
-// kernels (the JAX default, CM3P_TRAIN_FUSED_ROPE off), so q and k arrive
-// rotated and dq/dk leave unrotated.
+// each in two forms. Without tables q and k arrive rotated (rope applied
+// outside the kernels: layers whose positions are not arange, as the
+// metadata tower's) and dq/dk leave with respect to the rotated q/k. With the
+// fp32 (L, 32) cos/sin tables (the training route elsewhere: the fuse_rope
+// branch of each TPU kernel, CM3P_TRAIN_FUSED_ROPE) q and k arrive
+// raw: every q/k tile is rotated as it is staged, with the forward's
+// arithmetic (rope8 of csrc/attention_fwd.cuh, so the recomputed scores equal
+// the forward's bit for bit and p matches the lse it wrote), and dq/dk are
+// counter-rotated on the fp32 accumulators before the bf16 store, so they
+// leave with respect to the raw q/k.
 //
 // Math (flash_attention_bwd.py module docstring), per head, with the forward's
 // base-2 lse (csrc/attention.cu) and delta = rowsum(dout * out) in fp32:
@@ -17,6 +24,9 @@
 //   dv = p^T . dout
 //   ds = p * (dout . v^T - delta)            the gradient of the natural scores
 //   dq = ds . k / sqrt(64),   dk = ds^T . q / sqrt(64)
+// (q and k rotated). The counter-rotation is rope's transpose at each row's
+// position: with g1 = d[c] and g2 = d[c + 32], c < 32,
+//   d[c] <- g1 cos + g2 sin,   d[c + 32] <- g2 cos - g1 sin.
 // The mask is the forward's: key j is visible to query i iff j < L,
 // kseg[j] > 0, qseg[i] == kseg[j] and, for the window kernels, |i - j| <= w.
 // A query that sees no key gets dq = 0 exactly; a key no query sees gets
@@ -24,7 +34,7 @@
 // forward rounds p before p . v); every product accumulates in fp32.
 //
 // Design: the standard two-kernel flash backward, each a template over the
-// mask type like the forward's attention_kernel<WINDOW>.
+// mask type like the forward's attention_kernel<WINDOW> and over ROPE.
 //   dq kernel : one block of 4 warps per (query tile of 64, head, row). Each
 //               warp keeps its 16 rows of q and dout as mma fragments in
 //               registers and streams key tiles (k row-major and transposed,
@@ -34,44 +44,36 @@
 //               dout row-major and transposed, lse and delta per query),
 //               accumulating dk and dv in registers.
 // Tile ranges: the window kernels visit the tiles meeting [t0 - w, t0 + 63 + w]
-// (3 tiles at w = 64); the segment kernels visit the range [start, start +
-// count) the wrapper computes from the segment ids (segment_tile_ranges, with
-// the q/k roles swapped for dkv: the work of qb_index in _global_unrolled_bwd).
+// (3 tiles at w = 64; any w, so windows wider than 128, the TPU's streaming
+// _dq_kernel / _dkv_kernel route, run here too); the segment kernels visit the
+// range [start, start + count) the wrapper computes from the segment ids
+// (segment_tile_ranges, with the q/k roles swapped for dkv: the work of
+// qb_index in _global_unrolled_bwd).
 // Products are mma.sync m16n8k16 bf16 -> fp32.
 // Bound on the H100: per visible (query, key) pair and head, 5 products of
 // depth 64 (s, dp, dv, dq, dk) = 10 * 64 flops against ~16 bytes per position
 // and head, so a window of 129 keys sits near the ridge and the segment kernels
 // are bound by the tensor cores; this first kernel has no load/compute overlap
 // and stores transposed tiles with scalar writes, so it runs well below that.
+// The rope forms add, per staged q/k tile, 64 x 32 rotations in fp32 (with
+// 16 KB of table reads, from L2) to the same staging step: the rotation is
+// paid once per tile visit, not once per position as an outside rope pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_fwd.cuh"
+
 namespace {
+
+using namespace cm3p;
 
 constexpr int D = 64;          // head dim
 constexpr int BT = 64;         // query and key tile
 constexpr int NTHREADS = 128;  // 4 warps x 16 rows
 constexpr int LDS = D + 8;     // padded smem row (bf16), 144 bytes
 constexpr int LDT = BT + 8;    // padded row of a transposed tile
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // 64 positions x 64 dims from pos0 into smem rows (stride LDS); zeros past L.
 __device__ __forceinline__ void load_rows(__nv_bfloat16* sm, const __nv_bfloat16* base,
@@ -102,6 +104,16 @@ __device__ __forceinline__ void load_rows_both(__nv_bfloat16* sm, __nv_bfloat16*
 #pragma unroll
     for (int i = 0; i < 8; ++i) smt[(c + i) * LDT + r] = hv[i];
   }
+}
+
+// The tile rotated with rope (the forward's loader and bits), stored row-major
+// and, when smt is not null, also transposed.
+__device__ __forceinline__ void load_rows_rope_both(__nv_bfloat16* sm, __nv_bfloat16* smt,
+                                                    const __nv_bfloat16* base, long long pos_stride,
+                                                    int pos0, int L, const float* cos_t,
+                                                    const float* sin_t) {
+  static_assert(NTHREADS == attn::GROUP && LDS == attn::LDS, "the forward loader's thread count and row");
+  attn::load_rows_rope(sm, LDS, base, pos_stride, pos0, L, cos_t, sin_t, threadIdx.x, smt, LDT);
 }
 
 // This warp's 16 rows (r0..r0+15) of a row-major smem tile as A fragments.
@@ -150,6 +162,32 @@ __device__ __forceinline__ void mma_acc_transposed(float acc[8][4], const float 
   }
 }
 
+// Rope's transpose on the fp32 accumulators of 16 rows x 64 dims (rows
+// row0 + g and row0 + g + 8): the gradient with respect to the raw rows from
+// the one with respect to the rotated rows. In the C-fragment layout dim c < 32
+// (n-tile dt) and its partner c + 32 (n-tile dt + 4) sit in the same thread.
+__device__ __forceinline__ void counter_rotate(float acc[8][4], const float* cos_t, const float* sin_t,
+                                               int row0, int L, int g, int t) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + g + hr * 8;
+    if (row >= L) continue;
+    const float* ct = cos_t + (long long)row * (D / 2);
+    const float* st = sin_t + (long long)row * (D / 2);
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt) {
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        const int c = dt * 8 + t * 2 + e2;
+        const int e = 2 * hr + e2;
+        const float g1 = acc[dt][e], g2 = acc[dt + 4][e], cs = ct[c], sn = st[c];
+        acc[dt][e] = g1 * cs + g2 * sn;
+        acc[dt + 4][e] = g2 * cs - g1 * sn;
+      }
+    }
+  }
+}
+
 // Store 16 rows x 64 dims of acc * scale as bf16 into (B, L, H, 64) output.
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float acc[8][4], float scale,
                                            int b, int h, int H, int L, int row0, int g, int t) {
@@ -178,6 +216,8 @@ struct BwdArgs {
   const int* kseg;                               // (B, L)
   const int* tile_start;                         // (B, ntiles), segment kernels only
   const int* tile_count;
+  const float* cos_t;                            // (L, 32) rope tables, rope forms only
+  const float* sin_t;
   __nv_bfloat16* dq;                             // (B, L, H, 64) contiguous
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
@@ -203,7 +243,7 @@ __device__ __forceinline__ void tile_range(const BwdArgs& a, int tile, int b, in
   }
 }
 
-template <bool WINDOW>
+template <bool WINDOW, bool ROPE>
 __global__ void __launch_bounds__(NTHREADS) attention_dq_kernel(BwdArgs a) {
   __shared__ __align__(16) __nv_bfloat16 sK[BT * LDS];   // also stages q at the start
   __shared__ __align__(16) __nv_bfloat16 sKt[D * LDT];
@@ -221,7 +261,11 @@ __global__ void __launch_bounds__(NTHREADS) attention_dq_kernel(BwdArgs a) {
   const __nv_bfloat16* vbase = a.v + (long long)b * a.v_bstride + h * D;
   const int* kseg = a.kseg + (long long)b * L;
 
-  load_rows(sK, a.q + (long long)b * a.q_bstride + h * D, a.q_pstride, q0, L);
+  const __nv_bfloat16* qbase = a.q + (long long)b * a.q_bstride + h * D;
+  if (ROPE)
+    load_rows_rope_both(sK, nullptr, qbase, a.q_pstride, q0, L, a.cos_t, a.sin_t);
+  else
+    load_rows(sK, qbase, a.q_pstride, q0, L);
   load_rows(sV, a.dout + (long long)b * L * H * D + h * D, (long long)H * D, q0, L);
   __syncthreads();
   uint32_t qa[4][4], doa[4][4];
@@ -250,7 +294,10 @@ __global__ void __launch_bounds__(NTHREADS) attention_dq_kernel(BwdArgs a) {
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BT;
     __syncthreads();  // every warp is done with the previous tile (and the staging)
-    load_rows_both(sK, sKt, kbase, a.k_pstride, k0, L);
+    if (ROPE)
+      load_rows_rope_both(sK, sKt, kbase, a.k_pstride, k0, L, a.cos_t, a.sin_t);
+    else
+      load_rows_both(sK, sKt, kbase, a.k_pstride, k0, L);
     load_rows(sV, vbase, a.v_pstride, k0, L);
     for (int r = threadIdx.x; r < BT; r += NTHREADS) sKseg[r] = (k0 + r < L) ? kseg[k0 + r] : 0;
     __syncthreads();
@@ -273,10 +320,11 @@ __global__ void __launch_bounds__(NTHREADS) attention_dq_kernel(BwdArgs a) {
     }
     mma_acc_transposed(acc, s, sKt, g, t);
   }
+  if (ROPE) counter_rotate(acc, a.cos_t, a.sin_t, q0 + r0, L, g, t);
   store_rows(a.dq, acc, SCALE, b, h, H, L, q0 + r0, g, t);
 }
 
-template <bool WINDOW>
+template <bool WINDOW, bool ROPE>
 __global__ void __launch_bounds__(NTHREADS) attention_dkv_kernel(BwdArgs a) {
   __shared__ __align__(16) __nv_bfloat16 sQ[BT * LDS];   // also stages k at the start
   __shared__ __align__(16) __nv_bfloat16 sQt[D * LDT];
@@ -299,7 +347,11 @@ __global__ void __launch_bounds__(NTHREADS) attention_dkv_kernel(BwdArgs a) {
   const float* lse = a.lse + ((long long)b * H + h) * L;
   const float* delta = a.delta + ((long long)b * H + h) * L;
 
-  load_rows(sQ, a.k + (long long)b * a.k_bstride + h * D, a.k_pstride, k0, L);
+  const __nv_bfloat16* kbase = a.k + (long long)b * a.k_bstride + h * D;
+  if (ROPE)
+    load_rows_rope_both(sQ, nullptr, kbase, a.k_pstride, k0, L, a.cos_t, a.sin_t);
+  else
+    load_rows(sQ, kbase, a.k_pstride, k0, L);
   load_rows(sO, a.v + (long long)b * a.v_bstride + h * D, a.v_pstride, k0, L);
   __syncthreads();
   uint32_t ka[4][4], va[4][4];
@@ -326,7 +378,10 @@ __global__ void __launch_bounds__(NTHREADS) attention_dkv_kernel(BwdArgs a) {
   for (int qt = qt_begin; qt < qt_end; ++qt) {
     const int q0 = qt * BT;
     __syncthreads();  // every warp is done with the previous tile (and the staging)
-    load_rows_both(sQ, sQt, qbase, a.q_pstride, q0, L);
+    if (ROPE)
+      load_rows_rope_both(sQ, sQt, qbase, a.q_pstride, q0, L, a.cos_t, a.sin_t);
+    else
+      load_rows_both(sQ, sQt, qbase, a.q_pstride, q0, L);
     load_rows_both(sO, sOt, obase, (long long)H * D, q0, L);
     for (int r = threadIdx.x; r < BT; r += NTHREADS) {
       const bool in = q0 + r < L;
@@ -355,27 +410,37 @@ __global__ void __launch_bounds__(NTHREADS) attention_dkv_kernel(BwdArgs a) {
     mma_acc_transposed(dv, s, sOt, g, t);   // dv += p^T . dout
     mma_acc_transposed(dk, dp, sQt, g, t);  // dk += ds^T . q
   }
+  if (ROPE) counter_rotate(dk, a.cos_t, a.sin_t, k0 + r0, L, g, t);
   store_rows(a.dk, dk, SCALE, b, h, H, L, k0 + r0, g, t);
   store_rows(a.dv, dv, 1.f, b, h, H, L, k0 + r0, g, t);
 }
 
+template <bool WINDOW, bool DQ, bool ROPE>
+int launch_form(const BwdArgs& a, int B, void* stream) {
+  dim3 grid((a.L + BT - 1) / BT, a.H, B);
+  if (DQ)
+    attention_dq_kernel<WINDOW, ROPE><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(a);
+  else
+    attention_dkv_kernel<WINDOW, ROPE><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The rope form when the tables are given, the plain form when neither is.
 template <bool WINDOW, bool DQ>
 int launch(const BwdArgs& a, int B, void* stream) {
   if (a.L <= 0 || B <= 0 || a.H <= 0 || a.H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   if (WINDOW && a.window < 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((a.L + BT - 1) / BT, a.H, B);
-  if (DQ)
-    attention_dq_kernel<WINDOW><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(a);
-  else
-    attention_dkv_kernel<WINDOW><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  if ((a.cos_t == nullptr) != (a.sin_t == nullptr)) return (int)cudaErrorInvalidValue;
+  if (a.cos_t != nullptr) return launch_form<WINDOW, DQ, true>(a, B, stream);
+  return launch_form<WINDOW, DQ, false>(a, B, stream);
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
                   long long q_bstride, long long k_bstride, long long v_bstride,
                   long long q_pstride, long long k_pstride, long long v_pstride, const void* lse,
                   const void* delta, const void* qseg, const void* kseg, const void* tile_start,
-                  const void* tile_count, void* dq, void* dk, void* dv, int L, int H, int window) {
+                  const void* tile_count, const void* cos_t, const void* sin_t, void* dq, void* dk,
+                  void* dv, int L, int H, int window) {
   BwdArgs a;
   a.q = (const __nv_bfloat16*)q;
   a.k = (const __nv_bfloat16*)k;
@@ -393,6 +458,8 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
   a.kseg = (const int*)kseg;
   a.tile_start = (const int*)tile_start;
   a.tile_count = (const int*)tile_count;
+  a.cos_t = (const float*)cos_t;
+  a.sin_t = (const float*)sin_t;
   a.dq = (__nv_bfloat16*)dq;
   a.dk = (__nv_bfloat16*)dk;
   a.dv = (__nv_bfloat16*)dv;
@@ -407,17 +474,19 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* dout,
 // Common arguments: q, k, v (B, L, H, 64) bf16 with the given batch and
 // position strides; dout (B, L, H, 64) contiguous bf16; lse and delta
 // (B, H, L) fp32; qseg, kseg (B, L) int32; tile_start, tile_count (B, ntiles)
-// int32 (segment kernels; null for the window kernels). dq kernels write dq;
+// int32 (segment kernels; null for the window kernels); cos_t, sin_t (L, 32)
+// fp32 rope tables of raw q/k (the rope forms) or both null. dq kernels write dq;
 // dkv kernels write dk and dv; all outputs (B, L, H, 64) contiguous bf16.
 #define CM3P_BWD_PARAMS                                                                      \
   const void *q, const void *k, const void *v, const void *dout, long long q_bstride,        \
       long long k_bstride, long long v_bstride, long long q_pstride, long long k_pstride,    \
       long long v_pstride, const void *lse, const void *delta, const void *qseg,             \
-      const void *kseg, const void *tile_start, const void *tile_count, void *dq, void *dk,  \
-      void *dv, int B, int L, int H, int window, void *stream
+      const void *kseg, const void *tile_start, const void *tile_count, const void *cos_t,   \
+      const void *sin_t, void *dq, void *dk, void *dv, int B, int L, int H, int window,      \
+      void *stream
 #define CM3P_BWD_ARGS                                                                        \
   make_args(q, k, v, dout, q_bstride, k_bstride, v_bstride, q_pstride, k_pstride, v_pstride, \
-            lse, delta, qseg, kseg, tile_start, tile_count, dq, dk, dv, L, H, window)
+            lse, delta, qseg, kseg, tile_start, tile_count, cos_t, sin_t, dq, dk, dv, L, H, window)
 
 extern "C" int cm3p_window_attention_dq(CM3P_BWD_PARAMS) {
   return launch<true, true>(CM3P_BWD_ARGS, B, stream);

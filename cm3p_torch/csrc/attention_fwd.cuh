@@ -103,12 +103,32 @@ __device__ __forceinline__ uint4 pack8(const float f[8]) {
   return u;
 }
 
+// Rotate-half rope of 8 dims x of the first half and their partners y of the
+// second half at one position, from that position's fp32 table entries. The
+// rounding is pinned to the plain version's (ops/attention.py apply_rope: each
+// product rounded to fp32, then the sum; the intrinsics keep the compiler from
+// contracting them into a fused multiply-add), so the rotated bf16 tiles equal
+// the plain version's bit for bit, and every kernel that rotates a tile gets
+// the same bits: the backward kernels (csrc/attention_bwd.cu) recompute the
+// forward's scores from tiles they rotate themselves.
+__device__ __forceinline__ void rope8(float x[8], float y[8], const float* ct, const float* st) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float a = x[i], b = y[i], cs = ct[i], sn = st[i];
+    x[i] = __fsub_rn(__fmul_rn(a, cs), __fmul_rn(b, sn));
+    y[i] = __fadd_rn(__fmul_rn(b, cs), __fmul_rn(a, sn));
+  }
+}
+
 // Load 64 positions x 64 dims starting at pos0, rotate them (rope) when
-// tables are given, and store bf16 rows into smem (row stride ld). Each item
-// is 8 dims of the first half plus their 8 partners of the second half.
+// tables are given, and store bf16 rows into smem (row stride ld) and, when
+// smt is not null, also transposed (smt[dim * ldt + pos]; the backward
+// kernels' second copy). Each item is 8 dims of the first half plus their 8
+// partners of the second half; tid runs over GROUP threads.
 __device__ __forceinline__ void load_rows_rope(__nv_bfloat16* sm, int ld, const __nv_bfloat16* base,
                                                long long pos_stride, int pos0, int L,
-                                               const float* cos_t, const float* sin_t, int tid) {
+                                               const float* cos_t, const float* sin_t, int tid,
+                                               __nv_bfloat16* smt = nullptr, int ldt = 0) {
   for (int item = tid; item < 64 * 4; item += GROUP) {
     const int r = item >> 2;
     const int c = (item & 3) * 8;
@@ -118,22 +138,24 @@ __device__ __forceinline__ void load_rows_rope(__nv_bfloat16* sm, int ld, const 
       const __nv_bfloat16* p = base + (long long)pos * pos_stride;
       unpack8(*reinterpret_cast<const uint4*>(p + c), x);
       unpack8(*reinterpret_cast<const uint4*>(p + c + D / 2), y);
-      if (cos_t != nullptr) {
-        const float* ct = cos_t + (long long)pos * (D / 2) + c;
-        const float* st = sin_t + (long long)pos * (D / 2) + c;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float a = x[i], b = y[i], cs = ct[i], sn = st[i];
-          x[i] = a * cs - b * sn;
-          y[i] = b * cs + a * sn;
-        }
-      }
+      if (cos_t != nullptr)
+        rope8(x, y, cos_t + (long long)pos * (D / 2) + c, sin_t + (long long)pos * (D / 2) + c);
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) x[i] = y[i] = 0.f;
     }
-    *reinterpret_cast<uint4*>(sm + r * ld + c) = pack8(x);
-    *reinterpret_cast<uint4*>(sm + r * ld + c + D / 2) = pack8(y);
+    const uint4 ux = pack8(x), uy = pack8(y);
+    *reinterpret_cast<uint4*>(sm + r * ld + c) = ux;
+    *reinterpret_cast<uint4*>(sm + r * ld + c + D / 2) = uy;
+    if (smt != nullptr) {
+      const __nv_bfloat16* hx = reinterpret_cast<const __nv_bfloat16*>(&ux);
+      const __nv_bfloat16* hy = reinterpret_cast<const __nv_bfloat16*>(&uy);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        smt[(c + i) * ldt + r] = hx[i];
+        smt[(c + D / 2 + i) * ldt + r] = hy[i];
+      }
+    }
   }
 }
 

@@ -25,16 +25,22 @@ whose weights were cast to bf16 computes in bf16).
 Routing. Without autograd, attention goes through
 :func:`cm3p_torch.ops.attention` (rope in the kernel for arange positions)
 and the MLP half-block through the :func:`cm3p_torch.ops.fused_ln_ffn` kernel.
-Under autograd (the JAX training route) rope is applied outside the kernels,
-attention runs the forward kernel with lse and the backward kernels, and the
-MLP runs :class:`~cm3p_torch.ops.fused_ffn.LnFfnFunction`. Kernels on CUDA at
-every length, plain versions on the CPU; ``plain=True`` on an encoder runs the
-plain versions on any device (the on-card oracle).
+Under autograd (the JAX training route) attention runs the forward kernel
+with lse and the backward kernels. On the layers that
+:func:`~cm3p_torch.ops.attention.rope_in_kernels` admits (arange positions,
+head dim 64, an even head count: the JAX package's ``CM3P_TRAIN_FUSED_ROPE``
+route) rope stays inside them: q/k are saved raw and the backward kernels'
+rope forms rotate them on load and counter-rotate dq/dk. Elsewhere (the
+metadata tower's ``meta_pack`` rows restart positions) rope is applied
+outside. The MLP runs :class:`~cm3p_torch.ops.fused_ffn.LnFfnFunction`.
+Kernels on CUDA at every length, plain versions on the CPU; ``plain=True`` on
+an encoder runs the plain versions on any device, with rope outside under
+autograd (the on-card oracle).
 
 :class:`EncoderOptions` carries the extraction options that the JAX package
-reads from the environment. They act on no-grad forwards only (under
-autograd every projection is the exact unfused module, as in the JAX
-package): ``fused_lnmm_qkv`` sends raw ``x`` and the attention pre-norm's
+reads from the environment. They act on no-grad forwards only (under autograd
+every projection is the exact unfused module, as in the JAX package):
+``fused_lnmm_qkv`` sends raw ``x`` and the attention pre-norm's
 parameters to :func:`~cm3p_torch.ops.fused_ln_matmul` (its W8A8 form when
 ``w8a8``) on every layer but layer 0, which has no pre-norm; the
 out-projection with its residual goes to the attention kernel's epilogue

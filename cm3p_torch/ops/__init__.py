@@ -3,7 +3,9 @@ from .attention import (
     attention,
     segment_attention,
     segment_attention_dkv,
+    segment_attention_dkv_rope,
     segment_attention_dq,
+    segment_attention_dq_rope,
     segment_attention_plain,
     segment_attention_wo,
     segment_attention_wo_plain,
@@ -11,7 +13,9 @@ from .attention import (
     segment_attention_wo_q_plain,
     window_attention,
     window_attention_dkv,
+    window_attention_dkv_rope,
     window_attention_dq,
+    window_attention_dq_rope,
     window_attention_plain,
     window_attention_wo,
     window_attention_wo_plain,
@@ -51,6 +55,10 @@ KERNELS = {
     "window_attention_wo_q": window_attention_wo_q,
     "segment_attention_wo": segment_attention_wo,
     "segment_attention_wo_q": segment_attention_wo_q,
+    "window_attention_dq_rope": window_attention_dq_rope,
+    "window_attention_dkv_rope": window_attention_dkv_rope,
+    "segment_attention_dq_rope": segment_attention_dq_rope,
+    "segment_attention_dkv_rope": segment_attention_dkv_rope,
 }
 
 
@@ -83,7 +91,9 @@ __all__ = [
     "reset_launch_counts",
     "segment_attention",
     "segment_attention_dkv",
+    "segment_attention_dkv_rope",
     "segment_attention_dq",
+    "segment_attention_dq_rope",
     "segment_attention_plain",
     "segment_attention_wo",
     "segment_attention_wo_plain",
@@ -91,7 +101,9 @@ __all__ = [
     "segment_attention_wo_q_plain",
     "window_attention",
     "window_attention_dkv",
+    "window_attention_dkv_rope",
     "window_attention_dq",
+    "window_attention_dq_rope",
     "window_attention_plain",
     "window_attention_wo",
     "window_attention_wo_plain",

@@ -38,10 +38,20 @@ epilogue; :func:`wo_shape_ok` is its shape part without the TPU's VMEM limit.
 :func:`attention` is the dispatch of ``flash_attention()``: it turns a key
 mask and segment ids into (qseg, kseg). Without autograd it runs the forward
 kernel (rope in the kernel for arange positions), with ``residual`` its
-epilogue form. Under autograd it follows the JAX training route: rope is
-applied outside the kernels (autograd of that rope is the counter-rotation of
-dq/dk) and :class:`AttentionFunction` ties the forward with lse to the
-backward kernels.
+epilogue form. Under autograd it follows the JAX training route, and
+:class:`AttentionFunction` ties the forward with lse to the backward kernels.
+Where :func:`rope_in_kernels` admits the layer (the JAX package's
+``CM3P_TRAIN_FUSED_ROPE`` route) q and k stay raw: the forward kernel rotates
+them and the backward kernels run their rope forms
+(``window_attention_dq(..., rope_theta=...)`` and the other three, counted as
+``*_rope``), which rotate each q/k tile as it is staged and counter-rotate
+dq/dk; :func:`attention_bwd_rope_plain` is their oracle. Elsewhere (positions
+other than arange) and on the plain route rope is applied outside the kernels,
+and autograd of that rope is the counter-rotation of dq/dk.
+
+The window kernels take any window: the TPU's streaming route for windows
+wider than 128 (``_fa_kernel`` and the backward's ``_dq_kernel`` /
+``_dkv_kernel``) is the same function, and runs here on the same kernels.
 
 On a CPU tensor a wrapper runs its plain PyTorch version; on a CUDA tensor it
 launches the kernel (``csrc/attention.cu``, ``csrc/attention_bwd.cu``) or
@@ -60,6 +70,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .fused_ffn import FormLaunches
 from .fused_ln_matmul import COLUMN_TILE, fused_ln_matmul_plain, fused_ln_matmul_q_plain
 
 TILE = 64  # query and key tile of csrc/attention.cu and csrc/attention_bwd.cu
@@ -80,7 +91,8 @@ _WO_SIGNATURES = {
     "cm3p_attention_wo": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],
 }
-_BWD_ARGTYPES = [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_BWD_ARGTYPES = [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                 _I, _I, _I, _I, _P]
 _BWD_SIGNATURES = {
     name: _BWD_ARGTYPES
     for name in (
@@ -179,11 +191,13 @@ def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window: Optional[int]):
+def _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window: Optional[int], tables=None):
     """dq, dk, dv from the saved lse and delta, chunked over rows like the forward.
 
     Rounding points of the kernels: p and ds in the activation dtype before
-    their products, fp32 accumulation, outputs in the activation dtype.
+    their products, fp32 accumulation, outputs in the activation dtype. With
+    ``tables`` (the rope tables of rotated q/k) dq and dk are counter-rotated
+    in fp32 before that cast, as the rope forms of the kernels do.
     """
     b, length, heads, d = q.shape
     dt = q.dtype
@@ -202,9 +216,37 @@ def _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window: Optional
         ds = p * ((dof @ vf.transpose(-1, -2)) - delta[r0:r1, :, :, None])
         del p
         ds = ds.to(dt).float()
-        dq[r0:r1] = ((ds @ kf) * scale).transpose(1, 2).to(dt)
-        dk[r0:r1] = ((ds.transpose(-1, -2) @ qf) * scale).transpose(1, 2).to(dt)
+        dq_f = ((ds @ kf) * scale).transpose(1, 2)
+        dk_f = ((ds.transpose(-1, -2) @ qf) * scale).transpose(1, 2)
+        if tables is not None:
+            dq_f, dk_f = _counter_rope(dq_f, *tables), _counter_rope(dk_f, *tables)
+        dq[r0:r1] = dq_f.to(dt)
+        dk[r0:r1] = dk_f.to(dt)
     return dq, dk, dv
+
+
+def _counter_rope(g: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rope's transpose over fp32 (B, L, H, D): the gradient with respect to the
+    raw rows from the one with respect to the rotated rows (g1 c + g2 s, g2 c - g1 s)."""
+    half = g.shape[-1] // 2
+    cos, sin = cos[:, None, :], sin[:, None, :]
+    g1, g2 = g[..., :half], g[..., half:]
+    return torch.cat([g1 * cos + g2 * sin, g2 * cos - g1 * sin], dim=-1)
+
+
+def attention_bwd_rope_plain(q, k, v, dout, lse, delta, qseg, kseg, window: Optional[int], rope_theta: float):
+    """Plain backward for raw q/k that the forward rotated itself (rope in the
+    kernels): rotate with :func:`apply_rope`, the plain backward, then rope's
+    transpose on dq and dk. The oracle of the rope forms of the backward kernels."""
+    tables = rope_tables(q.shape[1], q.shape[3], float(rope_theta), str(q.device))
+    qr, kr = apply_rope(q, rope_theta), apply_rope(k, rope_theta)
+    return _attention_bwd_plain(qr, kr, v, dout, lse, delta, qseg, kseg, window, tables)
+
+
+def _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta):
+    if rope_theta is None:
+        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window)
+    return attention_bwd_rope_plain(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta)
 
 
 def window_attention_bwd_plain(q, k, v, out, dout, lse, qseg, kseg, window: int):
@@ -345,66 +387,86 @@ def segment_attention(q, k, v, qseg, kseg, rope_theta: Optional[float] = None, r
     return (out, lse) if return_lse else out
 
 
-def _launch_bwd(entry, q, k, v, dout, lse, delta, qseg, kseg, window, ranges, dq=None, dk=None, dv=None):
+def _launch_bwd(entry, q, k, v, dout, lse, delta, qseg, kseg, window, ranges, rope_theta, dq=None, dk=None,
+                dv=None):
     _check_bwd(q, k, v, dout, lse, delta, qseg, kseg)
-    b, length, heads, _ = q.shape
+    b, length, heads, d = q.shape
     start, count = ranges if ranges is not None else (None, None)
+    tables = (None, None)
+    if rope_theta is not None:
+        cos, sin = rope_tables(length, d, float(rope_theta), str(q.device))
+        tables = (cos.data_ptr(), sin.data_ptr())
     err = getattr(_build.library("attention_bwd", _BWD_SIGNATURES), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         *_qkv_args(q, k, v)[3:], lse.data_ptr(), delta.data_ptr(), qseg.data_ptr(), kseg.data_ptr(),
-        None if start is None else start.data_ptr(), None if count is None else count.data_ptr(),
+        None if start is None else start.data_ptr(), None if count is None else count.data_ptr(), *tables,
         None if dq is None else dq.data_ptr(), None if dk is None else dk.data_ptr(),
         None if dv is None else dv.data_ptr(), b, length, heads, int(window or 0), _stream(q),
     )
     _build.check(err, entry)
 
 
-def window_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, window: int):
-    """dq of :func:`window_attention` (q, k rotated; lse from its forward;
-    delta from :func:`attention_delta`)."""
+# the rope forms of the four backward kernels (raw q/k, rope tables): each counted under its own name
+window_attention_dq_rope = FormLaunches()
+window_attention_dkv_rope = FormLaunches()
+segment_attention_dq_rope = FormLaunches()
+segment_attention_dkv_rope = FormLaunches()
+
+
+def _count(plain_form, rope_form, rope_theta) -> None:
+    (plain_form if rope_theta is None else rope_form).launches += 1
+
+
+def window_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, window: int, rope_theta: Optional[float] = None):
+    """dq of :func:`window_attention` (lse from its forward; delta from
+    :func:`attention_delta`). Without ``rope_theta`` q and k are rotated and dq
+    is with respect to them; with it (the rope form) q and k are raw, as the
+    forward took them, and so is dq."""
     if q.device.type == "cpu":
-        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window)[0]
+        return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta)[0]
     if window < 0:
         raise ValueError("window must be >= 0")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("cm3p_window_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, window, None, dq=dq)
-    window_attention_dq.launches += 1
+    _launch_bwd("cm3p_window_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, window, None, rope_theta, dq=dq)
+    _count(window_attention_dq, window_attention_dq_rope, rope_theta)
     return dq
 
 
-def window_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, window: int):
-    """(dk, dv) of :func:`window_attention`."""
+def window_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, window: int, rope_theta: Optional[float] = None):
+    """(dk, dv) of :func:`window_attention` (``rope_theta`` as for :func:`window_attention_dq`)."""
     if q.device.type == "cpu":
-        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window)[1:]
+        return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta)[1:]
     if window < 0:
         raise ValueError("window must be >= 0")
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
-    _launch_bwd("cm3p_window_attention_dkv", q, k, v, dout, lse, delta, qseg, kseg, window, None, dk=dk, dv=dv)
-    window_attention_dkv.launches += 1
+    _launch_bwd("cm3p_window_attention_dkv", q, k, v, dout, lse, delta, qseg, kseg, window, None, rope_theta,
+                dk=dk, dv=dv)
+    _count(window_attention_dkv, window_attention_dkv_rope, rope_theta)
     return dk, dv
 
 
-def segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg):
+def segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, rope_theta: Optional[float] = None):
     """dq of :func:`segment_attention`, visiting the key tiles of
-    ``segment_tile_ranges(qseg, kseg)``."""
+    ``segment_tile_ranges(qseg, kseg)`` (``rope_theta`` as for :func:`window_attention_dq`)."""
     if q.device.type == "cpu":
-        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, None)[0]
+        return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, None, rope_theta)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ranges = segment_tile_ranges(qseg, kseg)
-    _launch_bwd("cm3p_segment_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, dq=dq)
-    segment_attention_dq.launches += 1
+    _launch_bwd("cm3p_segment_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, rope_theta, dq=dq)
+    _count(segment_attention_dq, segment_attention_dq_rope, rope_theta)
     return dq
 
 
-def segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg):
+def segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, rope_theta: Optional[float] = None):
     """(dk, dv) of :func:`segment_attention`, visiting the query tiles of
     ``segment_tile_ranges(kseg, qseg)`` (the q/k roles swapped)."""
     if q.device.type == "cpu":
-        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, None)[1:]
+        return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, None, rope_theta)[1:]
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     ranges = segment_tile_ranges(kseg, qseg)
-    _launch_bwd("cm3p_segment_attention_dkv", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, dk=dk, dv=dv)
-    segment_attention_dkv.launches += 1
+    _launch_bwd("cm3p_segment_attention_dkv", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, rope_theta,
+                dk=dk, dv=dv)
+    _count(segment_attention_dkv, segment_attention_dkv_rope, rope_theta)
     return dk, dv
 
 
@@ -556,45 +618,59 @@ for _fn in (window_attention, segment_attention, window_attention_dq, window_att
     _fn.launches = 0
 
 
-def attention_bwd(q, k, v, out, dout, lse, qseg, kseg, window: Optional[int], plain: bool = False):
+def attention_bwd(q, k, v, out, dout, lse, qseg, kseg, window: Optional[int], plain: bool = False,
+                  rope_theta: Optional[float] = None):
     """(dq, dk, dv) of the forward with lse: the dq and dkv kernels on CUDA,
-    the plain backward on the CPU or with ``plain=True``."""
+    the plain backward on the CPU or with ``plain=True``. With ``rope_theta``
+    q and k are raw (the forward rotated them) and the rope forms run."""
     dout = dout.contiguous()
     delta = attention_delta(out, dout)
     if plain:
-        return _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window)
+        return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta)
     if window is None:
-        dq = segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg)
-        return (dq, *segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg))
-    dq = window_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, window)
-    return (dq, *window_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, window))
+        dq = segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, rope_theta)
+        return (dq, *segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, rope_theta))
+    dq = window_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta)
+    return (dq, *window_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta))
 
 
 class AttentionFunction(torch.autograd.Function):
     """Attention with autograd: the forward with lse, then :func:`attention_bwd`.
 
-    q and k arrive rotated (the training route applies rope outside), so no
-    rope runs here. ``window`` None = segment attention; ``plain`` runs the
-    plain versions on any device (the oracle of the training path).
+    Without ``rope_theta`` q and k arrive rotated (the training route applies
+    rope outside), so no rope runs here. With it q and k arrive raw and stay
+    raw in the saved tensors: the forward kernel rotates them and the backward
+    runs the rope forms (the JAX package's ``CM3P_TRAIN_FUSED_ROPE``).
+    ``window`` None = segment attention; ``plain`` runs the plain versions on
+    any device (the oracle of the training path).
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, qseg, kseg, window, plain):
+    def forward(ctx, q, k, v, qseg, kseg, window, plain, rope_theta=None):
         if window is None:
             fn = segment_attention_plain if plain else segment_attention
-            out, lse = fn(q, k, v, qseg, kseg, return_lse=True)
+            out, lse = fn(q, k, v, qseg, kseg, rope_theta, return_lse=True)
         else:
             fn = window_attention_plain if plain else window_attention
-            out, lse = fn(q, k, v, qseg, kseg, window, return_lse=True)
+            out, lse = fn(q, k, v, qseg, kseg, window, rope_theta, return_lse=True)
         ctx.save_for_backward(q, k, v, qseg, kseg, out, lse)
-        ctx.window, ctx.plain = window, plain
+        ctx.window, ctx.plain, ctx.rope_theta = window, plain, rope_theta
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, qseg, kseg, out, lse = ctx.saved_tensors
-        dq, dk, dv = attention_bwd(q, k, v, out, dout, lse, qseg, kseg, ctx.window, ctx.plain)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = attention_bwd(q, k, v, out, dout, lse, qseg, kseg, ctx.window, ctx.plain, ctx.rope_theta)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def rope_in_kernels(rope_theta: Optional[float], positions: Optional[torch.Tensor], head_dim: int,
+                    heads: int) -> bool:
+    """Where the training route keeps rope inside the kernels: the JAX
+    package's ``_train_rope_in_kernel`` (arange positions, head dim 64, an even
+    head count). Its decline of fp32 is a workaround for its compiler and is
+    not carried over."""
+    return rope_theta is not None and positions is None and head_dim == HEAD_DIM and heads % 2 == 0
 
 
 def attention(
@@ -614,12 +690,16 @@ def attention(
     With ``segment_ids`` the key segments are the ids masked by the key mask
     and queries share them; with only a key mask queries are segment 1; with
     neither everything is segment 1. ``window`` None = global attention.
-    ``positions`` (rope positions other than arange) and the autograd route
-    rotate q/k here, outside the kernels; otherwise the forward kernel rotates
-    them itself. ``plain=True`` runs the plain versions on any device (the
-    oracle). With ``residual`` (B, L, N) the out-projection epilogue runs and
-    (B, L, N) is returned: its bf16 form with ``wo`` (N, H * D), its int8 form
-    with ``wo_q`` = (codes, scales); no-grad only.
+    ``positions`` (rope positions other than arange) rotate q/k here, outside
+    the kernels; otherwise the forward kernel rotates them itself. Under
+    autograd the same holds where :func:`rope_in_kernels` admits the layer:
+    the forward kernel rotates raw q/k and the backward kernels' rope forms
+    rotate on load and counter-rotate dq/dk; elsewhere, and with ``plain``,
+    rope is applied outside (autograd of that rope counter-rotates dq/dk).
+    ``plain=True`` runs the plain versions on any device (the oracle). With
+    ``residual`` (B, L, N) the out-projection epilogue runs and (B, L, N) is
+    returned: its bf16 form with ``wo`` (N, H * D), its int8 form with ``wo_q``
+    = (codes, scales); no-grad only.
     """
     b, length = q.shape[:2]
     if segment_ids is not None:
@@ -633,13 +713,14 @@ def attention(
     else:
         qseg = kseg = torch.ones(b, length, dtype=torch.int32, device=q.device)
     train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    if rope_theta is not None and (train or positions is not None):
+    in_kernel = not train or (not plain and rope_in_kernels(rope_theta, positions, q.shape[3], q.shape[2]))
+    if rope_theta is not None and (positions is not None or not in_kernel):
         q, k = apply_rope(q, rope_theta, positions), apply_rope(k, rope_theta, positions)
         rope_theta = None
     if train:
         if residual is not None:
             raise ValueError("the Wo epilogue is a no-grad route")
-        return AttentionFunction.apply(q, k, v, qseg, kseg, window, plain)
+        return AttentionFunction.apply(q, k, v, qseg, kseg, window, plain, rope_theta)
     if residual is not None:
         if window is not None:
             if wo_q is not None:

@@ -10,7 +10,10 @@ to bf16 before their products in both), lse 1e-3 abs (fp32 statistics).
 The int8 forms: 2e-2 abs on the outputs; the activation codes a kernel
 exports may differ from the plain quantiser's by one at most (LN's reduction
 order can move a value across a .5 boundary), on a share of 1e-3 at most.
-The attention kernels with the Wo epilogue: 2e-2 abs on outputs and on the
+The rope forms of the backward kernels (raw q/k, dq/dk counter-rotated) are
+held to the plain rope backward at the same 1e-2, after the forward with rope
+and lse (2e-2, 1e-3); the window kernels also at w = 192, the TPU's streaming
+route. The attention kernels with the Wo epilogue: 2e-2 abs on outputs and on the
 attention output they export; the residual exactly on rows that see no key;
 the int8 codes of the exported attention output as for the LN forms.
 """
@@ -34,6 +37,7 @@ from cm3p_torch.ops import (
 )
 from cm3p_torch.ops.attention import (
     _attention_bwd_plain,
+    attention_bwd_rope_plain,
     attention_delta,
     segment_attention,
     segment_attention_dkv,
@@ -167,7 +171,7 @@ def _metadata_segments(rows, g, length, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["packed", "metadata"])
-@pytest.mark.parametrize("window", [64, None])
+@pytest.mark.parametrize("window", [64, 192, None])
 def test_lse_and_backward_kernels_match_plain(cuda, kind, window):
     gen = torch.Generator(device=cuda).manual_seed(6)
     if kind == "packed":
@@ -200,6 +204,58 @@ def test_lse_and_backward_kernels_match_plain(cuda, kind, window):
     dead = seg == 0
     assert dq[dead].abs().max().item() == 0.0
     assert dk[dead].abs().max().item() == 0.0 and dv[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [64, 192, None], ids=["window", "wide_window", "segment"])
+def test_rope_forms_of_the_backward_kernels_match_the_plain_rope_backward(cuda, window):
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    seg = _packed_segments(2, 2048, cuda)
+    q, k, v = _qkv(2, 2048, 4, gen, cuda)
+    dout = torch.randn(2, 2048, 4, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    theta = 10000.0 if window else 160000.0
+    wargs = (window,) if window else ()
+    fwd, fwd_plain = (window_attention, window_attention_plain) if window else (segment_attention,
+                                                                              segment_attention_plain)
+    out, lse = fwd(q, k, v, seg, seg, *wargs, theta, return_lse=True)
+    want_out, want_lse = fwd_plain(q, k, v, seg, seg, *wargs, theta, return_lse=True)
+    live = (seg > 0)[:, None, :].expand_as(lse)
+    assert (out.float() - want_out.float()).abs().max().item() <= ATOL
+    assert (lse - want_lse)[live].abs().max().item() <= 1e-3
+    delta = attention_delta(want_out, dout)
+    args = (q, k, v, dout, want_lse, delta, seg, seg, *wargs)
+    reset_launch_counts()
+    if window is None:
+        dq = segment_attention_dq(*args, rope_theta=theta)
+        dk, dv = segment_attention_dkv(*args, rope_theta=theta)
+    else:
+        dq = window_attention_dq(*args, rope_theta=theta)
+        dk, dv = window_attention_dkv(*args, rope_theta=theta)
+    pre = "window_attention" if window else "segment_attention"
+    assert launch_counts() == {**_NONE, f"{pre}_dq_rope": 1, f"{pre}_dkv_rope": 1}
+    want = attention_bwd_rope_plain(q, k, v, dout, want_lse, delta, seg, seg, window, theta)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    dead = seg == 0
+    assert dq[dead].abs().max().item() == 0.0
+    assert dk[dead].abs().max().item() == 0.0 and dv[dead].abs().max().item() == 0.0
+
+
+def test_rope_forms_on_cpu_take_the_plain_rope_backward_and_launch_nothing():
+    gen = torch.Generator().manual_seed(11)
+    q, k, v = _qkv(1, 100, 2, gen, "cpu")
+    seg = torch.ones(1, 100, dtype=torch.int32)
+    dout = torch.randn(1, 100, 2, 64, generator=gen).to(torch.bfloat16)
+    out, lse = window_attention(q, k, v, seg, seg, 16, 10000.0, return_lse=True)
+    delta = attention_delta(out, dout)
+    reset_launch_counts()
+    want = attention_bwd_rope_plain(q, k, v, dout, lse, delta, seg, seg, 16, 10000.0)
+    assert torch.equal(window_attention_dq(q, k, v, dout, lse, delta, seg, seg, 16, rope_theta=10000.0), want[0])
+    dk, dv = segment_attention_dkv(q, k, v, dout, lse, delta, seg, seg, rope_theta=10000.0)
+    want_seg = attention_bwd_rope_plain(q, k, v, dout, lse, delta, seg, seg, None, 10000.0)
+    assert torch.equal(dk, want_seg[1]) and torch.equal(dv, want_seg[2])
+    assert launch_counts() == _NONE
 
 
 @pytest.mark.gpu
