@@ -99,6 +99,26 @@ Phases (any failure exits non-zero; nothing is skipped):
                (E: to ``DRIFT_E_COS_MIN``), one unit-norm
                embedding per beatmap, windows/s and tokens/s, a profiler
                breakdown of one pass.
+  9. sequence parallelism - the rectangular form of the segment kernel
+               (``segment_attention_rect``, Lq != Lk: a query shard over all
+               keys) against its plain version at a rank's shape (B 2, H 12,
+               Lq 8,192 over Lk 16,384, the last 1,000 keys masked) and at the
+               JAX test's shard (Lq 1,088 over Lk 8,704, one row with every key
+               masked: its queries must give exactly 0), tolerance 2e-3;
+               the path's window kernel (B 2, L 16,384, H 12, w 64, q zero
+               outside one rank's rows, the same key mask) and int8 FFN (a
+               rank's 16,384 rows) against their plain versions, tolerance
+               2e-2; then 2 spawned ranks share the card over a gloo group
+               (``file://`` store) and run the full-width beatmap tower
+               sequence-parallel (``sp_group``) on 2 x 16,384 seeded tokens
+               (last 1,000 masked) under the tool's default options: launches
+               per forward per rank exactly rect 8 / window 14 / int8 FFN 22,
+               the ranks' features bit-equal, per row cosine >= 0.999 to the
+               all-plain dense forward and bit-equal to the one-process kernel
+               forward; per
+               rank ms per forward, peak memory and the rect kernel's ms,
+               bound and SDPA ms. Two ranks on one card test correctness, not
+               scaling.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
@@ -176,6 +196,8 @@ KERNEL_SOURCES = {
     "window_attention_wide": ("cm3p_torch/csrc/attention.cu", "cm3p_tpu/ops/flash_attention.py:168"),
     "window_attention_dq_wide": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:179"),
     "window_attention_dkv_wide": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:129"),
+    # the segment kernel's rectangular form (lq != lk), run by sequence parallelism
+    "segment_attention_rect": ("cm3p_torch/csrc/attention.cu", "cm3p_tpu/ops/flash_attention.py:513"),
 }
 
 
@@ -1344,6 +1366,290 @@ def extract_slice(torch, ops, dev, maps, waves, exact, tmp):
     return total
 
 
+# ---------------------------------------------------------------- phase 9
+
+SP_RANKS = 2  # ranks of the gloo group, sharing the one card
+SP_LEN = 16384  # tokens per row, sharded 8,192 per rank (the JAX test raises max_position_embeddings alike)
+SP_BATCH = 2
+SP_MASKED = 1000  # masked positions at the end of each row
+SP_TIMEOUT_S = 300  # limit on the ranks' run
+SP_TIMED = 3  # forwards timed per rank
+# per forward per rank under the tool's default options (D: w8a8 + fused_wo; sequence parallelism declines the Wo
+# epilogue): the 8 global layers take the rectangular form, the 14 local ones the square window kernel on the
+# zero-padded query rows, the 22 MLP half-blocks the int8 FFN
+SP_PER_FORWARD = {"segment_attention_rect": 8, "window_attention": 14, "fused_ln_ffn_q": 22}
+# the rectangular kernel against its plain version: 4x the 4.883e-4 (one bf16 ulp) read in every run on an H100,
+# far under the outputs' typical 0.013 over ~15,000 visible keys, so a kernel that let the masked key tail in
+# (about 0.018 at the max) fails
+RECT_TOL = 2e-3
+RECT_CASES = ((SP_LEN // SP_RANKS, SP_LEN), (1088, 8704))  # a rank's shard here; the JAX test's 8-way shard
+
+
+def rect_bound_ms(b, lq, lk, heads, d, pairs):
+    """q and out (B, Lq, H, D), k and v (B, Lk, H, D) bf16 and both segment rows moved once; 4 d flops per
+    visible pair and head."""
+    bytes_moved = 2 * b * (lq + lk) * heads * d * 2 + 4 * b * (lq + lk)
+    return _bound(bytes_moved, 4 * d * heads * pairs / BF16_FLOPS_PER_S)
+
+
+def sdpa_rect_ms(q, k, v, qseg, kseg, iters):
+    """SDPA forward with the boolean (B, 1, Lq, Lk) mask of the same visibility (yardstick only)."""
+    import torch.nn.functional as F
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = (kseg[:, None, None, :] > 0) & (qseg[:, None, :, None] == kseg[:, None, None, :])
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), iters)
+    del qt, kt, vt, mask
+    return ms
+
+
+def check_rect_kernel(torch, ops, gen, dev):
+    """Phase 9, part 1: the rectangular segment kernel against its plain version; returns
+    (max_abs_err, (ms, plain_ms, bound, bound_by, library_ms)) at a rank's shape."""
+    from cm3p_torch.ops.attention import segment_attention_rect_plain
+
+    err_max, row = 0.0, None
+    for lq, lk in RECT_CASES:
+        q = torch.randn(SP_BATCH, lq, 12, 64, generator=gen, device=dev).to(torch.bfloat16)
+        k, v = torch.randn(SP_BATCH, lk, 2, 12, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
+        qseg = torch.ones(SP_BATCH, lq, dtype=torch.int32, device=dev)
+        kseg = torch.ones(SP_BATCH, lk, dtype=torch.int32, device=dev)
+        kseg[:, lk - SP_MASKED:] = 0
+        if lq != RECT_CASES[0][0]:
+            kseg[1] = 0  # a row whose keys are all masked: its queries see no key
+        got = ops.segment_attention_rect(q, k, v, qseg, kseg)
+        want = segment_attention_rect_plain(q, k, v, qseg, kseg)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        dead = (kseg > 0).sum(1) == 0
+        dead_max = got[dead].abs().max().item() if bool(dead.any()) else 0.0
+        log(f"  segment_attention_rect B{SP_BATCH} Lq {lq} Lk {lk} H12, last {SP_MASKED} keys masked"
+            f"{', row 1 all keys masked' if bool(dead.any()) else ''}: max_abs_err {err:.3e} (tol {RECT_TOL}; "
+            f"max |plain| {want.float().abs().max().item():.3e}); queries that see no key max {dead_max}")
+        if not err <= RECT_TOL or dead_max != 0.0:
+            fail(f"segment_attention_rect disagrees with its plain version at Lq {lq}, Lk {lk}")
+        err_max = max(err_max, err)
+        if row is None:
+            pairs = int((kseg > 0).sum()) * lq  # every query (segment 1) sees every unmasked key of its row
+            bound, bound_by = rect_bound_ms(SP_BATCH, lq, lk, 12, 64, pairs)
+            row = (cuda_ms(lambda: ops.segment_attention_rect(q, k, v, qseg, kseg), 10),
+                   cuda_ms(lambda: segment_attention_rect_plain(q, k, v, qseg, kseg), 1), bound, bound_by,
+                   sdpa_rect_ms(q, k, v, qseg, kseg, 5))
+        del q, k, v, got, want
+    return err_max, row
+
+
+def check_sp_shapes(torch, ops, gen, dev, vocab):
+    """Phase 9, part 2: the SP path's other two kernels against their plain versions at the shapes a rank gives
+    them: window_attention over the full length, q zero outside the last rank's rows (where the key mask's
+    masked tail lies), and the int8 FFN (w8a8, the tool's default) on a rank's rows; returns max errors."""
+    from cm3p_torch.configs import CM3PConfig
+    from cm3p_torch.ops.attention import window_attention_plain
+    from cm3p_torch.ops.quant import quantize_weight_int8
+
+    enc = CM3PConfig().beatmap_config
+    heads, window, lq = enc.num_attention_heads, enc.local_attention // 2, SP_LEN // SP_RANKS
+    kseg = sp_inputs(torch, vocab, dev)[1].to(torch.int32).contiguous()
+    qseg = torch.ones_like(kseg)
+    q = torch.zeros(SP_BATCH, SP_LEN, heads, 64, dtype=torch.bfloat16, device=dev)
+    q[:, SP_LEN - lq:] = torch.randn(SP_BATCH, lq, heads, 64, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = torch.randn(SP_BATCH, SP_LEN, 2, heads, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
+    got = ops.window_attention(q, k, v, qseg, kseg, window)
+    # heads are independent: the plain version's dense (L, L) scores go three heads at a time
+    want = torch.cat([window_attention_plain(q[:, :, h:h + 3], k[:, :, h:h + 3], v[:, :, h:h + 3], qseg, kseg, window)
+                      for h in range(0, heads, 3)], dim=2)
+    torch.cuda.synchronize()
+    errs = {"window_attention": (got.float() - want.float()).abs().max().item()}
+    log(f"  window_attention B{SP_BATCH} L {SP_LEN} H{heads} w {window}, q zero outside rows {SP_LEN - lq}.., "
+        f"last {SP_MASKED} keys masked: max_abs_err {errs['window_attention']:.3e} (tol {TOL}; "
+        f"max |plain| {want.float().abs().max().item():.3e})")
+    del q, k, v, got, want
+
+    rows, d, f = SP_BATCH * lq, enc.hidden_size, enc.intermediate_size
+    x = (0.5 * torch.randn(rows, d, generator=gen, device=dev)).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    wi = (0.02 * torch.randn(2 * f, d, generator=gen, device=dev)).to(torch.bfloat16)
+    wo = (0.02 * torch.randn(d, f, generator=gen, device=dev)).to(torch.bfloat16)
+    args = (x, scale, None, wi, wo, enc.norm_eps)
+    kw = dict(w8a8=True, wi_q=quantize_weight_int8(wi))
+    got, want = ops.fused_ln_ffn(*args, **kw), ops.fused_ln_ffn_plain(*args, **kw)
+    torch.cuda.synchronize()
+    errs["fused_ln_ffn_q"] = (got.float() - want.float()).abs().max().item()
+    log(f"  fused_ln_ffn_q (w8a8) {rows} rows x {d}, F {f}: max_abs_err {errs['fused_ln_ffn_q']:.3e} (tol {TOL}; "
+        f"max |plain - x| {(want.float() - x.float()).abs().max().item():.3e})")
+    del x, wi, wo, got, want
+    for name, err in errs.items():
+        if not err <= TOL:
+            fail(f"{name} disagrees with its plain version at the sequence-parallel shape")
+    return errs
+
+
+def sp_inputs(torch, vocab, dev):
+    """The seeded (B, L) token ids in the tokenizer's range and the key mask (last SP_MASKED off)."""
+    import numpy as np
+
+    ids = np.random.default_rng(0).integers(0, vocab, (SP_BATCH, SP_LEN))
+    mask = np.ones((SP_BATCH, SP_LEN), np.int32)
+    mask[:, -SP_MASKED:] = 0
+    return torch.as_tensor(ids, dtype=torch.int64, device=dev), torch.as_tensor(mask, device=dev)
+
+
+def sp_model(torch, vocab, audio_id, dev, sp_group=None):
+    """Full-width CM3PConfig (the beatmap tower's positions raised to SP_LEN) with weights from seed 0, bf16,
+    under the tool's default options (D)."""
+    from cm3p_torch.configs import CM3PConfig
+    from cm3p_torch.inference import load_model
+    from cm3p_torch.interop import init_weights
+    from cm3p_torch.models import EncoderOptions
+
+    cfg = CM3PConfig()
+    cfg.beatmap_config.vocab_size = vocab
+    cfg.beatmap_config.audio_token_id = audio_id
+    cfg.beatmap_config.max_position_embeddings = SP_LEN
+    model = load_model(cfg, init_weights(cfg, torch.Generator(device=dev).manual_seed(0)), device=dev,
+                       options=EncoderOptions(w8a8=True, fused_wo=True))
+    model.sp_group = sp_group
+    return model
+
+
+def sp_rank(rank, world, store, out_dir, vocab, audio_id):
+    """One rank of phase 9 (a spawned process): the sequence-parallel forward over a gloo group on the card."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+
+    from cm3p_torch import ops
+    from cm3p_torch.parallel.sequence import all_gather_seq
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=world)
+    try:
+        group = dist.group.WORLD
+        model = sp_model(torch, vocab, audio_id, dev, group)
+        ids, mask = sp_inputs(torch, vocab, dev)
+
+        def forward():
+            return model.get_beatmap_features(ids, attention_mask=mask, normalize=True)
+
+        with torch.no_grad():
+            forward()  # warm-up: int8 weights are made at first use
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            feats = forward()
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            dist.barrier()
+            t0 = time.perf_counter()
+            ms = cuda_ms(forward, SP_TIMED)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / (SP_TIMED + 1)
+            peak = torch.cuda.max_memory_allocated()
+        # one layer's K (or V) all-gather alone: 2 per layer, 44 per forward, and one of the final hidden states
+        lq = SP_LEN // world
+        shard = torch.zeros(SP_BATCH, lq, 12, 64, dtype=torch.bfloat16, device=dev)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SP_TIMED):
+            all_gather_seq(shard, group)
+        torch.cuda.synchronize()
+        gather_ms = (time.perf_counter() - t0) * 1e3 / SP_TIMED
+        # the rectangular kernel at this rank's shape, one rank at a time (the other waits at the barrier)
+        gen = torch.Generator(device=dev).manual_seed(100 + rank)
+        q = torch.randn(SP_BATCH, lq, 12, 64, generator=gen, device=dev).to(torch.bfloat16)
+        k, v = torch.randn(SP_BATCH, SP_LEN, 2, 12, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
+        qseg = torch.ones(SP_BATCH, lq, dtype=torch.int32, device=dev)
+        kseg = mask.to(torch.int32).contiguous()
+        for turn in range(world):
+            dist.barrier()
+            if turn != rank:
+                continue
+            pairs = int((kseg > 0).sum()) * lq
+            rect_ms = cuda_ms(lambda: ops.segment_attention_rect(q, k, v, qseg, kseg), 10)
+            bound, bound_by = rect_bound_ms(SP_BATCH, lq, SP_LEN, 12, 64, pairs)
+            lib_ms = sdpa_rect_ms(q, k, v, qseg, kseg, 3)
+            log(f"  [rank {rank}] SP forward {ms:.1f} ms (CUDA events, mean of {SP_TIMED}; host clock "
+                f"{wall_ms:.1f} ms), peak memory {peak / 2**30:.2f} GiB; one K/V all-gather over gloo "
+                f"{gather_ms:.2f} ms (host clock; 44 per forward); launches per forward "
+                f"{({name: n for name, n in counts.items() if n})}; segment_attention_rect at Lq {lq}, Lk {SP_LEN}: "
+                f"{rect_ms:.3f} ms, bound {bound:.3f} ms ({bound_by}), SDPA {lib_ms:.3f} ms")
+        dist.barrier()
+        torch.save({"features": feats.float().cpu(), "counts": counts}, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def sp_slice(torch, ops, dev, vocab, audio_id, tmp):
+    """Phase 9, part 2: SP_RANKS ranks over a gloo group on the one card, checked against the one-process
+    dense forward; returns the launches of one forward of rank 0."""
+    import multiprocessing as mp
+
+    tmp = Path(tmp)
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=sp_rank, args=(r, SP_RANKS, str(tmp / "store"), str(tmp), vocab, audio_id))
+             for r in range(SP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SP_TIMEOUT_S
+    # a rank that fails leaves the other waiting in a collective: stop both then
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    log(f"  {SP_RANKS} ranks (gloo, file:// store) joined in {time.perf_counter() - t0:.1f} s, exit codes {codes}")
+    if codes != [0] * SP_RANKS:
+        fail(f"a sequence-parallel rank failed (exit codes {codes})")
+    results = [torch.load(tmp / f"rank{r}.pt") for r in range(SP_RANKS)]
+    want = {name: SP_PER_FORWARD.get(name, 0) for name in ops.KERNELS}
+    for r, res in enumerate(results):
+        if res["counts"] != want:
+            fail(f"rank {r}: launches per forward {res['counts']}, want {want}")
+        if not torch.equal(res["features"], results[0]["features"]):
+            fail(f"rank {r} returned other features than rank 0")
+    log(f"  every rank: launches per forward as expected, features bit-equal to rank 0's")
+
+    model = sp_model(torch, vocab, audio_id, dev)
+    ids, mask = sp_inputs(torch, vocab, dev)
+
+    def dense(plain=False):
+        model.set_plain(plain)
+        with torch.no_grad():
+            out = model.get_beatmap_features(ids, attention_mask=mask, normalize=True).float().cpu()
+        model.set_plain(False)
+        return out
+
+    plain, kernel = dense(plain=True), dense()
+    feats = results[0]["features"]
+    if not bool(torch.isfinite(feats).all()) or feats.shape != (SP_BATCH, model.config.projection_dim):
+        fail(f"sequence-parallel features: not finite of shape ({SP_BATCH}, {model.config.projection_dim})")
+    cos = cosines(feats, plain)
+    log(f"  SP features per row: cosine to the all-plain dense forward {[f'{c:.6f}' for c in cos.tolist()]} "
+        f"(need >= {COS_MIN})")
+    if not bool((cos >= COS_MIN).all()):
+        fail("the sequence-parallel forward disagrees with the all-plain dense forward")
+    # the same kernels on the same keys in the same order, the rope tables the same rows: bit for bit
+    equal = torch.equal(feats, kernel)
+    log(f"  SP features bit-equal to the one-process dense kernel forward: {equal} "
+        f"(cosine per row {[f'{c:.6f}' for c in cosines(feats, kernel).tolist()]})")
+    if not equal:
+        fail("the sequence-parallel forward differs from the dense kernel forward")
+    del model
+    torch.cuda.empty_cache()
+    return results[0]["counts"]
+
+
 def main() -> int:
     try:
         import torch
@@ -1602,6 +1908,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for kname, n in extract_slice(torch, ops, dev, maps, waves, exact, tmp).items():
             main_counts[kname] += n
+
+    # ---- 9. sequence parallelism: the rectangular segment kernel and the sharded beatmap tower
+    log(f"[9] sequence parallelism: {SP_RANKS} ranks on the one card over gloo, full-width CM3PConfig, "
+        f"{SP_BATCH} x {SP_LEN} tokens")
+    t0 = time.perf_counter()
+    errs["segment_attention_rect"], rect_row = check_rect_kernel(torch, ops, gen, dev)
+    kernels.append(("segment_attention_rect", *rect_row))
+    for kname, err in check_sp_shapes(torch, ops, gen, dev, tok.vocab_size).items():
+        errs[kname] = max(errs[kname], err)
+    with tempfile.TemporaryDirectory() as tmp:
+        for kname, n in sp_slice(torch, ops, dev, tok.vocab_size, tok.audio_token_id, tmp).items():
+            main_counts[kname] += n
+    log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
 
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:

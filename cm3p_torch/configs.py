@@ -1,18 +1,15 @@
 """Model configuration dataclasses.
 
-Mirrors the reference's nested config hierarchy
-(``/root/reference/cm3p/configuration_cm3p.py``) as plain dataclasses with
-JSON round-trip, dropping the HF machinery. Defaults are identical so a
-converted reference checkpoint loads without surprises.
+Mirrors the reference CM3P's nested config hierarchy
+(``cm3p/configuration_cm3p.py``) as plain dataclasses, dropping the HF
+machinery. Defaults are identical so a converted reference checkpoint loads
+without surprises. The HF ``config.json`` is read and written by
+:mod:`cm3p_torch.interop.hf_config`.
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
-from pathlib import Path
-from typing import Optional, Union
-
-from .utils.io import read_json, write_json
+from typing import Optional
 
 
 @dataclass
@@ -142,34 +139,6 @@ class CM3PConfig:
             self.metadata_config = MetadataConfig(**self.metadata_config)
         if isinstance(self.beatmap_config, dict):
             self.beatmap_config = BeatmapConfig(**self.beatmap_config)
-
-
-def config_to_dict(config) -> dict:
-    return dataclasses.asdict(config)
-
-
-_CONFIG_CLASSES = {
-    "CM3PConfig": CM3PConfig,
-    "BeatmapConfig": BeatmapConfig,
-    "MetadataConfig": MetadataConfig,
-    "AudioConfig": AudioConfig,
-    "EncoderConfig": EncoderConfig,
-}
-
-
-def save_config(config, directory: Union[str, Path]) -> str:
-    path = Path(directory) / "config.json"
-    data = config_to_dict(config)
-    data["config_class"] = type(config).__name__
-    write_json(path, data)
-    return str(path)
-
-
-def load_config(directory: Union[str, Path]):
-    data = read_json(Path(directory) / "config.json")
-    cls = _CONFIG_CLASSES[data.pop("config_class", "CM3PConfig")]
-    known = {f.name for f in dataclasses.fields(cls)}
-    return cls(**{k: v for k, v in data.items() if k in known})
 
 
 def tiny_cm3p_config(**overrides) -> CM3PConfig:

@@ -5,13 +5,17 @@
 //   _seg_unrolled_kernel (driven by _seg_unrolled_fwd)  -> cm3p_segment_attention
 // forward, with the optional lse output of the training path. Their forms
 // with the out-projection epilogue are csrc/attention_wo.cu; their backward is
-// csrc/attention_bwd.cu.
+// csrc/attention_bwd.cu. The rectangular form (cm3p_segment_attention with
+// Lk != L) is the TPU kernel's Lq != Lk case: a shard of Lq queries over all
+// Lk keys that sequence parallelism gathered, with a key mask as the key
+// segments; it has no rope, no window and no lse.
 //
 // Semantics (the masks and rope of the TPU kernels, not their layout):
 //   q, k, v: head-minor (B, L, H, 64) bf16; a position stride is passed so
 //     q/k/v may be the three views of the fused Wqkv output.
-//   key j is visible to query i iff j < L, kseg[j] > 0, qseg[i] == kseg[j]
-//     and, for the window kernel, |i - j| <= window.
+//   key j is visible to query i iff j < Lk, kseg[j] > 0, qseg[i] == kseg[j]
+//     and, for the window kernel, |i - j| <= window. Lk == L but in the
+//     rectangular form, whose k, v are (B, Lk, H, 64) and kseg (B, Lk).
 //   rope (rotate-half, arange positions) is applied in the kernel from raw
 //     q/k with cos/sin tables of shape (L, 32) fp32 that the wrapper builds;
 //     the rotated values are rounded to bf16 like the plain version does.
@@ -38,7 +42,9 @@
 //                   wrapper computes from the segment ids (the work of
 //                   _block_ranges): tiles whose segment interval cannot meet
 //                   the query tile's are skipped, so a packed row costs
-//                   about sum(segment_len^2), not L^2.
+//                   about sum(segment_len^2), not L^2. The rectangular
+//                   form is the same kernel: its grid runs over the Lq
+//                   query tiles and its ranges over the Lk key tiles.
 // Bound on the H100: at head dim 64 each key tile brings 64 x 64 x 2 x 2
 // bytes for 2 x 64 x 64 x 64 x 2 flops per query tile, so attention over a
 // window of 129 keys sits near the ridge; this first kernel is bound by its
@@ -133,15 +139,21 @@ extern "C" int cm3p_window_attention(const void* q, const void* k, const void* v
   return launch<true>(a, OutArgs{(__nv_bfloat16*)out, (float*)lse}, B, stream);
 }
 
+// q (B, L, H, 64) and k, v (B, Lk, H, 64) bf16 views; qseg (B, L) and kseg
+// (B, Lk) int32; tile_start, tile_count (B, ceil(L / 64)) int32 key-tile
+// ranges; out (B, L, H, 64) contiguous bf16. Lk == L but in the rectangular
+// form, which takes no rope tables and no lse.
 extern "C" int cm3p_segment_attention(const void* q, const void* k, const void* v,
                                       long long q_bstride, long long k_bstride, long long v_bstride,
                                       long long q_pstride, long long k_pstride, long long v_pstride,
                                       const void* qseg, const void* kseg, const void* cos_t,
                                       const void* sin_t, const void* tile_start,
                                       const void* tile_count, void* out, void* lse, int B,
-                                      int L, int H, void* stream) {
+                                      int L, int Lk, int H, void* stream) {
+  if (Lk <= 0 || (Lk != L && (cos_t != nullptr || lse != nullptr))) return (int)cudaErrorInvalidValue;
   AttnArgs a = make_args(q, k, v, q_bstride, k_bstride, v_bstride, q_pstride, k_pstride,
                          v_pstride, qseg, kseg, cos_t, sin_t, L, H);
+  a.Lk = Lk;
   a.tile_start = (const int*)tile_start;
   a.tile_count = (const int*)tile_count;
   return launch<false>(a, OutArgs{(__nv_bfloat16*)out, (float*)lse}, B, stream);

@@ -8,8 +8,10 @@
 // group streams over them with an online softmax (FlashAttention-2 style),
 // using mma.sync m16n8k16 bf16 with fp32 accumulation.
 //
-// Masks: key j is visible to query i iff j < L, kseg[j] > 0, qseg[i] ==
-// kseg[j] and, for the window form, |i - j| <= window. Rope (rotate-half,
+// Masks: key j is visible to query i iff j < Lk, kseg[j] > 0, qseg[i] ==
+// kseg[j] and, for the window form, |i - j| <= window. Queries and keys have
+// one length L (Lk == L) but in the rectangular segment form, where Lq = L
+// query rows of a shard attend over Lk gathered keys. Rope (rotate-half,
 // arange positions) is applied while a tile is staged, from (L, 32) fp32
 // cos/sin tables; rotated values are rounded to bf16 like the plain version.
 // Scores are fp32 in base-2 units (softmax scale 1/sqrt(64) folded with
@@ -40,12 +42,12 @@ struct AttnArgs {
   long long q_bstride, k_bstride, v_bstride;  // elements between batch rows
   long long q_pstride, k_pstride, v_pstride;  // elements between positions
   const int* qseg;                            // (B, L)
-  const int* kseg;                            // (B, L)
-  const float* cos_t;                         // (L, 32) or null
+  const int* kseg;                            // (B, Lk)
+  const float* cos_t;                         // (L, 32) or null (square forms only)
   const float* sin_t;
   const int* tile_start;                      // (B, nq), segment form only
   const int* tile_count;
-  int L, H, window;
+  int L, Lk, H, window;                       // L: query rows; Lk: keys (== L but in the rectangular form)
 };
 
 inline AttnArgs make_args(const void* q, const void* k, const void* v, long long q_bstride,
@@ -69,6 +71,7 @@ inline AttnArgs make_args(const void* q, const void* k, const void* v, long long
   a.tile_start = nullptr;
   a.tile_count = nullptr;
   a.L = L;
+  a.Lk = L;
   a.H = H;
   a.window = 0;
   return a;
@@ -180,7 +183,7 @@ __device__ __forceinline__ void key_tiles(const AttnArgs& a, int b, int qt, int 
   if (WINDOW) {
     const int q0 = qt * BQ;
     const int lo = max(0, q0 - a.window);
-    const int hi = min(a.L - 1, q0 + BQ - 1 + a.window);
+    const int hi = min(a.Lk - 1, q0 + BQ - 1 + a.window);
     begin = lo / BK;
     end = hi / BK + 1;
   } else {
@@ -200,10 +203,10 @@ __device__ __forceinline__ void head_forward(const AttnArgs& a, int b, int h, in
                                              __nv_bfloat16* sK, __nv_bfloat16* sVt, int* sKseg,
                                              const int* sQseg, int tid, int bar_id, float (&o)[8][4],
                                              float (&m)[2], float (&l)[2]) {
-  const int L = a.L;
+  const int Lk = a.Lk;
   const __nv_bfloat16* kbase = a.k + (long long)b * a.k_bstride + h * D;
   const __nv_bfloat16* vbase = a.v + (long long)b * a.v_bstride + h * D;
-  const int* kseg = a.kseg + (long long)b * L;
+  const int* kseg = a.kseg + (long long)b * Lk;
 
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -229,9 +232,9 @@ __device__ __forceinline__ void head_forward(const AttnArgs& a, int b, int h, in
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     group_sync(bar_id);  // every warp of the group is done with the previous tile
-    load_rows_rope(sK, LDS, kbase, a.k_pstride, k0, L, a.cos_t, a.sin_t, tid);
-    load_v_transposed(sVt, vbase, a.v_pstride, k0, L, tid);
-    for (int r = tid; r < BK; r += GROUP) sKseg[r] = (k0 + r < L) ? kseg[k0 + r] : 0;
+    load_rows_rope(sK, LDS, kbase, a.k_pstride, k0, Lk, a.cos_t, a.sin_t, tid);
+    load_v_transposed(sVt, vbase, a.v_pstride, k0, Lk, tid);
+    for (int r = tid; r < BK; r += GROUP) sKseg[r] = (k0 + r < Lk) ? kseg[k0 + r] : 0;
     group_sync(bar_id);
 
     float s[8][4];

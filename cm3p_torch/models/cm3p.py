@@ -13,6 +13,7 @@ extraction model. Module paths follow the HF state-dict keys
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -21,6 +22,14 @@ from torch import nn
 
 from ..configs import AudioConfig, BeatmapConfig, CM3PConfig, MetadataConfig
 from .modernbert import EncoderOptions, ModernBertEncoder, linear, pool_hidden
+
+# the projector's activations, as the JAX package's ``ACTIVATIONS``
+ACTIVATIONS = {
+    "gelu": F.gelu,
+    "gelu_tanh": functools.partial(F.gelu, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+}
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -47,11 +56,15 @@ class MultiModalProjector(nn.Module):
 
     def __init__(self, config: AudioConfig):
         super().__init__()
+        if config.projector_hidden_act not in ACTIVATIONS:
+            raise ValueError(f"unknown projector_hidden_act {config.projector_hidden_act!r}; "
+                             f"the port has {sorted(ACTIVATIONS)}")
+        self.act = ACTIVATIONS[config.projector_hidden_act]
         self.linear_1 = nn.Linear(config.projector_intermediate_size, config.projector_dim, bias=False)
         self.linear_2 = nn.Linear(config.projector_dim, config.projector_dim, bias=False)
 
     def forward(self, x):
-        return linear(F.gelu(linear(x, self.linear_1.weight)), self.linear_2.weight)
+        return linear(self.act(linear(x, self.linear_1.weight)), self.linear_2.weight)
 
 
 class AudioEncoder(nn.Module):
@@ -92,10 +105,14 @@ class BeatmapTransformer(nn.Module):
         self.audio_encoder = AudioEncoder(config.audio_config)
         self.encoder = ModernBertEncoder(config)
 
-    def forward(self, input_ids, input_features=None, attention_mask=None, segment_ids=None, position_ids=None):
+    def forward(self, input_ids, input_features=None, attention_mask=None, segment_ids=None, position_ids=None,
+                sp_group=None):
+        """Final hidden states (B, L, H); ``sp_group`` runs the encoder
+        sequence-parallel (the audio tower runs whole on every rank)."""
         if input_features is None:
             return self.encoder(
-                input_ids=input_ids, attention_mask=attention_mask, segment_ids=segment_ids, position_ids=position_ids
+                input_ids=input_ids, attention_mask=attention_mask, segment_ids=segment_ids, position_ids=position_ids,
+                sp_group=sp_group,
             )
         audio_embeds = self.audio_encoder(input_features)  # (B, tokens_per_window, H)
         # the k-th [AUDIO] placeholder of row i receives audio_embeds[i, k]
@@ -105,7 +122,8 @@ class BeatmapTransformer(nn.Module):
         embeds = self.encoder.embed(input_ids)
         embeds = torch.where(mask[:, :, None], gathered.to(embeds.dtype), embeds)
         return self.encoder(
-            inputs_embeds=embeds, attention_mask=attention_mask, segment_ids=segment_ids, position_ids=position_ids
+            inputs_embeds=embeds, attention_mask=attention_mask, segment_ids=segment_ids, position_ids=position_ids,
+            sp_group=sp_group,
         )
 
 
@@ -114,11 +132,16 @@ class CM3PBeatmapModel(nn.Module):
 
     ``beatmap_model`` and ``beatmap_projection`` carry the same names as in the
     full dual-tower model, so its state dict is a subset of the HF one.
+
+    ``sp_group`` (a ``torch.distributed`` process group, the JAX package's
+    ``sp_mesh``) runs the beatmap tower sequence-parallel over its ranks: each
+    rank passes the full inputs and returns the same features. Forward only.
     """
 
-    def __init__(self, config: CM3PConfig):
+    def __init__(self, config: CM3PConfig, sp_group=None):
         super().__init__()
         self.config = config
+        self.sp_group = sp_group
         bc = config.beatmap_config
         self.beatmap_model = BeatmapTransformer(bc)
         self.beatmap_projection = nn.Linear(bc.hidden_size, config.projection_dim, bias=False)
@@ -143,7 +166,9 @@ class CM3PBeatmapModel(nn.Module):
             enc.compute_dtype = dtype
 
     def get_beatmap_features(self, input_ids, input_features=None, attention_mask=None, normalize: bool = False):
-        hidden = self.beatmap_model(input_ids, input_features=input_features, attention_mask=attention_mask)
+        hidden = self.beatmap_model(
+            input_ids, input_features=input_features, attention_mask=attention_mask, sp_group=self.sp_group
+        )
         pooled = pool_hidden(hidden, attention_mask, self.config.beatmap_config.cls_embed)
         feats = linear(pooled, self.beatmap_projection.weight)
         return l2_normalize(feats) if normalize else feats
@@ -160,7 +185,8 @@ class CM3PBeatmapModel(nn.Module):
         bm = self.beatmap_model
         key_mask = (segment_ids > 0).to(torch.int32)
         if input_features is None:
-            return bm.encoder(input_ids=input_ids, attention_mask=key_mask, segment_ids=segment_ids)
+            return bm.encoder(input_ids=input_ids, attention_mask=key_mask, segment_ids=segment_ids,
+                              sp_group=self.sp_group)
         audio_embeds = bm.audio_encoder(input_features)
         w, n_tok, h = audio_embeds.shape
         rows, max_slots = input_ids.shape
@@ -176,7 +202,8 @@ class CM3PBeatmapModel(nn.Module):
         gathered = torch.gather(row_audio, 1, idx[:, :, None].expand(-1, -1, h))
         embeds = bm.encoder.embed(input_ids)
         embeds = torch.where(mask[:, :, None], gathered.to(embeds.dtype), embeds)
-        return bm.encoder(inputs_embeds=embeds, attention_mask=key_mask, segment_ids=segment_ids)
+        return bm.encoder(inputs_embeds=embeds, attention_mask=key_mask, segment_ids=segment_ids,
+                          sp_group=self.sp_group)
 
     def get_packed_beatmap_features(
         self, input_ids, segment_ids, window_rows, window_segments, input_features=None, normalize: bool = False
@@ -271,8 +298,8 @@ class CM3PModel(CM3PBeatmapModel):
     is not ported yet.
     """
 
-    def __init__(self, config: CM3PConfig, meta_pack: int = 0):
-        super().__init__(config)
+    def __init__(self, config: CM3PConfig, meta_pack: int = 0, sp_group=None):
+        super().__init__(config, sp_group)
         if config.has_decoder_head:
             raise NotImplementedError("the port has no decoder head yet")
         mc = config.metadata_config

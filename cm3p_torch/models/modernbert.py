@@ -50,6 +50,20 @@ else to the LN-matmul kernel (``fused_lnmm_wo``, its W8A8 form when
 ``w8a8`` / ``w8a8_wo``. int8 weights are made from the parameters at first use
 and again whenever a parameter changes (reload, cast, move), never per
 forward.
+
+Sequence parallelism (the JAX package's ``sp_mesh``): with ``sp_group`` (a
+``torch.distributed`` process group) the encoder takes the full (B, L) input
+on every rank, keeps rows [r L/n, (r + 1) L/n) of rank r, applies rope outside
+the kernels at those absolute positions, runs attention through
+:func:`~cm3p_torch.parallel.sequence.sequence_sharded_attention` (K/V
+all-gathered; global layers take the rectangular segment kernel) and gathers
+the final hidden states, so every rank returns the full (B, L, H). Forward
+only; packed ``segment_ids`` raise, and the attention kernels' Wo epilogue is
+declined (the FFN and LN-matmul options still apply).
+
+Dropout is not ported: a nonzero ``attention_dropout``, ``embedding_dropout``
+or ``mlp_dropout`` raises where it would apply (training mode under grad);
+inference, where the JAX package applies none, runs.
 """
 from __future__ import annotations
 
@@ -57,6 +71,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -75,7 +90,11 @@ from ..ops import (
     wo_fusable,
     wo_shape_ok,
 )
+from ..ops.attention import apply_rope
 from ..ops.fused_ffn import LnFfnFunction, ffn_fusable
+from ..parallel.sequence import all_gather_seq, sequence_sharded_attention
+
+DROPOUT_FIELDS = ("attention_dropout", "embedding_dropout", "mlp_dropout")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,13 +185,16 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, key_mask, segment_ids, window, rope_theta, plain: bool = False, positions=None,
                 pre_norm: Optional[LayerNormF32] = None, residual: Optional[torch.Tensor] = None,
-                options: EncoderOptions = EXACT, quantised=None):
+                options: EncoderOptions = EXACT, quantised=None, sp_group=None):
         """``pre_norm``: ``x`` is raw and the norm is fused into the QKV projection.
         ``residual``: the out-projection adds it (the caller must not add it
         again), by the route of the JAX package's order: the attention
         kernel's epilogue where :func:`wo_epilogue` gives a form, else the
         LN-matmul kernel under ``fused_lnmm_wo``, else ``residual + out @ Wo^T``.
-        ``quantised(name, weight)`` returns the cached int8 form of a weight."""
+        ``quantised(name, weight)`` returns the cached int8 form of a weight.
+        ``sp_group``: ``x`` is this rank's shard of the sequence and
+        ``positions`` its absolute positions; attention all-gathers K/V (no
+        epilogue)."""
         b, length, hidden = x.shape
         dt = x.dtype
         if pre_norm is not None:
@@ -186,14 +208,18 @@ class SelfAttention(nn.Module):
         else:
             qkv = linear(x, self.Wqkv.weight)
         q, k, v = qkv.view(b, length, 3, self.heads, self.head_dim).unbind(dim=2)  # head-minor views, no copies
-        form = wo_epilogue(options, window, hidden, length) if residual is not None else None
-        if form is not None:
+        form = wo_epilogue(options, window, hidden, length) if residual is not None and sp_group is None else None
+        if sp_group is not None:
+            q, k = apply_rope(q, rope_theta, positions), apply_rope(k, rope_theta, positions)
+            out = sequence_sharded_attention(q, k, v, key_mask, sp_group, window, plain=plain)
+        elif form is not None:
             return attention(
                 q, k, v, key_mask, segment_ids, window, rope_theta, plain=plain, positions=positions,
                 residual=residual, wo=self.Wo.weight.to(dt) if form == "bf16" else None,
                 wo_q=quantised("Wo", self.Wo.weight) if form == "int8" else None,
             )
-        out = attention(q, k, v, key_mask, segment_ids, window, rope_theta, plain=plain, positions=positions)
+        else:
+            out = attention(q, k, v, key_mask, segment_ids, window, rope_theta, plain=plain, positions=positions)
         out = out.reshape(b, length, hidden)
         if residual is None:
             return linear(out, self.Wo.weight)
@@ -240,7 +266,7 @@ class EncoderLayer(nn.Module):
             self._quantised[name] = hit
         return hit[1]
 
-    def forward(self, x, key_mask=None, segment_ids=None, plain: bool = False, positions=None):
+    def forward(self, x, key_mask=None, segment_ids=None, plain: bool = False, positions=None, sp_group=None):
         cfg = self.config
         hidden = cfg.hidden_size
         window = None if self.is_global else cfg.local_attention // 2
@@ -248,7 +274,8 @@ class EncoderLayer(nn.Module):
         norm, mlp = self.mlp_norm, self.mlp
         if torch.is_grad_enabled():
             attn_in = x if self.attn_norm is None else self.attn_norm(x)
-            x = x + self.attn(attn_in, key_mask, segment_ids, window, theta, plain=plain, positions=positions)
+            x = x + self.attn(attn_in, key_mask, segment_ids, window, theta, plain=plain, positions=positions,
+                              sp_group=sp_group)
             return LnFfnFunction.apply(x, norm.weight, norm.bias, mlp.Wi.weight, mlp.Wo.weight, cfg.norm_eps)
         opts = self.options
         fuse_qkv = opts.fused_lnmm_qkv and self.attn_norm is not None and lnmm_fusable(hidden, 3 * hidden)
@@ -257,7 +284,7 @@ class EncoderLayer(nn.Module):
         attn_out = self.attn(
             attn_in, key_mask, segment_ids, window, theta, plain=plain, positions=positions,
             pre_norm=self.attn_norm if fuse_qkv else None, residual=x if fuse_wo else None,
-            options=opts, quantised=self.quantised,
+            options=opts, quantised=self.quantised, sp_group=sp_group,
         )
         x = attn_out if fuse_wo else x + attn_out
         ffn = fused_ln_ffn_plain if plain else fused_ln_ffn
@@ -321,13 +348,41 @@ class ModernBertEncoder(nn.Module):
         inputs_embeds: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
         position_ids: Optional[torch.Tensor] = None,
+        sp_group=None,
     ) -> torch.Tensor:
+        """Final-norm hidden states (B, L, H); with ``sp_group`` the sequence
+        runs sharded over the group's ranks and each rank returns the whole."""
+        if self.training and torch.is_grad_enabled():
+            rates = {name: getattr(self.config, name) for name in DROPOUT_FIELDS if getattr(self.config, name)}
+            if rates:
+                raise NotImplementedError(f"dropout is not ported: training with {rates} would apply it; "
+                                          "set these fields to 0 (inference applies no dropout and runs)")
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
         x = self.embeddings.norm(inputs_embeds.to(self.compute_dtype or inputs_embeds.dtype))
+        if sp_group is not None:
+            return self._forward_sharded(x, attention_mask, segment_ids, position_ids, sp_group)
         for layer in self.layers:
             x = layer(x, attention_mask, segment_ids, plain=self.plain, positions=position_ids)
         return self.final_norm(x)
+
+    def _forward_sharded(self, x, attention_mask, segment_ids, position_ids, group) -> torch.Tensor:
+        if segment_ids is not None:
+            raise ValueError("sequence parallelism does not support packed segment_ids")
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        length = x.shape[1]
+        if length % n:
+            raise ValueError(f"sequence length {length} does not divide over the {n} ranks of the group")
+        rows = slice(rank * (length // n), (rank + 1) * (length // n))
+        # arange positions stay on the host, where the dense route makes its rope tables
+        # (ops.attention.rope_tables): the shard's tables are then those rows bit for bit, where tables made
+        # on the card differ from the host's in the last bit on some entries
+        positions = torch.arange(length) if position_ids is None else position_ids
+        key_mask = None if attention_mask is None else attention_mask[:, rows]
+        x = x[:, rows]
+        for layer in self.layers:
+            x = layer(x, key_mask, None, plain=self.plain, positions=positions[..., rows], sp_group=group)
+        return all_gather_seq(self.final_norm(x), group)
 
 
 def pool_hidden(hidden: torch.Tensor, attention_mask: Optional[torch.Tensor], cls_embed: bool) -> torch.Tensor:

@@ -7,6 +7,8 @@ from .attention import (
     segment_attention_dq,
     segment_attention_dq_rope,
     segment_attention_plain,
+    segment_attention_rect,
+    segment_attention_rect_plain,
     segment_attention_wo,
     segment_attention_wo_plain,
     segment_attention_wo_q,
@@ -59,6 +61,7 @@ KERNELS = {
     "window_attention_dkv_rope": window_attention_dkv_rope,
     "segment_attention_dq_rope": segment_attention_dq_rope,
     "segment_attention_dkv_rope": segment_attention_dkv_rope,
+    "segment_attention_rect": segment_attention_rect,
 }
 
 
@@ -95,6 +98,8 @@ __all__ = [
     "segment_attention_dq",
     "segment_attention_dq_rope",
     "segment_attention_plain",
+    "segment_attention_rect",
+    "segment_attention_rect_plain",
     "segment_attention_wo",
     "segment_attention_wo_plain",
     "segment_attention_wo_q",

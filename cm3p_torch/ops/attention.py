@@ -14,7 +14,10 @@ Counterpart of the JAX package's ``ops/flash_attention.py`` and
   ``_block_ranges`` and ``qb_index``). :func:`segment_attention` replaces
   ``_seg_unrolled_kernel``; :func:`segment_attention_dq` and
   :func:`segment_attention_dkv` replace ``_dq_unrolled_kernel`` and
-  ``_dkv_unrolled_kernel``.
+  ``_dkv_unrolled_kernel``. :func:`segment_attention_rect` is the same
+  kernel's rectangular form (``_seg_unrolled_fwd``'s lq != lk): a shard of Lq
+  queries over Lk keys, the keys gathered by sequence parallelism, with a key
+  mask as the key segments; forward only, no rope, no window, no lse.
 
 The forwards rotate raw q/k with rope (rotate-half, arange positions) when
 ``rope_theta`` is given, use the softmax scale 1/sqrt(D) with fp32 scores,
@@ -85,7 +88,8 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
     "cm3p_window_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "cm3p_segment_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "cm3p_segment_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _P],
 }
 _WO_SIGNATURES = {
     "cm3p_attention_wo": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -143,9 +147,9 @@ def _near(length, window, device):
     return (idx[:, None] - idx[None, :]).abs() <= window
 
 
-def _row_step(heads: int, length: int, copies: int = 1) -> int:
-    # bound each (rows, H, L, L) fp32 score block to ~1 GiB / copies
-    return max(1, (1 << 30) // (copies * heads * length * length * 4))
+def _row_step(heads: int, length: int, copies: int = 1, key_length: Optional[int] = None) -> int:
+    # bound each (rows, H, Lq, Lk) fp32 score block to ~1 GiB / copies
+    return max(1, (1 << 30) // (copies * heads * length * (key_length or length) * 4))
 
 
 def _attention_plain(q, k, v, qseg, kseg, window: Optional[int], rope_theta: Optional[float], return_lse: bool):
@@ -155,7 +159,7 @@ def _attention_plain(q, k, v, qseg, kseg, window: Optional[int], rope_theta: Opt
     out = torch.empty(b, length, heads, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, heads, length, dtype=torch.float32, device=q.device) if return_lse else None
     near = _near(length, window, q.device)
-    step = _row_step(heads, length)
+    step = _row_step(heads, length, key_length=k.shape[1])
     for r0 in range(0, b, step):
         r1 = min(b, r0 + step)
         qf = q[r0:r1].float().transpose(1, 2)
@@ -184,6 +188,12 @@ def window_attention_plain(q, k, v, qseg, kseg, window: int, rope_theta: Optiona
 def segment_attention_plain(q, k, v, qseg, kseg, rope_theta: Optional[float] = None, return_lse: bool = False):
     """Plain PyTorch version of :func:`segment_attention` (dense masked scores)."""
     return _attention_plain(q, k, v, qseg, kseg, None, rope_theta, return_lse)
+
+
+def segment_attention_rect_plain(q, k, v, qseg, kseg):
+    """Plain PyTorch version of :func:`segment_attention_rect` (dense masked
+    (Lq, Lk) scores)."""
+    return _attention_plain(q, k, v, qseg, kseg, None, None, False)
 
 
 def attention_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -265,18 +275,18 @@ def segment_tile_ranges(qseg: torch.Tensor, kseg: torch.Tensor, tile: int = TILE
     A key tile is needed when its positive-segment interval meets the query
     tile's; padding (segment 0) tiles never meet anything. Returns int32
     (B, nq) tensors ``start`` and ``count`` (count 0 = nothing to visit).
+    ``qseg`` (B, Lq) and ``kseg`` (B, Lk) are padded and tiled apart, nq x nk
+    tiles (Lq != Lk in the rectangular form).
     """
-    b, length = qseg.shape
-    n = -(-length // tile)
-    pad = n * tile - length
-    qs = torch.nn.functional.pad(qseg, (0, pad)).view(b, n, tile)
-    ks = torch.nn.functional.pad(kseg, (0, pad)).view(b, n, tile)
-    big = torch.full_like(qs, 2**30)
-    zero = torch.zeros_like(qs)
+    b = qseg.shape[0]
+    nq, nk = -(-qseg.shape[1] // tile), -(-kseg.shape[1] // tile)
+    qs = torch.nn.functional.pad(qseg, (0, nq * tile - qseg.shape[1])).view(b, nq, tile)
+    ks = torch.nn.functional.pad(kseg, (0, nk * tile - kseg.shape[1])).view(b, nk, tile)
+    big = 2**30
     qmin = torch.where(qs > 0, qs, big).amin(-1)
-    qmax = torch.where(qs > 0, qs, zero).amax(-1)
+    qmax = torch.where(qs > 0, qs, 0).amax(-1)
     kmin = torch.where(ks > 0, ks, big).amin(-1)
-    kmax = torch.where(ks > 0, ks, zero).amax(-1)
+    kmax = torch.where(ks > 0, ks, 0).amax(-1)
     needed = (
         (qmin[:, :, None] <= kmax[:, None, :])
         & (kmin[:, None, :] <= qmax[:, :, None])
@@ -285,17 +295,21 @@ def segment_tile_ranges(qseg: torch.Tensor, kseg: torch.Tensor, tile: int = TILE
     ).to(torch.int32)
     any_needed = needed.amax(-1) > 0
     first = needed.argmax(-1)
-    last = (n - 1) - needed.flip(-1).argmax(-1)
+    last = (nk - 1) - needed.flip(-1).argmax(-1)
     start = torch.where(any_needed, first, torch.zeros_like(first))
     count = torch.where(any_needed, last - first + 1, torch.zeros_like(first))
     return start.to(torch.int32).contiguous(), count.to(torch.int32).contiguous()
 
 
-def _check(q, k, v, qseg, kseg):
+def _check(q, k, v, qseg, kseg, square: bool = True):
+    """What the kernels take; ``square=False`` (the rectangular form) admits
+    k, v (B, Lk, H, D) beside q (B, Lq, H, D), with kseg (B, Lk)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("q, k, v must lie on one CUDA device")
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one (B, L, H, D) shape, got {q.shape}, {k.shape}, {v.shape}")
+    same = q.shape == k.shape if square else (q.shape[0], q.shape[2:]) == (k.shape[0], k.shape[2:])
+    if q.dim() != 4 or k.dim() != 4 or not same or k.shape != v.shape:
+        shape = "one (B, L, H, D) shape" if square else "B, H and D, with k and v of one shape"
+        raise ValueError(f"q, k, v must share {shape}, got {q.shape}, {k.shape}, {v.shape}")
     b, length, heads, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"the kernels take head dim {HEAD_DIM}, got {d}")
@@ -305,9 +319,9 @@ def _check(q, k, v, qseg, kseg):
         st = t.stride()
         if st[3] != 1 or st[2] != d or st[1] % 8 or st[0] % 8 or t.data_ptr() % 16:
             raise ValueError(f"{name} needs contiguous 16-byte-aligned heads, got strides {st}")
-    for name, s in (("qseg", qseg), ("kseg", kseg)):
-        if s.dtype != torch.int32 or s.shape != (b, length) or not s.is_contiguous() or s.device != q.device:
-            raise ValueError(f"{name} must be contiguous int32 (B, L) on q's device")
+    for name, s, n, dims in (("qseg", qseg, length, "(B, Lq)"), ("kseg", kseg, k.shape[1], "(B, Lk)")):
+        if s.dtype != torch.int32 or s.shape != (b, n) or not s.is_contiguous() or s.device != q.device:
+            raise ValueError(f"{name} must be contiguous int32 {dims} on q's device")
 
 
 def _check_bwd(q, k, v, dout, lse, delta, qseg, kseg):
@@ -369,22 +383,40 @@ def window_attention(q, k, v, qseg, kseg, window: int, rope_theta: Optional[floa
     return (out, lse) if return_lse else out
 
 
+def _launch_segment(q, k, v, qseg, kseg, rope_theta, return_lse):
+    b, length, heads, _ = q.shape
+    start, count = segment_tile_ranges(qseg, kseg)
+    out, lse = _outputs(q, return_lse)
+    err = _lib().cm3p_segment_attention(
+        *_common_args(q, k, v, qseg, kseg, rope_theta), start.data_ptr(), count.data_ptr(),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, length, k.shape[1], heads, _stream(q),
+    )
+    _build.check(err, "cm3p_segment_attention")
+    return (out, lse) if return_lse else out
+
+
 def segment_attention(q, k, v, qseg, kseg, rope_theta: Optional[float] = None, return_lse: bool = False):
     """Global attention within segments over head-minor (B, L, H, D); with
     ``return_lse`` returns ``(out, lse)``."""
     if q.device.type == "cpu":
         return segment_attention_plain(q, k, v, qseg, kseg, rope_theta, return_lse)
     _check(q, k, v, qseg, kseg)
-    b, length, heads, _ = q.shape
-    start, count = segment_tile_ranges(qseg, kseg)
-    out, lse = _outputs(q, return_lse)
-    err = _lib().cm3p_segment_attention(
-        *_common_args(q, k, v, qseg, kseg, rope_theta), start.data_ptr(), count.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), b, length, heads, _stream(q),
-    )
-    _build.check(err, "cm3p_segment_attention")
+    result = _launch_segment(q, k, v, qseg, kseg, rope_theta, return_lse)
     segment_attention.launches += 1
-    return (out, lse) if return_lse else out
+    return result
+
+
+def segment_attention_rect(q, k, v, qseg, kseg):
+    """Global attention of q (B, Lq, H, D) over k, v (B, Lk, H, D) within
+    segments, qseg (B, Lq) and kseg (B, Lk): the rectangular form of
+    :func:`segment_attention`, the same kernel (q and k already rotated;
+    forward only), counted apart."""
+    if q.device.type == "cpu":
+        return segment_attention_rect_plain(q, k, v, qseg, kseg)
+    _check(q, k, v, qseg, kseg, square=False)
+    out = _launch_segment(q, k, v, qseg, kseg, None, False)
+    segment_attention_rect.launches += 1
+    return out
 
 
 def _launch_bwd(entry, q, k, v, dout, lse, delta, qseg, kseg, window, ranges, rope_theta, dq=None, dk=None,
@@ -612,7 +644,7 @@ def segment_attention_wo_q(q, k, v, qseg, kseg, w_q, residual, rope_theta: Optio
     return out
 
 
-for _fn in (window_attention, segment_attention, window_attention_dq, window_attention_dkv,
+for _fn in (window_attention, segment_attention, segment_attention_rect, window_attention_dq, window_attention_dkv,
             segment_attention_dq, segment_attention_dkv, window_attention_wo, window_attention_wo_q,
             segment_attention_wo, segment_attention_wo_q):
     _fn.launches = 0
@@ -700,8 +732,17 @@ def attention(
     ``residual`` (B, L, N) the out-projection epilogue runs and (B, L, N) is
     returned: its bf16 form with ``wo`` (N, H * D), its int8 form with ``wo_q``
     = (codes, scales); no-grad only.
+
+    k and v longer or shorter than q (Lq != Lk, the sequence-parallel global
+    layer: a query shard over gathered keys) take the rectangular form
+    :func:`segment_attention_rect`, queries in segment 1 and the key mask (B,
+    Lk) as the key segments. It is a no-grad global route over rotated q/k, as
+    in the JAX package: a window, rope, segment ids, the epilogue or autograd
+    raise there.
     """
     b, length = q.shape[:2]
+    if k.shape[1] != length:
+        return _attention_rect(q, k, v, key_mask, segment_ids, window, rope_theta, plain, residual)
     if segment_ids is not None:
         kseg = segment_ids.to(torch.int32)
         if key_mask is not None:
@@ -738,3 +779,19 @@ def attention(
         return fn(q, k, v, qseg, kseg, window, rope_theta)
     fn = segment_attention_plain if plain else segment_attention
     return fn(q, k, v, qseg, kseg, rope_theta)
+
+
+def _attention_rect(q, k, v, key_mask, segment_ids, window, rope_theta, plain, residual):
+    refused = dict(window=window, rope_theta=rope_theta, segment_ids=segment_ids, residual=residual)
+    named = [name for name, value in refused.items() if value is not None]
+    if named:
+        raise ValueError(f"attention with Lq != Lk is the global no-rope route; it takes no {', '.join(named)}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise ValueError("attention with Lq != Lk is forward only (no autograd)")
+    b, lq = q.shape[:2]
+    qseg = torch.ones(b, lq, dtype=torch.int32, device=q.device)
+    if key_mask is None:
+        kseg = torch.ones(b, k.shape[1], dtype=torch.int32, device=q.device)
+    else:
+        kseg = key_mask.to(torch.int32).contiguous()
+    return (segment_attention_rect_plain if plain else segment_attention_rect)(q, k, v, qseg, kseg)

@@ -7,6 +7,10 @@ Builds the processor, the model (seeded fp32 master weights; bf16 compute on
 the GPU, fp32 on the CPU), the optimizer (Muon + AdamW, or AdamW) and the
 batch source from ``configs/train/<name>.yaml`` with ``a.b=c`` overrides,
 then runs :class:`~cm3p_torch.train.trainer.Trainer` and a final evaluation.
+The final model goes to ``<output_dir>/model`` in the layout
+:func:`~cm3p_torch.inference.load_pretrained` reads (``model.safetensors``,
+the HF ``config.json`` and the processor's files); periodic checkpoints stay
+``torch.save`` files under ``checkpoints/``.
 Batches are synthetic (``dataset.synthetic``) or come from local ``.osu``
 files (``--beatmap-files``: files or directories of them), processed with
 generated metadata and packed when ``training.packed`` is set. Runs on
@@ -32,9 +36,9 @@ import torch
 
 from ..audio import LogMelExtractor
 from ..beatmap import BeatmapEventParser
-from ..configs import BeatmapConfig, CM3PConfig, MetadataConfig, save_config
+from ..configs import BeatmapConfig, CM3PConfig, MetadataConfig
 from ..data import packed_batches
-from ..inference import resolve_device
+from ..inference import resolve_device, save_pretrained
 from ..interop import init_weights
 from ..models import CM3PModel
 from ..processing import CM3PProcessor
@@ -276,10 +280,8 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
         final = trainer.evaluate()
         trainer._log({"step": results["final_step"],
                       **{f"final_eval_{k}": v for k, v in final.items() if v is not None}})
-        model_dir = output_dir / "model"
-        model_dir.mkdir(parents=True, exist_ok=True)
-        torch.save(model.state_dict(), model_dir / "model.pt")
-        save_config(cfg, model_dir)
+        # the layout load_pretrained reads (python -m cm3p_torch.extract --model-dir <output_dir>/model)
+        save_pretrained(model, output_dir / "model", processor=processor)
         processor.save_pretrained(str(output_dir / "processor"))
     finally:
         trainer.close()

@@ -13,7 +13,9 @@ order can move a value across a .5 boundary), on a share of 1e-3 at most.
 The rope forms of the backward kernels (raw q/k, dq/dk counter-rotated) are
 held to the plain rope backward at the same 1e-2, after the forward with rope
 and lse (2e-2, 1e-3); the window kernels also at w = 192, the TPU's streaming
-route. The attention kernels with the Wo epilogue: 2e-2 abs on outputs and on the
+route. The rectangular form of the segment kernel (Lq != Lk) at the same
+2e-2, and bit-equal to the square form where Lq == Lk. The attention kernels
+with the Wo epilogue: 2e-2 abs on outputs and on the
 attention output they export; the residual exactly on rows that see no key;
 the int8 codes of the exported attention output as for the LN forms.
 """
@@ -43,6 +45,8 @@ from cm3p_torch.ops.attention import (
     segment_attention_dkv,
     segment_attention_dq,
     segment_attention_plain,
+    segment_attention_rect,
+    segment_attention_rect_plain,
     segment_attention_wo,
     segment_attention_wo_plain,
     segment_attention_wo_q,
@@ -109,6 +113,38 @@ def test_attention_kernels_match_plain(cuda, kind, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lq, lk", [(1088, 2048), (1500, 1500), (2048, 1000)])
+def test_rect_segment_kernel_matches_plain(cuda, lq, lk):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(2, lq, 8, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    kv = torch.randn(2, lk, 2, 8, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = kv.unbind(2)  # strided views
+    qseg = torch.ones(2, lq, dtype=torch.int32, device=cuda)
+    kseg = torch.ones(2, lk, dtype=torch.int32, device=cuda)
+    kseg[0, lk - 300:] = 0
+    kseg[1, 128:448] = 0  # a fully masked range of key tiles
+    qseg[1, -5:] = 0  # queries that see no key
+    reset_launch_counts()
+    got = segment_attention_rect(q, k, v, qseg, kseg)
+    want = segment_attention_rect_plain(q, k, v, qseg, kseg)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, "segment_attention_rect": 1}
+    assert got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    assert got[qseg == 0].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+def test_rect_form_equals_the_square_form_on_square_shapes(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = _qkv(2, 2048, 8, gen, cuda)
+    seg = _packed_segments(2, 2048, cuda)
+    square = segment_attention(q, k, v, seg, seg)
+    assert torch.equal(segment_attention_rect(q, k, v, seg, seg), square)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d, f", [(768, 1152), (512, 1024), (256, 512)])
 def test_fused_ffn_kernel_matches_plain(cuda, d, f):
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -133,6 +169,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         segment_attention(q[..., :32], k[..., :32], v[..., :32], seg, seg)
     with pytest.raises(ValueError, match="int32"):
         segment_attention(q, k, v, seg.long(), seg)
+    k2, v2 = _qkv(1, 192, 2, gen, cuda)[1:]
+    with pytest.raises(ValueError, match="one \\(B, L, H, D\\) shape"):
+        segment_attention(q, k2, v2, seg, torch.ones(1, 192, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="Lk"):
+        segment_attention_rect(q, k2, v2, seg, seg)
     x = torch.zeros(4, 384, dtype=torch.bfloat16, device=cuda)
     w = torch.zeros(128, 384, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="D in"):

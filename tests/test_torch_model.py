@@ -228,6 +228,59 @@ def test_model_class_is_the_port():
     assert isinstance(load_model(tiny_cm3p_config(), device="cpu"), CM3PBeatmapModel)
 
 
+# ----------------------------------------------------------- config fields
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu", "silu"])
+def test_projector_activation_matches_jax(act):
+    from cm3p_tpu.configs import AudioConfig as JaxAudioConfig
+    from cm3p_tpu.models.cm3p import MultiModalProjector as JaxProjector
+    from cm3p_torch.configs import AudioConfig
+    from cm3p_torch.models import MultiModalProjector
+
+    kw = dict(hidden_size=32, projector_intermediate_size=128, projector_dim=64, projector_hidden_act=act)
+    x = np.random.default_rng(0).normal(size=(2, 5, 128)).astype(np.float32)
+    jproj = JaxProjector(JaxAudioConfig(**kw))
+    params = jproj.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    want = np.asarray(jproj.apply(params, jnp.asarray(x)))
+    proj = MultiModalProjector(AudioConfig(**kw))
+    proj.load_state_dict({
+        f"{name}.weight": torch.from_numpy(np.array(params["params"][name]["kernel"])).T.contiguous()
+        for name in ("linear_1", "linear_2")
+    })
+    with torch.no_grad():
+        got = proj(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_unknown_projector_activation_raises():
+    from cm3p_torch.configs import AudioConfig
+    from cm3p_torch.models import MultiModalProjector
+
+    with pytest.raises(ValueError, match="projector_hidden_act"):
+        MultiModalProjector(AudioConfig(projector_hidden_act="tanh"))
+
+
+@pytest.mark.parametrize("field", ["attention_dropout", "embedding_dropout", "mlp_dropout"])
+def test_dropout_refuses_training_and_loads_for_inference(field, tmp_path):
+    from cm3p_torch.inference import load_pretrained, save_pretrained
+
+    cfg = _configs()[1]
+    setattr(cfg.beatmap_config, field, 0.1)
+    model = load_model(cfg, init_weights(cfg, torch.Generator().manual_seed(0)), device="cpu", dtype=torch.float32)
+    ids = torch.as_tensor(_padded(_windows((40, 33)))[0], dtype=torch.int64)
+    want = model.get_beatmap_features(ids)  # eval mode: no dropout, as the JAX package when deterministic
+    model.train()
+    with pytest.raises(NotImplementedError, match="dropout is not ported"):
+        model.get_beatmap_features(ids)
+    with torch.no_grad():
+        torch.testing.assert_close(model.get_beatmap_features(ids), want)
+    save_pretrained(model, tmp_path)
+    _, loaded = load_pretrained(tmp_path, device="cpu", dtype=torch.float32)
+    assert getattr(loaded.config.beatmap_config, field) == 0.1
+    torch.testing.assert_close(loaded.get_beatmap_features(ids), want)
+
+
 # ----------------------------------------------------------- extraction options
 
 

@@ -12,10 +12,12 @@ update, with NS5 in fp32 on both sides (NS5 amplifies the gradients' 1e-4
 differences; bf16 NS5 is compared by cosine in ``test_torch_train_ops.py``).
 
 The trainer: ``python -m cm3p_torch.train --config-name smoke --device cpu``
-in-process, then a resume.
+in-process, then a resume; its final model loads with ``load_pretrained`` and
+embeds the bundled map.
 """
 import importlib
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from cm3p_tpu.train.muon import muon as jax_muon
 from cm3p_tpu.train.train_state import TrainState, make_train_step
 from cm3p_torch.configs import tiny_cm3p_config
 from cm3p_torch.data import packed_batches
+from cm3p_torch.inference import embed_beatmap, load_pretrained
 from cm3p_torch.interop import state_dict_from_jax
 from cm3p_torch.models import CM3PModel
 from cm3p_torch.train import MuonAdamW, TrainStep, flax_layouts, lr_schedule, to_device
@@ -39,6 +42,8 @@ from cm3p_torch.train.__main__ import main
 from tests.test_torch_train_ops import _ns5_f32_jax, _ns5_f32_torch
 
 LR, MAX_STEPS = 1e-3, 10
+BUNDLED_MAP = str(Path(__file__).resolve().parent.parent / "resources"
+                  / "Denkishiki Karen Ongaku Shuudan - Aoki Kotou no Anguis (OliBomby) [Ardens Spes].osu")
 jax_muon_module = importlib.import_module("cm3p_tpu.train.muon")
 muon_module = importlib.import_module("cm3p_torch.train.muon")
 
@@ -164,7 +169,7 @@ def test_smoke_cli_trains_logs_checkpoints_and_resumes(tmp_path):
     assert any("eval_loss" in r for r in records) and any("final_eval_loss" in r for r in records)
     assert trainer.ckpt.steps() == [2]
     assert json.loads((out / "train_results.json").read_text())["final_step"] == 2
-    assert (out / "model" / "model.pt").exists() and (out / "model" / "config.json").exists()
+    assert (out / "model" / "model.safetensors").exists() and (out / "model" / "config.json").exists()
 
     trainer = main(common + ["training.max_steps=4"])  # resumes from step 2
     records = [json.loads(line) for line in (out / "train_log.jsonl").read_text().splitlines()]
@@ -174,3 +179,19 @@ def test_smoke_cli_trains_logs_checkpoints_and_resumes(tmp_path):
     assert state["micro_step"] == 4 * 2  # smoke accumulates 2 micro-steps
     for name, value in trainer.model.state_dict().items():
         assert torch.equal(value, state["model"][name]), name
+
+
+def test_smoke_cli_output_loads_with_load_pretrained_and_embeds(tmp_path):
+    out = tmp_path / "run"
+    trainer = main(["--config-name", "smoke", "--device", "cpu", f"training.output_dir={out}",
+                    "training.max_steps=1", "training.load_best_model_at_end=false"])
+    processor, model = load_pretrained(out / "model", device="cpu", dtype=torch.float32)
+    assert isinstance(model, CM3PModel)
+    assert processor.beatmap_tokenizer.vocab_size == model.config.beatmap_config.vocab_size
+    trained = trainer.model.state_dict()
+    assert set(model.state_dict()) == set(trained)
+    for name, value in model.state_dict().items():
+        assert torch.equal(value, trained[name].float()), name
+    emb = embed_beatmap(model, processor, BUNDLED_MAP, device="cpu")
+    assert emb.shape == (model.config.projection_dim,)
+    assert np.isfinite(emb).all() and abs(float(np.linalg.norm(emb)) - 1.0) < 1e-5
