@@ -2,8 +2,9 @@
 // bf16 values, lane l holding columns i * 64 + 2 * l + {0, 1} for i < DM / 64.
 //
 // * ln_row_f32: the flax LayerNorm in fp32 (var = max(E[x^2] - E[x]^2, 0)),
-//   as _ln_f32 of the JAX package's ops/fused_ffn.py.
-// * quant_row_int8: the per-row symmetric int8 quantiser of _quant_rows_int8:
+//   as _ln_f32 of the JAX package's ops/fused_ffn.py; ln_moments alone gives
+//   a row's mean and 1 / std (the bf16 LN-matmul normalises in shared memory).
+// * quant_row_int8 (quant_row_int8_each hands each code pair to a callback): the per-row symmetric int8 quantiser of _quant_rows_int8:
 //   sa = max(amax, 1e-30) * (1 / 127), code = clip(rint(y / sa), +-127), with a
 //   true division and round-half-even so that the plain PyTorch version
 //   gives the same codes. Do not build with -use_fast_math.
@@ -46,28 +47,38 @@ __device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Mean and 1 / sqrt(var + eps) of the row held in y (flax formula); every
+// lane gets both.
+template <int DM>
+__device__ __forceinline__ void ln_moments(const float2 (&y)[DM / 64], float eps, float& mu, float& rstd) {
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < DM / 64; ++i) {
+    s1 += y[i].x + y[i].y;
+    s2 += y[i].x * y[i].x + y[i].y * y[i].y;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffff, s1, off);
+    s2 += __shfl_xor_sync(0xffffffff, s2, off);
+  }
+  mu = s1 / DM;
+  const float var = fmaxf(s2 / DM - mu * mu, 0.f);
+  rstd = rsqrtf(var + eps);
+}
+
 // Loads row xr into y as fp32; with scale != nullptr applies the LayerNorm.
 template <int DM>
 __device__ __forceinline__ void ln_row_f32(const __nv_bfloat16* __restrict__ xr,
                                            const float* __restrict__ scale,
                                            const float* __restrict__ bias, float eps, int lane,
                                            float2 (&y)[DM / 64]) {
-  float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-  for (int i = 0; i < DM / 64; ++i) {
+  for (int i = 0; i < DM / 64; ++i)
     y[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + i * 64 + lane * 2));
-    s1 += y[i].x + y[i].y;
-    s2 += y[i].x * y[i].x + y[i].y * y[i].y;
-  }
   if (scale == nullptr) return;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s1 += __shfl_xor_sync(0xffffffff, s1, off);
-    s2 += __shfl_xor_sync(0xffffffff, s2, off);
-  }
-  const float mu = s1 / DM;
-  const float var = fmaxf(s2 / DM - mu * mu, 0.f);
-  const float rstd = rsqrtf(var + eps);
+  float mu, rstd;
+  ln_moments<DM>(y, eps, mu, rstd);
 #pragma unroll
   for (int i = 0; i < DM / 64; ++i) {
     const int c = i * 64 + lane * 2;
@@ -81,11 +92,10 @@ __device__ __forceinline__ int quant_code(float v, float sa) {
   return max(-127, min(127, __float2int_rn(v / sa)));
 }
 
-// Quantises the row in y to int8 codes at dst (DM bytes, 2-byte aligned) and,
-// when codes_out != nullptr, at codes_out too; returns the row scale sa.
-template <int DM>
-__device__ __forceinline__ float quant_row_int8(const float2 (&y)[DM / 64], int lane, int8_t* dst,
-                                                int8_t* codes_out) {
+// Quantises the row in y to int8 codes, handing each pair of codes to
+// put(column, char2) (columns c, c + 1 with c even); returns the row scale sa.
+template <int DM, typename Put>
+__device__ __forceinline__ float quant_row_int8_each(const float2 (&y)[DM / 64], int lane, Put put) {
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < DM / 64; ++i) amax = fmaxf(amax, fmaxf(fabsf(y[i].x), fabsf(y[i].y)));
@@ -94,14 +104,23 @@ __device__ __forceinline__ float quant_row_int8(const float2 (&y)[DM / 64], int 
   const float sa = fmaxf(amax, 1e-30f) * kInv127;
 #pragma unroll
   for (int i = 0; i < DM / 64; ++i) {
-    const int c = i * 64 + lane * 2;
     char2 q;
     q.x = (signed char)quant_code(y[i].x, sa);
     q.y = (signed char)quant_code(y[i].y, sa);
-    *reinterpret_cast<char2*>(dst + c) = q;
-    if (codes_out) *reinterpret_cast<char2*>(codes_out + c) = q;
+    put(i * 64 + lane * 2, q);
   }
   return sa;
+}
+
+// Quantises the row in y to int8 codes at dst (DM bytes, 2-byte aligned) and,
+// when codes_out != nullptr, at codes_out too; returns the row scale sa.
+template <int DM>
+__device__ __forceinline__ float quant_row_int8(const float2 (&y)[DM / 64], int lane, int8_t* dst,
+                                                int8_t* codes_out) {
+  return quant_row_int8_each<DM>(y, lane, [&](int c, char2 q) {
+    *reinterpret_cast<char2*>(dst + c) = q;
+    if (codes_out) *reinterpret_cast<char2*>(codes_out + c) = q;
+  });
 }
 
 }  // namespace cm3p

@@ -401,6 +401,134 @@ def test_fused_ffn_int8_forms_match_plain(cuda, d, f, w8a8, w8a8_wo):
         _assert_codes_agree(codes_y, quant_rows_int8(layer_norm_f32(x, scale, None, 1e-5))[0])
 
 
+# Row counts at the edges of the redesigned kernels' tiles (64 rows per consumer warpgroup, 128 rows
+# per LN-matmul tile), "wave": one row past a work item for every cluster of the persistent grid, and
+# "waves": two items for every cluster and a ragged third for some (resolved on the card).
+EDGE_ROWS = [1, 63, 64, 65, 127, 129, 4037, "wave", "waves"]
+
+
+def _edge_rows(rows, group_rows, items_per_group):
+    """``group_rows``: the rows of a cluster's work item (its two CTAs' row tiles); ``items_per_group``:
+    the items that share those rows (output column tiles that the kernel gives separate items)."""
+    if rows not in ("wave", "waves"):
+        return rows
+    clusters = -(-torch.cuda.get_device_properties(0).multi_processor_count // 2)  # at most one CTA an SM
+    groups = -(-clusters // items_per_group)  # groups that give every cluster one item
+    return groups * group_rows + 1 if rows == "wave" else 2 * groups * group_rows + group_rows // 2 + 1
+
+
+def _edge_inputs(rows, d, gen, device):
+    """x with a block of zero rows in the middle (from 3 rows up), LN scale and bias."""
+    x = (0.5 * torch.randn(rows, d, generator=gen, device=device)).to(torch.bfloat16)
+    zero = slice(rows // 2, rows // 2 + max(1, rows // 10)) if rows >= 3 else slice(0, 0)
+    x[zero] = 0
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=device)
+    bias = 0.1 * torch.randn(d, generator=gen, device=device)
+    return x, scale, bias, zero
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+@pytest.mark.parametrize("d", [768, 512, 256])
+@pytest.mark.parametrize("form", ["ln", "ln_bias", "wo_residual"])
+def test_ln_matmul_bf16_kernel_at_tile_edges(cuda, rows, d, form):
+    """The wgmma form of cm3p_ln_matmul (rows 5 and 5r) against its plain version."""
+    n_out = 3 * d if form != "wo_residual" else d
+    rows = _edge_rows(rows, 2 * 128, 1)  # a cluster walks every column tile of its two 128-row tiles
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x, scale, bias, zero = _edge_inputs(rows, d, gen, cuda)
+    w = (0.02 * torch.randn(n_out, d, generator=gen, device=cuda)).to(torch.bfloat16)
+    res = (0.5 * torch.randn(rows, n_out, generator=gen, device=cuda)).to(torch.bfloat16) if form == "wo_residual" else None
+    kw = dict(scale=None if form == "wo_residual" else scale, bias=bias if form == "ln_bias" else None, residual=res)
+    got = fused_ln_matmul(x, w, **kw)
+    want = fused_ln_matmul_plain(x, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    if form != "ln_bias":  # a zero row gives a zero product: the residual, or 0
+        assert torch.equal(got[zero], torch.zeros_like(got[zero]) if res is None else res[zero])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_out", [128, 384, 640])
+def test_ln_matmul_bf16_kernel_with_a_half_column_tile(cuda, n_out):
+    """N a multiple of 128 but not of the 256-column tile: the last tile is half full."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x, scale, bias, _ = _edge_inputs(300, 256, gen, cuda)
+    w = (0.02 * torch.randn(n_out, 256, generator=gen, device=cuda)).to(torch.bfloat16)
+    got = fused_ln_matmul(x, w, scale=scale, bias=bias)
+    torch.cuda.synchronize()
+    assert (got.float() - fused_ln_matmul_plain(x, w, scale=scale, bias=bias).float()).abs().max().item() <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+@pytest.mark.parametrize("d, f", [(768, 64), (768, 1152), (512, 64), (512, 1024), (256, 64), (256, 512)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_ffn_w8a8_kernel_at_tile_edges(cuda, rows, d, f, with_bias):
+    """The wgmma w8a8 form of cm3p_fused_ln_ffn_q (row 3q) against its plain version: one F chunk
+    (F = 64) and many, every width, ragged rows, and its LN codes against the plain quantiser's.
+    Weights of std 1/sqrt(D) and 0.25/sqrt(F) give a and b of about unit size and an FFN output
+    of 0.09-0.19 rms at every (D, F), so a wrong column half or K slice shows well above ATOL; the
+    sum x + o stays under 4, where a bf16 ulp is within ATOL."""
+    rows = _edge_rows(rows, 2 * 64, 2 if d == 768 else 1)  # two 384-column items per rows at D 768
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x, scale, bias, zero = _edge_inputs(rows, d, gen, cuda)
+    bias = bias if with_bias else None
+    wi = (d ** -0.5 * torch.randn(2 * f, d, generator=gen, device=cuda)).to(torch.bfloat16)
+    wo = (0.25 * f ** -0.5 * torch.randn(d, f, generator=gen, device=cuda)).to(torch.bfloat16)
+    wi_q = quantize_weight_int8(wi)
+    codes_y = torch.full((rows, d), -128, dtype=torch.int8, device=cuda)  # a value the quantiser never gives
+    got = fused_ln_ffn_q(x, scale, bias, wi, wo, 1e-5, w8a8=True, wi_q=wi_q, codes_y=codes_y)
+    want = fused_ln_ffn_plain(x, scale, bias, wi, wo, 1e-5, w8a8=True, wi_q=wi_q)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (want.float() - x.float()).pow(2).mean().sqrt().item() > 2 * ATOL  # the FFN's own part, rms
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    if not with_bias:
+        assert torch.equal(got[zero], x[zero])
+    _assert_codes_agree(codes_y, quant_rows_int8(layer_norm_f32(x, scale, bias, 1e-5))[0])
+
+
+_SHARED_CARD_RUN = """
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from cm3p_torch.ops import fused_ln_ffn_plain, fused_ln_ffn_q, quantize_weight_int8
+g = torch.Generator(device="cuda").manual_seed(int(sys.argv[2]))
+x = (0.5 * torch.randn(16384, 768, generator=g, device="cuda")).to(torch.bfloat16)
+scale = 1 + 0.1 * torch.randn(768, generator=g, device="cuda")
+wi = (0.02 * torch.randn(2304, 768, generator=g, device="cuda")).to(torch.bfloat16)
+wo = (0.02 * torch.randn(768, 1152, generator=g, device="cuda")).to(torch.bfloat16)
+wi_q = quantize_weight_int8(wi)
+want = fused_ln_ffn_plain(x, scale, None, wi, wo, 1e-5, w8a8=True, wi_q=wi_q)
+for _ in range(30):
+    got = fused_ln_ffn_q(x, scale, None, wi, wo, 1e-5, w8a8=True, wi_q=wi_q)
+torch.cuda.synchronize()
+assert (got.float() - want.float()).abs().max().item() <= 2e-2
+"""
+
+
+@pytest.mark.gpu
+def test_ffn_w8a8_kernel_on_a_card_shared_by_three_processes(cuda):
+    """Processes that share the card are time-sliced; the kernel's rings must not lose their order then
+    (sequence parallelism runs two ranks beside the main process)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = str(Path(__file__).resolve().parent.parent)
+    procs = [subprocess.Popen([sys.executable, "-c", _SHARED_CARD_RUN, repo, str(k)], cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for k in range(3)]
+    outs = []
+    for proc in procs:
+        try:
+            outs.append((proc.wait(timeout=180), proc.stdout.read()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            outs.append((None, "timed out"))
+    assert all(rc == 0 for rc, _ in outs), outs
+
+
 @pytest.mark.gpu
 def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(8, 768, dtype=torch.bfloat16, device=cuda)

@@ -177,14 +177,15 @@ def _imported_roots(path: Path) -> set[str]:
 _PORT_FILES = sorted(
     p for p in (REPO / "cm3p_torch").rglob("*") if p.suffix in (".py", ".cu", ".cuh") and "_build" not in p.parts
 )
+_PORT_SCRIPTS = [REPO / "chip_smoke.py", REPO / "compare_kernels.py"]
 
 
-@pytest.mark.parametrize("path", _PORT_FILES + [REPO / "chip_smoke.py"], ids=lambda p: str(p.relative_to(REPO)))
+@pytest.mark.parametrize("path", _PORT_FILES + _PORT_SCRIPTS, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_sources_import_no_jax(path):
-    """No module of the port (nor chip_smoke.py) imports JAX or the JAX package."""
+    """No module of the port (nor its scripts chip_smoke.py and compare_kernels.py) imports JAX or the JAX package."""
     if path.suffix == ".py":
         assert not _imported_roots(path) & _FORBIDDEN_ROOTS
-    if path.parent != REPO:  # chip_smoke.py may name the TPU kernels it reports on
+    if path.parent != REPO:  # the scripts may name the TPU kernels they report on
         assert "cm3p_tpu" not in path.read_text()
 
 
@@ -212,7 +213,7 @@ _LAZY_ONLY = {"pandas", "pyarrow", "safetensors"}
 
 
 @pytest.mark.parametrize(
-    "path", [p for p in _PORT_FILES if p.suffix == ".py"] + [REPO / "chip_smoke.py"],
+    "path", [p for p in _PORT_FILES if p.suffix == ".py"] + _PORT_SCRIPTS,
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_port_imports_dataframe_packages_only_inside_functions(path):
