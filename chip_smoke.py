@@ -221,7 +221,12 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-WGMMA_KERNELS = {"fused_ln_matmul": "bf16::ln_matmul_kernel", "fused_ffn": "w8a8::ffn_kernel"}
+# per source, the name prefixes of its wgmma kernels (every instance must issue wgmma fed by TMA)
+WGMMA_KERNELS = {
+    "fused_ln_matmul": ("bf16::ln_matmul_kernel",),
+    "fused_ffn": ("w8a8::ffn_kernel",),
+    "attention_wo": ("sm90_wo::attention_wo_kernel",),
+}
 SASS_OPCODES = ("HGMMA", "UTMALDG", "LDGSTS", "BAR.SYNC")
 
 
@@ -254,6 +259,17 @@ def ptxas_report(text: str):
             rows.append((kernel, line.split(":", 1)[1].strip(), spills))
             kernel = None
     return rows
+
+
+def ptxas_notes(text: str):
+    """(kernel, note) per "Potential Performance Loss" note of nvcc's ``-Xptxas=-v`` output (for
+    example C7514: ptxas serialises every wgmma of the kernel)."""
+    notes = []
+    for line in text.splitlines():
+        m = re.search(r"\((C\d+)\) Potential Performance Loss: (.*?) in the function '([^']+)'", line)
+        if m:
+            notes.append((kernel_name(m.group(3)), f"{m.group(1)} {' '.join(m.group(2).split())}"))
+    return notes
 
 
 def sass_counts(lib: Path):
@@ -387,8 +403,10 @@ def sdpa_ms(q, k, v, seg, window, iters):
 
 
 _CATEGORIES = (  # kernel-name fragment -> category, first match wins
-    ("attention_wo_kernel<true", "window_attention_wo (ours)"),
-    ("attention_wo_kernel<false", "segment_attention_wo (ours)"),
+    ("sm90_wo::attention_wo_kernel<true", "window_attention_wo (ours)"),
+    ("sm90_wo::attention_wo_kernel<false", "segment_attention_wo (ours)"),
+    ("attention_wo_q_kernel<true", "window_attention_wo_q (ours)"),
+    ("attention_wo_q_kernel<false", "segment_attention_wo_q (ours)"),
     ("attention_kernel<true>", "window_attention (ours)"),
     ("attention_kernel<false>", "segment_attention (ours)"),
     ("attention_dq_kernel<true, false>", "window_attention_dq (ours)"),
@@ -1233,19 +1251,22 @@ def wo_bound_ms(b, length, heads, d, pairs, live_rows, n, int8):
 
 def check_wo_kernels(torch, ops, gen, dev, seg_packed, audio_b, audio_l):
     """Phase 7: the attention kernels with the Wo epilogue against their plain versions at the
-    extraction shapes; returns max errors per form, the report rows (the packed beatmap shape, the
-    audio tower's for ``segment_attention_wo_q``, the one shape where the main path runs it) and the
-    unfused pair's ms per form."""
+    extraction shapes, and the bf16 forms also at rows of 4,096 tokens of one segment (the longest key
+    range: a query tile visits 64 key tiles); returns max errors per form, the report rows (the packed
+    beatmap shape, the audio tower's for ``segment_attention_wo_q``, the one shape where the main path
+    runs it) and the unfused pair's ms per form."""
     from cm3p_torch.ops.attention import segment_attention_plain, window_attention_plain
     from cm3p_torch.ops.quant import quant_rows_int8, quantize_weight_int8
 
     errs, report, pair = {}, {}, {}
     audio_seg = torch.ones(audio_b, audio_l, dtype=torch.int32, device=dev)
     audio_seg[::3, audio_l - 150:] = 0  # padding rows: queries that see no key
-    shapes = ((f"packed {tuple(seg_packed.shape)} H12", seg_packed, 12),
-              (f"audio {audio_b}x{audio_l} H8", audio_seg, 8))
+    one_seg = torch.ones(4, ROW_LEN, dtype=torch.int32, device=dev)
+    shapes = ((f"packed {tuple(seg_packed.shape)} H12", seg_packed, 12, False),
+              (f"audio {audio_b}x{audio_l} H8", audio_seg, 8, False),
+              (f"one segment 4x{ROW_LEN} H12", one_seg, 12, True))  # bf16 forms only, compared, not timed
     log("  attention with the Wo epilogue (max abs difference; tolerance %g)" % TOL)
-    for label, seg, heads in shapes:
+    for label, seg, heads, compare_only in shapes:
         b, length = seg.shape
         hd = heads * 64
         q, k, v = torch.randn(b, length, 3, heads, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
@@ -1262,7 +1283,7 @@ def check_wo_kernels(torch, ops, gen, dev, seg_packed, audio_b, audio_l):
             attn_plain = window_attention_plain if window else segment_attention_plain
             want_o = attn_plain(q, k, v, seg, seg, *wargs, theta).flatten(2)
             pairs = visible_pairs(seg, window)
-            for int8 in (False, True):
+            for int8 in (False,) if compare_only else (False, True):
                 kname = pre + ("_wo_q" if int8 else "_wo")
                 fn, fn_plain = getattr(ops, kname), getattr(ops, kname + "_plain")
                 weight = w_q if int8 else wo
@@ -1284,6 +1305,8 @@ def check_wo_kernels(torch, ops, gen, dev, seg_packed, audio_b, audio_l):
                     fail(f"{kname} disagrees with its plain version on {label}")
                 errs[kname] = max(errs.get(kname, 0.0), err)
                 del got, want, o_out, codes
+                if compare_only:
+                    continue
                 ms = cuda_ms(lambda: fn(q, k, v, seg, seg, *wargs, weight, res, theta), 5)
                 plain = cuda_ms(lambda: fn_plain(q, k, v, seg, seg, *wargs, weight, res, theta), 1)
                 if int8:
@@ -1296,6 +1319,9 @@ def check_wo_kernels(torch, ops, gen, dev, seg_packed, audio_b, audio_l):
                 bound, by = wo_bound_ms(b, length, heads, 64, pairs, live_rows, hd, int8)
                 log(f"    {kname:22s} {label}: {ms:.3f} ms (plain {plain:.3f}, bound {bound:.3f} {by}; the unfused "
                     f"pair {'attention + int8 LN-matmul Wo' if int8 else 'attention + linear + add'} {pair_ms:.3f} ms)")
+                if not int8:  # the share rope takes: the same kernel given no rope tables
+                    bare = cuda_ms(lambda: fn(q, k, v, seg, seg, *wargs, weight, res), 5)
+                    log(f"    {kname:22s} {label}: without rope {bare:.3f} ms")
                 main_shape = (heads == 8) if kname == "segment_attention_wo_q" else (heads == 12)
                 if main_shape:
                     report[kname] = (ms, plain, bound, by, None)
@@ -1729,6 +1755,33 @@ def sp_slice(torch, ops, dev, vocab, audio_id, tmp):
     return results[0]["counts"]
 
 
+def corpus_windows(proc):
+    """The bundled map and the 16 corpus maps through the processor with seeded waveforms: (map paths,
+    each window's token ids without padding, the windows' mel features, each map's waveform)."""
+    import numpy as np
+
+    from cm3p_torch.beatmap import load_beatmap
+    from cm3p_torch.beatmap.parser import get_song_length
+
+    maps = sorted(glob.glob(str(ROOT / "resources" / "*.osu"))) + sorted(
+        glob.glob(str(ROOT / "resources" / "perf_corpus" / "*.osu"))
+    )
+    if len(maps) != 17:
+        fail(f"expected the bundled map and 16 corpus maps, found {len(maps)}")
+    rng = np.random.default_rng(0)
+    seqs, feats, waves = [], [], {}
+    for path in maps:
+        seconds = get_song_length(None, 16000, load_beatmap(path)) + 1.0
+        wav = (0.1 * rng.standard_normal(int(seconds * 16000))).astype(np.float32)
+        waves[path] = wav
+        out = proc(beatmap=path, audio=wav, **WINDOW_KW)
+        lengths = np.asarray(out["attention_mask"]).sum(axis=1)
+        ids = np.asarray(out["input_ids"])
+        seqs.extend(ids[i, : lengths[i]] for i in range(len(ids)))
+        feats.append(np.asarray(out["input_features"], np.float32))
+    return maps, seqs, np.concatenate(feats), waves
+
+
 def main() -> int:
     try:
         import torch
@@ -1751,6 +1804,7 @@ def main() -> int:
     from cm3p_torch.ops import _build
     from cm3p_torch.processing import CM3PProcessor
     from cm3p_torch.processing.packing import pack_windows
+    from cm3p_torch.beatmap import load_beatmap
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1765,13 +1819,15 @@ def main() -> int:
     for src, text in _build.BUILD_LOG.items():
         for kernel, used, spills in ptxas_report(text):
             log(f"  {src} {kernel}: {used}; {spills}")
-    for src, prefix in WGMMA_KERNELS.items():
+        for kernel, note in ptxas_notes(text):
+            log(f"  {src} {kernel}: ptxas {note}")
+    for src, prefixes in WGMMA_KERNELS.items():
         counts = sass_counts(_build._target(src))
         if counts is None:
             log(f"  {src}: cuobjdump not found, SASS not counted")
             continue
         for kernel, n in counts.items():
-            if kernel.startswith(prefix):
+            if kernel.startswith(prefixes):
                 log(f"  {src} {kernel} SASS: " + ", ".join(f"{op} {c}" for op, c in n.items()))
                 if not (n["HGMMA"] and n["UTMALDG"]) or n["LDGSTS"]:
                     fail(f"{kernel}: expected wgmma (HGMMA) fed by TMA (UTMALDG) and no cp.async, got {n}")
@@ -1779,27 +1835,8 @@ def main() -> int:
     # ---- host: processor over the bundled map and the corpus
     proc = CM3PProcessor()
     tok = proc.beatmap_tokenizer
-    maps = sorted(glob.glob(str(ROOT / "resources" / "*.osu"))) + sorted(
-        glob.glob(str(ROOT / "resources" / "perf_corpus" / "*.osu"))
-    )
-    if len(maps) != 17:
-        fail(f"expected the bundled map and 16 corpus maps, found {len(maps)}")
-    rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    seqs, feats, waves = [], [], {}
-    from cm3p_torch.beatmap import load_beatmap
-    from cm3p_torch.beatmap.parser import get_song_length
-
-    for path in maps:
-        seconds = get_song_length(None, 16000, load_beatmap(path)) + 1.0
-        wav = (0.1 * rng.standard_normal(int(seconds * 16000))).astype(np.float32)
-        waves[path] = wav
-        out = proc(beatmap=path, audio=wav, **WINDOW_KW)
-        lengths = np.asarray(out["attention_mask"]).sum(axis=1)
-        ids = np.asarray(out["input_ids"])
-        seqs.extend(ids[i, : lengths[i]] for i in range(len(ids)))
-        feats.append(np.asarray(out["input_features"], np.float32))
-    feats = np.concatenate(feats)
+    maps, seqs, feats, waves = corpus_windows(proc)
     packed = pack_windows(seqs, ROW_LEN, pad_id=tok.pad_token_id)
     n_windows, n_rows = len(seqs), packed["input_ids"].shape[0]
     n_tokens = int(sum(len(s) for s in seqs))

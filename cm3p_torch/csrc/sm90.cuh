@@ -8,7 +8,10 @@
 // layout (CU_TENSOR_MAP_SWIZZLE_128B) and the wgmma descriptor names it
 // (layout 1, 1024 bytes between groups of 8 rows); a tile starts on a
 // 1024-byte boundary and one K step moves the descriptor's start by 32 bytes.
-// Code that writes such a tile itself uses swizzle128().
+// Code that writes such a tile itself uses swizzle128(). The same tile read
+// MN-major (its rows are K and its 128-byte row is N: a V tile whose rows are
+// keys) is read with the transpose flag of bf16 wgmma; one K step of 16 rows
+// then moves the descriptor's start by 2,048 bytes.
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -61,6 +64,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// mbar_wait for code that issues wgmma: the polling loop lives inside the asm,
+// so the compiler sees straight-line code and keeps the warpgroup's wgmma
+// unserialised (a C++ loop whose exit each thread takes on its own reads as a
+// divergent path, ptxas warning C7520). The same trap after about 2^34 cycles.
+__device__ __forceinline__ void mbar_wait_wg(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%clock64;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%clock64;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, %2;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity), "l"(1ull << 34)
+      : "memory");
+}
+
 // One 2-D TMA tile load: coordinates (inner, outer) in elements; completion
 // counts the tile's bytes on `bar` (rows outside the tensor arrive as zeros).
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int inner, int outer) {
@@ -69,6 +93,21 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer), "r"(smem_u32(bar))
       : "memory");
+}
+
+// One 4-D TMA tile load, coordinates innermost first (rows outside the
+// tensor arrive as zeros).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
 // The same tile loaded once and written at the same offset, with the same
@@ -121,7 +160,11 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// wgmma descriptor of a K-major, 128-byte-swizzled tile starting at p.
+// wgmma descriptor of a K-major, 128-byte-swizzled tile starting at p. The
+// same descriptor names the tile read MN-major (with the transpose flag): its
+// stride byte offset, 1,024 bytes, is then the step between 8-row groups of K,
+// and an N of 64 bf16 is one swizzle atom, so the leading byte offset (the
+// step between atoms along N) is not read.
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   const uint64_t addr = smem_u32(p);
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (uint64_t(1024 >> 4) << 32) | (1ull << 62);
@@ -140,6 +183,40 @@ template <typename T, int N>
 __device__ __forceinline__ void fence_regs(T (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(reinterpret_cast<uint32_t&>(d[i]))::"memory");
+}
+
+// D (64 x 64) [+]= A (64 x 16 bf16) . B (64 x 16 bf16)^T, both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64) [+]= A (64 x 16 bf16, registers) . B (16 x 64 bf16, shared memory, MN-major: the transpose flag).
+// A's four registers per thread are the mma.sync m16n8k16 A fragment of the warp's 16 rows: rows l / 4 (+ 8),
+// columns 2 (l % 4) (+ 8), two bf16 each; an n64 accumulator's registers 8k .. 8k + 7 packed in pairs are the
+// fragment of its columns 16k .. 16k + 15.
+__device__ __forceinline__ void wgmma_bf16_n64_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // D (64 x N) [+]= A (64 x 16 bf16) . B (N x 16 bf16)^T, fp32 accumulators; scale_d = 0 overwrites.
@@ -286,6 +363,25 @@ inline bool make_map_2d(CUtensorMap* map, const void* base, CUtensorMapDataType 
   const cuuint32_t elem_strides[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Map of a 4-D bf16 tensor with dims (d0, d1, d2, d3), innermost first and d0
+// contiguous, strides in elements of d1, d2 and d3 (they need not grow with
+// the dim: a head-minor view of a fused QKV output has heads 64 elements apart
+// and positions 3 H 64 apart), loaded in boxes of (box0, box1, 1, 1) with the
+// 128-byte swizzle (box0 * 2 must be 128). Coordinates outside the dims arrive
+// as zeros. Returns false when the driver refuses it.
+inline bool make_map_4d_bf16(CUtensorMap* map, const void* base, long long d0, long long d1, long long d2,
+                             long long d3, long long s1, long long s2, long long s3, int box0, int box1) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
+  const cuuint64_t strides[3] = {(cuuint64_t)(s1 * 2), (cuuint64_t)(s2 * 2), (cuuint64_t)(s3 * 2)};
+  const cuuint32_t box[4] = {(cuuint32_t)box0, (cuuint32_t)box1, 1, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Time the LN-matmul and int8 FFN kernels of two checkouts on one card, in turns.
+"""Time one phase's kernels of two checkouts on one card, in turns.
 
-    python3 compare_kernels.py --parent DIR [--out DIR]
+    python3 compare_kernels.py --parent DIR [--phase quant|wo] [--out DIR]
 
 ``DIR`` is another checkout of this repository (for example ``git archive
-<commit> | tar -x -C _scratch/parent``). Each turn runs one tree's
-``chip_smoke.check_quant_kernels`` (phase 7: the kernels against their plain
-versions, then their times, plain times, bounds and ``torch.addmm`` at the
-packed beatmap shape, 323,584 rows) in its own process, with that tree's
-kernels built from its own sources, in the order parent, change, change,
-parent, so that both are measured on the same card within one run. Prints the
-card's name and power limit, each turn's timing lines and, per kernel form, the
-four times; writes each turn's log and ``compare.json`` to ``--out``. Exits
-non-zero if a turn fails. Needs one GPU.
+<commit> | tar -x -C _scratch/parent``). Each turn runs one tree's phase 7
+check in its own process, with that tree's kernels built from its own
+sources, in the order parent, change, change, parent, so that both are
+measured on the same card within one run:
+
+* ``quant`` (the default): ``chip_smoke.check_quant_kernels``, the LN-matmul
+  and int8 FFN kernels against their plain versions, then their times, plain
+  times, bounds and ``torch.addmm`` at the packed beatmap shape (323,584 rows);
+* ``wo``: ``chip_smoke.check_wo_kernels``, the four attention forms with the
+  Wo epilogue against their plain versions, then their times beside the
+  unfused pair they replace, at the packed beatmap shape and the audio
+  tower's. The packed segments are made once, from the 17 maps with this
+  checkout's processor, saved under ``--out`` and loaded in every turn, so
+  both trees get the same.
+
+Prints the card's name and power limit, each turn's timing lines and, per
+kernel form (and shape), the four times; writes each turn's log and
+``compare.json`` (``compare_wo.json`` for ``wo``) to ``--out``. Exits non-zero
+if a turn fails. Needs one GPU.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -25,7 +36,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ORDER = ("parent", "change", "change", "parent")
-TURN = r"""
+QUANT_TURN = r"""
 import json, sys, torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
@@ -39,24 +50,75 @@ fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")  # a report ro
 report = {name: dict(zip(fields, row, strict=True)) for name, row in report.items()}
 print("REPORT " + json.dumps({"errs": errs, "report": report}), flush=True)
 """
+# the 17 maps' packed segments and the audio tower's shape, as chip_smoke's main path makes them
+WO_INPUTS = r"""
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from cm3p_torch.processing import CM3PProcessor
+from cm3p_torch.processing.packing import pack_windows
+proc = CM3PProcessor()
+_, seqs, feats, _ = chip_smoke.corpus_windows(proc)
+packed = pack_windows(seqs, chip_smoke.ROW_LEN, pad_id=proc.beatmap_tokenizer.pad_token_id)
+torch.save({"seg_packed": torch.as_tensor(packed["segment_ids"]), "audio_b": int(feats.shape[0]),
+            "audio_l": int(feats.shape[2] // 2)}, sys.argv[2])
+"""
+WO_TURN = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from cm3p_torch import ops
+from cm3p_torch.ops import _build
+_build.build(("attention", "attention_wo"))
+torch.backends.cuda.matmul.allow_tf32 = False
+saved = torch.load(sys.argv[2])
+dev = torch.device("cuda")
+gen = torch.Generator(device="cuda").manual_seed(0)
+errs, _, _ = chip_smoke.check_wo_kernels(torch, ops, gen, dev, saved["seg_packed"].to(dev), saved["audio_b"],
+                                         saved["audio_l"])
+print("REPORT " + json.dumps({"errs": errs}), flush=True)
+"""
+# a timing line of check_wo_kernels: form, shape, ms, ..., the unfused pair's ms
+WO_LINE = re.compile(r"^\s*(\w+)\s+(packed|audio)\b.*?: ([0-9.]+) ms \(plain .* ([0-9.]+) ms\)$")
+
+
+def wo_times(stdout: str) -> dict[str, dict[str, float]]:
+    """``{"<form> <shape>": {"ms": ..., "pair_ms": ...}}`` from a ``wo`` turn's timing lines."""
+    times = {}
+    for line in stdout.splitlines():
+        m = WO_LINE.match(line)
+        if m:
+            times[f"{m.group(1)} {m.group(2)}"] = {"ms": float(m.group(3)), "pair_ms": float(m.group(4))}
+    return times
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", required=True, type=Path, help="root of the other checkout")
+    parser.add_argument("--phase", choices=("quant", "wo"), default="quant", help="the kernels to compare")
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out", help="directory for the logs")
     args = parser.parse_args()
     args.out.mkdir(parents=True, exist_ok=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
+    turn_args = []
+    if args.phase == "wo":
+        inputs = (args.out / "wo_inputs.pt").resolve()
+        prep = subprocess.run([sys.executable, "-c", WO_INPUTS, str(ROOT), str(inputs)], cwd=ROOT,
+                              capture_output=True, text=True, timeout=900)
+        if prep.returncode != 0:
+            print((prep.stdout + prep.stderr)[-3000:], file=sys.stderr)
+            return 1
+        turn_args = [str(inputs)]
+    script, prefix = (WO_TURN, "compare_wo") if args.phase == "wo" else (QUANT_TURN, "compare")
     results = []
     for turn, label in enumerate(ORDER):
         tree = (args.parent if label == "parent" else ROOT).resolve()
         t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-c", TURN, str(tree)], cwd=tree, capture_output=True, text=True,
-                             timeout=900)
-        (args.out / f"compare_{turn}_{label}.log").write_text(run.stdout + run.stderr)
+        run = subprocess.run([sys.executable, "-c", script, str(tree), *turn_args], cwd=tree, capture_output=True,
+                             text=True, timeout=900)
+        (args.out / f"{prefix}_{turn}_{label}.log").write_text(run.stdout + run.stderr)
         print(f"== {label} (turn {turn}) rc={run.returncode} {time.perf_counter() - t0:.1f} s", flush=True)
         for line in run.stdout.splitlines():
             if " ms (" in line:
@@ -65,8 +127,16 @@ def main() -> int:
         if run.returncode != 0 or not report:
             print((run.stdout + run.stderr)[-3000:], file=sys.stderr)
             return 1
-        results.append({"tree": label, **json.loads(report[0])})
-    (args.out / "compare.json").write_text(json.dumps({"card": card, "turns": results}, indent=1))
+        result = {"tree": label, **json.loads(report[0])}
+        if args.phase == "wo":
+            result["times"] = wo_times(run.stdout)
+        results.append(result)
+    (args.out / f"{prefix}.json").write_text(json.dumps({"card": card, "turns": results}, indent=1))
+    if args.phase == "wo":
+        for key in results[0]["times"]:
+            print(f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)
+                  + "; unfused pair " + ", ".join(f"{r['times'][key]['pair_ms']:.3f}" for r in results), flush=True)
+        return 0
     for name, row in results[0]["report"].items():
         print(f"{name}: ms " + ", ".join(f"{r['tree']} {r['report'][name]['ms']:.3f}" for r in results), flush=True)
         if row["library_ms"] is not None:

@@ -17,7 +17,12 @@ route. The rectangular form of the segment kernel (Lq != Lk) at the same
 2e-2, and bit-equal to the square form where Lq == Lk. The attention kernels
 with the Wo epilogue: 2e-2 abs on outputs and on the
 attention output they export; the residual exactly on rows that see no key;
-the int8 codes of the exported attention output as for the LN forms.
+the int8 codes of the exported attention output as for the LN forms. The bf16
+epilogue kernel at its tile edges (lengths 1-1500, one segment over 4096
+tokens, segment edges on and off a tile boundary, padding-only rows, windows 0,
+64 and 128, H * D 768 / 512 / 256, more query tiles than SMs): the same
+2e-2 with a residual, and with a zero residual the product and the exported
+attention output each within 2 % of their largest entry.
 """
 import pytest
 import torch
@@ -599,6 +604,76 @@ def test_attention_wo_kernels_match_plain(cuda, window, heads):
     dead = seg == 0
     assert torch.equal(got[dead], res[dead]) and torch.equal(got_q[dead], res[dead])
     _assert_codes_agree(codes, quant_rows_int8(o_out.float())[0])
+
+
+WO_EDGE_LENGTHS = [1, 63, 64, 65, 129, 1000, 1500]
+
+
+def _wo_edge_segments(layout, device):
+    """Segments at the edges of the bf16 epilogue kernel's tiles: a length (rows of one segment, of two
+    segments and padding, and of padding only), one segment over a whole 4096 row (a query tile visits 64 key
+    tiles), segment edges on a tile boundary and off it, and more query tiles than the card has SMs with a
+    ragged last tile."""
+    if isinstance(layout, int):
+        seg = torch.zeros(3, layout, dtype=torch.int32, device=device)
+        seg[0] = 1
+        seg[1, : layout // 2], seg[1, layout // 2: 3 * layout // 4] = 1, 2
+        return seg
+    if layout == "one_segment_4096":
+        return torch.ones(1, 4096, dtype=torch.int32, device=device)
+    if layout == "tile_edges":
+        seg = torch.zeros(2, 1024, dtype=torch.int32, device=device)
+        seg[0, :128], seg[0, 128:200], seg[0, 200:900] = 1, 2, 3
+        seg[1, :320], seg[1, 320:] = 1, 2
+        return seg
+    assert layout == "many_tiles"
+    seg = torch.zeros(4, 4033, dtype=torch.int32, device=device)
+    for row, lengths in enumerate(([1265, 900, 1500], [368, 2100, 1265], [4033], [700, 700, 700, 700])):
+        start = 0
+        for i, n in enumerate(lengths):
+            seg[row, start:start + n] = i + 1
+            start += n
+    return seg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [12, 8, 4])
+@pytest.mark.parametrize("window", [0, 64, 128, None])
+@pytest.mark.parametrize("layout", [*WO_EDGE_LENGTHS, "one_segment_4096", "tile_edges", "many_tiles"])
+def test_attention_wo_bf16_kernel_at_edges(cuda, layout, window, heads):
+    """The bf16 epilogue forms against their plain versions at ATOL, once with a residual (rows that see no
+    key give it bit for bit) and once with a zero residual, where the product alone is held to 2 % of its
+    largest entry; the attention output the kernel used (o_out) to 2 % of the plain attention's largest."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    seg = _wo_edge_segments(layout, cuda)
+    b, length = seg.shape
+    hd = heads * 64
+    q, k, v = _qkv(b, length, heads, gen, cuda)
+    res = (0.5 * torch.randn(b, length, hd, generator=gen, device=cuda)).to(torch.bfloat16)
+    zero = torch.zeros_like(res)
+    wo = (0.02 * torch.randn(hd, hd, generator=gen, device=cuda)).to(torch.bfloat16)
+    o_out = torch.empty(b, length, hd, dtype=torch.bfloat16, device=cuda)
+    if window is None:
+        name, fn, fn_plain, attn_plain = ("segment_attention_wo", segment_attention_wo, segment_attention_wo_plain,
+                                          segment_attention_plain)
+        theta, wargs = 160000.0, ()
+    else:
+        name, fn, fn_plain, attn_plain = ("window_attention_wo", window_attention_wo, window_attention_wo_plain,
+                                          window_attention_plain)
+        theta, wargs = 10000.0, (window,)
+    reset_launch_counts()
+    got = fn(q, k, v, seg, seg, *wargs, wo, res, theta, o_out=o_out)
+    got0 = fn(q, k, v, seg, seg, *wargs, wo, zero, theta)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, name: 2}
+    want = fn_plain(q, k, v, seg, seg, *wargs, wo, res, theta)
+    want0 = fn_plain(q, k, v, seg, seg, *wargs, wo, zero, theta)
+    want_o = attn_plain(q, k, v, seg, seg, *wargs, theta).flatten(2)
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    assert (got0.float() - want0.float()).abs().max().item() <= 2e-2 * want0.float().abs().max().item()
+    assert (o_out.float() - want_o.float()).abs().max().item() <= 2e-2 * want_o.float().abs().max().item()
+    dead = seg == 0
+    assert torch.equal(got[dead], res[dead])
 
 
 @pytest.mark.gpu

@@ -7,11 +7,16 @@ and routing against the JAX package on the CPU.
   interpret mode (``FUSED_WO_Q`` patched for the int8 form; running max, as
   the port's kernels keep). Tolerances per test.
 * the port's ``wo_fusable`` against the JAX package's over a grid of shapes;
-* which form each layer of an encoder runs under each option set.
+* which form each layer of an encoder runs under each option set;
+* the parsers of the scripts that check and time the epilogue kernels on the
+  card: ptxas's "Potential Performance Loss" notes (``chip_smoke.py`` phase 1)
+  and the timing lines ``compare_kernels.py --phase wo`` collects.
 """
 import functools
 import importlib
+import importlib.util
 import itertools
+from pathlib import Path
 
 import jax.experimental.pallas as pl
 import jax.numpy as jnp
@@ -224,3 +229,52 @@ def test_encoder_runs_each_layer_through_its_epilogue_form(monkeypatch, length):
         assert calls == {}
     torch.testing.assert_close(bf16, exact_wo, atol=1e-5, rtol=0)  # the bf16 epilogue changes no number
     assert not torch.equal(quant, exact_wo)
+
+
+def _script(name):
+    path = Path(__file__).resolve().parent.parent / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_{name}_under_test", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_MANGLED = ("_ZN48_GLOBAL__N__e1751ac3_15_attention_wo_cu_3c3bcaa57sm90_wo19attention_wo_kernelILb0ELi768EEEv14"
+            "CUtensorMap_st")
+
+
+@pytest.mark.parametrize("code, reason", [
+    ("C7514", "non wgmma instructions reading accumulator registers of  a wgmma between start and end of the "
+              "pipeline stage"),
+    ("C7520", "program dependence on compiler-inserted WG.AR in divergent path"),
+])
+def test_ptxas_notes_name_the_serialised_kernel(code, reason):
+    log = (f"ptxas info    : 0 bytes gmem\n"
+           f"ptxas info    : ({code}) Potential Performance Loss: wgmma.mma_async instructions are serialized "
+           f"due to {reason} in the function '{_MANGLED}'\n"
+           f"ptxas info    : Used 96 registers, used 2 barriers\n")
+    notes = _script("chip_smoke").ptxas_notes(log)
+    assert notes == [("sm90_wo::attention_wo_kernel<0,768>",
+                      f"{code} wgmma.mma_async instructions are serialized due to {' '.join(reason.split())}")]
+    assert _script("chip_smoke").ptxas_notes("ptxas info    : Used 96 registers, used 2 barriers\n") == []
+
+
+def test_compare_wo_reads_each_form_and_shape_and_its_unfused_pair():
+    stdout = """  attention with the Wo epilogue (max abs difference; tolerance 0.02)
+    window_attention_wo    packed (79, 4096) H12: out 1.562e-02, attention output 7.812e-03; rows that see no key \
+give the residual bit for bit: True
+    window_attention_wo    packed (79, 4096) H12: 2.153 ms (plain 497.397, bound 0.743 bytes; the unfused pair \
+attention + linear + add 4.135 ms)
+    window_attention_wo    packed (79, 4096) H12: without rope 1.865 ms
+    segment_attention_wo_q audio 237x1500 H8: 17.531 ms (plain 152.417, bound 1.125 operations; the unfused pair \
+attention + int8 LN-matmul Wo 15.827 ms)
+    segment_attention_wo   one segment 4x4096 H12: out 1.562e-02, attention output 9.766e-04; rows that see no \
+key give the residual bit for bit: True
+REPORT {"errs": {}}
+"""
+    times = _script("compare_kernels").wo_times(stdout)
+    assert times == {
+        "window_attention_wo packed": {"ms": 2.153, "pair_ms": 4.135},
+        "segment_attention_wo_q audio": {"ms": 17.531, "pair_ms": 15.827},
+    }
+
