@@ -7,10 +7,12 @@ Phases (any failure exits non-zero; nothing is skipped):
   1. build   - nvcc builds every kernel of ``cm3p_torch/csrc`` (one process
                per source, all at once) into ``cm3p_torch/_build``; prints
                ptxas's registers, spills and barriers per kernel instance, and
-               per instance of the two wgmma kernels (``bf16::ln_matmul_kernel``,
-               ``w8a8::ffn_kernel``) the count of their HGMMA, UTMALDG (TMA
-               load), LDGSTS (cp.async) and BAR.SYNC instructions in
-               ``cuobjdump -sass``; fails if one of them has no HGMMA or no
+               per instance of the wgmma kernels (``bf16::ln_matmul_kernel``;
+               the FFN's ``bf16::ffn_kernel``, ``w8a8::ffn_kernel`` and
+               ``w8a8::ffn_wo_kernel``; ``sm90_wo::attention_wo_kernel``) the
+               count of their HGMMA and IGMMA (wgmma on bf16 and on int8),
+               UTMALDG (TMA load), LDGSTS (cp.async) and BAR.SYNC instructions
+               in ``cuobjdump -sass``; fails if one of them has no wgmma or no
                UTMALDG, or has an LDGSTS.
   2. kernels - each forward kernel against its plain PyTorch version at the
                shapes the main path gives it (packed 4096-token beatmap rows with
@@ -70,14 +72,18 @@ Phases (any failure exits non-zero; nothing is skipped):
                (SDPA backward) ms.
   7. quant kernels - the fused LN-matmul kernels (bf16 and W8A8: LN -> QKV at
                768 -> 2304 and 512 -> 1536, Wo + residual at 768 -> 768 and
-               512 -> 512) and the int8 forms of the FFN kernel (``w8a8``,
-               ``w8a8 + w8a8_wo``, ``w8a8_wo``; D 768 and 512) against their
-               plain versions, each at 4037 rows (not a multiple of a tile)
-               and at the packed beatmap shape (323,584 rows, or a quarter at
-               D 512), where the persistent kernels give each cluster several
-               tiles, both with two blocks of all-zero rows (among the first
-               and among the last row tiles); the times at the packed beatmap
-               shape. Tolerance 2e-2 abs; the int8 activation
+               512 -> 512), the bf16 FFN kernel (D 768 / 512 / 256) and the
+               int8 forms of the FFN kernel (``w8a8``, ``w8a8 + w8a8_wo``,
+               ``w8a8_wo``; D 768 and 512) against their plain versions, each
+               at 4037 rows (not a multiple of a tile) and at the main path's
+               shape (the packed beatmap's 323,584 rows, a quarter of them at
+               D 512, the metadata tower's 24 x 2048 at D 256), where the
+               persistent kernels give each cluster several tiles, both with
+               two blocks of all-zero rows (among the first and among the last
+               row tiles); the times at that shape, and for the bf16 FFN and
+               ``w8a8 + w8a8_wo`` the time of the unfused composition (cuBLAS
+               products, ``torch._int_mm`` for the int8 ones, and PyTorch's
+               elementwise passes) beside them. Tolerance 2e-2 abs; the int8 activation
                codes the kernels export may differ from the plain quantiser's
                by one at most, on a share of 1e-3 at most (5e-2 for
                ``gelu(a) * b`` behind a bf16 Wi product). Each form that a setting of
@@ -224,10 +230,10 @@ def fail(msg: str) -> None:
 # per source, the name prefixes of its wgmma kernels (every instance must issue wgmma fed by TMA)
 WGMMA_KERNELS = {
     "fused_ln_matmul": ("bf16::ln_matmul_kernel",),
-    "fused_ffn": ("w8a8::ffn_kernel",),
+    "fused_ffn": ("bf16::ffn_kernel", "w8a8::ffn_kernel", "w8a8::ffn_wo_kernel"),
     "attention_wo": ("sm90_wo::attention_wo_kernel",),
 }
-SASS_OPCODES = ("HGMMA", "UTMALDG", "LDGSTS", "BAR.SYNC")
+SASS_OPCODES = ("HGMMA", "IGMMA", "UTMALDG", "LDGSTS", "BAR.SYNC")  # IGMMA: wgmma on int8
 
 
 def kernel_name(mangled: str) -> str:
@@ -417,9 +423,10 @@ _CATEGORIES = (  # kernel-name fragment -> category, first match wins
     ("attention_dkv_kernel<true, true>", "window_attention_dkv_rope (ours)"),
     ("attention_dq_kernel<false, true>", "segment_attention_dq_rope (ours)"),
     ("attention_dkv_kernel<false, true>", "segment_attention_dkv_rope (ours)"),
-    ("fused_ln_ffn_kernel", "fused_ln_ffn (ours)"),
-    ("fused_ln_ffn_q_kernel", "fused_ln_ffn_q (ours)"),
+    ("bf16::ffn_kernel", "fused_ln_ffn (ours)"),
     ("w8a8::ffn_kernel", "fused_ln_ffn_q (ours)"),
+    ("w8a8::ffn_wo_kernel", "fused_ln_ffn_q_wo (ours)"),
+    ("fused_ln_ffn_q_kernel", "fused_ln_ffn_q_wo (ours)"),  # the w8a8_wo form alone (3o)
     ("ln_matmul_kernel", "fused_ln_matmul (ours)"),
     ("ln_matmul_q_kernel", "fused_ln_matmul_q (ours)"),
     ("conv", "convolution (cuDNN)"),
@@ -1096,6 +1103,33 @@ def ffn_q_bound_ms(rows, d, f, w8a8, w8a8_wo):
     return _bound(bytes_moved, ops)
 
 
+def ffn_composition(x, scale, bias, wi, wo, eps, wi_q=None, wo_q=None):
+    """The FFN half-block as the unfused PyTorch composition (a yardstick, used nowhere in the port): LN in
+    fp32, a cuBLAS product to 2F, the GeGLU, a product to D and the residual, in bf16; with ``wi_q`` /
+    ``wo_q`` the product goes through ``torch._int_mm`` (exact int32) with the kernel's quantisers and
+    scales."""
+    import torch
+    import torch.nn.functional as F
+
+    from cm3p_torch.ops.fused_ffn import layer_norm_f32
+    from cm3p_torch.ops.quant import quant_rows_int8
+
+    f = wo.shape[1]
+    y = layer_norm_f32(x, scale, bias, eps)
+    if wi_q is None:
+        h = F.linear(y.to(x.dtype), wi)
+    else:
+        q, sa = quant_rows_int8(y)
+        h = (torch._int_mm(q, wi_q[0].t()).float() * sa * wi_q[1]).to(x.dtype)
+    gf = F.gelu(h[:, :f].float()) * h[:, f:].float()
+    if wo_q is None:
+        o = F.linear(gf.to(x.dtype), wo)
+    else:
+        gq, sg = quant_rows_int8(gf)
+        o = (torch._int_mm(gq, wo_q[0].t()).float() * sg * wo_q[1]).to(x.dtype)
+    return x + o
+
+
 def _code_report(label, got, want, share_max, rows_ok=None):
     """Compare int8 codes; ``rows_ok`` restricts the comparison to those rows."""
     if rows_ok is not None:
@@ -1109,17 +1143,18 @@ def _code_report(label, got, want, share_max, rows_ok=None):
     return share
 
 
-def check_quant_kernels(torch, ops, gen, dev, full_rows):
-    """Phase 7: the LN-matmul kernels and the int8 FFN forms against their plain
-    versions, at 4,037 rows and at ``full_rows`` (the main path's shape, where the
-    persistent kernels give each cluster several tiles); returns max errors per kernel
-    and the report rows, each (ms, plain_ms, bound_ms, bound_by, library_ms) at
-    ``full_rows``."""
+def check_quant_kernels(torch, ops, gen, dev, full_rows, meta_rows=24 * 2048):
+    """Phase 7: the LN-matmul kernels, the bf16 FFN kernel and the int8 FFN forms
+    against their plain versions, at 4,037 rows and at the main path's shape
+    (``full_rows`` at D 768, a quarter of it at D 512, ``meta_rows`` for the bf16 FFN
+    at D 256), where the persistent kernels give each cluster several tiles; returns
+    max errors per kernel and the report rows, each (ms, plain_ms, bound_ms, bound_by,
+    library_ms) at ``full_rows``."""
     from cm3p_torch.ops.fused_ffn import fused_ln_ffn_q, layer_norm_f32
     from cm3p_torch.ops.quant import quant_rows_int8, quantize_weight_int8
 
     errs = dict.fromkeys(("fused_ln_matmul", "fused_ln_matmul_wo", "fused_ln_matmul_q", "fused_ln_matmul_q_wo",
-                          "fused_ln_ffn_q", "fused_ln_ffn_q_wo"), 0.0)
+                          "fused_ln_ffn", "fused_ln_ffn_q", "fused_ln_ffn_q_wo"), 0.0)
     rows_small = 4037  # not a multiple of the 64- and 32-row tiles
 
     def inputs(rows, d, n_out, std=0.02):
@@ -1180,6 +1215,32 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows):
                     report["fused_ln_matmul_q" + suffix] = (ms_q, plain_q, bq, byq, None)
             del x, w, res, w_q
 
+    log("  fused LN-FFN, bf16 form (max abs difference; tolerance %g)" % TOL)
+    for d, f, full in ((768, 1152, full_rows), (512, 1024, full_rows // 4), (256, 512, meta_rows)):
+        for rows in (rows_small, full):
+            x, scale, wi, zero = inputs(rows, d, 2 * f)
+            wo = (0.02 * torch.randn(d, f, generator=gen, device=dev)).to(torch.bfloat16)
+            args = (x, scale, None, wi, wo, 1e-5)
+            got = ops.fused_ln_ffn(*args)
+            want = ops.fused_ln_ffn_plain(*args)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            finite = bool(torch.isfinite(got).all())
+            zero_out = (got[zero].float() - x[zero].float()).abs().max().item()
+            log(f"    bf16 D {d} F {f}, {rows} rows: {err:.3e}; zero rows give x within {zero_out:.1e}")
+            del got, want
+            if not (err <= TOL and finite and zero_out == 0.0):
+                fail(f"fused_ln_ffn disagrees with its plain version at D={d}, {rows} rows")
+            errs["fused_ln_ffn"] = max(errs["fused_ln_ffn"], err)
+            if rows != rows_small:
+                ms = cuda_ms(lambda: ops.fused_ln_ffn(*args), 5)
+                plain = cuda_ms(lambda: ops.fused_ln_ffn_plain(*args), 1)
+                b, by = ffn_bound_ms(rows, d, f)
+                comp = cuda_ms(lambda: ffn_composition(*args), 5)
+                log(f"    bf16 D {d} F {f}, {rows} rows: {ms:.3f} ms (plain {plain:.3f}, bound {b:.3f} {by}; "
+                    f"the unfused cuBLAS composition {comp:.3f} ms)")
+            del x, wi, wo, args
+
     log("  fused LN-FFN, int8 forms (max abs difference; tolerance %g)" % TOL)
     for d, f in ((768, 1152), (512, 1024)):
         for w8a8, w8a8_wo in ((True, False), (True, True), (False, True)):
@@ -1228,8 +1289,12 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows):
                     plain = cuda_ms(lambda: ops.fused_ln_ffn_plain(*args, **kw), 1)
                     b, by = ffn_q_bound_ms(rows, d, f, w8a8, w8a8_wo)
                     exact_ms = cuda_ms(lambda: ops.fused_ln_ffn(*args), 5)
+                    comp = ""
+                    if w8a8 and w8a8_wo:
+                        comp_ms = cuda_ms(lambda: ffn_composition(*args, wi_q=wi_q, wo_q=wo_q), 5)
+                        comp = f"; the unfused composition (torch._int_mm) {comp_ms:.3f} ms"
                     log(f"    {form} D {d} F {f}, {rows} rows: {ms:.3f} ms (plain {plain:.3f}, bound {b:.3f} {by}; "
-                        f"the bf16 form on the same inputs {exact_ms:.3f} ms)")
+                        f"the bf16 form on the same inputs {exact_ms:.3f} ms{comp})")
                     if d == 768 and w8a8:  # the two forms the tool's settings run
                         report["fused_ln_ffn_q_wo" if w8a8_wo else "fused_ln_ffn_q"] = (ms, plain, b, by, None)
                 del x, wi, wo, wi_q, wo_q, args
@@ -1829,8 +1894,8 @@ def main() -> int:
         for kernel, n in counts.items():
             if kernel.startswith(prefixes):
                 log(f"  {src} {kernel} SASS: " + ", ".join(f"{op} {c}" for op, c in n.items()))
-                if not (n["HGMMA"] and n["UTMALDG"]) or n["LDGSTS"]:
-                    fail(f"{kernel}: expected wgmma (HGMMA) fed by TMA (UTMALDG) and no cp.async, got {n}")
+                if not ((n["HGMMA"] or n["IGMMA"]) and n["UTMALDG"]) or n["LDGSTS"]:
+                    fail(f"{kernel}: expected wgmma (HGMMA / IGMMA) fed by TMA (UTMALDG) and no cp.async, got {n}")
 
     # ---- host: processor over the bundled map and the corpus
     proc = CM3PProcessor()
@@ -2019,8 +2084,9 @@ def main() -> int:
 
     # ---- 7. the LN-matmul kernels and the int8 FFN forms against their plain versions
     log("[7] fused LN-matmul and int8 FFN kernels vs plain versions (bf16 inputs, seeded)")
-    e7, rows7 = check_quant_kernels(torch, ops, gen, dev, n_rows * ROW_LEN)
-    errs.update(e7)
+    e7, rows7 = check_quant_kernels(torch, ops, gen, dev, n_rows * ROW_LEN, meta_seg.numel())
+    for kname, err in e7.items():
+        errs[kname] = max(errs.get(kname, 0.0), err)
     for kname, row in rows7.items():
         kernels.append((kname, *row))
     e7w, rows7w, unfused_ms = check_wo_kernels(torch, ops, gen, dev, seg_packed, audio_b, audio_l)

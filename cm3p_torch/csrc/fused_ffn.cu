@@ -3,72 +3,89 @@
 //
 // Replaces the TPU kernel of the JAX package's ops/fused_ffn.py _ffn_kernel (driven by
 // _pallas_ln_ffn), at the three tower widths DM = 768 (beatmap), 512 (audio)
-// and 256 (metadata): fused_ln_ffn_kernel is its bf16 form (row 3),
-// w8a8::ffn_kernel its w8a8 form with an int8 Wi (row 3q, the extraction
-// tool's default; designed for Hopper, note below), and fused_ln_ffn_q_kernel
-// (with its own note further down) the forms with an int8 Wo (w8a8_wo, alone
-// or with w8a8). The training path runs neither: under autograd
-// the layer runs the plain composition and its analytic backward
-// (ops/fused_ffn.py), as the JAX package does.
+// and 256 (metadata). Four forms: bf16 (row 3, bf16::ffn_kernel); w8a8 with
+// an int8 Wi (row 3q, the extraction tool's default, w8a8::ffn_kernel);
+// w8a8 + w8a8_wo with an int8 Wi and an int8 Wo (row 3qq,
+// w8a8::ffn_wo_kernel); and w8a8_wo alone with an int8 Wo behind a bf16 Wi
+// (row 3o, on no setting's path), which keeps the first-version kernel
+// fused_ln_ffn_q_kernel (its own note further down). The training path runs
+// none: under autograd the layer runs the plain composition and its analytic
+// backward (ops/fused_ffn.py), as the JAX package does.
 //
 // Rounding points kept from the TPU kernel: LN statistics and output in
 // fp32 (flax formula, var = E[x^2] - E[x]^2), LN output cast to bf16 before
-// Wi, h = Wi(y) accumulated in fp32 and cast to bf16, gelu(a) * b in fp32
-// then cast to bf16 before Wo, Wo accumulated in fp32 and cast to bf16,
-// residual added to that bf16 value and rounded once more.
+// a bf16 Wi (or per-row int8 codes of the fp32 LN row before an int8 Wi),
+// h = Wi(y) accumulated in fp32 (exact int32, then float(acc) * sa * swi)
+// and cast to bf16, gelu(a) * b in fp32 then cast to bf16 before a bf16 Wo
+// (or per-row int8 codes over all F, sg = max(absmax, 1e-30) / 127, before an
+// int8 Wo), Wo accumulated in fp32 (exact int32, then float(acc) * sg * swo)
+// and cast to bf16, residual added to that bf16 value and rounded once more.
 //
-// Design: the TPU kernel keeps the (rows, 2F) intermediate in VMEM; on the
-// H100 64 rows of it (295 KB at F = 1152) do not fit a block's 227 KB of
-// shared memory, so the intermediate is chunked over F instead. A block of
-// 8 warps owns 32 rows and the whole (32, DM) output accumulator in
-// registers. For each chunk of 64 columns of a (and the matching 64 of b):
-//   1. h_chunk (32 x 128) = y (32 x DM, bf16 in smem) . Wi_chunk^T, with Wi
-//      staged through smem 64 columns of DM at a time;
-//   2. g = bf16(gelu(bf16(a)) * bf16(b)) into smem (32 x 64);
-//   3. acc (32 x DM) += g . Wo[:, chunk]^T, with the Wo chunk staged in smem.
-// The intermediate never reaches device memory. Products are mma.sync
-// m16n8k16 bf16 with fp32 accumulation.
-// Bound on the H100: 6 * rows * DM * F flops against 4 * rows * DM bytes of
-// activations, about 1,700 flops per byte at DM = 768: bound by the tensor
-// cores (with an int8 Wi: 4 R DM F int8 operations and 2 R DM F bf16 flops,
-// 1.16 ms at 323,584 rows, DM 768, F 1152). This first kernel (row 3, and
-// fused_ln_ffn_q_kernel) re-reads both weight matrices from L2 for every 32
-// rows and does not overlap loads with products, so it runs well below it.
+// Bound on the H100: 6 * rows * DM * F operations against 4 * rows * DM bytes
+// of activations, about 1,700 per byte at DM = 768: bound by the tensor cores
+// (1.74 ms at 323,584 rows, DM 768, F 1152 in bf16; 1.16 ms with an int8 Wi,
+// 0.87 ms with both weights int8).
 //
-// The w8a8 form for Hopper (w8a8::ffn_kernel). Persistent blocks of 384
-// threads, one per SM, in clusters of two; a cluster walks pairs of 64-row
-// tiles x NO output columns (NO = 384 at DM 768, so two column tiles per 64
-// rows; DM at 512 and 256). A producer warp feeds two TMA rings in the order
-// they are read: Wi stages of 64 a-rows and 64 b-rows x 128 DM bytes (16 KB;
-// 4 stages, 3 at DM 512) and Wo stages of NO rows x one 64-column F chunk (2
-// slots); each CTA of the cluster loads half of every stage and multicasts it
-// to both, so L2 serves each weight byte once per 128 rows. Two consumer
-// warpgroups share the tile's 64 rows. The front end normalises each row in
-// fp32 (a warp per row, as row 3), quantises it and writes its int8 codes in
-// wgmma's swizzled layout (codes_y from the first column tile only). The F
-// chunks alternate between the warpgroups: the owner of chunk c runs its Wi
-// product as wgmma m64n128k32 s8 x s8 -> s32 (exact; a- and b-columns side by
-// side, 64 registers), turns it into g = bf16(gelu(bf16(h_a)) * bf16(h_b)) in
-// registers and writes the 64 x 64 bf16 g tile, while the other warpgroup
-// does the same for chunk c + 1; both multiply each g tile by their NO / 2 rows
-// of the Wo chunk (wgmma m64nNk16 bf16, N = 192 / 256 / 128, fp32 accumulators
+// The wgmma design, 3q's (w8a8::ffn_kernel, below as it was designed) and
+// that of rows 3 and 3qq (sm90_ffn::ffn_body, the same with a bf16 Wi or an
+// int8 Wo). Persistent blocks of 384 threads, one per SM, in clusters of two;
+// a cluster walks pairs of 64-row tiles x NO output columns (NO = 384 at
+// DM 768 with a bf16 Wo, so two column tiles per 64 rows; DM otherwise). Why
+// two column tiles at DM 768: the fp32 accumulator of 64 rows x 768 columns is
+// 49,152 registers, three quarters of an SM's, which cannot sit beside the Wi
+// product's; the price is the Wi product run twice. A producer warp feeds two
+// TMA rings in the order they are read (3q: one thread for both; rows 3 and
+// 3qq: one thread per ring, so that a Wo slot still in use never holds back
+// the Wi stages behind it): Wi stages of 64 a-rows and 64 b-rows x 128 bytes
+// of DM (16 KB: 64 bf16 or 128 int8 columns) and Wo slots of NO rows x 128
+// bytes of F (one 64-column F chunk in bf16, a pair of chunks in int8). Each
+// CTA of the cluster loads half of every stage and multicasts it to both, so
+// L2 serves each weight byte once per 128 rows. Two consumer warpgroups share
+// the tile's 64 rows. The front end normalises each row in fp32 (a warp per
+// row) and writes it in wgmma's swizzled layout, as bf16 or as per-row int8
+// codes (codes_y from the first column tile only). The F chunks alternate
+// between the warpgroups: the owner of chunk c runs its Wi product (wgmma
+// m64n128, bf16 k16 into fp32 or s8 k32 into exact s32; a- and b-columns side
+// by side, 64 registers) and turns it into gelu(a) * b in registers, while the
+// other warpgroup does the same for chunk c + 1; both multiply each g tile by
+// their NO / 2 rows of Wo (NO / 2 = 192 / 256 / 128 columns of accumulators
 // held across all of F: 96 / 128 / 64 registers; setmaxnreg gives consumers
 // 232). So one warpgroup's GeGLU overlaps the other's products. g tiles are
 // double-buffered between mbarriers (written, and freed by both). Both
 // warpgroups wait on the one Wi ring; a parity wait tells apart only two
 // phases of a stage, so a warpgroup starts on its chunk only once the other
 // has seen the previous chunk's stages arrive (without that, under time
-// slicing between processes, one could run two phases ahead and hang). Why two
-// column tiles at DM 768: the fp32 accumulator of 64 rows x 768 columns is
-// 49,152 registers, three quarters of an SM's, which cannot sit beside the Wi
-// product's; the price is the Wi product (int8, at twice the bf16 rate) run
-// twice. What holds it below the bound: the weights are streamed from L2 for
-// every 128 rows (Wi twice at DM 768), a stage in flight per 16 KB of int8
-// product keeps the ring short of the latency, and the exact erff GeGLU is
-// ALU work of the same order as the products.
+// slicing between processes, one could run two phases ahead and hang).
+//   w8a8 (3q): int8 LN codes (48 KB), 4 Wi stages (3 at 512), two Wo slots.
+//   bf16 (row 3): the bf16 LN rows take 96 KB at DM 768, so one Wo slot of
+// 48 KB (64 KB at 512) is left beside 4 Wi stages (5 at 512). Each consumer
+// warpgroup's half of it is a ring of its own with its own producer thread,
+// handed back after each chunk's Wo product, so that the warpgroup whose
+// GeGLU comes first refills its half without waiting for the other. 224 KB.
+//   w8a8 + w8a8_wo (3qq): the row scale sg needs the absmax of gelu(a) * b over
+// all F before any code, and the (64, F) intermediate does not fit beside the
+// rings. The int8 Wi product is exact, so it is run twice and gives the same
+// values both times: pass 0 runs the Wi product and the GeGLU of every chunk
+// and keeps only each row's absmax (both warpgroups, an atomicMax per row in
+// shared memory); pass 1 runs them again, quantises with the now known scale
+// into a g tile of int8 codes that holds a chunk pair (each warpgroup writes its
+// chunk's 64 bytes of each 128-byte row, codes_g), and both warpgroups
+// multiply it by the pair's int8 Wo slot (wgmma s8 k32, N = 192 / 256 / 128,
+// exact s32 accumulators). At DM 768 two column tiles would run the Wi
+// product four times, so an item is 64 rows x all 768 columns: pass 1 keeps
+// the tiles of every pair (64 x F bytes, 72 KB at F = 1152, the most this form
+// takes at DM 768) beside its Wo product of columns 0-383 (one 48 KB Wo slot,
+// 3 Wi stages), and a last pass multiplies the kept codes by columns 384-767.
+// So the Wi product runs twice at every DM: 10 R DM F int8 operations.
+// What holds them below the bound: the weight stages' turnover. Each 64-row
+// tile streams all of Wi (twice at DM 768 in 3q and row 3) through a ring of
+// 3-5 stages, as deep as shared memory allows; a copy of row 3 with its Wi
+// product cut out keeps most of the time (PERF.md, PR 9).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "ln_rows.cuh"
 #include "sm90.cuh"
@@ -77,34 +94,51 @@ namespace {
 
 using namespace cm3p;
 
-constexpr int BR = 32;          // rows per block
-constexpr int NTHREADS = 256;   // 8 warps: 2 row groups x 4 column groups
-constexpr int FC = 64;          // F chunk (columns of a; the same of b)
-constexpr int KS = 64;          // DM slice staged per step of the Wi product
-constexpr int LDW = 64 + 8;     // padded smem row of a staged weight slice
-
 __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
 }
 
+// ---------------------------------------------------------------------------
+// The w8a8_wo form alone (row 3o: a bf16 Wi, an int8 Wo; on no setting's
+// path), the first-version kernel: one 256-thread block per 32 rows, weights
+// staged synchronously through shared memory, mma.sync products.
+//
+// The fp32 gelu(a) * b row is quantised per row over all F columns and Wo is
+// int8; o = bf16(float(acc) * sg * swo). The row scale sg needs the absmax
+// over all F columns, but this kernel never holds the (rows, F) intermediate:
+// it walks F in chunks of 64. So the chunk loop runs twice: pass 0 recomputes
+// h and gelu(a) * b only to find each row's absmax (registers, then an
+// atomicMax per row in shared memory), pass 1 recomputes them, quantises with
+// the now known scale and accumulates the int8 Wo product in int32 (exact, so
+// the chunk order does not matter). Both passes run the same instructions on
+// the same operands, so the values quantised are the values measured.
+constexpr int BR = 32;          // rows per block
+constexpr int NTHREADS = 256;   // 8 warps: 2 row groups x 4 column groups
+constexpr int FC = 64;          // F chunk (columns of a; the same of b)
+constexpr int KS = 64;          // DM slice staged per step of the Wi product
+constexpr int LDW = 64 + 8;     // padded smem row of a staged Wi slice (bf16)
+constexpr int LDG = FC + 16;    // row of int8 gelu(a) * b codes, and of a staged Wo chunk, in bytes
+
 template <int DM>
-constexpr int smem_bytes() {
-  return (BR * (DM + 8) + 2 * FC * LDW + BR * LDW + DM * LDW) * 2;
+constexpr int smem_bytes_q() {
+  return BR * (DM + 8) * 2 + 2 * FC * LDW * 2 + BR * LDG + DM * LDG + BR * 4;
 }
 
 template <int DM>
 __global__ void __launch_bounds__(NTHREADS, 1)
-    fused_ln_ffn_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
-                        const float* __restrict__ bias, const __nv_bfloat16* __restrict__ wi,
-                        const __nv_bfloat16* __restrict__ wo, __nv_bfloat16* __restrict__ out,
-                        int R, int F, float eps) {
-  constexpr int LDY = DM + 8;
-  constexpr int NT = DM / 32;  // n-tiles of 8 output columns per warp
+    fused_ln_ffn_q_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                          const float* __restrict__ bias, const __nv_bfloat16* __restrict__ wi,
+                          const int8_t* __restrict__ woq, const float* __restrict__ swo,
+                          __nv_bfloat16* __restrict__ out, int8_t* __restrict__ codes_g, int R, int F,
+                          float eps) {
+  constexpr int LDY = DM + 8;  // bf16 LN row (elements)
+  constexpr int NT = DM / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sY = reinterpret_cast<__nv_bfloat16*>(smem_raw);                 // BR x LDY   LN output
-  __nv_bfloat16* sWi = sY + BR * LDY;        // 2FC x LDW  Wi slice: a rows, then b rows
-  __nv_bfloat16* sG = sWi + 2 * FC * LDW;    // BR x LDW   gelu(a) * b
-  __nv_bfloat16* sWo = sG + BR * LDW;        // DM x LDW   Wo[:, chunk]
+  __nv_bfloat16* sY = reinterpret_cast<__nv_bfloat16*>(smem_raw);      // BR x LDY   LN output
+  __nv_bfloat16* sWi = sY + BR * LDY;                                    // 2FC x LDW  Wi slice: a rows, then b rows
+  unsigned char* sG = reinterpret_cast<unsigned char*>(sWi + 2 * FC * LDW);  // BR x LDG  gelu(a) * b codes
+  unsigned char* sWo = sG + BR * LDG;                                    // DM x LDG   Wo[:, chunk] codes
+  unsigned int* sMax = reinterpret_cast<unsigned int*>(sWo + DM * LDG);  // BR  absmax of gelu(a) * b (bits)
 
   const int row0 = blockIdx.x * BR;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -113,230 +147,15 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   // ---- LayerNorm: each warp normalises 4 rows into sY (bf16)
   for (int rr = warp; rr < BR; rr += NTHREADS / 32) {
     const int row = row0 + rr;
-    if (row < R) {
-      const __nv_bfloat16* xr = x + (long long)row * DM;
-      float2 v[DM / 64];
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int i = 0; i < DM / 64; ++i) {
-        v[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + i * 64 + lane * 2));
-        s1 += v[i].x + v[i].y;
-        s2 += v[i].x * v[i].x + v[i].y * v[i].y;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s1 += __shfl_xor_sync(0xffffffff, s1, off);
-        s2 += __shfl_xor_sync(0xffffffff, s2, off);
-      }
-      const float mu = s1 / DM;
-      const float var = fmaxf(s2 / DM - mu * mu, 0.f);
-      const float rstd = rsqrtf(var + eps);
-#pragma unroll
-      for (int i = 0; i < DM / 64; ++i) {
-        const int c = i * 64 + lane * 2;
-        const float b0 = bias ? bias[c] : 0.f, b1 = bias ? bias[c + 1] : 0.f;
-        const float y0 = (v[i].x - mu) * (rstd * scale[c]) + b0;
-        const float y1 = (v[i].y - mu) * (rstd * scale[c + 1]) + b1;
-        *reinterpret_cast<uint32_t*>(sY + rr * LDY + c) = pack_bf16(y0, y1);
-      }
-    } else {
-      for (int c = lane * 2; c < DM; c += 64)
-        *reinterpret_cast<uint32_t*>(sY + rr * LDY + c) = 0u;
-    }
-  }
-
-  const int rg = warp & 1;   // rows rg*16 .. rg*16+15
-  const int cg = warp >> 1;  // column group 0..3
-  const int ar = rg * 16;
-
-  float acc[NT][4];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    // ---- 1. h chunk: this warp owns a-columns cg*16..cg*16+15 of the chunk
-    //         (n-tiles 0, 1) and the same b-columns (n-tiles 2, 3)
-    float h[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i][0] = h[i][1] = h[i][2] = h[i][3] = 0.f;
-    for (int k0 = 0; k0 < DM; k0 += KS) {
-      __syncthreads();
-      for (int item = threadIdx.x; item < 2 * FC * (KS / 8); item += NTHREADS) {
-        const int r = item / (KS / 8);
-        const int c = (item % (KS / 8)) * 8;
-        const int wrow = r < FC ? f0 + r : F + f0 + (r - FC);
-        *reinterpret_cast<uint4*>(sWi + r * LDW + c) =
-            *reinterpret_cast<const uint4*>(wi + (long long)wrow * DM + k0 + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < KS / 16; ++ks) {
-        uint32_t af[4];
-        const __nv_bfloat16* yp = sY + (ar + g) * LDY + k0 + ks * 16 + t * 2;
-        af[0] = lds32(yp);
-        af[1] = lds32(yp + 8 * LDY);
-        af[2] = lds32(yp + 8);
-        af[3] = lds32(yp + 8 * LDY + 8);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int wr = (nt < 2 ? 0 : FC) + cg * 16 + (nt & 1) * 8 + g;
-          const __nv_bfloat16* wp = sWi + wr * LDW + ks * 16 + t * 2;
-          mma_bf16(h[nt], af, lds32(wp), lds32(wp + 8));
-        }
-      }
-    }
-    // ---- 2. g = bf16(gelu(a) * b) with a, b rounded to bf16 first
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const float a0 = bf16_round(h[nt][2 * hr]), a1 = bf16_round(h[nt][2 * hr + 1]);
-        const float b0 = bf16_round(h[nt + 2][2 * hr]), b1 = bf16_round(h[nt + 2][2 * hr + 1]);
-        const int r = ar + g + hr * 8;
-        const int c = cg * 16 + nt * 8 + t * 2;
-        *reinterpret_cast<uint32_t*>(sG + r * LDW + c) =
-            pack_bf16(gelu_erf(a0) * b0, gelu_erf(a1) * b1);
-      }
-    }
-    // stage Wo[:, f0:f0+64] as DM rows of 64
-    for (int item = threadIdx.x; item < DM * (FC / 8); item += NTHREADS) {
-      const int r = item / (FC / 8);
-      const int c = (item % (FC / 8)) * 8;
-      *reinterpret_cast<uint4*>(sWo + r * LDW + c) =
-          *reinterpret_cast<const uint4*>(wo + (long long)r * F + f0 + c);
-    }
-    __syncthreads();
-    // ---- 3. acc += g . Wo_chunk^T over this warp's DM/4 output columns
-#pragma unroll
-    for (int ks = 0; ks < FC / 16; ++ks) {
-      uint32_t af[4];
-      const __nv_bfloat16* gp = sG + (ar + g) * LDW + ks * 16 + t * 2;
-      af[0] = lds32(gp);
-      af[1] = lds32(gp + 8 * LDW);
-      af[2] = lds32(gp + 8);
-      af[3] = lds32(gp + 8 * LDW + 8);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* wp = sWo + (cg * (DM / 4) + nt * 8 + g) * LDW + ks * 16 + t * 2;
-        mma_bf16(acc[nt], af, lds32(wp), lds32(wp + 8));
-      }
-    }
-  }
-
-  // ---- epilogue: out = x + bf16(acc), rounded to bf16
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = row0 + ar + g + hr * 8;
-    if (row >= R) continue;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = cg * (DM / 4) + nt * 8 + t * 2;
-      const float2 xv =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + (long long)row * DM + c));
-      const float o0 = bf16_round(acc[nt][2 * hr]), o1 = bf16_round(acc[nt][2 * hr + 1]);
-      *reinterpret_cast<uint32_t*>(out + (long long)row * DM + c) = pack_bf16(xv.x + o0, xv.y + o1);
-    }
-  }
-}
-
-template <int DM>
-int launch(const void* x, const void* scale, const void* bias, const void* wi, const void* wo,
-           void* out, int R, int F, float eps, void* stream) {
-  constexpr int bytes = smem_bytes<DM>();
-  cudaError_t err = cudaFuncSetAttribute(fused_ln_ffn_kernel<DM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (R + BR - 1) / BR;
-  fused_ln_ffn_kernel<DM><<<blocks, NTHREADS, bytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const float*)scale, (const float*)bias,
-      (const __nv_bfloat16*)wi, (const __nv_bfloat16*)wo, (__nv_bfloat16*)out, R, F, eps);
-  return (int)cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// The forms with an int8 Wo (w8a8_wo; with w8a8 also an int8 Wi): the int8
-// Wo is always on here, QI selects the int8 Wi. The w8a8 form alone runs
-// w8a8::ffn_kernel below.
-//
-// QI (w8a8): the fp32 LN row is quantised per row over all DM columns (the
-// warp that normalises a row holds it in registers, so the absmax is a warp
-// shuffle) and Wi is int8 per output channel; h = bf16(float(acc) * sa * swi)
-// with the int32 accumulator exact. The GeGLU follows as in the bf16 form.
-// int8 Wo (w8a8_wo): the fp32 gelu(a) * b row is quantised per row over all F
-// columns and Wo is int8; o = bf16(float(acc) * sg * swo).
-//
-// The row scale sg needs the absmax over all F columns, but this kernel never
-// holds the (rows, F) intermediate: it walks F in chunks of 64. Holding 32
-// rows of fp32 gelu(a) * b would take 147 KB of shared memory at F = 1152
-// beside the operand rows and the staged weights, and 16-row blocks would halve
-// the work per staged weight byte. So the chunk loop runs twice: pass 0
-// recomputes h and gelu(a) * b only to find each row's absmax (registers, then
-// an atomicMax per row in shared memory), pass 1 recomputes them, quantises
-// with the now known scale and accumulates the int8 Wo product in int32 (exact,
-// so the chunk order does not matter). Both passes run the same instructions
-// on the same operands, so the values quantised are the values measured. The
-// price is the Wi product twice (10 instead of 6 R DM F operations, 4 of
-// them doubled), paid only in the w8a8_wo form.
-template <int DM, bool QI>
-constexpr int smem_bytes_q() {
-  return (QI ? BR * (DM + 16) : BR * (DM + 8) * 2) + 2 * FC * LDW * 2 + BR * LDW * 2 + DM * (FC + 16) +
-         2 * BR * 4;
-}
-
-template <int DM, bool QI>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    fused_ln_ffn_q_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
-                          const float* __restrict__ bias, const void* __restrict__ wi_raw,
-                          const float* __restrict__ swi, const void* __restrict__ wo_raw,
-                          const float* __restrict__ swo, __nv_bfloat16* __restrict__ out,
-                          int8_t* __restrict__ codes_y, int8_t* __restrict__ codes_g, int R, int F,
-                          float eps) {
-  constexpr int LDY = DM + 8;        // bf16 operand row (elements)
-  constexpr int LDQ = DM + 16;       // int8 operand row (bytes)
-  constexpr int KSI = QI ? 128 : KS;  // DM slice staged per step of the Wi product
-  constexpr int LDWI = LDW * 2;      // staged Wi row in bytes (64 bf16 + 8, or 128 int8 + 16)
-  constexpr int LDG = FC + 16;       // row of int8 gelu(a) * b codes in bytes
-  constexpr int LDO = LDG;           // staged Wo row in bytes
-  constexpr int NT = DM / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* sA = smem_raw;                                   // BR operand rows (bf16 or int8)
-  unsigned char* sWi = sA + (QI ? BR * LDQ : BR * LDY * 2);       // 2FC x LDWI
-  unsigned char* sG = sWi + 2 * FC * LDWI;                        // BR x LDG (space for LDW * 2)
-  unsigned char* sWo = sG + BR * LDW * 2;                         // DM x LDO
-  float* sSa = reinterpret_cast<float*>(sWo + DM * LDO);          // BR  LN row scales
-  unsigned int* sMax = reinterpret_cast<unsigned int*>(sSa + BR); // BR  absmax of gelu(a) * b (bits)
-
-  const __nv_bfloat16* wi = reinterpret_cast<const __nv_bfloat16*>(wi_raw);
-  const int8_t* wiq = reinterpret_cast<const int8_t*>(wi_raw);
-  const int8_t* woq = reinterpret_cast<const int8_t*>(wo_raw);
-
-  const int row0 = blockIdx.x * BR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  // ---- LayerNorm: each warp normalises 4 rows; int8 codes or bf16 into sA
-  for (int rr = warp; rr < BR; rr += NTHREADS / 32) {
-    const int row = row0 + rr;
     if (lane == 0) sMax[rr] = 0u;
     if (row < R) {
       float2 y[DM / 64];
       ln_row_f32<DM>(x + (long long)row * DM, scale, bias, eps, lane, y);
-      if (QI) {
-        const float sa = quant_row_int8<DM>(y, lane, reinterpret_cast<int8_t*>(sA) + rr * LDQ,
-                                            codes_y ? codes_y + (long long)row * DM : nullptr);
-        if (lane == 0) sSa[rr] = sa;
-      } else {
 #pragma unroll
-        for (int i = 0; i < DM / 64; ++i)
-          *reinterpret_cast<uint32_t*>(sA + (rr * LDY + i * 64 + lane * 2) * 2) =
-              pack_bf16(y[i].x, y[i].y);
-      }
+      for (int i = 0; i < DM / 64; ++i)
+        *reinterpret_cast<uint32_t*>(sY + rr * LDY + i * 64 + lane * 2) = pack_bf16(y[i].x, y[i].y);
     } else {
-      constexpr int row_bytes = QI ? LDQ : LDY * 2;
-      for (int c = lane * 16; c < row_bytes; c += 512)
-        *reinterpret_cast<uint4*>(sA + rr * row_bytes + c) = make_uint4(0u, 0u, 0u, 0u);
-      if (lane == 0) sSa[rr] = 0.f;
+      for (int c = lane * 2; c < DM; c += 64) *reinterpret_cast<uint32_t*>(sY + rr * LDY + c) = 0u;
     }
   }
 
@@ -344,9 +163,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int cg = warp >> 1;  // column group 0..3
   const int ar = rg * 16;
 
-  int acci[NT][4];
+  int acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < NT; ++i) acci[i][0] = acci[i][1] = acci[i][2] = acci[i][3] = 0;
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
   float gmax[2] = {0.f, 0.f};  // pass 0: this thread's absmax for rows ar+g, ar+g+8
   float sg[2] = {1.f, 1.f};    // pass 1: those rows' scales
 
@@ -368,69 +187,31 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       // ---- 1. h chunk: this warp owns a-columns cg*16..cg*16+15 of the chunk
       //         (n-tiles 0, 1) and the same b-columns (n-tiles 2, 3)
       float h[4][4];
-      int hi[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        h[i][0] = h[i][1] = h[i][2] = h[i][3] = 0.f;
-        hi[i][0] = hi[i][1] = hi[i][2] = hi[i][3] = 0;
-      }
-      for (int k0 = 0; k0 < DM; k0 += KSI) {
+      for (int i = 0; i < 4; ++i) h[i][0] = h[i][1] = h[i][2] = h[i][3] = 0.f;
+      for (int k0 = 0; k0 < DM; k0 += KS) {
         __syncthreads();
-        // 2FC rows (a rows, then b rows) x 128 bytes of Wi, either type
-        for (int item = threadIdx.x; item < 2 * FC * 8; item += NTHREADS) {
-          const int r = item / 8;
-          const int c = (item % 8) * 16;
-          const long long wrow = r < FC ? f0 + r : F + f0 + (r - FC);
-          const unsigned char* src = QI ? reinterpret_cast<const unsigned char*>(wiq + wrow * DM + k0)
-                                        : reinterpret_cast<const unsigned char*>(wi + wrow * DM + k0);
-          *reinterpret_cast<uint4*>(sWi + r * LDWI + c) = *reinterpret_cast<const uint4*>(src + c);
+        for (int item = threadIdx.x; item < 2 * FC * (KS / 8); item += NTHREADS) {
+          const int r = item / (KS / 8);
+          const int c = (item % (KS / 8)) * 8;
+          const int wrow = r < FC ? f0 + r : F + f0 + (r - FC);
+          *reinterpret_cast<uint4*>(sWi + r * LDW + c) =
+              *reinterpret_cast<const uint4*>(wi + (long long)wrow * DM + k0 + c);
         }
         __syncthreads();
-        if (QI) {
 #pragma unroll
-          for (int ks = 0; ks < KSI / 32; ++ks) {
-            uint32_t af[4];
-            const unsigned char* qp = sA + (ar + g) * LDQ + k0 + ks * 32 + t * 4;
-            af[0] = lds32(qp);
-            af[1] = lds32(qp + 8 * LDQ);
-            af[2] = lds32(qp + 16);
-            af[3] = lds32(qp + 8 * LDQ + 16);
+        for (int ks = 0; ks < KS / 16; ++ks) {
+          uint32_t af[4];
+          const __nv_bfloat16* yp = sY + (ar + g) * LDY + k0 + ks * 16 + t * 2;
+          af[0] = lds32(yp);
+          af[1] = lds32(yp + 8 * LDY);
+          af[2] = lds32(yp + 8);
+          af[3] = lds32(yp + 8 * LDY + 8);
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              const int wr = (nt < 2 ? 0 : FC) + cg * 16 + (nt & 1) * 8 + g;
-              const unsigned char* wp = sWi + wr * LDWI + ks * 32 + t * 4;
-              mma_s8(hi[nt], af, lds32(wp), lds32(wp + 16));
-            }
-          }
-        } else {
-#pragma unroll
-          for (int ks = 0; ks < KSI / 16; ++ks) {
-            uint32_t af[4];
-            const unsigned char* yp = sA + ((ar + g) * LDY + k0 + ks * 16 + t * 2) * 2;
-            af[0] = lds32(yp);
-            af[1] = lds32(yp + 8 * LDY * 2);
-            af[2] = lds32(yp + 16);
-            af[3] = lds32(yp + 8 * LDY * 2 + 16);
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              const int wr = (nt < 2 ? 0 : FC) + cg * 16 + (nt & 1) * 8 + g;
-              const unsigned char* wp = sWi + wr * LDWI + (ks * 16 + t * 2) * 2;
-              mma_bf16(h[nt], af, lds32(wp), lds32(wp + 16));
-            }
-          }
-        }
-      }
-      if (QI) {
-        // h = float(acc) * sa * swi[column], in that order
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = (nt < 2 ? 0 : F) + f0 + cg * 16 + (nt & 1) * 8 + t * 2;
-          const float s0 = swi[col], s1 = swi[col + 1];
-#pragma unroll
-          for (int hr = 0; hr < 2; ++hr) {
-            const float sa = sSa[ar + g + hr * 8];
-            h[nt][2 * hr] = (float)hi[nt][2 * hr] * sa * s0;
-            h[nt][2 * hr + 1] = (float)hi[nt][2 * hr + 1] * sa * s1;
+          for (int nt = 0; nt < 4; ++nt) {
+            const int wr = (nt < 2 ? 0 : FC) + cg * 16 + (nt & 1) * 8 + g;
+            const __nv_bfloat16* wp = sWi + wr * LDW + ks * 16 + t * 2;
+            mma_bf16(h[nt], af, lds32(wp), lds32(wp + 8));
           }
         }
       }
@@ -461,7 +242,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       for (int item = threadIdx.x; item < DM * (FC / 16); item += NTHREADS) {
         const int r = item / (FC / 16);
         const int c = (item % (FC / 16)) * 16;
-        *reinterpret_cast<uint4*>(sWo + r * LDO + c) =
+        *reinterpret_cast<uint4*>(sWo + r * LDG + c) =
             *reinterpret_cast<const uint4*>(woq + (long long)r * F + f0 + c);
       }
       __syncthreads();
@@ -476,8 +257,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         af[3] = lds32(gp + 8 * LDG + 16);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
-          const unsigned char* wp = sWo + (cg * (DM / 4) + nt * 8 + g) * LDO + ks * 32 + t * 4;
-          mma_s8(acci[nt], af, lds32(wp), lds32(wp + 16));
+          const unsigned char* wp = sWo + (cg * (DM / 4) + nt * 8 + g) * LDG + ks * 32 + t * 4;
+          mma_s8(acc[nt], af, lds32(wp), lds32(wp + 16));
         }
       }
     }
@@ -493,25 +274,24 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       const int c = cg * (DM / 4) + nt * 8 + t * 2;
       const float2 xv =
           __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + (long long)row * DM + c));
-      const float o0 = bf16_round((float)acci[nt][2 * hr] * sg[hr] * swo[c]);
-      const float o1 = bf16_round((float)acci[nt][2 * hr + 1] * sg[hr] * swo[c + 1]);
+      const float o0 = bf16_round((float)acc[nt][2 * hr] * sg[hr] * swo[c]);
+      const float o1 = bf16_round((float)acc[nt][2 * hr + 1] * sg[hr] * swo[c + 1]);
       *reinterpret_cast<uint32_t*>(out + (long long)row * DM + c) = pack_bf16(xv.x + o0, xv.y + o1);
     }
   }
 }
 
-template <int DM, bool QI>
-int launch_q(const void* x, const void* scale, const void* bias, const void* wi, const void* swi,
-             const void* wo, const void* swo, void* out, void* codes_y, void* codes_g, int R, int F,
-             float eps, void* stream) {
-  constexpr int bytes = smem_bytes_q<DM, QI>();
-  cudaError_t err = cudaFuncSetAttribute(fused_ln_ffn_q_kernel<DM, QI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <int DM>
+int launch_q(const void* x, const void* scale, const void* bias, const void* wi, const void* wo, const void* swo,
+             void* out, void* codes_g, int R, int F, float eps, void* stream) {
+  constexpr int bytes = smem_bytes_q<DM>();
+  cudaError_t err =
+      cudaFuncSetAttribute(fused_ln_ffn_q_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (R + BR - 1) / BR;
-  fused_ln_ffn_q_kernel<DM, QI><<<blocks, NTHREADS, bytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const float*)scale, (const float*)bias, wi, (const float*)swi, wo,
-      (const float*)swo, (__nv_bfloat16*)out, (int8_t*)codes_y, (int8_t*)codes_g, R, F, eps);
+  fused_ln_ffn_q_kernel<DM><<<blocks, NTHREADS, bytes, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const float*)scale, (const float*)bias, (const __nv_bfloat16*)wi,
+      (const int8_t*)wo, (const float*)swo, (__nv_bfloat16*)out, (int8_t*)codes_g, R, F, eps);
   return (int)cudaGetLastError();
 }
 
@@ -775,14 +555,447 @@ int launch(const void* x, const void* scale, const void* bias, const void* wi, c
 
 }  // namespace w8a8
 
+// ---------------------------------------------------------------------------
+// The bf16 form (row 3) and the w8a8 + w8a8_wo form (3qq): 3q's design with a bf16 Wi, or an int8 Wo
+// (see the note at the top of the file).
+namespace sm90_ffn {
+
+constexpr int BM = 64;                   // rows per tile
+constexpr int FC = 64;                   // F chunk: 64 columns of a and the same 64 of b
+constexpr int CM = 2;                    // CTAs of a cluster: consecutive row tiles sharing each weight stage
+constexpr int WI_BYTES = 2 * FC * 128;   // 16 KB: a rows, then b rows, of 128 bytes of DM
+constexpr int G_BYTES = BM * 128;        // a g tile: one chunk's bf16 g, or a chunk pair's int8 codes
+constexpr int THREADS = 384;             // two consumer warpgroups + a producer warpgroup
+
+enum Form { BF16, W8A8_WO };
+
+template <int DM, int FORM>
+struct Cfg {
+  // int8 weights: int8 LN codes and Wi; g quantised per row over all F (two passes) and an int8 Wo
+  static constexpr bool Q = FORM == W8A8_WO;
+  // NC output columns per Wo pass, NW = NC / 2 of them per consumer warpgroup. At DM 768 (the
+  // accumulators of 768 columns do not fit) the forms with a bf16 Wo take two items of 384 columns
+  // per 64 rows, the int8 Wo form one item whose Wo product runs in NH = 2 halves of 384 columns
+  // from the codes of all F, kept in shared memory.
+  static constexpr int NC = DM == 768 ? 384 : DM, NW = NC / 2;
+  static constexpr int NH = Q ? DM / NC : 1;
+  static constexpr int NO = NC * NH, NP = DM / NO;  // output columns per item, items per 64 rows
+  static constexpr int KS = Q ? 128 : 64;          // DM columns per Wi stage (128 bytes)
+  static constexpr int KB = DM / KS;                // Wi stages per chunk
+  static constexpr int A_BYTES = BM * DM * (Q ? 1 : 2);  // LN operand: KB blocks of 64 rows x 128 bytes
+  static constexpr int WO_BYTES = NC * 128;         // NC rows x one bf16 chunk or an int8 chunk pair
+  static constexpr int WOS = Q ? (NH == 2 ? 1 : 2) : (DM == 256 ? 2 : 1);  // Wo slots
+  // one Wo slot, bf16: each warpgroup's half of it is its own ring, so that neither waits on the other
+  static constexpr bool WO_SPLIT = WOS == 1 && !Q;
+  static constexpr int F_MAX = NH == 2 ? 1152 : 1 << 30;  // NH = 2: the codes of all F are kept
+  static constexpr int G_TILES = NH == 2 ? F_MAX / 128 : 2;  // g tiles: double-buffered, or one per chunk pair
+  static constexpr int WIS = Q ? (DM == 256 ? 4 : 3) : (DM == 768 ? 4 : DM == 512 ? 5 : 6);  // Wi stages
+  static constexpr int PASSES = Q ? 2 : 1;
+  static constexpr int SMEM = 1024 + WIS * WI_BYTES + WOS * WO_BYTES + A_BYTES + G_TILES * G_BYTES + 2 * BM * 4 +
+                              (2 * WIS + 2 * 2 + 6) * 8;
+  static_assert(SMEM <= 232448, "more shared memory than a block may have");
+};
+
+// h (64 x 128) [+]= A (64 x K) . B (128 x K)^T over one K step of the Wi product
+__device__ __forceinline__ void wgmma_wi(float (&h)[64], uint64_t da, uint64_t db, int scale_d) {
+  sm90::wgmma_bf16_n128(h, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_wi(int (&h)[64], uint64_t da, uint64_t db, int scale_d) {
+  sm90::wgmma_s8_n128(h, da, db, scale_d);
+}
+
+// acc (64 x NW) [+]= A . B (NW x K)^T over one K step of the Wo product
+template <int NW>
+__device__ __forceinline__ void wgmma_wo(float (&acc)[NW / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (NW == 128) sm90::wgmma_bf16_n128(acc, da, db, scale_d);
+  else if constexpr (NW == 192) sm90::wgmma_bf16_n192(acc, da, db, scale_d);
+  else sm90::wgmma_bf16_n256(acc, da, db, scale_d);
+}
+template <int NW>
+__device__ __forceinline__ void wgmma_wo(int (&acc)[NW / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (NW == 128) sm90::wgmma_s8_n128(acc, da, db, scale_d);
+  else if constexpr (NW == 192) sm90::wgmma_s8_n192(acc, da, db, scale_d);
+  else sm90::wgmma_s8_n256(acc, da, db, scale_d);
+}
+
+template <int DM, int FORM>
+__device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtensorMap* map_wo,
+                                         const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                                         const float* __restrict__ bias, const float* __restrict__ swi,
+                                         const float* __restrict__ swo, __nv_bfloat16* __restrict__ out,
+                                         int8_t* __restrict__ codes_y, int8_t* __restrict__ codes_g, int R, int F,
+                                         float eps) {
+  using namespace sm90;
+  using C = Cfg<DM, FORM>;
+  using Acc = typename std::conditional<C::Q, int, float>::type;  // both products': exact s32, or fp32
+  constexpr int NO = C::NO, NP = C::NP, NC = C::NC, NW = C::NW, NH = C::NH, KB = C::KB, WIS = C::WIS, WOS = C::WOS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sWi = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sWo = sWi + WIS * WI_BYTES;      // WOS slots of NC rows x 128 bytes of F
+  unsigned char* sA = sWo + WOS * C::WO_BYTES;    // KB blocks of 64 rows x 128 bytes: LN rows, bf16 or codes
+  unsigned char* sG = sA + C::A_BYTES;            // G_TILES g tiles
+  float* sSa = reinterpret_cast<float*>(sG + C::G_TILES * G_BYTES);  // BM LN row scales (int8 Wi)
+  unsigned int* sMax = reinterpret_cast<unsigned int*>(sSa + BM);    // BM absmax of gelu(a) * b, bits (int8 Wo)
+  uint64_t* wi_full = reinterpret_cast<uint64_t*>(sMax + BM);
+  uint64_t* wi_empty = wi_full + WIS;  // every consumer warp of the cluster is done with the stage
+  uint64_t* wo_full = wi_empty + WIS;  // per slot, or per warpgroup's ring (WO_SPLIT)
+  uint64_t* wo_empty = wo_full + 2;
+  uint64_t* g_ready = wo_empty + 2;    // g tile b written (by the owner of its chunk; int8 Wo: by both)
+  uint64_t* g_free = g_ready + 2;      // g tile b no longer read by either warpgroup's Wo product
+  uint64_t* landed = g_free + 2;       // warpgroup w has seen the last Wi stage of its chunk arrive
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = cluster_ctarank();
+  const int chunks = F / FC;
+  const int items = ((R + BM - 1) / BM + CM - 1) / CM * NP;  // (CM row tiles, output columns) of a cluster
+  const int cluster = blockIdx.x / CM, clusters = gridDim.x / CM;
+  constexpr uint16_t ALL = (1 << CM) - 1;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < WIS; ++s) mbar_init(&wi_full[s], 1), mbar_init(&wi_empty[s], 4 * CM);
+    for (int s = 0; s < 2; ++s) mbar_init(&wo_full[s], 1), mbar_init(&wo_empty[s], (C::WO_SPLIT ? 4 : 8) * CM);
+    for (int s = 0; s < 2; ++s)
+      mbar_init(&g_ready[s], C::Q ? 8 : 4), mbar_init(&g_free[s], 8), mbar_init(&landed[s], 4);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  cluster_sync();  // every CTA's barriers exist before any copy or remote arrival reaches them
+
+  if (warp >= 8) {  // producer warpgroup: one thread per ring keeps it full, in the order it is read
+    regs_dealloc<40>();
+    if (lane == 0 && warp == 8) {  // Wi: every chunk of every pass
+      int si = 0;
+      uint32_t pi = 0;
+      for (int item = cluster; item < items; item += clusters)
+        for (int pass = 0; pass < C::PASSES; ++pass)
+          for (int c = 0; c < chunks; ++c)
+            for (int kb = 0; kb < KB; ++kb) {
+              mbar_wait(&wi_empty[si], pi ^ 1);
+              mbar_expect_tx(&wi_full[si], WI_BYTES);
+              unsigned char* dst = sWi + si * WI_BYTES + rank * (FC / CM) * 128;
+              tma_load_2d_multicast(dst, map_wi, &wi_full[si], kb * C::KS, c * FC + rank * (FC / CM), ALL);
+              tma_load_2d_multicast(dst + FC * 128, map_wi, &wi_full[si], kb * C::KS, F + c * FC + rank * (FC / CM),
+                                    ALL);
+              if (++si == WIS) si = 0, pi ^= 1;
+            }
+      // stay until every consumer of the cluster has released every stage: no remote
+      // arrival may reach this CTA after it exits
+      for (int s = 0; s < WIS; ++s) {
+        mbar_wait(&wi_empty[si], pi ^ 1);
+        if (++si == WIS) si = 0, pi ^= 1;
+      }
+    } else if (lane == 0 && (warp == 9 || (C::WO_SPLIT && warp == 10))) {
+      // Wo: a chunk (bf16) or a chunk pair (int8) a slot, for each Wo pass; with split rings one thread
+      // feeds each consumer warpgroup's half of the one slot
+      constexpr int SLOTS = C::WO_SPLIT ? 1 : WOS;
+      const int ring = warp - 9;
+      uint64_t* full = wo_full + ring;
+      uint64_t* empty = wo_empty + ring;
+      int so = 0;
+      uint32_t po = 0;
+      for (int item = cluster; item < items; item += clusters) {
+        const int n0 = item % NP * NO;
+        for (int half = 0; half < NH; ++half)
+          for (int c = 0; c < chunks; c += C::Q ? 2 : 1) {
+            mbar_wait(&empty[so], po ^ 1);
+            mbar_expect_tx(&full[so], C::WO_BYTES / (C::WO_SPLIT ? 2 : 1));
+            for (int w = C::WO_SPLIT ? ring : 0; w < (C::WO_SPLIT ? ring + 1 : 2); ++w) {
+              const int r0 = w * NW + rank * (NW / CM);  // the slot rows this CTA loads for warpgroup w
+              tma_load_2d_multicast(sWo + so * C::WO_BYTES + r0 * 128, map_wo, &full[so], c * FC, n0 + half * NC + r0,
+                                    ALL);
+            }
+            if (++so == SLOTS) so = 0, po ^= 1;
+          }
+      }
+      for (int s = 0; s < SLOTS; ++s) {
+        mbar_wait(&empty[so], po ^ 1);
+        if (++so == SLOTS) so = 0, po ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: both warpgroups share the tile's 64 rows. The chunks alternate between them:
+  // warpgroup wg runs the Wi product and the GeGLU of chunks c = wg mod 2 (all 64 a- and b-columns),
+  // while the other one does the same for its chunk; both multiply every g tile by their
+  // NW output columns of Wo.
+  regs_alloc<232>();
+  const int wg = warp >> 2, wl = warp & 3;
+  Acc acc[NW / 2];
+  Acc h[64];  // h of the own chunk: a columns in blocks 0-7, b columns in blocks 8-15
+  int so = 0;
+  uint32_t po = 0;
+  int gc = 0;  // chunks of earlier passes: chunk c of this pass is the block's chunk gc + c
+  int gp = 0;  // int8 Wo: chunk pairs of earlier items (the pair's g tile and its g_ready phase)
+  const int other_per_pass = wg == 1 ? (chunks + 1) / 2 : chunks / 2;  // chunks of the other warpgroup in a pass
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0)
+      for (int q = 0; q < CM; ++q) mbar_arrive_cluster(bar, q);
+  };
+  float sg[2] = {1.f, 1.f};  // int8 Wo: the scales of this thread's rows 16 wl + lane / 4 (+ 8)
+  // out = x + bf16(o), rounded to bf16 (int8 Wo: o = float(acc) * sg * swo[column]), over this
+  // warpgroup's NW columns of the Wo pass that starts at column n0
+  auto epilogue = [&](int m0, int n0) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = m0 + 16 * wl + (lane >> 2) + 8 * hr;
+      if (row >= R) continue;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int col = n0 + NW * wg + 8 * j + 2 * (lane & 3);
+        const long long at = (long long)row * DM + col;
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + at));
+        float o0, o1;
+        if constexpr (C::Q) {
+          o0 = bf16_round((float)acc[4 * j + 2 * hr] * sg[hr] * swo[col]);
+          o1 = bf16_round((float)acc[4 * j + 2 * hr + 1] * sg[hr] * swo[col + 1]);
+        } else {
+          o0 = bf16_round(acc[4 * j + 2 * hr]), o1 = bf16_round(acc[4 * j + 2 * hr + 1]);
+        }
+        *reinterpret_cast<uint32_t*>(out + at) = pack_bf16(xv.x + o0, xv.y + o1);
+      }
+    }
+  };
+  // int8 Wo: the Wo product of chunk pair kp (tile b, written by both warpgroups) over the columns of
+  // the slot's Wo pass (a lone last chunk meets Wo columns past F, which the map gives as zeros)
+  auto wo_pair = [&](int kp, int b) {
+    mbar_wait(&wo_full[so], po);
+    wgmma_fence();
+    const uint64_t da = desc_sw128(sG + b * G_BYTES);
+    const uint64_t db = desc_sw128(sWo + so * C::WO_BYTES + wg * NW * 128);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_wo<NW>(acc, da + 2 * k, db + 2 * k, kp | k);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(&wo_empty[so]);
+    if (++so == WOS) so = 0, po ^= 1;
+  };
+  for (int item = cluster; item < items; item += clusters) {
+    const int m0 = (item / NP * CM + rank) * BM, p = item % NP, n0 = p * NO;
+    // ---- front end: LN (fp32) into the swizzled sA, as bf16 or as per-row int8 codes with their scales
+    named_barrier(1, 256);  // both warpgroups are done with the previous tile's sA, sSa and sMax
+    for (int r = warp; r < BM; r += 8) {
+      const int row = m0 + r;
+      if (C::Q && lane == 0) sMax[r] = 0u;
+      if (row < R) {
+        float2 y[DM / 64];
+        ln_row_f32<DM>(x + (long long)row * DM, scale, bias, eps, lane, y);
+        if constexpr (C::Q) {
+          int8_t* cy = codes_y && p == 0 ? codes_y + (long long)row * DM : nullptr;
+          const float sa = quant_row_int8_each<DM>(y, lane, [&](int c, char2 q) {
+            *reinterpret_cast<char2*>(sA + (c >> 7) * (BM * 128) + swizzle128(r, c & 127)) = q;
+            if (cy) *reinterpret_cast<char2*>(cy + c) = q;
+          });
+          if (lane == 0) sSa[r] = sa;
+        } else {
+#pragma unroll
+          for (int i = 0; i < DM / 64; ++i)  // columns 64 i + 2 lane, + 1: block i, bytes 4 lane
+            *reinterpret_cast<uint32_t*>(sA + i * (BM * 128) + swizzle128(r, 4 * lane)) = pack_bf16(y[i].x, y[i].y);
+        }
+      } else {
+        for (int c = lane * 4; c < C::A_BYTES / BM; c += 128)
+          *reinterpret_cast<uint32_t*>(sA + (c >> 7) * (BM * 128) + swizzle128(r, c & 127)) = 0u;
+        if (C::Q && lane == 0) sSa[r] = 0.f;
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1, 256);
+
+    for (int pass = 0; pass < C::PASSES; ++pass) {
+      float gmax[2] = {0.f, 0.f};  // int8 Wo, pass 0: their absmax so far
+      for (int c0 = 0; c0 < chunks; c0 += 2) {
+        const int c = c0 + wg;  // this warpgroup's chunk
+        if (c < chunks) {
+          // Wi product of chunk c: h (64 x 128) = A (64 x DM) . [Wi_a | Wi_b]^T
+          // The block's Wi stages run in chunk order, the other warpgroup's chunks taking their share. A
+          // parity wait tells apart only two phases of a stage's barrier, so ours are waited on only after
+          // the other warpgroup has seen the stages of chunk c - 1 arrive.
+          if (c > 0) mbar_wait(&landed[1 - wg], ((gc / chunks) * other_per_pass + (c - 1) / 2) & 1);
+          const int t0 = (gc + c) * KB;
+          for (int kb = 0; kb < KB; ++kb) {
+            const int si = (t0 + kb) % WIS;
+            mbar_wait(&wi_full[si], ((t0 + kb) / WIS) & 1);
+            if (kb == KB - 1 && lane == 0) mbar_arrive(&landed[wg]);
+            wgmma_fence();
+            const uint64_t da = desc_sw128(sA + kb * (BM * 128)), db = desc_sw128(sWi + si * WI_BYTES);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) wgmma_wi(h, da + 2 * k, db + 2 * k, kb | k);
+            wgmma_commit();
+            wgmma_wait<1>();  // the previous stage's products are done: hand it back
+            if (kb > 0) release(&wi_empty[(t0 + kb - 1) % WIS]);
+          }
+          wgmma_wait<0>();
+          fence_regs(h);
+          release(&wi_empty[(t0 + KB - 1) % WIS]);
+          // GeGLU: h rounded to bf16 (int8 Wi: float(acc) * sa * swi[column], in that order, first)
+          // into g tile b: double-buffered (the chunk's, or the int8 Wo pair's), or the pair's own
+          const int b = !C::Q ? (gc + c) & 1 : NH == 2 ? c0 / 2 : gp & 1;
+          const int use = C::Q ? gp >> 1 : (gc + c) >> 1;
+          if (use > 0 && (!C::Q || (pass == 1 && NH == 1))) mbar_wait(&g_free[b], (use - 1) & 1);
+          unsigned char* g = sG + b * G_BYTES;
+#pragma unroll
+          for (int i = 0; i < 32; i += 2) {
+            const int hr = (i >> 1) & 1;
+            const int r = 16 * wl + (lane >> 2) + 8 * hr;
+            const int cc = 8 * (i >> 2) + 2 * (lane & 3);  // column in the chunk
+            float a0, a1, b0, b1;
+            if constexpr (C::Q) {
+              const int col = c * FC + cc;
+              const float sa = sSa[r];
+              a0 = bf16_round((float)h[i] * sa * swi[col]);
+              a1 = bf16_round((float)h[i + 1] * sa * swi[col + 1]);
+              b0 = bf16_round((float)h[i + 32] * sa * swi[F + col]);
+              b1 = bf16_round((float)h[i + 33] * sa * swi[F + col + 1]);
+            } else {
+              a0 = bf16_round(h[i]), a1 = bf16_round(h[i + 1]);
+              b0 = bf16_round(h[i + 32]), b1 = bf16_round(h[i + 33]);
+            }
+            const float g0 = gelu_erf(a0) * b0, g1 = gelu_erf(a1) * b1;
+            if constexpr (!C::Q) {
+              *reinterpret_cast<uint32_t*>(g + swizzle128(r, 2 * cc)) = pack_bf16(g0, g1);
+            } else if (pass == 0) {
+              gmax[hr] = fmaxf(gmax[hr], fmaxf(fabsf(g0), fabsf(g1)));
+            } else {  // the pair's tile: this chunk's codes are bytes 64 wg .. 64 wg + 63 of each row
+              char2 q;
+              q.x = (signed char)quant_code(g0, sg[hr]);
+              q.y = (signed char)quant_code(g1, sg[hr]);
+              *reinterpret_cast<char2*>(g + swizzle128(r, 64 * wg + cc)) = q;
+              if (codes_g && p == 0 && m0 + r < R)
+                *reinterpret_cast<char2*>(codes_g + (long long)(m0 + r) * F + c * FC + cc) = q;
+            }
+          }
+          if (!C::Q || pass == 1) fence_proxy_async();
+          if constexpr (!C::Q) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(&g_ready[b]);
+          }
+        }
+        if constexpr (!C::Q) {
+          // Wo products of chunks c0 and c0 + 1, each from the g tile its owner wrote
+          const int last = c0 + 2 < chunks ? c0 + 2 : chunks;
+          for (int j = c0; j < last; ++j) {
+            mbar_wait(&g_ready[(gc + j) & 1], ((gc + j) >> 1) & 1);
+            mbar_wait(&wo_full[C::WO_SPLIT ? wg : so], po);
+            wgmma_fence();
+            const uint64_t da = desc_sw128(sG + ((gc + j) & 1) * G_BYTES);
+            const uint64_t db = desc_sw128(sWo + so * C::WO_BYTES + wg * NW * 128);
+#pragma unroll
+            for (int k = 0; k < FC / 16; ++k) wgmma_wo<NW>(acc, da + 2 * k, db + 2 * k, j | k);
+            wgmma_commit();
+            if constexpr (WOS == 1) {  // the slot (this warpgroup's ring) takes chunk j + 1 next: hand it back now
+              wgmma_wait<0>();
+              fence_regs(acc);
+              release(&wo_empty[C::WO_SPLIT ? wg : so]);
+              if (lane == 0) mbar_arrive(&g_free[(gc + j) & 1]);
+            }
+            if (++so == WOS) so = 0, po ^= 1;
+          }
+          if constexpr (WOS == 2) {
+            wgmma_wait<0>();
+            fence_regs(acc);
+            for (int j = c0; j < last; ++j) {  // hand back their Wo slots and g tiles
+              release(&wo_empty[(so + j - last) & 1]);
+              if (lane == 0) mbar_arrive(&g_free[(gc + j) & 1]);
+            }
+          }
+        } else if (pass == 1) {  // the pair's Wo product (the first Wo pass), once both halves are written
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&g_ready[gp & 1]);
+          mbar_wait(&g_ready[gp & 1], (gp >> 1) & 1);
+          wo_pair(c0 / 2, NH == 2 ? c0 / 2 : gp & 1);
+          if (NH == 1 && lane == 0) mbar_arrive(&g_free[gp & 1]);
+          ++gp;
+        }
+      }
+      gc += chunks;
+      if (C::Q && pass == 0) {  // every row's absmax over all F, from both warpgroups, then its scale
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float m = gmax[hr];
+          m = fmaxf(m, __shfl_xor_sync(0xffffffff, m, 1));
+          m = fmaxf(m, __shfl_xor_sync(0xffffffff, m, 2));
+          if ((lane & 3) == 0) atomicMax(&sMax[16 * wl + (lane >> 2) + 8 * hr], __float_as_uint(m));
+        }
+        named_barrier(1, 256);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          sg[hr] = fmaxf(__uint_as_float(sMax[16 * wl + (lane >> 2) + 8 * hr]), 1e-30f) * kInv127;
+      }
+    }
+    epilogue(m0, n0);
+    for (int half = 1; half < NH; ++half) {  // int8 Wo: the other Wo passes, from the kept codes of all F
+      for (int kp = 0; kp < (chunks + 1) / 2; ++kp) wo_pair(kp, kp);
+      epilogue(m0, n0 + half * NC);
+    }
+  }
+}
+
+}  // namespace sm90_ffn
+
+// One kernel per form, so that a profile names each.
+namespace bf16 {
+
+// row 3
+template <int DM>
+__global__ void __cluster_dims__(sm90_ffn::CM, 1, 1) __launch_bounds__(sm90_ffn::THREADS, 1)
+    ffn_kernel(const __grid_constant__ CUtensorMap map_wi, const __grid_constant__ CUtensorMap map_wo,
+               const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
+               const float* __restrict__ swi, const float* __restrict__ swo, __nv_bfloat16* __restrict__ out,
+               int8_t* __restrict__ codes_y, int8_t* __restrict__ codes_g, int R, int F, float eps) {
+  sm90_ffn::ffn_body<DM, sm90_ffn::BF16>(&map_wi, &map_wo, x, scale, bias, swi, swo, out, codes_y, codes_g, R, F, eps);
+}
+
+}  // namespace bf16
+
+namespace w8a8 {
+
+// row 3qq
+template <int DM>
+__global__ void __cluster_dims__(sm90_ffn::CM, 1, 1) __launch_bounds__(sm90_ffn::THREADS, 1)
+    ffn_wo_kernel(const __grid_constant__ CUtensorMap map_wi, const __grid_constant__ CUtensorMap map_wo,
+               const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
+               const float* __restrict__ swi, const float* __restrict__ swo, __nv_bfloat16* __restrict__ out,
+               int8_t* __restrict__ codes_y, int8_t* __restrict__ codes_g, int R, int F, float eps) {
+  sm90_ffn::ffn_body<DM, sm90_ffn::W8A8_WO>(&map_wi, &map_wo, x, scale, bias, swi, swo, out, codes_y, codes_g, R, F, eps);
+}
+
+}  // namespace w8a8
+
+namespace sm90_ffn {
+
+template <int DM, int FORM>
+int launch(const void* x, const void* scale, const void* bias, const void* wi, const void* swi, const void* wo,
+           const void* swo, void* out, void* codes_y, void* codes_g, int R, int F, float eps, void* stream) {
+  using C = Cfg<DM, FORM>;
+  if (F > C::F_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = FORM == BF16 ? bf16::ffn_kernel<DM> : w8a8::ffn_wo_kernel<DM>;
+  CUtensorMap map_wi, map_wo;
+  if (!make_map_2d(&map_wi, wi, C::Q ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   C::Q ? 1 : 2, 2LL * F, DM, FC / CM, C::KS) ||
+      !make_map_2d(&map_wo, wo, C::Q ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   C::Q ? 1 : 2, DM, F, C::NW / CM, C::Q ? 2 * FC : FC))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  static const int max_clusters = max_active_clusters((const void*)kernel, THREADS, C::SMEM, CM);
+  const int items = ((R + BM - 1) / BM + CM - 1) / CM * C::NP;
+  kernel<<<CM * (items < max_clusters ? items : max_clusters), THREADS, C::SMEM, (cudaStream_t)stream>>>(
+      map_wi, map_wo, (const __nv_bfloat16*)x, (const float*)scale, (const float*)bias, (const float*)swi,
+      (const float*)swo, (__nv_bfloat16*)out, (int8_t*)codes_y, (int8_t*)codes_g, R, F, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90_ffn
+
 template <int DM>
 int dispatch_q(const void* x, const void* scale, const void* bias, const void* wi, const void* swi,
                const void* wo, const void* swo, void* out, void* codes_y, void* codes_g, int R, int F,
                float eps, int w8a8, int w8a8_wo, void* stream) {
+  using namespace sm90_ffn;
   if (w8a8 && w8a8_wo)
-    return launch_q<DM, true>(x, scale, bias, wi, swi, wo, swo, out, codes_y, codes_g, R, F, eps, stream);
+    return launch<DM, W8A8_WO>(x, scale, bias, wi, swi, wo, swo, out, codes_y, codes_g, R, F, eps, stream);
   if (w8a8) return w8a8::launch<DM>(x, scale, bias, wi, swi, wo, out, codes_y, R, F, eps, stream);
-  return launch_q<DM, false>(x, scale, bias, wi, swi, wo, swo, out, codes_y, codes_g, R, F, eps, stream);
+  return launch_q<DM>(x, scale, bias, wi, wo, swo, out, codes_g, R, F, eps, stream);
 }
 
 }  // namespace
@@ -792,10 +1005,12 @@ int dispatch_q(const void* x, const void* scale, const void* bias, const void* w
 extern "C" int cm3p_fused_ln_ffn(const void* x, const void* scale, const void* bias,
                                  const void* wi, const void* wo, void* out, int R, int DM, int F,
                                  float eps, void* stream) {
+  using sm90_ffn::BF16;
+  using sm90_ffn::launch;
   if (R <= 0 || F <= 0 || F % FC != 0) return (int)cudaErrorInvalidValue;
-  if (DM == 768) return launch<768>(x, scale, bias, wi, wo, out, R, F, eps, stream);
-  if (DM == 512) return launch<512>(x, scale, bias, wi, wo, out, R, F, eps, stream);
-  if (DM == 256) return launch<256>(x, scale, bias, wi, wo, out, R, F, eps, stream);
+  if (DM == 768) return launch<768, BF16>(x, scale, bias, wi, nullptr, wo, nullptr, out, nullptr, nullptr, R, F, eps, stream);
+  if (DM == 512) return launch<512, BF16>(x, scale, bias, wi, nullptr, wo, nullptr, out, nullptr, nullptr, R, F, eps, stream);
+  if (DM == 256) return launch<256, BF16>(x, scale, bias, wi, nullptr, wo, nullptr, out, nullptr, nullptr, R, F, eps, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,7 +12,7 @@ accumulation throughout. Weights use the nn.Linear layout: ``wi`` is
 
 On a CPU tensor the wrapper runs :func:`fused_ln_ffn_plain`; on a CUDA
 tensor it launches ``csrc/fused_ffn.cu`` (bf16, D in {256, 512, 768}, F a
-multiple of 64) or raises. The source note on the kernel's design and bound
+multiple of 64; with ``w8a8`` and ``w8a8_wo`` at D 768, F <= 1152) or raises. The source note on the kernel's design and bound
 is in ``csrc/fused_ffn.cu``.
 
 The W8A8 extraction options follow the TPU kernel: ``w8a8`` quantises the
@@ -160,6 +160,8 @@ def fused_ln_ffn_q(x, scale, bias, wi, wo, eps: float, w8a8: bool = True, w8a8_w
     d = x.shape[-1]
     f = wo.shape[-1] if wo.dim() == 2 else -1
     _check_common(x, scale, bias, d, f)
+    if w8a8 and w8a8_wo and d == 768 and f > 1152:
+        raise ValueError(f"the w8a8 + w8a8_wo kernel keeps the codes of all F: F <= 1152 at D 768, got F={f}")
     swi = swo = None
     if w8a8:
         wi, swi = wi_q if wi_q is not None else quantize_weight_int8(wi)

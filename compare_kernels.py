@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one phase's kernels of two checkouts on one card, in turns.
 
-    python3 compare_kernels.py --parent DIR [--phase quant|wo] [--out DIR]
+    python3 compare_kernels.py --parent DIR [--phase quant|wo|ffn] [--out DIR]
 
 ``DIR`` is another checkout of this repository (for example ``git archive
 <commit> | tar -x -C _scratch/parent``). Each turn runs one tree's phase 7
@@ -17,11 +17,20 @@ measured on the same card within one run:
   unfused pair they replace, at the packed beatmap shape and the audio
   tower's. The packed segments are made once, from the 17 maps with this
   checkout's processor, saved under ``--out`` and loaded in every turn, so
-  both trees get the same.
+  both trees get the same;
+* ``ffn``: the FFN kernel's bf16 form (``ops.fused_ln_ffn``, row 3) at
+  323,584 x 768 (F 1152), 80,896 x 512 (F 1024) and 49,152 x 256 (F 512),
+  and its ``w8a8 + w8a8_wo`` form (``ops.fused_ln_ffn_q``, row 3qq) at the
+  first two, on the same seeded inputs in every turn, through the public ops
+  that both trees have; each first against its plain version at 4,037 rows
+  (tolerance 2e-2), then timed beside the unfused composition (cuBLAS
+  products, ``torch._int_mm`` for the int8 ones, PyTorch's elementwise
+  passes; the same PyTorch code in every turn) and its bound.
 
 Prints the card's name and power limit, each turn's timing lines and, per
 kernel form (and shape), the four times; writes each turn's log and
-``compare.json`` (``compare_wo.json`` for ``wo``) to ``--out``. Exits non-zero
+``compare.json`` (``compare_wo.json`` for ``wo``, ``compare_ffn.json`` for
+``ffn``) to ``--out``. Exits non-zero
 if a turn fails. Needs one GPU.
 """
 from __future__ import annotations
@@ -78,6 +87,71 @@ errs, _, _ = chip_smoke.check_wo_kernels(torch, ops, gen, dev, saved["seg_packed
                                          saved["audio_l"])
 print("REPORT " + json.dumps({"errs": errs}), flush=True)
 """
+FFN_TURN = r"""
+import json, sys, torch
+import torch.nn.functional as F
+sys.path.insert(0, sys.argv[1])
+from cm3p_torch import ops
+from cm3p_torch.ops import _build
+from cm3p_torch.ops.fused_ffn import layer_norm_f32
+from cm3p_torch.ops.quant import quant_rows_int8, quantize_weight_int8
+_build.build(("fused_ffn",))
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+
+def cuda_ms(fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+def composition(x, scale, bias, wi, wo, eps, wi_q=None, wo_q=None):
+    f = wo.shape[1]
+    y = layer_norm_f32(x, scale, bias, eps)
+    if wi_q is None:
+        h = F.linear(y.to(x.dtype), wi)
+    else:
+        q, sa = quant_rows_int8(y)
+        h = (torch._int_mm(q, wi_q[0].t()).float() * sa * wi_q[1]).to(x.dtype)
+    gf = F.gelu(h[:, :f].float()) * h[:, f:].float()
+    if wo_q is None:
+        o = F.linear(gf.to(x.dtype), wo)
+    else:
+        gq, sg = quant_rows_int8(gf)
+        o = (torch._int_mm(gq, wo_q[0].t()).float() * sg * wo_q[1]).to(x.dtype)
+    return x + o
+
+errs, times = {}, {}
+for d, f, rows in ((768, 1152, 323584), (512, 1024, 80896), (256, 512, 49152)):
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = (0.5 * torch.randn(rows, d, generator=gen, device=dev)).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    wi = (0.02 * torch.randn(2 * f, d, generator=gen, device=dev)).to(torch.bfloat16)
+    wo = (0.02 * torch.randn(d, f, generator=gen, device=dev)).to(torch.bfloat16)
+    forms = [("fused_ln_ffn", dict(), {})]
+    if d != 256:
+        wi_q, wo_q = quantize_weight_int8(wi), quantize_weight_int8(wo)
+        forms.append(("fused_ln_ffn_q_wo", dict(w8a8=True, w8a8_wo=True, wi_q=wi_q, wo_q=wo_q),
+                      dict(wi_q=wi_q, wo_q=wo_q)))
+    for name, kw, ckw in forms:
+        run = (lambda a, kw=kw: ops.fused_ln_ffn_q(*a, **kw)) if kw else (lambda a: ops.fused_ln_ffn(*a))
+        small = (x[:4037], scale, None, wi, wo, 1e-5)
+        got, want = run(small), ops.fused_ln_ffn_plain(*small, **kw)
+        errs[f"{name} {d}"] = err = (got.float() - want.float()).abs().max().item()
+        if not err <= 2e-2:
+            raise SystemExit(f"{name} at D {d} disagrees with its plain version: {err}")
+        args = (x, scale, None, wi, wo, 1e-5)
+        key = f"{name} {rows}x{d}"
+        times[key] = {"rows": rows, "d": d, "f": f, "ms": cuda_ms(lambda: run(args), 10),
+                      "composition_ms": cuda_ms(lambda: composition(*args, **ckw), 5)}
+        print(f"  {key}: {times[key]['ms']:.3f} ms (composition {times[key]['composition_ms']:.3f} ms)", flush=True)
+print("REPORT " + json.dumps({"errs": errs, "times": times}), flush=True)
+"""
 # a timing line of check_wo_kernels: form, shape, ms, ..., the unfused pair's ms
 WO_LINE = re.compile(r"^\s*(\w+)\s+(packed|audio)\b.*?: ([0-9.]+) ms \(plain .* ([0-9.]+) ms\)$")
 
@@ -95,7 +169,7 @@ def wo_times(stdout: str) -> dict[str, dict[str, float]]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", required=True, type=Path, help="root of the other checkout")
-    parser.add_argument("--phase", choices=("quant", "wo"), default="quant", help="the kernels to compare")
+    parser.add_argument("--phase", choices=("quant", "wo", "ffn"), default="quant", help="the kernels to compare")
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out", help="directory for the logs")
     args = parser.parse_args()
     args.out.mkdir(parents=True, exist_ok=True)
@@ -111,7 +185,8 @@ def main() -> int:
             print((prep.stdout + prep.stderr)[-3000:], file=sys.stderr)
             return 1
         turn_args = [str(inputs)]
-    script, prefix = (WO_TURN, "compare_wo") if args.phase == "wo" else (QUANT_TURN, "compare")
+    script, prefix = {"quant": (QUANT_TURN, "compare"), "wo": (WO_TURN, "compare_wo"),
+                      "ffn": (FFN_TURN, "compare_ffn")}[args.phase]
     results = []
     for turn, label in enumerate(ORDER):
         tree = (args.parent if label == "parent" else ROOT).resolve()
@@ -132,6 +207,16 @@ def main() -> int:
             result["times"] = wo_times(run.stdout)
         results.append(result)
     (args.out / f"{prefix}.json").write_text(json.dumps({"card": card, "turns": results}, indent=1))
+    if args.phase == "ffn":
+        from chip_smoke import ffn_bound_ms, ffn_q_bound_ms
+
+        for key, t in results[0]["times"].items():
+            shape = (t["rows"], t["d"], t["f"])
+            bound = ffn_bound_ms(*shape)[0] if key.startswith("fused_ln_ffn ") else ffn_q_bound_ms(*shape, True, True)[0]
+            print(f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)
+                  + "; composition " + ", ".join(f"{r['times'][key]['composition_ms']:.3f}" for r in results)
+                  + f"; bound {bound:.3f}", flush=True)
+        return 0
     if args.phase == "wo":
         for key in results[0]["times"]:
             print(f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)

@@ -22,7 +22,10 @@ epilogue kernel at its tile edges (lengths 1-1500, one segment over 4096
 tokens, segment edges on and off a tile boundary, padding-only rows, windows 0,
 64 and 128, H * D 768 / 512 / 256, more query tiles than SMs): the same
 2e-2 with a residual, and with a zero residual the product and the exported
-attention output each within 2 % of their largest entry.
+attention output each within 2 % of their largest entry. The FFN kernel's
+wgmma forms (bf16, w8a8, w8a8 + w8a8_wo) at their tile edges: 2e-2, with the
+FFN's own part asserted above 2 x 2e-2 so that the residual cannot hide an
+error, and the codes they export as for the LN forms.
 """
 import pytest
 import torch
@@ -36,6 +39,7 @@ from cm3p_torch.ops import (
     fused_ln_matmul_plain,
     fused_ln_matmul_q,
     fused_ln_matmul_q_plain,
+    int8_matmul,
     launch_counts,
     layer_norm_f32,
     quant_rows_int8,
@@ -495,34 +499,97 @@ def test_ffn_w8a8_kernel_at_tile_edges(cuda, rows, d, f, with_bias):
     _assert_codes_agree(codes_y, quant_rows_int8(layer_norm_f32(x, scale, bias, 1e-5))[0])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+@pytest.mark.parametrize("d, f", [(768, 64), (768, 1152), (512, 64), (512, 1024), (256, 64), (256, 512)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_ffn_bf16_kernel_at_tile_edges(cuda, rows, d, f, with_bias):
+    """The wgmma bf16 form of cm3p_fused_ln_ffn (row 3) against its plain version: one F chunk (F = 64)
+    and many, every width, ragged rows. Weights as in the w8a8 test above, so the FFN's own part is
+    asserted above 2 x ATOL."""
+    rows = _edge_rows(rows, 2 * 64, 2 if d == 768 else 1)  # two 384-column items per rows at D 768
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x, scale, bias, zero = _edge_inputs(rows, d, gen, cuda)
+    bias = bias if with_bias else None
+    wi = (d ** -0.5 * torch.randn(2 * f, d, generator=gen, device=cuda)).to(torch.bfloat16)
+    wo = (0.25 * f ** -0.5 * torch.randn(d, f, generator=gen, device=cuda)).to(torch.bfloat16)
+    reset_launch_counts()
+    got = fused_ln_ffn(x, scale, bias, wi, wo, 1e-5)
+    want = fused_ln_ffn_plain(x, scale, bias, wi, wo, 1e-5)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, "fused_ln_ffn": 1}
+    assert torch.isfinite(got).all()
+    assert (want.float() - x.float()).pow(2).mean().sqrt().item() > 2 * ATOL  # the FFN's own part, rms
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    if not with_bias:
+        assert torch.equal(got[zero], x[zero])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+@pytest.mark.parametrize("d, f", [(768, 64), (768, 1152), (512, 64), (512, 1024), (256, 64), (256, 512)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_ffn_w8a8_wo_kernel_at_tile_edges(cuda, rows, d, f, with_bias):
+    """The wgmma w8a8 + w8a8_wo form of cm3p_fused_ln_ffn_q (row 3qq: an int8 Wi and an int8 Wo) against
+    its plain version, as the two tests above, and both activation codes it exports: its LN codes
+    against the plain quantiser's, and its gelu(a) * b codes against the plain quantiser of the plain
+    h on the rows whose LN codes agree (elsewhere h, and so the row's scale, may differ)."""
+    rows = _edge_rows(rows, 2 * 64, 2 if d == 768 else 1)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x, scale, bias, zero = _edge_inputs(rows, d, gen, cuda)
+    bias = bias if with_bias else None
+    wi = (d ** -0.5 * torch.randn(2 * f, d, generator=gen, device=cuda)).to(torch.bfloat16)
+    wo = (0.25 * f ** -0.5 * torch.randn(d, f, generator=gen, device=cuda)).to(torch.bfloat16)
+    wi_q, wo_q = quantize_weight_int8(wi), quantize_weight_int8(wo)
+    kw = dict(w8a8=True, w8a8_wo=True, wi_q=wi_q, wo_q=wo_q)
+    codes_y = torch.full((rows, d), -128, dtype=torch.int8, device=cuda)  # a value the quantiser never gives
+    codes_g = torch.full((rows, f), -128, dtype=torch.int8, device=cuda)
+    reset_launch_counts()
+    got = fused_ln_ffn_q(x, scale, bias, wi, wo, 1e-5, **kw, codes_y=codes_y, codes_g=codes_g)
+    want = fused_ln_ffn_plain(x, scale, bias, wi, wo, 1e-5, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, "fused_ln_ffn_q_wo": 1}
+    assert torch.isfinite(got).all()
+    assert (want.float() - x.float()).pow(2).mean().sqrt().item() > 2 * ATOL  # the FFN's own part, rms
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    if not with_bias:
+        assert torch.equal(got[zero], x[zero])
+    qy, sa = quant_rows_int8(layer_norm_f32(x, scale, bias, 1e-5))
+    _assert_codes_agree(codes_y, qy)
+    h = (int8_matmul(qy, wi_q[0]) * sa * wi_q[1]).to(torch.bfloat16)
+    gf = torch.nn.functional.gelu(h[:, :f].float()) * h[:, f:].float()
+    rows_ok = (codes_y == qy).all(dim=1)
+    _assert_codes_agree(codes_g[rows_ok], quant_rows_int8(gf)[0][rows_ok])
+
+
 _SHARED_CARD_RUN = """
 import sys, torch
 sys.path.insert(0, sys.argv[1])
-from cm3p_torch.ops import fused_ln_ffn_plain, fused_ln_ffn_q, quantize_weight_int8
+from cm3p_torch.ops import fused_ln_ffn, fused_ln_ffn_plain, quantize_weight_int8
 g = torch.Generator(device="cuda").manual_seed(int(sys.argv[2]))
 x = (0.5 * torch.randn(16384, 768, generator=g, device="cuda")).to(torch.bfloat16)
 scale = 1 + 0.1 * torch.randn(768, generator=g, device="cuda")
 wi = (0.02 * torch.randn(2304, 768, generator=g, device="cuda")).to(torch.bfloat16)
 wo = (0.02 * torch.randn(768, 1152, generator=g, device="cuda")).to(torch.bfloat16)
-wi_q = quantize_weight_int8(wi)
-want = fused_ln_ffn_plain(x, scale, None, wi, wo, 1e-5, w8a8=True, wi_q=wi_q)
+w8a8, w8a8_wo = {"w8a8": (True, False), "bf16": (False, False), "w8a8_wo": (True, True)}[sys.argv[3]]
+kw = dict(w8a8=w8a8, w8a8_wo=w8a8_wo, wi_q=quantize_weight_int8(wi) if w8a8 else None,
+          wo_q=quantize_weight_int8(wo) if w8a8_wo else None)
+want = fused_ln_ffn_plain(x, scale, None, wi, wo, 1e-5, **kw)
 for _ in range(30):
-    got = fused_ln_ffn_q(x, scale, None, wi, wo, 1e-5, w8a8=True, wi_q=wi_q)
+    got = fused_ln_ffn(x, scale, None, wi, wo, 1e-5, **kw)
 torch.cuda.synchronize()
 assert (got.float() - want.float()).abs().max().item() <= 2e-2
 """
 
 
-@pytest.mark.gpu
-def test_ffn_w8a8_kernel_on_a_card_shared_by_three_processes(cuda):
-    """Processes that share the card are time-sliced; the kernel's rings must not lose their order then
-    (sequence parallelism runs two ranks beside the main process)."""
+def _run_on_a_shared_card(form):
+    """Three processes launch the FFN kernel's ``form`` 30 times each at once; (exit code, output) of each."""
     import subprocess
     import sys
     from pathlib import Path
 
     repo = str(Path(__file__).resolve().parent.parent)
-    procs = [subprocess.Popen([sys.executable, "-c", _SHARED_CARD_RUN, repo, str(k)], cwd=repo,
+    procs = [subprocess.Popen([sys.executable, "-c", _SHARED_CARD_RUN, repo, str(k), form], cwd=repo,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for k in range(3)]
     outs = []
     for proc in procs:
@@ -531,6 +598,23 @@ def test_ffn_w8a8_kernel_on_a_card_shared_by_three_processes(cuda):
         except subprocess.TimeoutExpired:
             proc.kill()
             outs.append((None, "timed out"))
+    return outs
+
+
+@pytest.mark.gpu
+def test_ffn_w8a8_kernel_on_a_card_shared_by_three_processes(cuda):
+    """Processes that share the card are time-sliced; the kernel's rings must not lose their order then
+    (sequence parallelism runs two ranks beside the main process)."""
+    outs = _run_on_a_shared_card("w8a8")
+    assert all(rc == 0 for rc, _ in outs), outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["bf16", "w8a8_wo"])
+def test_ffn_kernels_on_a_card_shared_by_three_processes(cuda, form):
+    """The same for the bf16 form (row 3) and the w8a8 + w8a8_wo form (row 3qq), which share that design
+    and add their own rings' order (one Wo slot in bf16, two passes over F with an int8 Wo)."""
+    outs = _run_on_a_shared_card(form)
     assert all(rc == 0 for rc, _ in outs), outs
 
 
@@ -548,6 +632,10 @@ def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         fused_ln_matmul(x, w, residual=x[:4])
     with pytest.raises(ValueError, match="w8a8"):
         fused_ln_ffn_q(x, torch.ones(768, device=cuda), None, w, w, 1e-5, w8a8=False, w8a8_wo=False)
+    wide = torch.zeros(768, 1216, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="F <= 1152"):
+        fused_ln_ffn_q(x, torch.ones(768, device=cuda), None, torch.zeros(2432, 768, dtype=torch.bfloat16, device=cuda),
+                       wide, 1e-5, w8a8=True, w8a8_wo=True)
 
 
 def test_quant_wrappers_on_cpu_take_the_plain_version_and_launch_nothing():

@@ -1,11 +1,13 @@
 """The port's extraction pipeline on the CPU: processor parity, embed_beatmap
-parity with the JAX package, and the port's independence from JAX.
+parity with the JAX package, the port's independence from JAX, and source
+scans of its scripts (every CUDA kernel has its own profiler category).
 
 The beatmap comes from the repo's ``resources/`` through this file's own
 fixture; waveforms are synthetic, from a numpy seed.
 """
 import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -234,3 +236,59 @@ def test_port_covers_the_new_modules():
                 "cm3p_torch/interop/hf_config.py", "cm3p_torch/data/loader.py",
                 "cm3p_torch/data/beatmap_files_dataset.py", "cm3p_torch/data/data_utils.py"):
         assert rel in names, rel
+
+
+_KERNEL_DECL = re.compile(r"__global__\s+void\s+(?:__\w+__\s*\([^)]*\)\s*)*(\w+)\s*\(")
+
+
+def _cuda_kernels():
+    """(source, qualified name) of every ``__global__`` function in the port's CUDA sources; the
+    qualified name leaves out the anonymous namespace, as the names in a profile print it."""
+    kernels = []
+    for path in (p for p in _PORT_FILES if p.suffix in (".cu", ".cuh")):
+        namespaces, text, start = [], path.read_text(), 0
+        for line in text.splitlines(keepends=True):
+            opened = re.match(r"\s*namespace\s*(\w*)\s*\{", line)
+            if opened:
+                namespaces.append(opened.group(1))
+            elif re.match(r"\s*\}\s*//\s*namespace", line):
+                namespaces.pop()
+            elif "__global__" in line:
+                m = _KERNEL_DECL.match(text, start + line.index("__global__"))
+                assert m, f"{path}: cannot read the kernel's name from {line!r}"
+                kernels.append((path.name, "::".join([n for n in namespaces if n] + [m.group(1)])))
+            start += len(line)
+    return kernels
+
+
+_KERNELS = _cuda_kernels()
+
+
+def _profiler_categories():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "_CATEGORIES" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError("chip_smoke.py has no _CATEGORIES")
+
+
+def test_the_scan_finds_every_kernel_source():
+    assert {src for src, _ in _KERNELS} == {p.name for p in _PORT_FILES if p.suffix == ".cu"}
+    assert len(_KERNELS) == len(set(_KERNELS)) >= 10
+
+
+@pytest.mark.parametrize("kernel", [k for _, k in _KERNELS], ids=lambda k: k)
+def test_every_cuda_kernel_has_its_own_profiler_category(kernel):
+    """chip_smoke.py books the device time of a profile by the first ``_CATEGORIES`` fragment found in
+    a kernel's name (``void (anonymous namespace)::<qualified name><template arguments>(...)``). The first
+    fragment whose name part occurs in this kernel's name must name this kernel (its qualified name ends
+    with the fragment's name part at a ``::`` boundary) and book it as one of ours, so that a new kernel
+    is never booked under another kernel's category or under "other PyTorch"."""
+    probe = f"void (anonymous namespace)::{kernel}<"
+    for fragment, category in _profiler_categories():
+        name = re.match(r"[\w:]+", fragment).group()
+        if name in probe:
+            assert f"::{kernel}".endswith(f"::{name}"), f"{kernel} would be booked under {fragment!r} ({category})"
+            assert category.endswith("(ours)"), category
+            return
+    raise AssertionError(f"{kernel} has no category in chip_smoke._CATEGORIES: it would be booked as other work")

@@ -1,5 +1,7 @@
-"""The port's W8A8 quantisers, fused LN-matmul and int8 FFN plain versions
-against the JAX package on the CPU.
+"""The port's W8A8 quantisers, fused LN-matmul and FFN plain versions (the
+int8 forms and the bf16 one) against the JAX package on the CPU, and the FFN
+yardsticks ``chip_smoke.py`` prints beside the kernels (the unfused
+composition and the bounds).
 
 The same numpy arrays go through the JAX function (its XLA reference and
 its Pallas kernel in interpret mode) and the port's plain version (what the
@@ -7,6 +9,8 @@ wrappers run on a CPU tensor). Weights are flax (in, out) on the JAX side
 and nn.Linear (out, in) on the port's. Tolerances are stated per test.
 """
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.experimental.pallas as pl
@@ -272,6 +276,85 @@ def test_fused_ln_ffn_int8_matches_interpreted_pallas(w8a8, w8a8_wo, dtype):
     exact = ops.fused_ln_ffn(*args)
     assert not torch.equal(got, exact)  # the quantised path really ran
     assert float((got.float() - exact.float()).abs().max()) < 0.2  # and stayed in the quantisation band
+
+
+@pytest.mark.parametrize("rows", [37, 150])
+@pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_ln_ffn_bf16_form_matches_interpreted_pallas(rows, with_bias, dtype):
+    """The form without the W8A8 options (row 3), ``fused_ln_ffn_plain`` on the CPU, against
+    ``_pallas_ln_ffn(w8a8=False, w8a8_wo=False)`` in interpret mode, at rows that are not a
+    multiple of its 128-row blocks (the TPU kernel pads them). Without a bias the port passes
+    None and the JAX side zeros.
+
+    bf16: 2e-2 on outputs of magnitude ~1 (h, g and o rounded to bf16 at the same points on
+    both sides; the products sum in another order, which may move a bf16 rounding by an ulp).
+    fp32: 2e-5, which covers the TPU kernel's rational erf (4e-7 absolute on gelu) times the
+    Wo product's gain, and the summation order."""
+    rng = np.random.default_rng(7)
+    d, f = 128, 256
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    x[5:9] = 0.0
+    scale = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(d)).astype(np.float32) if with_bias else np.zeros(d, np.float32)
+    wi = (0.08 * rng.standard_normal((d, 2 * f))).astype(np.float32)
+    wo = (0.08 * rng.standard_normal((f, d))).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    want = _pallas_ln_ffn(
+        jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(bias), jnp.asarray(wi), jnp.asarray(wo),
+        eps=EPS, residual=True, block_rows=128, w8a8=False, w8a8_wo=False, interpret=True,
+    )
+    got = ops.fused_ln_ffn(_t(x, tdt), _t(scale), _t(bias) if with_bias else None, _t(wi.T), _t(wo.T), EPS)
+    assert got.dtype == tdt and got.shape == (rows, d)
+    assert float((got.float() - _t(x, tdt).float()).abs().max()) > 0.1  # the FFN's own part is there
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=2e-5 if dtype == "float32" else 2e-2)
+    if not with_bias:
+        np.testing.assert_array_equal(_np(got)[5:9], x[5:9])  # a zero row gives a zero FFN: the residual
+
+
+def _script(name):
+    path = Path(__file__).resolve().parent.parent / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_{name}_under_test", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("form", ["bf16", "w8a8+w8a8_wo"])
+def test_the_unfused_composition_yardstick_computes_the_ffn(form):
+    """``chip_smoke.ffn_composition``, timed on the card beside rows 3 and 3qq as their library
+    column, computes the function of the kernels' plain version. The int8 form rounds at the same
+    points and its products are exact on both sides (``torch._int_mm`` against ``int8_matmul``), so it
+    is bit-equal; the bf16 form's products are bf16 matmuls against the plain version's fp32 ones,
+    which may move a rounding of h by an ulp: 2e-2 on outputs of magnitude ~1."""
+    rng = np.random.default_rng(8)
+    rows, d, f = 37, 128, 256
+    x = _t(rng.standard_normal((rows, d)), torch.bfloat16)
+    scale, bias = _t(rng.uniform(0.5, 1.5, d)), _t(0.1 * rng.standard_normal(d))
+    wi = _t(0.08 * rng.standard_normal((2 * f, d)), torch.bfloat16)
+    wo = _t(0.08 * rng.standard_normal((d, f)), torch.bfloat16)
+    args = (x, scale, bias, wi, wo, EPS)
+    if form == "bf16":
+        got = _script("chip_smoke").ffn_composition(*args)
+        want = ops.fused_ln_ffn_plain(*args)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+    else:
+        wi_q, wo_q = ops.quantize_weight_int8(wi), ops.quantize_weight_int8(wo)
+        got = _script("chip_smoke").ffn_composition(*args, wi_q=wi_q, wo_q=wo_q)
+        assert torch.equal(got, ops.fused_ln_ffn_plain(*args, w8a8=True, w8a8_wo=True, wi_q=wi_q, wo_q=wo_q))
+    assert float((got.float() - x.float()).abs().max()) > 0.1  # the FFN's own part is there
+
+
+@pytest.mark.parametrize("rows, d, f", [(323584, 768, 1152), (80896, 512, 1024), (49152, 256, 512)])
+def test_ffn_bounds_count_what_the_forms_must_do(rows, d, f):
+    """The bounds phase 7 and ``compare_kernels.py --phase ffn`` print for rows 3 and 3qq (ms on an H100
+    SXM): 6 R D F operations at the bf16 rate, or at the int8 rate with both weights int8."""
+    smoke = _script("chip_smoke")
+    ms, by = smoke.ffn_bound_ms(rows, d, f)
+    assert by == "operations" and ms == pytest.approx(1e3 * 6 * rows * d * f / 989e12)
+    ms_q, by_q = smoke.ffn_q_bound_ms(rows, d, f, True, True)
+    assert by_q == "operations" and ms_q == pytest.approx(1e3 * 6 * rows * d * f / 1979e12)
 
 
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
