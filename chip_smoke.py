@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; nothing is skipped):
                ptxas's registers, spills and barriers per kernel instance, and
                per instance of the wgmma kernels (``bf16::ln_matmul_kernel``;
                the FFN's ``bf16::ffn_kernel``, ``w8a8::ffn_kernel`` and
-               ``w8a8::ffn_wo_kernel``; ``sm90_wo::attention_wo_kernel``) the
+               ``w8a8::ffn_wo_kernel``; the attention forward
+               ``sm90_attn::attention_kernel``; ``sm90_wo::attention_wo_kernel``,
+               whose int8 instances multiply by Wo with IGMMA) the
                count of their HGMMA and IGMMA (wgmma on bf16 and on int8),
                UTMALDG (TMA load), LDGSTS (cp.async) and BAR.SYNC instructions
                in ``cuobjdump -sass``; fails if one of them has no wgmma or no
@@ -231,6 +233,7 @@ def fail(msg: str) -> None:
 WGMMA_KERNELS = {
     "fused_ln_matmul": ("bf16::ln_matmul_kernel",),
     "fused_ffn": ("bf16::ffn_kernel", "w8a8::ffn_kernel", "w8a8::ffn_wo_kernel"),
+    "attention": ("sm90_attn::attention_kernel",),
     "attention_wo": ("sm90_wo::attention_wo_kernel",),
 }
 SASS_OPCODES = ("HGMMA", "IGMMA", "UTMALDG", "LDGSTS", "BAR.SYNC")  # IGMMA: wgmma on int8
@@ -408,13 +411,15 @@ def sdpa_ms(q, k, v, seg, window, iters):
     return ms
 
 
-_CATEGORIES = (  # kernel-name fragment -> category, first match wins
-    ("sm90_wo::attention_wo_kernel<true", "window_attention_wo (ours)"),
-    ("sm90_wo::attention_wo_kernel<false", "segment_attention_wo (ours)"),
-    ("attention_wo_q_kernel<true", "window_attention_wo_q (ours)"),
-    ("attention_wo_q_kernel<false", "segment_attention_wo_q (ours)"),
+_CATEGORIES = (  # kernel-name pattern (re.search) -> category, first match wins
+    (r"attention_wo_kernel<true, \d+, false>", "window_attention_wo (ours)"),
+    (r"attention_wo_kernel<false, \d+, false>", "segment_attention_wo (ours)"),
+    (r"attention_wo_kernel<true, \d+, true>", "window_attention_wo_q (ours)"),
+    (r"attention_wo_kernel<false, \d+, true>", "segment_attention_wo_q (ours)"),
     ("attention_kernel<true>", "window_attention (ours)"),
     ("attention_kernel<false>", "segment_attention (ours)"),
+    ("rope_k_kernel", "attention rope pass (ours)"),  # of the window and segment forwards, part of each op
+    ("key_tile_ranges_kernel", "segment key-tile ranges (ours)"),  # of the segment forms, part of each op
     ("attention_dq_kernel<true, false>", "window_attention_dq (ours)"),
     ("attention_dkv_kernel<true, false>", "window_attention_dkv (ours)"),
     ("attention_dq_kernel<false, false>", "segment_attention_dq (ours)"),
@@ -458,7 +463,7 @@ def device_breakdown(torch, forward, label="one packed forward", grad=False) -> 
             # a span (the optimizer step) over kernels already counted
             spans[evt.name] = spans.get(evt.name, 0.0) + ms
             continue
-        cat = next((c for frag, c in _CATEGORIES if frag in evt.name), None)
+        cat = next((c for pattern, c in _CATEGORIES if re.search(pattern, evt.name)), None)
         if cat is None:
             cat = "other (elementwise, copies)"
             others[evt.name] = others.get(evt.name, 0.0) + ms
@@ -477,6 +482,22 @@ def device_breakdown(torch, forward, label="one packed forward", grad=False) -> 
         log(f"    span {kname[:60]}: {ms:.2f} ms on the device (its kernels are counted above)")
 
 
+def check_tile_ranges(torch, label, qseg, kseg):
+    """The key-tile ranges kernel (part of every segment op: the forward, the Wo epilogue, and dq / dkv with the
+    roles swapped) against ``segment_tile_ranges``, exactly, in both orders; a wider range would only cost time,
+    so the attention outputs alone cannot show it."""
+    from cm3p_torch.ops.attention import key_tile_ranges, segment_tile_ranges
+
+    for order, (a, b) in (("q, k", (qseg, kseg)), ("k, q", (kseg, qseg))):
+        got, want = key_tile_ranges(a, b), segment_tile_ranges(a, b)
+        torch.cuda.synchronize()
+        off = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+        log(f"  key_tile_ranges    {label:28s} ({order}) {want[0].numel()} query tiles, "
+            f"{int(want[1].sum())} key tiles visited: {off} entries differ from segment_tile_ranges")
+        if off:
+            fail(f"key_tile_ranges disagrees with segment_tile_ranges on {label} ({order})")
+
+
 def check_kernels(torch, ops, cases, gen, meta_rows):
     """Phase 2: forward kernels vs plain versions; returns max errors per kernel."""
     from cm3p_torch.ops.attention import segment_attention_plain, window_attention_plain
@@ -486,6 +507,7 @@ def check_kernels(torch, ops, cases, gen, meta_rows):
         qkv = torch.randn(b, length, 3, heads, 64, generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = qkv.unbind(2)
         qseg = torch.ones_like(seg) if key_mask_only else seg
+        check_tile_ranges(torch, label, qseg, seg)
         for name, window in (("window_attention", 64), ("segment_attention", None)):
             theta = 10000.0 if window else 160000.0
             if window:
@@ -1590,6 +1612,7 @@ def check_rect_kernel(torch, ops, gen, dev):
         kseg[:, lk - SP_MASKED:] = 0
         if lq != RECT_CASES[0][0]:
             kseg[1] = 0  # a row whose keys are all masked: its queries see no key
+        check_tile_ranges(torch, f"rect B{SP_BATCH} Lq {lq} Lk {lk}", qseg, kseg)
         got = ops.segment_attention_rect(q, k, v, qseg, kseg)
         want = segment_attention_rect_plain(q, k, v, qseg, kseg)
         torch.cuda.synchronize()
@@ -1949,6 +1972,7 @@ def main() -> int:
          torch.ones(audio_b, audio_l, dtype=torch.int32, device=dev), True),
     ]
     errs = check_kernels(torch, ops, cases, gen, meta_seg.numel())
+    check_tile_ranges(torch, f"metadata {tuple(meta_seg.shape)}", meta_seg, meta_seg)
 
     # ---- 3. the slice end to end
     log("[3] slice: full-width CM3PConfig, seeded random bf16 weights")
@@ -2050,6 +2074,7 @@ def main() -> int:
     # ---- 5. backward kernels against the plain backward
     log("[5] backward kernels and lse vs plain versions (bf16, seeded inputs)")
     seg10 = torch.as_tensor(train_batch["segment_ids"], device=dev)
+    check_tile_ranges(torch, f"training {tuple(seg10.shape)}", seg10, seg10)
     e_packed, packed_inputs = check_backward(torch, ops, f"packed {tuple(seg10.shape)} H12", seg10, 12, (64, None), gen)
     e_meta, meta_inputs = check_backward(torch, ops, f"metadata {tuple(meta_seg.shape)} H4", meta_seg, 4, (None,), gen)
     e_rope, rope_inputs = check_rope_backward(torch, ops, f"packed {tuple(seg10.shape)} H12", seg10, 12, gen)

@@ -21,8 +21,8 @@
 // the residual. A query that sees no key has o = 0, so its row is the
 // residual exactly in both forms.
 //
-// bf16 form (sm90_wo::attention_wo_kernel, rows 1w and 2w), designed for
-// Hopper. One block of five warpgroups owns one (64-query tile, batch row) and
+// bf16 form (sm90_wo::attention_wo_kernel<WINDOW, HD, false>, rows 1w and
+// 2w), designed for Hopper. One block of five warpgroups owns one (64-query tile, batch row) and
 // every head, because the epilogue needs the whole H*64-column o row:
 //   * a producer thread keeps a ring of 16 KB stages full with TMA: a stage is
 //     the K and V tiles of one (head, key tile), 64 x 64 bf16 each, loaded
@@ -73,24 +73,23 @@
 // next scores while the last P V product runs, and taking turns between the
 // consumer warpgroups.
 //
-// int8 form (attention_wo_q_kernel, rows 1wq and 2wq), the first version:
-// one block of 16 warps owns one (64-query tile, batch row) and every head.
-// The warps form four groups of 4; group w runs heads w, w + 4, ... with the
-// per-head body of csrc/attention_fwd.cuh and its own K/V staging buffers and
-// named barrier, so a group waits only for its own warps. A head's Q tile is
-// staged in the head's 64 columns of one (64, H*64 + 8) bf16 tile in dynamic
-// shared memory, and the head's normalised output replaces it there (each
-// warp reads and writes only its own 16 rows). After the heads, the tile is
-// quantised into a (64, H*64 + 16) int8 tile, one row per warp in registers,
-// and all 16 warps multiply it by the Wo codes with mma.sync: Wo is staged
-// through the (now free) K/V buffers in slices of 128 output columns x 128
-// input columns; each warp owns a 32 x 16 piece of a 64 x 128 output tile.
-// Shared memory at H*64 = 768: 99,328 + 4 x 18,688 + 512 + 50,176 bytes, one
-// block of 16 warps per SM, at most 128 registers a thread. It re-reads Wo
-// from L2 for every 64 rows and does not overlap loads with products.
+// int8 form (rows 1wq and 2wq): the same kernel, attention_wo_kernel<WINDOW,
+// HD, true>; only its epilogue differs. When the o tile is complete, each of
+// the 8 consumer warps quantises whole rows (lane l reads columns 64 i + 2 l,
+// 2 l + 1 of every head chunk; the row's absmax by shuffles, then
+// quant_row_int8_each of csrc/ln_rows.cuh) and writes the codes in place over
+// the bf16 tile's first HD / 128 chunks, laid out and swizzled as int8 wgmma
+// reads them (64 rows x 128 codes each; a row's codes overwrite only that
+// row's lines, which its warp has read), and the row scales beside it. The
+// Wo codes stream through the ring as 128 x 128 boxes, and each warpgroup
+// multiplies with int8 wgmma m64n128k32 (exact int32), then forms
+// bf16(float(acc) * sa * sw[n]) and adds the residual. Shared memory and
+// registers as the bf16 form (plus 256 bytes of row scales).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_fwd.cuh"
 #include "sm90.cuh"
@@ -121,19 +120,22 @@ using namespace cm3p::sm90;
 constexpr int ROPE_THREADS = 256;            // two rope warpgroups: one item of a 64 x 64 tile each
 constexpr int THREADS = 384 + ROPE_THREADS;  // consumer warpgroups 0 and 1, the producer 2, rope 3 and 4
 constexpr int TILE_BYTES = BQ * D * 2;       // a 64 x 64 bf16 tile of 128-byte rows
-constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K and V of one (head, key tile), or a 128 x 64 box of Wo
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // K and V of one (head, key tile), or a 128-row box of Wo
 constexpr int SMEM_MAX = 232448;             // dynamic shared memory a block may use on the H100
 constexpr int MAX_STAGES = 8;
 
-template <int HD>
+template <int HD, bool INT8>
 struct Layout {
   static constexpr int H = HD / D;
-  static constexpr int O_BYTES = H * TILE_BYTES;  // the o tile: H chunks of 64 x 64, Q first
+  // the o tile: H chunks of 64 x 64, Q first; in the int8 form its first HD / 128 chunks end up holding o's codes
+  static constexpr int O_BYTES = H * TILE_BYTES;
+  static constexpr int KB = INT8 ? HD / 128 : H;  // Wo boxes per output tile: 128 x 64 bf16 or 128 x 128 int8
+  static constexpr int SA_BYTES = INT8 ? BQ * 4 : 0;  // the int8 form's row scales
   // a stage: its tiles, its 64 key segments, two "one segment" notes, three barriers
   static constexpr int PER_STAGE = STAGE_BYTES + BK * 4 + 2 * 4 + 3 * 8;
-  static constexpr int FIT = (SMEM_MAX - 1024 - O_BYTES - 2 * 8) / PER_STAGE;
+  static constexpr int FIT = (SMEM_MAX - 1024 - O_BYTES - 2 * 8 - SA_BYTES) / PER_STAGE;
   static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
-  static constexpr int BYTES = 1024 + O_BYTES + STAGES * PER_STAGE + 2 * 8;
+  static constexpr int BYTES = 1024 + O_BYTES + STAGES * PER_STAGE + 2 * 8 + SA_BYTES;
   static_assert(H % 2 == 0, "the two consumer warpgroups take alternate heads");
   static_assert(STAGES >= 3, "a consumer's wait must tell its phase: it may trail the ring by two stages");
 };
@@ -148,6 +150,8 @@ struct Params {
   const __nv_bfloat16* res;  // (B, L, N)
   __nv_bfloat16* out;        // (B, L, N)
   __nv_bfloat16* o_out;      // (B, L, HD) or null
+  const float* sw;           // (N,) Wo's scales (int8 form)
+  int8_t* codes_out;         // (B, L, HD) or null (int8 form)
   int L, N, window;
 };
 
@@ -159,13 +163,13 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
-template <bool WINDOW, int HD>
+template <bool WINDOW, int HD, bool INT8>
 __global__ void __launch_bounds__(THREADS, 1)
     attention_wo_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_wo,
                         const Params p) {
-  using Cfg = Layout<HD>;
-  constexpr int H = Cfg::H, STAGES = Cfg::STAGES;
+  using Cfg = Layout<HD, INT8>;
+  constexpr int H = Cfg::H, STAGES = Cfg::STAGES, KB = Cfg::KB;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sO =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -177,6 +181,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* empty = ready + STAGES;  // the owning consumer warpgroup is done with it (its 4 warps)
   uint64_t* qfull = empty + STAGES;  // the H Q tiles landed
   uint64_t* qready = qfull + 1;      // ... and are rotated
+  float* sSa = reinterpret_cast<float*>(qready + 1);  // the int8 form's row scales
 
   const int qt = blockIdx.x, b = blockIdx.y;
   const int L = p.L, q0 = qt * BQ;
@@ -193,7 +198,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int n_tiles = p.N / BN;
   // The ring's order, which every role walks: for each head pair, for each key tile, the K/V stages of
   // heads 2 hp and 2 hp + 1 (consumer warpgroups 0 and 1); then, for each pair of output tiles, for each
-  // 64-column chunk kb of Wo's input, the boxes of tiles 2 j (warpgroup 0) and 2 j + 1 (warpgroup 1).
+  // chunk kb of Wo's input (64 columns, or 128 int8 ones), the boxes of tiles 2 j (warpgroup 0) and 2 j + 1
+  // (warpgroup 1).
   const int attn_stages = H * nkt;
 
   if (threadIdx.x == 0) {
@@ -235,10 +241,10 @@ __global__ void __launch_bounds__(THREADS, 1)
             tma_load_4d(st + TILE_BYTES, &map_v, &full[s], 0, kt * BK, 2 * hp + w, b);
           }
       for (int nt0 = 0; nt0 < n_tiles; nt0 += 2)
-        for (int kb = 0; kb < H; ++kb)
+        for (int kb = 0; kb < KB; ++kb)
           for (int nt = nt0; nt < min(nt0 + 2, n_tiles); ++nt) {
             const int s = acquire();
-            tma_load_2d(ring + s * STAGE_BYTES, &map_wo, &full[s], kb * D, nt * BN);
+            tma_load_2d(ring + s * STAGE_BYTES, &map_wo, &full[s], kb * (INT8 ? 128 : D), nt * BN);
           }
     }
     return;
@@ -300,7 +306,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           mbar_arrive(&ready[s]);
         }
       }
-    for (; idx < attn_stages + H * n_tiles; ++idx) {  // Wo boxes: pass them on in order
+    for (; idx < attn_stages + KB * n_tiles; ++idx) {  // Wo boxes: pass them on in order
       const int s = idx % STAGES;
       mbar_wait(&full[s], (idx / STAGES) & 1);
       mbar_arrive(&ready[s]);
@@ -314,18 +320,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int wl = warp & 3, g = lane >> 2, t4 = lane & 3;
   const int rw = 16 * wl;
   const long long row0 = (long long)b * L + q0;
-  if (nkt == 0) {  // no query of the tile sees a key: out = res, o = 0
+  if (nkt == 0) {  // no query of the tile sees a key: out = res, o = 0 (and its codes)
     for (int item = ct; item < BQ * (p.N / 8); item += 256) {
       const int r = item / (p.N / 8), col = (item % (p.N / 8)) * 8;
       if (q0 + r < L)
         *reinterpret_cast<uint4*>(p.out + (row0 + r) * p.N + col) =
             *reinterpret_cast<const uint4*>(p.res + (row0 + r) * p.N + col);
     }
-    if (p.o_out != nullptr)
-      for (int item = ct; item < BQ * (HD / 8); item += 256) {
-        const int r = item / (HD / 8), col = (item % (HD / 8)) * 8;
-        if (q0 + r < L) *reinterpret_cast<uint4*>(p.o_out + (row0 + r) * HD + col) = make_uint4(0u, 0u, 0u, 0u);
-      }
+    for (int item = ct; item < BQ * (HD / 8); item += 256) {
+      const int r = item / (HD / 8), col = (item % (HD / 8)) * 8;
+      if (q0 + r >= L) continue;
+      if (p.o_out != nullptr) *reinterpret_cast<uint4*>(p.o_out + (row0 + r) * HD + col) = make_uint4(0u, 0u, 0u, 0u);
+      if (INT8 && p.codes_out != nullptr) *reinterpret_cast<uint2*>(p.codes_out + (row0 + r) * HD + col) = make_uint2(0u, 0u);
+    }
     return;
   }
 
@@ -449,20 +456,44 @@ __global__ void __launch_bounds__(THREADS, 1)
             *reinterpret_cast<const uint4*>(sO + (cc >> 3) * TILE_BYTES + swizzle128(r, (cc & 7) * 16));
     }
 
-  // ---- epilogue: out = res + bf16(o . Wo^T), warpgroup wg takes output tiles wg, wg + 2, ...
+  if constexpr (INT8) {
+    if (p.o_out != nullptr) named_barrier(1, 256);  // the copy above read the bf16 tile the codes overwrite
+    // warp wq of the consumers quantises rows wq, wq + 8, ...: lane l holds columns 64 i + 2 l, 2 l + 1
+    for (int r = ct >> 5; r < BQ; r += 8) {
+      float2 y[H];
+#pragma unroll
+      for (int i = 0; i < H; ++i)
+        y[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sO + i * TILE_BYTES + swizzle128(r, 4 * lane)));
+      int8_t* codes_row = (p.codes_out != nullptr && q0 + r < L) ? p.codes_out + (row0 + r) * HD : nullptr;
+      const float sa = quant_row_int8_each<HD>(y, lane, [&](int c, char2 q) {
+        *reinterpret_cast<char2*>(sO + (c >> 7) * TILE_BYTES + swizzle128(r, c & 127)) = q;
+        if (codes_row != nullptr) *reinterpret_cast<char2*>(codes_row + c) = q;
+      });
+      if (lane == 0) sSa[r] = sa;
+    }
+    fence_proxy_async();
+    named_barrier(1, 256);  // the codes and row scales are complete
+  }
+
+  // ---- epilogue: out = res + bf16(o . Wo^T), or res + bf16(float(codes . Wo_q^T) * sa * sw); warpgroup wg
+  // takes output tiles wg, wg + 2, ...
+  using Acc = typename std::conditional<INT8, int, float>::type;
   int idx = attn_stages;
   for (int nt0 = 0; nt0 < n_tiles; nt0 += 2) {
     const int pair = min(2, n_tiles - nt0), nt = nt0 + wg;
     if (nt < n_tiles) {
-      float acc[64];
+      Acc acc[64];
       int prev = -1;
-      for (int kb = 0; kb < H; ++kb) {
+      for (int kb = 0; kb < KB; ++kb) {
         const int i = idx + kb * pair + wg, s = i % STAGES;
         mbar_wait_wg(&ready[s], (i / STAGES) & 1);
         wgmma_fence();
         const uint64_t da = desc_sw128(sO + kb * TILE_BYTES), db = desc_sw128(ring + s * STAGE_BYTES);
 #pragma unroll
-        for (int k = 0; k < D / 16; ++k) wgmma_bf16_n128(acc, da + 2 * k, db + 2 * k, kb | k);
+        for (int k = 0; k < 4; ++k) {  // 16 bf16 or 32 int8: 32 bytes of K a step
+          if constexpr (INT8) wgmma_s8_n128(acc, da + 2 * k, db + 2 * k, kb | k);
+          else wgmma_bf16_n128(acc, da + 2 * k, db + 2 * k, kb | k);
+        }
         wgmma_commit();
         wgmma_wait<1>();  // the previous box's products are done: hand it back
         if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
@@ -477,212 +508,59 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int row = rw + g + 8 * hr;
         if (q0 + row >= L) continue;
         const long long at = (row0 + row) * p.N + nt * BN + 2 * t4;
+        const float sa = INT8 ? sSa[row] : 0.f;
         uint32_t rv[16];
 #pragma unroll
         for (int j = 0; j < 16; ++j) rv[j] = *reinterpret_cast<const uint32_t*>(p.res + at + 8 * j);
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const float2 r2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&rv[j]));
-          *reinterpret_cast<uint32_t*>(p.out + at + 8 * j) =
-              pack_bf16(r2.x + bf16_round(acc[4 * j + 2 * hr]), r2.y + bf16_round(acc[4 * j + 2 * hr + 1]));
+          float y0, y1;
+          if constexpr (INT8) {
+            const float2 sw = *reinterpret_cast<const float2*>(p.sw + nt * BN + 8 * j + 2 * t4);
+            y0 = bf16_round((float)acc[4 * j + 2 * hr] * sa * sw.x);
+            y1 = bf16_round((float)acc[4 * j + 2 * hr + 1] * sa * sw.y);
+          } else {
+            y0 = bf16_round(acc[4 * j + 2 * hr]);
+            y1 = bf16_round(acc[4 * j + 2 * hr + 1]);
+          }
+          *reinterpret_cast<uint32_t*>(p.out + at + 8 * j) = pack_bf16(r2.x + y0, r2.y + y1);
         }
       }
     }
-    idx += H * pair;
+    idx += KB * pair;
   }
 }
 
-template <bool WINDOW, int HD>
+template <bool WINDOW, int HD, bool INT8>
 int launch(const AttnArgs& a, const WoArgs& w, int B, void* stream) {
-  using Cfg = Layout<HD>;
+  using Cfg = Layout<HD, INT8>;
   CUtensorMap mq, mk, mv, mw;
   // (64 dims, L positions, H heads, B rows) over the strided views; heads lie 64 elements apart
   if (!make_map_4d_bf16(&mq, a.q, D, a.L, a.H, B, a.q_pstride, D, a.q_bstride, D, BQ) ||
       !make_map_4d_bf16(&mk, a.k, D, a.L, a.H, B, a.k_pstride, D, a.k_bstride, D, BK) ||
       !make_map_4d_bf16(&mv, a.v, D, a.L, a.H, B, a.v_pstride, D, a.v_bstride, D, BK) ||
-      !make_map_2d(&mw, w.wo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w.N, HD, BN, D))
+      !(INT8 ? make_map_2d(&mw, w.wo, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w.N, HD, BN, 128)
+             : make_map_2d(&mw, w.wo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w.N, HD, BN, D)))
     return (int)cudaErrorInvalidValue;
-  const void* kernel = (const void*)attention_wo_kernel<WINDOW, HD>;
+  const void* kernel = (const void*)attention_wo_kernel<WINDOW, HD, INT8>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::BYTES);
   if (err != cudaSuccess) return (int)err;
   const Params p{a.qseg, a.kseg, a.cos_t, a.sin_t, a.tile_start, a.tile_count,
-                 w.res, w.out, w.o_out, a.L, w.N, a.window};
+                 w.res, w.out, w.o_out, w.sw, w.codes_out, a.L, w.N, a.window};
   dim3 grid((a.L + BQ - 1) / BQ, B);
-  attention_wo_kernel<WINDOW, HD><<<grid, THREADS, Cfg::BYTES, (cudaStream_t)stream>>>(mq, mk, mv, mw, p);
+  attention_wo_kernel<WINDOW, HD, INT8><<<grid, THREADS, Cfg::BYTES, (cudaStream_t)stream>>>(mq, mk, mv, mw, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace sm90_wo
 
-// ---------------------------------------------------------------------------
-// The int8 form (see the note at the top).
-constexpr int NGROUPS = 4;                 // head groups of a block
-constexpr int NTHREADS = NGROUPS * GROUP;  // 16 warps
-constexpr int WN = BN / (NTHREADS / 64);   // epilogue: output columns per warp (two row halves)
-constexpr int NT = WN / 8;                 // mma n-tiles per warp
-constexpr int KSQ = 128;                   // input columns staged per step
-constexpr int LDWQ = KSQ + 16;             // padded smem row of a staged int8 slice (bytes)
-static_assert(BN * LDWQ <= NGROUPS * KV_SMEM_BYTES, "int8 Wo slice must fit the K/V buffers");
-
-template <int HD>
-constexpr int smem_bytes_q() {
-  return BQ * (HD + 8) * 2 + NGROUPS * KV_SMEM_BYTES + BQ * 4 + BQ * 4 + BQ * (HD + 16);
-}
-
-template <bool WINDOW, int HD>
-__global__ void __launch_bounds__(NTHREADS, 1) attention_wo_q_kernel(AttnArgs a, WoArgs w) {
-  constexpr int H = HD / D;
-  constexpr int LDO = HD + 8;   // row stride of the o tile (bf16 elements)
-  constexpr int LDQ = HD + 16;  // row stride of the int8 code tile (bytes)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sO = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  unsigned char* kv = smem_raw + BQ * LDO * 2;  // the groups' K/V buffers, then Wo slices
-  int* sQseg = reinterpret_cast<int*>(kv + NGROUPS * KV_SMEM_BYTES);
-  float* sSa = reinterpret_cast<float*>(sQseg + BQ);
-  int8_t* sQ8 = reinterpret_cast<int8_t*>(sSa + BQ);  // the o tile's codes
-
-  const int qt = blockIdx.x, b = blockIdx.y;
-  const int L = a.L;
-  const int q0 = qt * BQ;
-  const int grp = threadIdx.x / GROUP, tid = threadIdx.x % GROUP;
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(kv + grp * KV_SMEM_BYTES);
-  __nv_bfloat16* sVt = sK + BK * LDS;
-  int* sKseg = reinterpret_cast<int*>(sVt + D * LDV);
-
-  const int* qseg = a.qseg + (long long)b * L;
-  for (int r = threadIdx.x; r < BQ; r += NTHREADS) sQseg[r] = (q0 + r < L) ? qseg[q0 + r] : -1;
-  int kt_begin, kt_end;
-  key_tiles<WINDOW>(a, b, qt, gridDim.x, kt_begin, kt_end);
-  __syncthreads();
-
-  // ---- attention, head by head: group grp takes heads grp, grp + NGROUPS, ...
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  {
-    const int r0 = (tid >> 5) * 16;
-    for (int h = grp; h < H; h += NGROUPS) {
-      __nv_bfloat16* slot = sO + h * D;
-      load_rows_rope(slot, LDO, a.q + (long long)b * a.q_bstride + h * D, a.q_pstride, q0, L, a.cos_t,
-                     a.sin_t, tid);
-      group_sync(1 + grp);
-      float o[8][4], m[2], l[2];
-      head_forward<WINDOW>(a, b, h, q0, kt_begin, kt_end, slot, LDO, sK, sVt, sKseg, sQseg, tid, 1 + grp, o,
-                           m, l);
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const float inv = l[hr] > 0.f ? 1.f / l[hr] : 0.f;
-        __nv_bfloat16* op = slot + (r0 + g + hr * 8) * LDO + t * 2;
-#pragma unroll
-        for (int dt = 0; dt < 8; ++dt)
-          *reinterpret_cast<uint32_t*>(op + dt * 8) = pack_bf16(o[dt][2 * hr] * inv, o[dt][2 * hr + 1] * inv);
-      }
-    }
-  }
-  __syncthreads();  // the o tile is complete; the K/V buffers are free
-
-  const int warp = threadIdx.x >> 5;
-  if (w.o_out != nullptr) {
-    for (int item = threadIdx.x; item < BQ * (HD / 8); item += NTHREADS) {
-      const int r = item / (HD / 8), c = (item % (HD / 8)) * 8;
-      if (q0 + r < L)
-        *reinterpret_cast<uint4*>(w.o_out + ((long long)b * L + q0 + r) * HD + c) =
-            *reinterpret_cast<const uint4*>(sO + r * LDO + c);
-    }
-  }
-  for (int rr = warp; rr < BQ; rr += NTHREADS / 32) {
-    float2 y[HD / 64];
-#pragma unroll
-    for (int i = 0; i < HD / 64; ++i)
-      y[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(sO + rr * LDO + i * 64 + lane * 2));
-    const bool live = q0 + rr < L;
-    const float sa = quant_row_int8<HD>(
-        y, lane, sQ8 + rr * LDQ,
-        (w.codes_out != nullptr && live) ? w.codes_out + ((long long)b * L + q0 + rr) * HD : nullptr);
-    if (lane == 0) sSa[rr] = sa;
-  }
-
-  // ---- epilogue: out = res + bf16(float(codes . Wo_q^T) * sa * sw), 64 x BN tiles, 16 warps of 32 x WN
-  const int rg = warp & 1;   // rows rg*32 .. rg*32+31 of the tile
-  const int cg = warp >> 1;  // columns cg*WN .. cg*WN+WN-1 of the tile
-  const int N = w.N;
-  const long long row_base = (long long)b * L + q0;
-  const int8_t* wq = reinterpret_cast<const int8_t*>(w.wo);
-  int8_t* sWq = reinterpret_cast<int8_t*>(kv);
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    int acci[2][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acci[mt][nt][e] = 0;
-    for (int k0 = 0; k0 < HD; k0 += KSQ) {
-      __syncthreads();
-      for (int item = threadIdx.x; item < BN * (KSQ / 16); item += NTHREADS) {
-        const int r = item / (KSQ / 16);
-        const int c = (item % (KSQ / 16)) * 16;
-        *reinterpret_cast<uint4*>(sWq + r * LDWQ + c) =
-            *reinterpret_cast<const uint4*>(wq + (long long)(n0 + r) * HD + k0 + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < KSQ / 32; ++ks) {
-        uint32_t af[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int8_t* qp = sQ8 + (rg * 32 + mt * 16 + g) * LDQ + k0 + ks * 32 + t * 4;
-          af[mt][0] = lds32(qp);
-          af[mt][1] = lds32(qp + 8 * LDQ);
-          af[mt][2] = lds32(qp + 16);
-          af[mt][3] = lds32(qp + 8 * LDQ + 16);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int8_t* wp = sWq + (cg * WN + nt * 8 + g) * LDWQ + ks * 32 + t * 4;
-          const uint32_t b0 = lds32(wp), b1 = lds32(wp + 16);
-          mma_s8(acci[0][nt], af[0], b0, b1);
-          mma_s8(acci[1][nt], af[1], b0, b1);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int rr = rg * 32 + mt * 16 + g + hr * 8;
-        if (q0 + rr >= L) continue;
-        const float sa = sSa[rr];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int col = n0 + cg * WN + nt * 8 + t * 2;
-          const long long at = (row_base + rr) * N + col;
-          const float y0 = bf16_round((float)acci[mt][nt][2 * hr] * sa * w.sw[col]);
-          const float y1 = bf16_round((float)acci[mt][nt][2 * hr + 1] * sa * w.sw[col + 1]);
-          const float2 rv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w.res + at));
-          *reinterpret_cast<uint32_t*>(w.out + at) = pack_bf16(rv.x + y0, rv.y + y1);
-        }
-      }
-    }
-  }
-}
-
-template <bool WINDOW, int HD>
-int launch_q(const AttnArgs& a, const WoArgs& w, int B, void* stream) {
-  constexpr int bytes = smem_bytes_q<HD>();
-  cudaError_t err =
-      cudaFuncSetAttribute(attention_wo_q_kernel<WINDOW, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.L + BQ - 1) / BQ, B);
-  attention_wo_q_kernel<WINDOW, HD><<<grid, NTHREADS, bytes, (cudaStream_t)stream>>>(a, w);
-  return (int)cudaGetLastError();
-}
-
 template <bool WINDOW>
 int dispatch(const AttnArgs& a, const WoArgs& w, int B, bool quant, void* stream) {
 #define CM3P_ATTN_WO(HD)                                                                                  \
   if (a.H * D == HD)                                                                                      \
-    return quant ? launch_q<WINDOW, HD>(a, w, B, stream) : sm90_wo::launch<WINDOW, HD>(a, w, B, stream);
+    return quant ? sm90_wo::launch<WINDOW, HD, true>(a, w, B, stream)                                      \
+                 : sm90_wo::launch<WINDOW, HD, false>(a, w, B, stream);
   CM3P_ATTN_WO(768)
   CM3P_ATTN_WO(512)
   CM3P_ATTN_WO(256)
@@ -699,8 +577,7 @@ int dispatch(const AttnArgs& a, const WoArgs& w, int B, bool quant, void* stream
 // codes with sw (N,) fp32 when quant != 0; res, out: (B, L, N) bf16;
 // o_out (B, L, H*64) bf16 and codes_out (B, L, H*64) int8 are optional
 // outputs for checks. H*64 in {256, 512, 768}, N a positive multiple of 128.
-// The bf16 form returns cudaErrorInvalidValue when the driver refuses one of
-// its tensor maps.
+// Returns cudaErrorInvalidValue when the driver refuses one of the tensor maps.
 extern "C" int cm3p_attention_wo(const void* q, const void* k, const void* v, long long q_bstride,
                                  long long k_bstride, long long v_bstride, long long q_pstride,
                                  long long k_pstride, long long v_pstride, const void* qseg,

@@ -11,7 +11,8 @@ Counterpart of the JAX package's ``ops/flash_attention.py`` and
   ``_dkv_fused_kernel``;
 * segment: the same without the window, visiting only the tiles whose
   segment interval meets the tile's (:func:`segment_tile_ranges`, the work of
-  ``_block_ranges`` and ``qb_index``). :func:`segment_attention` replaces
+  ``_block_ranges`` and ``qb_index``; on the card :func:`key_tile_ranges`
+  forms them in one kernel launch). :func:`segment_attention` replaces
   ``_seg_unrolled_kernel``; :func:`segment_attention_dq` and
   :func:`segment_attention_dkv` replace ``_dq_unrolled_kernel`` and
   ``_dkv_unrolled_kernel``. :func:`segment_attention_rect` is the same
@@ -20,7 +21,8 @@ Counterpart of the JAX package's ``ops/flash_attention.py`` and
   mask as the key segments; forward only, no rope, no window, no lse.
 
 The forwards rotate raw q/k with rope (rotate-half, arange positions) when
-``rope_theta`` is given, use the softmax scale 1/sqrt(D) with fp32 scores,
+``rope_theta`` is given (on the card k in one pass into a scratch buffer, each
+Q tile inside the kernel), use the softmax scale 1/sqrt(D) with fp32 scores,
 write 0 for a query that sees no key and, with ``return_lse``, also return the
 base-2 log-sum-exp (B, H, L) fp32 the backward needs (log2(1e-30) for a query
 that sees no key, as the TPU kernels write). The backward recomputes
@@ -87,9 +89,11 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _SIGNATURES = {
-    "cm3p_window_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "cm3p_segment_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _P],
+    "cm3p_window_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _P],
+    "cm3p_segment_attention": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _P],
+    "cm3p_key_tile_ranges": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 _WO_SIGNATURES = {
     "cm3p_attention_wo": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -301,6 +305,28 @@ def segment_tile_ranges(qseg: torch.Tensor, kseg: torch.Tensor, tile: int = TILE
     return start.to(torch.int32).contiguous(), count.to(torch.int32).contiguous()
 
 
+def key_tile_ranges(qseg: torch.Tensor, kseg: torch.Tensor):
+    """:func:`segment_tile_ranges` for the kernels: on a CUDA tensor one launch of ``cm3p_key_tile_ranges``
+    (part of the op that asks for the ranges, not counted apart), on the CPU the plain version. ``qseg`` and
+    ``kseg`` are contiguous int32 (B, Lq) and (B, Lk)."""
+    if qseg.device.type == "cpu":
+        return segment_tile_ranges(qseg, kseg)
+    for name, t in (("qseg", qseg), ("kseg", kseg)):
+        if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous() or t.device != qseg.device:
+            raise ValueError(f"{name} must be contiguous int32 (B, L) on one CUDA device with the other")
+    if kseg.shape[0] != qseg.shape[0]:
+        raise ValueError(f"qseg and kseg must have one batch size, got {qseg.shape[0]} and {kseg.shape[0]}")
+    (b, lq), lk = qseg.shape, kseg.shape[1]
+    nq, nk = -(-lq // TILE), -(-lk // TILE)
+    # start, count, then the kernel's scratch: each row's tile bounds (low and high ends, query then key tiles)
+    out = torch.empty(2 * b * nq + 2 * b * (nq + nk), dtype=torch.int32, device=qseg.device)
+    start, count, bounds = out[:b * nq].view(b, nq), out[b * nq:2 * b * nq].view(b, nq), out[2 * b * nq:]
+    err = _lib().cm3p_key_tile_ranges(qseg.data_ptr(), kseg.data_ptr(), start.data_ptr(), count.data_ptr(),
+                                      bounds.data_ptr(), b, lq, lk, _stream(qseg))
+    _build.check(err, "cm3p_key_tile_ranges")
+    return start, count
+
+
 def _check(q, k, v, qseg, kseg, square: bool = True):
     """What the kernels take; ``square=False`` (the rectangular form) admits
     k, v (B, Lk, H, D) beside q (B, Lq, H, D), with kseg (B, Lk)."""
@@ -352,6 +378,12 @@ def _lib():
     return _build.library("attention", _SIGNATURES)
 
 
+def _rope_scratch(k, rope_theta):
+    """With rope the forward kernels first rotate k once into a (B, L, H, D) bf16 buffer and attend over that
+    (each Q tile is rotated inside the kernel)."""
+    return None if rope_theta is None else torch.empty(k.shape, dtype=k.dtype, device=k.device)
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -374,8 +406,9 @@ def window_attention(q, k, v, qseg, kseg, window: int, rope_theta: Optional[floa
         raise ValueError("window must be >= 0")
     b, length, heads, _ = q.shape
     out, lse = _outputs(q, return_lse)
+    rot = _rope_scratch(k, rope_theta)
     err = _lib().cm3p_window_attention(
-        *_common_args(q, k, v, qseg, kseg, rope_theta), out.data_ptr(),
+        *_common_args(q, k, v, qseg, kseg, rope_theta), None if rot is None else rot.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, length, heads, int(window), _stream(q),
     )
     _build.check(err, "cm3p_window_attention")
@@ -385,11 +418,13 @@ def window_attention(q, k, v, qseg, kseg, window: int, rope_theta: Optional[floa
 
 def _launch_segment(q, k, v, qseg, kseg, rope_theta, return_lse):
     b, length, heads, _ = q.shape
-    start, count = segment_tile_ranges(qseg, kseg)
+    start, count = key_tile_ranges(qseg, kseg)
     out, lse = _outputs(q, return_lse)
+    rot = _rope_scratch(k, rope_theta)
     err = _lib().cm3p_segment_attention(
         *_common_args(q, k, v, qseg, kseg, rope_theta), start.data_ptr(), count.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), b, length, k.shape[1], heads, _stream(q),
+        None if rot is None else rot.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(), b, length,
+        k.shape[1], heads, _stream(q),
     )
     _build.check(err, "cm3p_segment_attention")
     return (out, lse) if return_lse else out
@@ -483,7 +518,7 @@ def segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, rope_theta: Opti
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, None, rope_theta)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ranges = segment_tile_ranges(qseg, kseg)
+    ranges = key_tile_ranges(qseg, kseg)
     _launch_bwd("cm3p_segment_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, rope_theta, dq=dq)
     _count(segment_attention_dq, segment_attention_dq_rope, rope_theta)
     return dq
@@ -495,7 +530,7 @@ def segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, rope_theta: Opt
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, None, rope_theta)[1:]
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
-    ranges = segment_tile_ranges(kseg, qseg)
+    ranges = key_tile_ranges(kseg, qseg)
     _launch_bwd("cm3p_segment_attention_dkv", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, rope_theta,
                 dk=dk, dv=dv)
     _count(segment_attention_dkv, segment_attention_dkv_rope, rope_theta)
@@ -575,7 +610,7 @@ def _launch_wo(q, k, v, qseg, kseg, window, weight, sw, residual, rope_theta, o_
     _check_wo(q, weight, torch.int8 if sw is not None else torch.bfloat16, sw, residual, o_out, codes_out)
     b, length, heads, _ = q.shape
     n = weight.shape[0]
-    start, count = segment_tile_ranges(qseg, kseg) if window is None else (None, None)
+    start, count = key_tile_ranges(qseg, kseg) if window is None else (None, None)
     out = torch.empty(b, length, n, dtype=q.dtype, device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _build.library("attention_wo", _WO_SIGNATURES).cm3p_attention_wo(

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one phase's kernels of two checkouts on one card, in turns.
 
-    python3 compare_kernels.py --parent DIR [--phase quant|wo|ffn] [--out DIR]
+    python3 compare_kernels.py --parent DIR [--phase quant|wo|ffn|attn] [--out DIR]
 
 ``DIR`` is another checkout of this repository (for example ``git archive
 <commit> | tar -x -C _scratch/parent``). Each turn runs one tree's phase 7
@@ -25,12 +25,26 @@ measured on the same card within one run:
   that both trees have; each first against its plain version at 4,037 rows
   (tolerance 2e-2), then timed beside the unfused composition (cuBLAS
   products, ``torch._int_mm`` for the int8 ones, PyTorch's elementwise
-  passes; the same PyTorch code in every turn) and its bound.
+  passes; the same PyTorch code in every turn) and its bound;
+* ``attn``: the forward attention kernels (rows 1 and 2 and the forms they
+  serve) through the public ops on the same seeded inputs in every turn: the
+  packed beatmap shape (79 x 4096, H 12, rope), the audio tower's (237 x
+  1500, H 8, rope), the ``v8_packed`` training batch (10 x 4096, H 12) with
+  lse and with rope and lse, the metadata tower's ``meta_pack`` rows (24 x
+  2048, H 4, lse), the rectangular form at a sequence-parallel rank's shape
+  (B 2, Lq 8,192 over Lk 16,384, the last 1,000 keys masked) and the window
+  form at w = 192 and 256. Each form is first held to its plain version (2e-2;
+  lse 1e-3 on live rows; the rectangular form 2e-3; exactly 0 on queries that
+  see no key), then timed; the rope forms also without rope tables (what rope
+  costs in each tree's design), the segment forms' key-tile ranges alone (the
+  wrapper's PyTorch ops, inside the form's time). The segments are made once from the 17 maps,
+  as for ``wo``. The first change turn also times the plain version and one
+  SDPA call (memory-efficient backend, the same mask) and computes the bound.
 
 Prints the card's name and power limit, each turn's timing lines and, per
 kernel form (and shape), the four times; writes each turn's log and
 ``compare.json`` (``compare_wo.json`` for ``wo``, ``compare_ffn.json`` for
-``ffn``) to ``--out``. Exits non-zero
+``ffn``, ``compare_attn.json`` for ``attn``) to ``--out``. Exits non-zero
 if a turn fails. Needs one GPU.
 """
 from __future__ import annotations
@@ -152,6 +166,104 @@ for d, f, rows in ((768, 1152, 323584), (512, 1024, 80896), (256, 512, 49152)):
         print(f"  {key}: {times[key]['ms']:.3f} ms (composition {times[key]['composition_ms']:.3f} ms)", flush=True)
 print("REPORT " + json.dumps({"errs": errs, "times": times}), flush=True)
 """
+# the segments of the attn phase: the packed beatmap rows and the audio shape as for wo, the v8_packed training
+# batch's rows and its metadata tower's meta_pack rows, as chip_smoke's phases 5 and 6 make them
+ATTN_INPUTS = WO_INPUTS.replace("torch.save({", """from cm3p_torch.train.__main__ import CONFIG_DIR, beatmap_file_batches, beatmap_paths, build_processor
+from cm3p_torch.utils.config import load_config
+targs = load_config(CONFIG_DIR, "v8_packed", [])
+paths = beatmap_paths([str(chip_smoke.ROOT / "resources"), str(chip_smoke.ROOT / "resources" / "perf_corpus")])
+batch = next(iter(beatmap_file_batches(targs, build_processor(targs), paths, test=False)()))
+seg10 = torch.as_tensor(batch["segment_ids"]).to(torch.int32)
+meta = chip_smoke.meta_pack_segments(torch, batch, int(targs["meta_pack"]), "cpu")
+torch.save({"seg10": seg10, "meta_seg": meta, """)
+ATTN_TURN = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from cm3p_torch import ops
+from cm3p_torch.ops import _build
+from cm3p_torch.ops.attention import (segment_attention_plain, segment_attention_rect_plain, segment_tile_ranges,
+                                      window_attention_plain)
+_build.build(("attention",))
+saved, library = torch.load(sys.argv[2]), sys.argv[3] == "1"
+dev = torch.device("cuda")
+ones = torch.ones(saved["audio_b"], saved["audio_l"], dtype=torch.int32, device=dev)
+packed, seg10, meta = (saved[k].to(dev).contiguous() for k in ("seg_packed", "seg10", "meta_seg"))
+rect_k = torch.ones(2, 16384, dtype=torch.int32, device=dev)
+rect_k[:, -1000:] = 0
+# key: (qseg, kseg, heads, window, rope theta, lse); window None is the segment form, "rect" the rectangular one
+FORMS = {
+    "window packed": (packed, packed, 12, 64, 10000.0, False),
+    "segment packed": (packed, packed, 12, None, 160000.0, False),
+    "window audio": (ones, ones, 8, 64, 10000.0, False),
+    "segment audio": (ones, ones, 8, None, 160000.0, False),
+    "window train lse": (seg10, seg10, 12, 64, None, True),
+    "segment train lse": (seg10, seg10, 12, None, None, True),
+    "window train rope+lse": (seg10, seg10, 12, 64, 10000.0, True),
+    "segment train rope+lse": (seg10, seg10, 12, None, 160000.0, True),
+    "segment metadata lse": (meta, meta, 4, None, None, True),
+    "rect": (torch.ones(2, 8192, dtype=torch.int32, device=dev), rect_k, 12, "rect", None, False),
+    "window w192": (seg10, seg10, 12, 192, None, False),
+    "window w256": (seg10, seg10, 12, 256, None, False),
+}
+errs, times, lib = {}, {}, {}
+for n, (key, (qseg, kseg, heads, window, theta, lse)) in enumerate(FORMS.items()):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    b, lq = qseg.shape
+    lk = kseg.shape[1]
+    if window == "rect":
+        q = torch.randn(b, lq, heads, 64, generator=gen, device=dev).to(torch.bfloat16)
+        k, v = torch.randn(b, lk, 2, heads, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
+        run = lambda theta=None, lse=False: ops.segment_attention_rect(q, k, v, qseg, kseg)
+        plain = lambda: segment_attention_rect_plain(q, k, v, qseg, kseg)
+        tol = chip_smoke.RECT_TOL
+    else:
+        q, k, v = torch.randn(b, lq, 3, heads, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
+        if window is None:
+            run = lambda theta=theta, lse=lse: ops.segment_attention(q, k, v, qseg, kseg, theta, lse)
+            plain = lambda: segment_attention_plain(q, k, v, qseg, kseg, theta, lse)
+        else:
+            run = lambda theta=theta, lse=lse: ops.window_attention(q, k, v, qseg, kseg, window, theta, lse)
+            plain = lambda: window_attention_plain(q, k, v, qseg, kseg, window, theta, lse)
+        tol = chip_smoke.TOL
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    (got, got_lse), (want, want_lse) = (got, want) if lse else ((got, None), (want, None))
+    dead = (kseg > 0).sum(1) == 0 if window == "rect" else qseg == 0
+    err = (got.float() - want.float()).abs().max().item()
+    dead_max = got[dead].abs().max().item() if bool(dead.any()) else 0.0
+    lse_err = 0.0
+    if lse:
+        live = (~dead)[:, None, :].expand_as(got_lse)
+        lse_err = (got_lse - want_lse)[live].abs().max().item()
+    errs[key] = {"out": err, "lse": lse_err, "dead_max": dead_max}
+    if not (err <= tol and lse_err <= chip_smoke.LSE_TOL and dead_max == 0.0):
+        raise SystemExit(f"{key}: the kernel disagrees with its plain version ({errs[key]}, tolerance {tol})")
+    del got, want, got_lse, want_lse
+    t = {"ms": chip_smoke.cuda_ms(run, 10)}
+    if theta is not None:
+        t["no_rope_ms"] = chip_smoke.cuda_ms(lambda: run(None), 10)
+    if window in (None, "rect"):  # the wrapper's key-tile ranges (PyTorch ops), part of ms
+        t["ranges_ms"] = chip_smoke.cuda_ms(lambda: segment_tile_ranges(qseg, kseg), 10)
+    times[key] = t
+    print(f"  {key}: {t['ms']:.3f} ms (" + (f"without rope {t['no_rope_ms']:.3f} ms; " if theta else "")
+          + (f"key-tile ranges {t['ranges_ms']:.3f} ms; " if "ranges_ms" in t else "")
+          + f"max_abs_err {err:.3e}, lse {lse_err:.3e})", flush=True)
+    if library:
+        if window == "rect":
+            pairs = int((kseg > 0).sum()) * lq
+            bound, by = chip_smoke.rect_bound_ms(b, lq, lk, heads, 64, pairs)
+            sdpa = chip_smoke.sdpa_rect_ms(q, k, v, qseg, kseg, 5)
+        else:
+            pairs = chip_smoke.visible_pairs(qseg, window)
+            bound, by = chip_smoke.attention_bound_ms(b, lq, heads, 64, pairs)
+            sdpa = chip_smoke.sdpa_ms(q, k, v, qseg, window, 3)
+        lib[key] = {"plain_ms": chip_smoke.cuda_ms(plain, 1), "sdpa_ms": sdpa, "bound_ms": bound, "bound_by": by,
+                    "pairs": pairs}
+    del q, k, v
+    torch.cuda.empty_cache()
+print("REPORT " + json.dumps({"errs": errs, "times": times, "library": lib}), flush=True)
+"""
 # a timing line of check_wo_kernels: form, shape, ms, ..., the unfused pair's ms
 WO_LINE = re.compile(r"^\s*(\w+)\s+(packed|audio)\b.*?: ([0-9.]+) ms \(plain .* ([0-9.]+) ms\)$")
 
@@ -169,7 +281,8 @@ def wo_times(stdout: str) -> dict[str, dict[str, float]]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", required=True, type=Path, help="root of the other checkout")
-    parser.add_argument("--phase", choices=("quant", "wo", "ffn"), default="quant", help="the kernels to compare")
+    parser.add_argument("--phase", choices=("quant", "wo", "ffn", "attn"), default="quant",
+                        help="the kernels to compare")
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out", help="directory for the logs")
     args = parser.parse_args()
     args.out.mkdir(parents=True, exist_ok=True)
@@ -177,22 +290,23 @@ def main() -> int:
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
     turn_args = []
-    if args.phase == "wo":
-        inputs = (args.out / "wo_inputs.pt").resolve()
-        prep = subprocess.run([sys.executable, "-c", WO_INPUTS, str(ROOT), str(inputs)], cwd=ROOT,
-                              capture_output=True, text=True, timeout=900)
+    if args.phase in ("wo", "attn"):
+        inputs = (args.out / f"{args.phase}_inputs.pt").resolve()
+        prep = subprocess.run([sys.executable, "-c", WO_INPUTS if args.phase == "wo" else ATTN_INPUTS, str(ROOT),
+                               str(inputs)], cwd=ROOT, capture_output=True, text=True, timeout=900)
         if prep.returncode != 0:
             print((prep.stdout + prep.stderr)[-3000:], file=sys.stderr)
             return 1
         turn_args = [str(inputs)]
     script, prefix = {"quant": (QUANT_TURN, "compare"), "wo": (WO_TURN, "compare_wo"),
-                      "ffn": (FFN_TURN, "compare_ffn")}[args.phase]
+                      "ffn": (FFN_TURN, "compare_ffn"), "attn": (ATTN_TURN, "compare_attn")}[args.phase]
     results = []
     for turn, label in enumerate(ORDER):
         tree = (args.parent if label == "parent" else ROOT).resolve()
         t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-c", script, str(tree), *turn_args], cwd=tree, capture_output=True,
-                             text=True, timeout=900)
+        extra = [str(int(turn == ORDER.index("change")))] if args.phase == "attn" else []
+        run = subprocess.run([sys.executable, "-c", script, str(tree), *turn_args, *extra], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
         (args.out / f"{prefix}_{turn}_{label}.log").write_text(run.stdout + run.stderr)
         print(f"== {label} (turn {turn}) rc={run.returncode} {time.perf_counter() - t0:.1f} s", flush=True)
         for line in run.stdout.splitlines():
@@ -216,6 +330,16 @@ def main() -> int:
             print(f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)
                   + "; composition " + ", ".join(f"{r['times'][key]['composition_ms']:.3f}" for r in results)
                   + f"; bound {bound:.3f}", flush=True)
+        return 0
+    if args.phase == "attn":
+        lib = results[ORDER.index("change")]["library"]
+        for key, row in lib.items():
+            line = f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)
+            for part, label in (("no_rope_ms", "without rope"), ("ranges_ms", "key-tile ranges")):
+                if part in results[0]["times"][key]:
+                    line += f"; {label} " + ", ".join(f"{r['times'][key][part]:.3f}" for r in results)
+            print(line + f"; plain {row['plain_ms']:.3f}; bound {row['bound_ms']:.3f} ({row['bound_by']}); "
+                  f"SDPA {row['sdpa_ms']:.3f}", flush=True)
         return 0
     if args.phase == "wo":
         for key in results[0]["times"]:

@@ -25,8 +25,16 @@ tokens, segment edges on and off a tile boundary, padding-only rows, windows 0,
 attention output each within 2 % of their largest entry. The FFN kernel's
 wgmma forms (bf16, w8a8, w8a8 + w8a8_wo) at their tile edges: 2e-2, with the
 FFN's own part asserted above 2 x 2e-2 so that the residual cannot hide an
-error, and the codes they export as for the LN forms.
+error, and the codes they export as for the LN forms. The forward kernel at
+its edges (lengths 1-4037, single-token segments, padding-only rows and empty
+key ranges, windows 64 / 192 / 256 and the segment form, H 3 / 4 / 8 / 12,
+with rope and lse and without): the same 2e-2 and 1e-3, and exactly log2(1e-30)
+as the lse of a query that sees no key; the rectangular form at lengths off the
+tiles; the int8 epilogue kernel at the bf16 one's edges, with its codes as for
+the LN forms.
 """
+import math
+
 import pytest
 import torch
 
@@ -48,6 +56,7 @@ from cm3p_torch.ops import (
 )
 from cm3p_torch.ops.attention import (
     _attention_bwd_plain,
+    key_tile_ranges,
     attention_bwd_rope_plain,
     attention_delta,
     segment_attention,
@@ -57,6 +66,7 @@ from cm3p_torch.ops.attention import (
     segment_attention_rect,
     segment_attention_rect_plain,
     segment_attention_wo,
+    segment_tile_ranges,
     segment_attention_wo_plain,
     segment_attention_wo_q,
     segment_attention_wo_q_plain,
@@ -781,3 +791,149 @@ def test_attention_wo_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         segment_attention_wo(q, k, v, seg, seg, torch.zeros(256, 256, dtype=torch.bfloat16, device=cuda), res[:, :64])
     with pytest.raises(ValueError, match="Wo must be"):
         window_attention_wo_q(q, k, v, seg, seg, 64, quantize_weight_int8(wo), res)
+
+
+EMPTY_LSE = math.log2(1e-30)
+FWD_EDGE_LAYOUTS = [1, 63, 65, 1500, 4037, "single_tokens", "tile_edges", "many_tiles"]
+
+
+def _fwd_edge_segments(layout, device):
+    """Segments at the edges of the forward kernel: the epilogue kernel's layouts (a length with rows of one
+    segment, of two segments and padding, and of padding only; segment edges on and off a tile boundary;
+    more query tiles than SMs), lengths 1500 (the audio tower's) and 4037, and single-token segments beside a
+    long one and a padding tail (key ranges of one tile, and empty ones)."""
+    if layout == "single_tokens":
+        seg = torch.zeros(2, 1000, dtype=torch.int32, device=device)
+        seg[0, :300] = torch.arange(1, 301, dtype=torch.int32, device=device)
+        seg[0, 300:900] = 301
+        seg[1, 70:200] = torch.arange(1, 131, dtype=torch.int32, device=device)
+        return seg
+    return _wo_edge_segments(layout, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [3, 4, 8, 12])
+@pytest.mark.parametrize("window", [64, 192, 256, None])
+@pytest.mark.parametrize("layout", FWD_EDGE_LAYOUTS)
+def test_attention_kernel_at_edges(cuda, layout, window, heads):
+    """The forward kernel (q/k/v strided Wqkv views) against its plain version at ATOL, with rope and lse
+    and without either: lse within 1e-3 on live rows and exactly log2(1e-30) on rows that see no key, whose
+    outputs are exactly 0. Three heads: the last head pair has one head."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    seg = _fwd_edge_segments(layout, cuda)
+    b, length = seg.shape
+    q, k, v = _qkv(b, length, heads, gen, cuda)
+    if window is None:
+        name, fn, fn_plain, theta, wargs = "segment_attention", segment_attention, segment_attention_plain, 160000.0, ()
+    else:
+        name, fn, fn_plain, theta, wargs = "window_attention", window_attention, window_attention_plain, 10000.0, (
+            window,)
+    dead = seg == 0
+    live = (~dead)[:, None, :].expand(b, heads, length)
+    reset_launch_counts()
+    for rope in (theta, None):
+        out, lse = fn(q, k, v, seg, seg, *wargs, rope, return_lse=True)
+        want, want_lse = fn_plain(q, k, v, seg, seg, *wargs, rope, return_lse=True)
+        torch.cuda.synchronize()
+        assert (out.float() - want.float()).abs().max().item() <= ATOL
+        if live.any():
+            assert (lse - want_lse)[live].abs().max().item() <= 1e-3
+        if dead.any():
+            assert out[dead].abs().max().item() == 0.0
+            assert bool((lse.transpose(1, 2)[dead] == EMPTY_LSE).all())
+        assert torch.equal(fn(q, k, v, seg, seg, *wargs, rope), out)  # the no-grad call: no lse, same output
+    assert launch_counts() == {**_NONE, name: 4}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [4, 12])
+@pytest.mark.parametrize("lq, lk", [(1, 65), (63, 4037), (4037, 1500), (1500, 1)])
+def test_rect_segment_kernel_at_edges(cuda, lq, lk, heads):
+    """The rectangular form at lengths off the tiles, with a row whose keys are all masked (its queries give
+    exactly 0) and a masked key tail; q, k and v apart (not views of one tensor)."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    q = torch.randn(2, lq, heads, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn(2, lk, heads, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn(2, lk, heads, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    qseg = torch.ones(2, lq, dtype=torch.int32, device=cuda)
+    kseg = torch.ones(2, lk, dtype=torch.int32, device=cuda)
+    kseg[0, lk - lk // 3:] = 0
+    kseg[1] = 0
+    got = segment_attention_rect(q, k, v, qseg, kseg)
+    want = segment_attention_rect_plain(q, k, v, qseg, kseg)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    assert got[1].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [12, 8, 4])
+@pytest.mark.parametrize("window", [0, 64, 128, None])
+@pytest.mark.parametrize("layout", [*WO_EDGE_LENGTHS, "one_segment_4096", "tile_edges", "many_tiles"])
+def test_attention_wo_int8_kernel_at_edges(cuda, layout, window, heads):
+    """The int8 epilogue forms against their plain versions at ATOL with a residual (rows that see no key
+    give it bit for bit), and with a zero residual the product within 2 % of its largest entry; the
+    attention output the kernel used (o_out) within 2 % of the plain attention's largest entry, and its int8
+    codes equal to ``quant_rows_int8`` of it but for a share of 1e-3 off by one."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    seg = _wo_edge_segments(layout, cuda)
+    b, length = seg.shape
+    hd = heads * 64
+    q, k, v = _qkv(b, length, heads, gen, cuda)
+    res = (0.5 * torch.randn(b, length, hd, generator=gen, device=cuda)).to(torch.bfloat16)
+    zero = torch.zeros_like(res)
+    w_q = quantize_weight_int8((0.02 * torch.randn(hd, hd, generator=gen, device=cuda)).to(torch.bfloat16))
+    o_out = torch.empty(b, length, hd, dtype=torch.bfloat16, device=cuda)
+    codes = torch.full((b, length, hd), 99, dtype=torch.int8, device=cuda)
+    if window is None:
+        name, fn, fn_plain, attn_plain = ("segment_attention_wo_q", segment_attention_wo_q,
+                                          segment_attention_wo_q_plain, segment_attention_plain)
+        theta, wargs = 160000.0, ()
+    else:
+        name, fn, fn_plain, attn_plain = ("window_attention_wo_q", window_attention_wo_q,
+                                          window_attention_wo_q_plain, window_attention_plain)
+        theta, wargs = 10000.0, (window,)
+    reset_launch_counts()
+    got = fn(q, k, v, seg, seg, *wargs, w_q, res, theta, o_out=o_out, codes_out=codes)
+    got0 = fn(q, k, v, seg, seg, *wargs, w_q, zero, theta)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, name: 2}
+    want = fn_plain(q, k, v, seg, seg, *wargs, w_q, res, theta)
+    want0 = fn_plain(q, k, v, seg, seg, *wargs, w_q, zero, theta)
+    want_o = attn_plain(q, k, v, seg, seg, *wargs, theta).flatten(2)
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    assert (got0.float() - want0.float()).abs().max().item() <= 2e-2 * max(want0.float().abs().max().item(), 1e-6)
+    assert (o_out.float() - want_o.float()).abs().max().item() <= 2e-2 * max(want_o.float().abs().max().item(), 1e-6)
+    _assert_codes_agree(codes, quant_rows_int8(o_out.float())[0])
+    dead = seg == 0
+    assert torch.equal(got[dead], res[dead])
+    if dead.any():
+        assert torch.equal(got0[dead], zero[dead]) and int(codes[dead].abs().max()) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["packed", "metadata", "single_tokens", "padding", "rect", "rect_swapped", "long"])
+def test_key_tile_ranges_kernel_equals_the_plain_ranges(cuda, layout):
+    """The ranges kernel (the segment forms' key tiles, forward, backward and epilogue) against
+    ``segment_tile_ranges``, exactly: packed rows, the metadata tower's rows, single-token segments, rows of
+    padding only, Lq != Lk both ways, and a 200,000-token row of 1,265-token segments (more tiles than one
+    block's shared memory could hold the bounds of)."""
+    if layout == "packed":
+        qseg = kseg = _packed_segments(3, 4037, cuda)
+    elif layout == "long":
+        pos = torch.arange(200_000, dtype=torch.int32, device=cuda)
+        qseg = kseg = torch.where(pos < 200_000 - 300, pos // 1265 + 1, 0)[None].contiguous()
+    elif layout == "metadata":
+        qseg = kseg = _metadata_segments(5, 16, 128, cuda)
+    elif layout == "single_tokens":
+        qseg = kseg = _fwd_edge_segments("single_tokens", cuda)
+    elif layout == "padding":
+        qseg = kseg = torch.zeros(2, 200, dtype=torch.int32, device=cuda)
+    else:
+        qseg = torch.ones(2, 1088, dtype=torch.int32, device=cuda)
+        kseg = torch.ones(2, 8704, dtype=torch.int32, device=cuda)
+        kseg[0, -1000:], kseg[1] = 0, 0
+        if layout == "rect_swapped":
+            qseg, kseg = kseg, qseg
+    got, want = key_tile_ranges(qseg, kseg), segment_tile_ranges(qseg, kseg)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -7,7 +7,14 @@
 * one bf16 case vs the Pallas ``flash_attention`` in interpret mode: atol 2e-2;
 * ``fused_ln_ffn`` (plain) vs ``fused_ffn.reference_ln_ffn``: fp32 atol 1e-5,
   bf16 atol 2e-2 on outputs of magnitude ~1;
-* the segment key-tile ranges vs ``_block_ranges``.
+* the segment key-tile ranges vs ``_block_ranges``;
+* ``apply_rope`` (the plain version of the forward kernels' rope pass, whose
+  rotated tiles equal it bit for bit on the card) vs the JAX package's
+  ``_apply_rope_xla``, which the Pallas route applies outside its kernels:
+  fp32 atol 2e-5 (the tables' angles, position x inverse frequency up to 100
+  rad here, are rounded at other places: one fp32 ulp at 100 is 7.6e-6), bf16
+  atol 2e-2 (the JAX function multiplies in bf16, the port in fp32 with one
+  rounding at the end).
 """
 import functools
 
@@ -21,6 +28,7 @@ import cm3p_tpu.ops.flash_attention as fa
 from cm3p_tpu.models.modernbert import apply_rope, rope_cos_sin
 from cm3p_tpu.ops.fused_ffn import reference_ln_ffn
 from cm3p_torch.ops import attention, fused_ln_ffn, fused_ln_ffn_plain, segment_attention, window_attention
+from cm3p_torch.ops.attention import apply_rope as port_apply_rope
 from cm3p_torch.ops.attention import segment_tile_ranges
 
 
@@ -192,3 +200,14 @@ def test_segment_tile_ranges_match_block_ranges(kind, length):
     np.testing.assert_array_equal(count.numpy(), np.asarray(jc))
     live = np.asarray(jc) > 0
     np.testing.assert_array_equal(start.numpy()[live], np.asarray(js)[live])
+
+
+@pytest.mark.parametrize("theta", [10000.0, 160000.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_pass_matches_the_jax_rope(theta, dtype):
+    b, length, heads, d = 2, 100, 3, 64
+    x = np.random.default_rng(3).standard_normal((b, length, heads, d)).astype(np.float32)
+    want = fa._apply_rope_xla(jnp.asarray(x, dtype).reshape(b, length, heads * d), theta, d)
+    want = np.asarray(want.astype(jnp.float32)).reshape(b, length, heads, d)
+    got = port_apply_rope(torch.from_numpy(x).to(getattr(torch, dtype)), theta).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5 if dtype == "float32" else 2e-2)
