@@ -7,15 +7,16 @@ Phases (any failure exits non-zero; nothing is skipped):
   1. build   - nvcc builds every kernel of ``cm3p_torch/csrc`` (one process
                per source, all at once) into ``cm3p_torch/_build``; prints
                ptxas's registers, spills and barriers per kernel instance, and
-               per instance of the wgmma kernels (``bf16::ln_matmul_kernel``;
-               the FFN's ``bf16::ffn_kernel``, ``w8a8::ffn_kernel`` and
+               per instance of the wgmma kernels (``bf16::ln_matmul_kernel``
+               and ``w8a8::ln_matmul_q_kernel``; the FFN's ``bf16::ffn_kernel``, ``w8a8::ffn_kernel`` and
                ``w8a8::ffn_wo_kernel``; the attention forward
                ``sm90_attn::attention_kernel``; ``sm90_wo::attention_wo_kernel``,
                whose int8 instances multiply by Wo with IGMMA) the
                count of their HGMMA and IGMMA (wgmma on bf16 and on int8),
                UTMALDG (TMA load), LDGSTS (cp.async) and BAR.SYNC instructions
                in ``cuobjdump -sass``; fails if one of them has no wgmma or no
-               UTMALDG, or has an LDGSTS.
+               UTMALDG, or has an LDGSTS, or if ptxas notes that it serialises
+               its wgmma (C7514 / C7520).
   2. kernels - each forward kernel against its plain PyTorch version at the
                shapes the main path gives it (packed 4096-token beatmap rows with
                several segments and a padding tail, unpacked rows with a key
@@ -82,7 +83,9 @@ Phases (any failure exits non-zero; nothing is skipped):
                D 512, the metadata tower's 24 x 2048 at D 256), where the
                persistent kernels give each cluster several tiles, both with
                two blocks of all-zero rows (among the first and among the last
-               row tiles); the times at that shape, and for the bf16 FFN and
+               row tiles), and the LN-matmul forms at D 512 also at the audio
+               tower's windows x 1,500 rows, the rows that path gives them;
+               the times at those shapes, and for the bf16 FFN and
                ``w8a8 + w8a8_wo`` the time of the unfused composition (cuBLAS
                products, ``torch._int_mm`` for the int8 ones, and PyTorch's
                elementwise passes) beside them. Tolerance 2e-2 abs; the int8 activation
@@ -115,7 +118,11 @@ Phases (any failure exits non-zero; nothing is skipped):
                and of D to A, drift to exact bf16 held to cosine >= 0.9995
                (E: to ``DRIFT_E_COS_MIN``), one unit-norm
                embedding per beatmap, windows/s and tokens/s, a profiler
-               breakdown of one pass.
+               breakdown of one pass; then the tiny route: ``python -m
+               cm3p_torch.extract --tiny-model`` (fp32, head dims no kernel
+               takes: the tool asks for the plain version of every op and
+               logs it) over the same 17 folders on the card and on the CPU,
+               both exiting 0, per-map cosine >= 0.9999.
   9. sequence parallelism - the rectangular form of the segment kernel
                (``segment_attention_rect``, Lq != Lk: a query shard over all
                keys) against its plain version at a rank's shape (B 2, H 12,
@@ -231,12 +238,13 @@ def fail(msg: str) -> None:
 
 # per source, the name prefixes of its wgmma kernels (every instance must issue wgmma fed by TMA)
 WGMMA_KERNELS = {
-    "fused_ln_matmul": ("bf16::ln_matmul_kernel",),
+    "fused_ln_matmul": ("bf16::ln_matmul_kernel", "w8a8::ln_matmul_q_kernel"),
     "fused_ffn": ("bf16::ffn_kernel", "w8a8::ffn_kernel", "w8a8::ffn_wo_kernel"),
     "attention": ("sm90_attn::attention_kernel",),
     "attention_wo": ("sm90_wo::attention_wo_kernel",),
 }
 SASS_OPCODES = ("HGMMA", "IGMMA", "UTMALDG", "LDGSTS", "BAR.SYNC")  # IGMMA: wgmma on int8
+SERIAL_WGMMA_NOTES = ("C7514", "C7520")  # ptxas notes that it serialises every wgmma of a kernel
 
 
 def kernel_name(mangled: str) -> str:
@@ -1165,13 +1173,14 @@ def _code_report(label, got, want, share_max, rows_ok=None):
     return share
 
 
-def check_quant_kernels(torch, ops, gen, dev, full_rows, meta_rows=24 * 2048):
+def check_quant_kernels(torch, ops, gen, dev, full_rows, meta_rows=24 * 2048, audio_rows=None):
     """Phase 7: the LN-matmul kernels, the bf16 FFN kernel and the int8 FFN forms
     against their plain versions, at 4,037 rows and at the main path's shape
     (``full_rows`` at D 768, a quarter of it at D 512, ``meta_rows`` for the bf16 FFN
-    at D 256), where the persistent kernels give each cluster several tiles; returns
-    max errors per kernel and the report rows, each (ms, plain_ms, bound_ms, bound_by,
-    library_ms) at ``full_rows``."""
+    at D 256), where the persistent kernels give each cluster several tiles, and the
+    LN-matmul forms at D 512 also at ``audio_rows`` (the audio tower's windows x
+    frames, the rows that path gives them); returns max errors per kernel and the
+    report rows, each (ms, plain_ms, bound_ms, bound_by, library_ms) at ``full_rows``."""
     from cm3p_torch.ops.fused_ffn import fused_ln_ffn_q, layer_norm_f32
     from cm3p_torch.ops.quant import quant_rows_int8, quantize_weight_int8
 
@@ -1193,7 +1202,8 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows, meta_rows=24 * 2048):
     for d, n_out, with_ln in ((768, 2304, True), (512, 1536, True), (768, 768, False), (512, 512, False)):
         form = "LN -> QKV" if with_ln else "Wo + residual"
         suffix = "" if with_ln else "_wo"
-        for rows in (rows_small, full_rows if d == 768 else full_rows // 4):
+        sizes = (full_rows,) if d == 768 else (full_rows // 4,) + ((audio_rows,) if audio_rows else ())
+        for rows in (rows_small, *sizes):
             x, scale, w, zero = inputs(rows, d, n_out)
             res = None if with_ln else (0.5 * torch.randn(rows, n_out, generator=gen, device=dev)).to(torch.bfloat16)
             kw = dict(scale=scale if with_ln else None, residual=res)
@@ -1558,6 +1568,46 @@ def extract_slice(torch, ops, dev, maps, waves, exact, tmp):
     return total
 
 
+TINY_EXTRACT_COS_MIN = 0.9999  # per map, the card's fp32 plain route against the CPU's (sums in another order)
+
+
+def check_tiny_extract(maps_dir, tmp):
+    """Phase 8, the tiny route: ``python -m cm3p_torch.extract --tiny-model`` (a seeded fp32 tiny model whose
+    head dims 16 and 8 and widths no kernel takes, so the tool asks for the plain version of every op and
+    logs that it does) over the 17 map folders with their audio, once on the card and once with ``--device
+    cpu``. Both must exit 0 having logged the plain route and give one finite unit-norm embedding per map,
+    the two at cosine >= ``TINY_EXTRACT_COS_MIN`` per map."""
+    import numpy as np
+    import pandas as pd
+
+    got = {}
+    for device in ("cuda", "cpu"):
+        out = Path(tmp) / f"tiny_{device}.parquet"
+        cmd = [sys.executable, "-m", "cm3p_torch.extract", "--tiny-model", "--device", device, "--max-length",
+               "1024", "--beatmap-files", str(maps_dir), "--output", str(out)]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        log(f"  tiny route on {device}: exit {run.returncode} in {time.perf_counter() - t0:.1f} s")
+        if run.returncode != 0:
+            log((run.stdout + run.stderr)[-3000:])
+            fail(f"python -m cm3p_torch.extract --tiny-model failed on {device}")
+        if "every op runs its plain PyTorch version" not in run.stdout:
+            fail(f"python -m cm3p_torch.extract --tiny-model did not log its plain route on {device}")
+        table = pd.read_parquet(out)
+        got[device] = {int(i): np.asarray(e, dtype=np.float64) for i, e in zip(table["beatmap_id"], table["embedding"])}
+    card, cpu = got["cuda"], got["cpu"]
+    if card.keys() != cpu.keys() or len(card) != 17:
+        fail(f"the tiny route gave {len(card)} / {len(cpu)} beatmaps on the card / CPU, not the same 17")
+    vecs = np.stack([card[k] for k in sorted(card)])
+    cos = np.array([card[k] @ cpu[k] / (np.linalg.norm(card[k]) * np.linalg.norm(cpu[k])) for k in sorted(card)])
+    log(f"  tiny route: {len(card)} beatmaps, per-map cosine card vs CPU min {cos.min():.8f} "
+        f"(need >= {TINY_EXTRACT_COS_MIN})")
+    if not np.isfinite(vecs).all() or np.abs(np.linalg.norm(vecs, axis=1) - 1).max() > 1e-3:
+        fail("the tiny route on the card gave embeddings that are not finite and unit-norm")
+    if not bool((cos >= TINY_EXTRACT_COS_MIN).all()):
+        fail("the tiny route on the card disagrees with the CPU")
+
+
 # ---------------------------------------------------------------- phase 9
 
 SP_RANKS = 2  # ranks of the gloo group, sharing the one card
@@ -1909,6 +1959,8 @@ def main() -> int:
             log(f"  {src} {kernel}: {used}; {spills}")
         for kernel, note in ptxas_notes(text):
             log(f"  {src} {kernel}: ptxas {note}")
+            if note.startswith(SERIAL_WGMMA_NOTES) and kernel.startswith(WGMMA_KERNELS.get(src, ())):
+                fail(f"{kernel}: ptxas serialises its wgmma ({note})")
     for src, prefixes in WGMMA_KERNELS.items():
         counts = sass_counts(_build._target(src))
         if counts is None:
@@ -2109,7 +2161,7 @@ def main() -> int:
 
     # ---- 7. the LN-matmul kernels and the int8 FFN forms against their plain versions
     log("[7] fused LN-matmul and int8 FFN kernels vs plain versions (bf16 inputs, seeded)")
-    e7, rows7 = check_quant_kernels(torch, ops, gen, dev, n_rows * ROW_LEN, meta_seg.numel())
+    e7, rows7 = check_quant_kernels(torch, ops, gen, dev, n_rows * ROW_LEN, meta_seg.numel(), audio_b * audio_l)
     for kname, err in e7.items():
         errs[kname] = max(errs.get(kname, 0.0), err)
     for kname, row in rows7.items():
@@ -2124,6 +2176,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for kname, n in extract_slice(torch, ops, dev, maps, waves, exact, tmp).items():
             main_counts[kname] += n
+        check_tiny_extract(Path(tmp) / "maps", tmp)
 
     # ---- 9. sequence parallelism: the rectangular segment kernel and the sharded beatmap tower
     log(f"[9] sequence parallelism: {SP_RANKS} ranks on the one card over gloo, full-width CM3PConfig, "

@@ -2,12 +2,12 @@
 //     out = [res +] bf16( [LN_fp32](x) . W^T )
 //
 // Replaces the two TPU kernels of the JAX package's ops/fused_ln_matmul.py:
-//   * ln_matmul_kernel   <- _lnmm_kernel   (driven by _pallas_ln_matmul)
-//   * ln_matmul_q_kernel <- _lnmm_q_kernel (driven by _pallas_ln_matmul_q), W8A8
+//   * bf16::ln_matmul_kernel   <- _lnmm_kernel   (driven by _pallas_ln_matmul)
+//   * w8a8::ln_matmul_q_kernel <- _lnmm_q_kernel (driven by _pallas_ln_matmul_q), W8A8
 // With LN (N = 3 DM) it is the attention pre-norm fused into the QKV
 // projection; without LN and with a residual (N = DM) it is the attention
 // out-projection with its residual add. W comes in the nn.Linear layout
-// (N, DM): K-major, as both wgmma and mma.sync take it.
+// (N, DM): K-major, as wgmma takes it.
 //
 // Rounding points kept from the TPU kernels. bf16 form: LN statistics and
 // output in fp32 (flax formula), LN output cast to bf16, fp32 accumulation,
@@ -45,13 +45,37 @@
 // all (measured: both forms run at the rate their stage bytes allow), and the
 // epilogues of the two warpgroups do not overlap their products.
 //
-// int8 form (ln_matmul_q_kernel, rows 6 and 6r), the first version: a block of
-// 8 warps owns 64 rows. The front end gives each warp 8 rows (one row in
-// registers, DM / 32 values a lane: statistics and absmax are warp shuffles);
-// the int8 codes plus one scale per row go to shared memory. The block walks
-// N in tiles of 128 columns, staging W through shared memory in slices of 128
-// of DM; each warp owns a 32 x 32 piece of the tile (mma.sync). It re-reads W
-// from L2 for every 64 rows and does not overlap loads with products.
+// int8 form (w8a8::ln_matmul_q_kernel, rows 6 and 6r), designed for Hopper on
+// the bf16 form's plan. Bound by the bytes at both shapes (row 6: x in, three
+// times as many bytes out; 6r: x and res in, out), so the design keeps W's L2
+// traffic and the front end off the critical path. Persistent blocks of 384
+// threads in clusters of two, a cluster taking two consecutive 128-row tiles.
+// For each tile the two consumer warpgroups (setmaxnreg: 232 registers) run the
+// front end for their 64 rows each, a warp per row and two rows at a time (x
+// read 16 bytes a lane, the LN parameters from shared memory): the fp32 LN row
+// (or x as fp32), quantised over all DM columns (a multiply by 1 / sa, the true
+// division only for a row with a value within 1e-4 of a half), written 8 codes a
+// lane into shared memory in the 128-byte swizzle that wgmma reads (96 KB at
+// DM 768), with the row scales beside them. The codes stay resident while the tile walks all of
+// N in 256-column tiles, so only W streams: a producer warp keeps a TMA ring of
+// 256 x 128-byte W slices (32 KB; 3 stages at DM 768, 4 at 512, 5 at 256),
+// each CTA loading half and multicasting it to both, columns past N arriving
+// as zeros. So L2 serves W once per 256 rows, not once per 64 as the first
+// version did. Each warpgroup issues wgmma m64n256k32 s8 x s8 -> s32 straight
+// from the codes and the stage, one stage's products in flight while it waits
+// for the next. A tile's weight scales are copied to shared memory and its
+// residual prefetched to L2 before its products; the epilogue scales the exact
+// s32 sums in their registers (float(acc) * sa * sw[n], the TPU kernel's
+// order), writes each warp's 16 x 64 slices into shared memory, adds the
+// residual there 16 bytes a lane, and hands each slice to a TMA store, so that
+// the output (three quarters of row 6's bytes) drains behind the next products.
+// What holds it below the bound (copies with one part cut out, timed beside it
+// by compare_kernels.py --phase parts; readings in PERF.md): in each warpgroup
+// the front end, the products and the epilogue run one after another, and the
+// two warpgroups walk the shared ring in step, so their times add. The front
+// end and the epilogue each cost about as much as the products and the ring
+// together; the codes of a tile (96 KB at DM 768) leave no room for the next
+// tile's, so its front end cannot run behind this tile's products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,17 +87,7 @@ namespace {
 
 using namespace cm3p;
 
-constexpr int BN = 128;         // N must be a multiple of this
-// int8 form
-constexpr int BR = 64;          // rows per block
-constexpr int NTHREADS = 256;   // 8 warps: 2 row groups x 4 column groups
-constexpr int KSQ = 128;        // DM slice staged per step
-constexpr int LDWQ = KSQ + 16;  // padded smem row of a staged int8 slice (bytes)
-
-template <int DM>
-constexpr int smem_bytes_q() {
-  return BR * (DM + 16) + BN * LDWQ + BR * 4;
-}
+constexpr int BN = 128;  // N must be a multiple of this
 
 // ---------------------------------------------------------------------------
 // The bf16 form: warp-specialised, persistent, TMA ring, wgmma (see the note
@@ -317,118 +331,309 @@ int launch(const void* x, const void* scale, const void* bias, const void* w, co
 
 }  // namespace bf16
 
-template <int DM, bool WITH_LN>
-__global__ void __launch_bounds__(NTHREADS)
-    ln_matmul_q_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
-                       const float* __restrict__ bias, const int8_t* __restrict__ wq,
-                       const float* __restrict__ sw, const __nv_bfloat16* __restrict__ res,
-                       __nv_bfloat16* __restrict__ out, int8_t* __restrict__ codes_out, int R, int N,
-                       float eps) {
-  constexpr int LDQ = DM + 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* sQ = reinterpret_cast<int8_t*>(smem_raw);            // BR x LDQ   activation codes
-  int8_t* sWq = sQ + BR * LDQ;                                 // BN x LDWQ  weight codes slice
-  float* sSa = reinterpret_cast<float*>(sWq + BN * LDWQ);      // BR         row scales
+// ---------------------------------------------------------------------------
+// The int8 form: the bf16 form's plan with the activation codes kept in shared
+// memory for a tile's whole walk over N (see the note at the top of the file).
+namespace w8a8 {
 
-  const int row0 = blockIdx.x * BR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+constexpr int BM = 128;                // rows per tile: two consumer warpgroups of 64
+constexpr int BNT = 256;               // output columns per tile (one wgmma N)
+constexpr int KQ = 128;                // DM codes per stage: one 128-byte swizzle row
+constexpr int CM = 2;                  // CTAs of a cluster: consecutive row tiles sharing each W stage
+constexpr int W_BYTES = BNT * KQ;      // 32 KB of W codes per stage, loaded a 1 / CM slice by each CTA
+constexpr int THREADS = 384;           // two consumer warpgroups + a producer warpgroup
+constexpr int E_BYTES = 8 * 16 * 128;  // epilogue: 16 rows x 64 columns of bf16 for each consumer warp
 
-  // ---- front end: LN (or x as fp32) in registers, row absmax, int8 codes
-  for (int rr = warp; rr < BR; rr += NTHREADS / 32) {
-    const int row = row0 + rr;
-    if (row < R) {
-      float2 y[DM / 64];
-      ln_row_f32<DM>(x + (long long)row * DM, WITH_LN ? scale : nullptr, bias, eps, lane, y);
-      const float sa = quant_row_int8<DM>(y, lane, sQ + rr * LDQ,
-                                          codes_out ? codes_out + (long long)row * DM : nullptr);
-      if (lane == 0) sSa[rr] = sa;
-    } else {
-      for (int c = lane * 16; c < DM; c += 512)
-        *reinterpret_cast<uint4*>(sQ + rr * LDQ + c) = make_uint4(0u, 0u, 0u, 0u);
-      if (lane == 0) sSa[rr] = 0.f;
-    }
-  }
-
-  const int rg = warp & 1;
-  const int cg = warp >> 1;
-
-  for (int n0 = 0; n0 < N; n0 += BN) {
-    int acc[2][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
-
-    for (int k0 = 0; k0 < DM; k0 += KSQ) {
-      __syncthreads();
-      for (int item = threadIdx.x; item < BN * (KSQ / 16); item += NTHREADS) {
-        const int r = item / (KSQ / 16);
-        const int c = (item % (KSQ / 16)) * 16;
-        *reinterpret_cast<uint4*>(sWq + r * LDWQ + c) =
-            *reinterpret_cast<const uint4*>(wq + (long long)(n0 + r) * DM + k0 + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < KSQ / 32; ++ks) {
-        uint32_t af[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int8_t* qp = sQ + (rg * 32 + mt * 16 + g) * LDQ + k0 + ks * 32 + t * 4;
-          af[mt][0] = lds32(qp);
-          af[mt][1] = lds32(qp + 8 * LDQ);
-          af[mt][2] = lds32(qp + 16);
-          af[mt][3] = lds32(qp + 8 * LDQ + 16);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int8_t* wp = sWq + (cg * 32 + nt * 8 + g) * LDWQ + ks * 32 + t * 4;
-          const uint32_t b0 = lds32(wp), b1 = lds32(wp + 16);
-          mma_s8(acc[0][nt], af[0], b0, b1);
-          mma_s8(acc[1][nt], af[1], b0, b1);
-        }
-      }
-    }
-
-    // ---- epilogue of the tile: out = [res +] bf16(float(acc) * sa * sw[n])
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int rr = rg * 32 + mt * 16 + g + hr * 8;
-        const int row = row0 + rr;
-        if (row >= R) continue;
-        const float sa = sSa[rr];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int col = n0 + cg * 32 + nt * 8 + t * 2;
-          const long long at = (long long)row * N + col;
-          float o0 = bf16_round((float)acc[mt][nt][2 * hr] * sa * sw[col]);
-          float o1 = bf16_round((float)acc[mt][nt][2 * hr + 1] * sa * sw[col + 1]);
-          if (res) {
-            const float2 rv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res + at));
-            o0 += rv.x;
-            o1 += rv.y;
-          }
-          *reinterpret_cast<uint32_t*>(out + at) = pack_bf16(o0, o1);
-        }
-      }
-    }
-  }
+template <int DM>
+__host__ __device__ constexpr int stages() {  // as deep as shared memory allows beside the BM x DM codes
+  return DM == 768 ? 3 : DM == 512 ? 4 : 5;
 }
 
+template <int DM>
+constexpr int smem_bytes() {
+  return 1024 + BM * DM + stages<DM>() * W_BYTES + E_BYTES + 2 * 2 * BNT * 4 + 2 * DM * 4 + BM * 4 +
+         2 * stages<DM>() * 8;
+}
+
+// The front end's lane layout: lane l holds columns 256 i + 8 l + j of a row (i < DM / 256, j < 8), so
+// that it reads x and writes codes 16 and 8 bytes at a time.
+template <int DM>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ xr, int lane, uint4 (&raw)[DM / 256]) {
+#pragma unroll
+  for (int i = 0; i < DM / 256; ++i) raw[i] = *reinterpret_cast<const uint4*>(xr + 256 * i + 8 * lane);
+}
+
+// The row's int8 codes (8 per 32-bit pair, the lane's columns of chunk i in code[i]) and its scale
+// sa = max(amax, 1e-30) / 127: the flax LayerNorm in fp32 first when WITH_LN (scale and bias in shared
+// memory), then quant_row_int8_x8 (csrc/ln_rows.cuh), whose codes are the plain quantiser's.
 template <int DM, bool WITH_LN>
-int launch_q(const void* x, const void* scale, const void* bias, const void* wq, const void* sw,
-             const void* res, void* out, void* codes_out, int R, int N, float eps, void* stream) {
-  constexpr int bytes = smem_bytes_q<DM>();
-  cudaError_t err = cudaFuncSetAttribute(ln_matmul_q_kernel<DM, WITH_LN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+__device__ __forceinline__ float quant_row(const uint4 (&raw)[DM / 256], const float* sScale, const float* sBias,
+                                           float eps, int lane, uint2 (&code)[DM / 256]) {
+  constexpr int NC = DM / 256;
+  float y[NC][8];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(&raw[i]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&p[e]));
+      y[i][2 * e] = f.x, y[i][2 * e + 1] = f.y;
+    }
+  }
+  if constexpr (WITH_LN) {
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s1 += y[i][j], s2 += y[i][j] * y[i][j];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffff, s1, off);
+      s2 += __shfl_xor_sync(0xffffffff, s2, off);
+    }
+    const float mu = s1 / DM, rstd = rsqrtf(fmaxf(s2 / DM - mu * mu, 0.f) + eps);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = 256 * i + 8 * lane;
+      const float4 sc[2] = {*reinterpret_cast<const float4*>(sScale + c), *reinterpret_cast<const float4*>(sScale + c + 4)};
+      const float4 bi[2] = {*reinterpret_cast<const float4*>(sBias + c), *reinterpret_cast<const float4*>(sBias + c + 4)};
+      const float* scv = reinterpret_cast<const float*>(sc);
+      const float* biv = reinterpret_cast<const float*>(bi);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) y[i][j] = (y[i][j] - mu) * (rstd * scv[j]) + biv[j];
+    }
+  }
+  return quant_row_int8_x8<NC>(y, code);
+}
+
+template <int DM, bool WITH_LN, bool RES>
+__global__ void __cluster_dims__(CM, 1, 1) __launch_bounds__(THREADS, 1)
+    ln_matmul_q_kernel(const __grid_constant__ CUtensorMap map_w, const __grid_constant__ CUtensorMap map_out,
+                       const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
+                       const float* __restrict__ bias, const float* __restrict__ sw,
+                       const __nv_bfloat16* __restrict__ res, int8_t* __restrict__ codes_out, int R, int N, float eps) {
+  using namespace sm90;
+  constexpr int KB = DM / KQ, STAGES = stages<DM>();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sW = sQ + BM * DM;                          // STAGES x (BNT rows x KQ codes)
+  unsigned char* sE = sW + STAGES * W_BYTES;                 // E_BYTES
+  float* sSw = reinterpret_cast<float*>(sE + E_BYTES);       // [warpgroup][N tile parity][BNT] weight scales
+  float* sScale = sSw + 2 * 2 * BNT;                         // DM LN scale, LN form only
+  float* sBias = sScale + DM;                                // DM LN bias (zeros without one)
+  float* sSa = sBias + DM;                                   // BM row scales
+  uint64_t* full = reinterpret_cast<uint64_t*>(sSa + BM);   // STAGES: the stage's W slice landed
+  uint64_t* empty = full + STAGES;  // STAGES: every consumer warp of the cluster is done with it
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rank = cluster_ctarank();
+  const int groups = ((R + BM - 1) / BM + CM - 1) / CM;  // a cluster's CM row tiles
+  const int cluster = blockIdx.x / CM, clusters = gridDim.x / CM;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8 * CM);
+    }
+    fence_mbar_init();
+  }
+  if (WITH_LN)
+    for (int i = threadIdx.x; i < DM; i += THREADS) {
+      sScale[i] = scale[i];
+      sBias[i] = bias ? bias[i] : 0.f;
+    }
+  __syncthreads();
+  cluster_sync();  // every CTA's barriers exist before any copy or remote arrival reaches them
+
+  if (warp >= 8) {  // producer warpgroup: one thread keeps the ring of W slices full
+    regs_dealloc<40>();
+    if (warp == 8 && lane == 0) {
+      prefetch_map(&map_w);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int g = cluster; g < groups; g += clusters)
+        for (int n0 = 0; n0 < N; n0 += BNT)
+          for (int kb = 0; kb < KB; ++kb) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], W_BYTES);
+            tma_load_2d_multicast(sW + stage * W_BYTES + rank * (W_BYTES / CM), &map_w, &full[stage], kb * KQ,
+                                  n0 + rank * (BNT / CM), (1 << CM) - 1);
+            if (++stage == STAGES) stage = 0, phase ^= 1;
+          }
+      // stay until every consumer of the cluster has released every stage: no remote
+      // arrival may reach this CTA after it exits
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile, their codes and their products
+  regs_alloc<232>();
+  const int wg = warp >> 2, wl = warp & 3, tw = threadIdx.x & 127;
+  const int rt = 64 * wg;  // the warpgroup's first row in the tile
+  int acc[BNT / 2];
+  uint4 rv[2][4];  // residual of two epilogue slices, 8 columns each, in the epilogue's layout
+  unsigned char* ebuf = sE + warp * (16 * 128);
+  int stage = 0, tile = 0;  // tile: N tiles walked so far, whose parity picks the weight-scale buffer
+  uint32_t phase = 0;
+  auto release = [&](int s) {
+    if (lane == 0)
+      for (int q = 0; q < CM; ++q) mbar_arrive_cluster(&empty[s], q);
+  };
+  for (int g = cluster; g < groups; g += clusters) {
+    const int r0 = (g * CM + rank) * BM + rt;  // this warpgroup's first row
+    // ---- front end: each warp's 16 rows, two at a time: LN (or x) in fp32, per-row int8 codes over all DM
+    // columns into the swizzled code blocks, row scales. The warpgroup's codes are read by its own products
+    // only: once all four warps have waited for the last of them, the previous tile's codes are free.
+    named_barrier(1 + wg, 128);
+    // A row past R is read as row 0 and its codes and scale are zeroed after: a branch around the row's
+    // loads and shuffles made 6r 16 % slower on the card.
+    for (int r = 16 * wl; r < 16 * wl + 16; r += 2) {
+      uint4 raw[2][DM / 256];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) load_row<DM>(x + (long long)(r0 + r + h < R ? r0 + r + h : 0) * DM, lane, raw[h]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + r + h, tr = rt + r + h;
+        uint2 code[DM / 256];
+        float sa = quant_row<DM, WITH_LN>(raw[h], sScale, sBias, eps, lane, code);
+        if (row >= R) {
+          sa = 0.f;
+#pragma unroll
+          for (int i = 0; i < DM / 256; ++i) code[i] = make_uint2(0u, 0u);
+        }
+#pragma unroll
+        for (int i = 0; i < DM / 256; ++i) {
+          const int c = 256 * i + 8 * lane;
+          *reinterpret_cast<uint2*>(sQ + (c >> 7) * (BM * KQ) + swizzle128(tr, c & 127)) = code[i];
+          if (codes_out && row < R) *reinterpret_cast<uint2*>(codes_out + (long long)row * DM + c) = code[i];
+        }
+        if (lane == 0) sSa[tr] = sa;
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + wg, 128);
+    // the row scales of the lane's two accumulator rows (its warp wrote them)
+    const float sa0 = sSa[rt + 16 * wl + (lane >> 2)], sa1 = sSa[rt + 16 * wl + (lane >> 2) + 8];
+
+    for (int n0 = 0; n0 < N; n0 += BNT, ++tile) {
+      // the tile's weight scales into this warpgroup's buffer of the tile's parity (the other buffer may still
+      // be read by a warp in the previous tile's epilogue; this one was last read two tiles ago, before the
+      // barrier of the previous tile)
+      float* csw = sSw + (2 * wg + (tile & 1)) * BNT;
+      for (int i = tw; i < BNT; i += 128) csw[i] = n0 + i < N ? sw[n0 + i] : 0.f;
+      named_barrier(1 + wg, 128);
+      // epilogue layout: slice s of 64 columns; lane l owns rows l / 8 + 4 i of the warp's 16, columns 8 (l % 8)
+      const int erow0 = r0 + 16 * wl + (lane >> 3), ecol = n0 + 8 * (lane & 7);
+      auto load_res = [&](int sl) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = erow0 + 4 * i, col = ecol + 64 * sl;
+          rv[sl & 1][i] = row < R && col < N ? __ldcs(reinterpret_cast<const uint4*>(res + (long long)row * N + col))
+                                             : make_uint4(0u, 0u, 0u, 0u);
+        }
+      };
+      if constexpr (RES) {  // bring the tile's residual towards L2 now; it is loaded into registers with the last stage
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int line = tw + 128 * i, row = r0 + (line >> 2), col = n0 + (line & 3) * 64;
+          if (row < R && col < N) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(res + (long long)row * N + col));
+        }
+      }
+      int prev = -1;
+      for (int kb = 0; kb < KB; ++kb) {
+        mbar_wait_wg(&full[stage], phase);
+        wgmma_fence();
+        const uint64_t da = desc_sw128(sQ + kb * (BM * KQ) + rt * KQ), db = desc_sw128(sW + stage * W_BYTES);
+#pragma unroll
+        for (int k = 0; k < KQ / 32; ++k) wgmma_s8_n256(acc, da + 2 * k, db + 2 * k, kb | k);
+        wgmma_commit();
+        if constexpr (RES)  // the first two slices' residual is read while the last stage's products run
+          if (kb == KB - 1) load_res(0), load_res(1);
+        wgmma_wait<1>();  // the previous stage's products are done: hand it back
+        if (prev >= 0) release(prev);
+        prev = stage;
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(prev);
+
+      // epilogue: out = [res +] bf16(float(acc) * sa * sw[n]), while the producer already loads the next
+      // tile. Each warp writes its 16 x 64 slices into its buffer in the 128-byte swizzle, adds the residual
+      // there 16 bytes a lane, and hands each slice to a TMA store, which drains it behind the next products.
+#pragma unroll
+      for (int sl = 0; sl < BNT / 64; ++sl) {
+        if (n0 + 64 * sl >= N) break;
+        if (lane == 0) bulk_wait_read<0>();  // the warp's previous store has read the buffer
+        __syncwarp();
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = 8 * sl + jj;
+          const float2 s = *reinterpret_cast<const float2*>(csw + 8 * j + 2 * (lane & 3));
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = (lane >> 2) + 8 * hr;
+            const float sa = hr ? sa1 : sa0;
+            *reinterpret_cast<uint32_t*>(ebuf + r * 128 + ((jj ^ (r & 7)) << 4) + 4 * (lane & 3)) =
+                pack_bf16((float)acc[4 * j + 2 * hr] * sa * s.x, (float)acc[4 * j + 2 * hr + 1] * sa * s.y);
+          }
+        }
+        if constexpr (RES) {
+          __syncwarp();
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = (lane >> 3) + 4 * i;
+            uint4* p = reinterpret_cast<uint4*>(ebuf + r * 128 + (((lane & 7) ^ (r & 7)) << 4));
+            uint4 v = *p;
+            uint32_t* pv = reinterpret_cast<uint32_t*>(&v);
+            const uint32_t* pr = reinterpret_cast<const uint32_t*>(&rv[sl & 1][i]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 o = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pv[e]));
+              const float2 rr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pr[e]));
+              pv[e] = pack_bf16(o.x + rr.x, o.y + rr.y);
+            }
+            *p = v;
+          }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {  // rows past R are not written
+          tma_store_2d(&map_out, ebuf, n0 + 64 * sl, r0 + 16 * wl);
+          bulk_commit();
+        }
+        if constexpr (RES)
+          if (sl + 2 < BNT / 64) load_res(sl + 2);
+      }
+    }
+  }
+  if (lane == 0) bulk_wait<0>();  // every store is done before the block's shared memory goes
+}
+
+template <int DM, bool WITH_LN, bool RES>
+int launch(const void* x, const void* scale, const void* bias, const void* wq, const void* sw, const void* res,
+           void* out, void* codes_out, int R, int N, float eps, void* stream) {
+  CUtensorMap map_w, map_out;
+  if (!make_map_2d(&map_w, wq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, DM, BNT / CM, KQ) ||
+      !make_map_2d(&map_out, out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, R, N, 16, 64))
+    return (int)cudaErrorInvalidValue;
+  constexpr int bytes = smem_bytes<DM>();
+  const void* kernel = (const void*)ln_matmul_q_kernel<DM, WITH_LN, RES>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  ln_matmul_q_kernel<DM, WITH_LN><<<(R + BR - 1) / BR, NTHREADS, bytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const float*)scale, (const float*)bias, (const int8_t*)wq,
-      (const float*)sw, (const __nv_bfloat16*)res, (__nv_bfloat16*)out, (int8_t*)codes_out, R, N, eps);
+  static const int max_clusters = max_active_clusters(kernel, THREADS, bytes, CM);
+  const int groups = ((R + BM - 1) / BM + CM - 1) / CM;
+  ln_matmul_q_kernel<DM, WITH_LN, RES>
+      <<<CM * (groups < max_clusters ? groups : max_clusters), THREADS, bytes, (cudaStream_t)stream>>>(
+          map_w, map_out, (const __nv_bfloat16*)x, (const float*)scale, (const float*)bias, (const float*)sw,
+          (const __nv_bfloat16*)res, (int8_t*)codes_out, R, N, eps);
   return (int)cudaGetLastError();
 }
+
+}  // namespace w8a8
 
 }  // namespace
 
@@ -461,11 +666,14 @@ extern "C" int cm3p_ln_matmul_q(const void* x, const void* scale, const void* bi
                                 int DM, int N, float eps, int with_ln, void* stream) {
   if (R <= 0 || N <= 0 || N % BN != 0) return (int)cudaErrorInvalidValue;
   if (with_ln && scale == nullptr) return (int)cudaErrorInvalidValue;
-#define CM3P_LNMM_Q(D)                                                                              \
-  if (DM == D)                                                                                      \
-    return with_ln                                                                                  \
-               ? launch_q<D, true>(x, scale, bias, wq, sw, res, out, codes_out, R, N, eps, stream)  \
-               : launch_q<D, false>(x, nullptr, nullptr, wq, sw, res, out, codes_out, R, N, eps, stream);
+#define CM3P_LNMM_Q(D)                                                                                        \
+  if (DM == D) {                                                                                              \
+    if (with_ln)                                                                                              \
+      return res ? w8a8::launch<D, true, true>(x, scale, bias, wq, sw, res, out, codes_out, R, N, eps, stream) \
+                 : w8a8::launch<D, true, false>(x, scale, bias, wq, sw, res, out, codes_out, R, N, eps, stream); \
+    return res ? w8a8::launch<D, false, true>(x, nullptr, nullptr, wq, sw, res, out, codes_out, R, N, eps, stream) \
+               : w8a8::launch<D, false, false>(x, nullptr, nullptr, wq, sw, res, out, codes_out, R, N, eps, stream); \
+  }
   CM3P_LNMM_Q(768)
   CM3P_LNMM_Q(512)
   CM3P_LNMM_Q(256)

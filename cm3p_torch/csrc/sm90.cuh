@@ -121,6 +121,29 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// One 2-D TMA tile store from shared memory (in the map's swizzle), coordinates (inner, outer) in
+// elements; rows and columns outside the tensor are not written. It joins this thread's open bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int inner, int outer) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(inner), "r"(outer), "r"(smem_u32(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Waits until at most N of this thread's bulk groups have not yet read their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until at most N of this thread's bulk groups are not complete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // One arrival on the barrier at the same offset in CTA `cta` of the cluster.
 __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, int cta) {
   asm volatile(

@@ -320,7 +320,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--window-length", type=float, default=None,
                         help="override window_length_sec; the stride follows unless --window-stride is given")
     parser.add_argument("--window-stride", type=float, default=None, help="override window_stride_sec")
-    parser.add_argument("--tiny-model", action="store_true", help="seeded random tiny model (smoke runs)")
+    parser.add_argument("--tiny-model", action="store_true",
+                        help="seeded random tiny model (smoke runs; plain PyTorch ops, no kernel)")
     parser.add_argument("--no-pack", dest="pack", action="store_false",
                         help="per-window dense batches instead of packed rows")
     parser.add_argument("--precise", action="store_true",
@@ -354,7 +355,11 @@ def _random_model(processor: CM3PProcessor, tiny: bool, device, dtype, options) 
     cfg.beatmap_config.vocab_size = bt.vocab_size
     cfg.beatmap_config.audio_token_id = bt.audio_token_id
     weights = init_weights(cfg, torch.Generator().manual_seed(0))
-    return load_model(cfg, weights, device=device, dtype=dtype, options=options)
+    model = load_model(cfg, weights, device=device, dtype=dtype, options=options)
+    if tiny:  # head dims and widths no kernel takes: the JAX tool runs this model on XLA
+        logger.info("--tiny-model: every op runs its plain PyTorch version on %s", device)
+        model.set_plain(True)
+    return model
 
 
 def main(argv=None) -> dict[int, np.ndarray]:

@@ -35,7 +35,11 @@ metadata tower's ``meta_pack`` rows restart positions) rope is applied
 outside. The MLP runs :class:`~cm3p_torch.ops.fused_ffn.LnFfnFunction`.
 Kernels on CUDA at every length, plain versions on the CPU; ``plain=True`` on
 an encoder runs the plain versions on any device, with rope outside under
-autograd (the on-card oracle).
+autograd (the on-card oracle). The kernels take bf16, head dim 64 and the
+towers' widths 256 / 512 / 768, and raise on CUDA on anything else: a model
+outside them runs on the card only when its entry point asks for ``plain``
+(``python -m cm3p_torch.extract --tiny-model``, and the training configs with
+``attn_impl: xla``, as the JAX package runs those on XLA).
 
 :class:`EncoderOptions` carries the extraction options that the JAX package
 reads from the environment. They act on no-grad forwards only (under autograd

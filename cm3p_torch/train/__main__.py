@@ -97,7 +97,9 @@ def model_config(args: dict, processor: CM3PProcessor) -> CM3PConfig:
 
 
 def build_model(args: dict, cfg: CM3PConfig, device: torch.device, seed: int) -> CM3PModel:
-    """Seeded fp32 master weights on ``device``; bf16 compute unless on the CPU."""
+    """Seeded fp32 master weights on ``device``; bf16 compute unless on the CPU; the plain
+    versions of every op with ``attn_impl: xla`` (the smoke configs: no kernel takes their
+    head dims), else the kernels, which raise on a shape or dtype they do not take."""
     if args.get("model_cls", "CM3PModule") != "CM3PModule":
         raise NotImplementedError(f"the port trains the contrastive model only, not {args['model_cls']}")
     if args.get("remat"):
@@ -107,6 +109,9 @@ def build_model(args: dict, cfg: CM3PConfig, device: torch.device, seed: int) ->
     model.load_state_dict(init_weights(cfg, gen, with_metadata=True))
     model.to(device)
     model.set_compute_dtype(torch.bfloat16 if device.type != "cpu" else torch.float32)
+    if args.get("attn_impl", "pallas") == "xla":  # the JAX package's route without its kernels
+        logger.info("attn_impl=xla: every op runs its plain PyTorch version on %s", device)
+        model.set_plain(True)
     return model
 
 

@@ -2,6 +2,7 @@
 """Time one phase's kernels of two checkouts on one card, in turns.
 
     python3 compare_kernels.py --parent DIR [--phase quant|wo|ffn|attn] [--out DIR]
+    python3 compare_kernels.py --phase parts [--out DIR]
 
 ``DIR`` is another checkout of this repository (for example ``git archive
 <commit> | tar -x -C _scratch/parent``). Each turn runs one tree's phase 7
@@ -12,6 +13,9 @@ measured on the same card within one run:
 * ``quant`` (the default): ``chip_smoke.check_quant_kernels``, the LN-matmul
   and int8 FFN kernels against their plain versions, then their times, plain
   times, bounds and ``torch.addmm`` at the packed beatmap shape (323,584 rows);
+  then the four LN-matmul forms at D 512 (bf16 and int8, LN -> QKV and Wo +
+  residual) at the audio tower's 237 x 1,500 rows through the public ops, on
+  the same seeded inputs in every turn, with their bounds;
 * ``wo``: ``chip_smoke.check_wo_kernels``, the four attention forms with the
   Wo epilogue against their plain versions, then their times beside the
   unfused pair they replace, at the packed beatmap shape and the audio
@@ -40,6 +44,13 @@ measured on the same card within one run:
   wrapper's PyTorch ops, inside the form's time). The segments are made once from the 17 maps,
   as for ``wo``. The first change turn also times the plain version and one
   SDPA call (memory-efficient backend, the same mask) and computes the bound.
+
+* ``parts`` (this tree only, no ``--parent``): the int8 LN-matmul kernel
+  (rows 6 and 6r at 323,584 rows) beside copies of it built with one part cut
+  out (the front end, the products, the epilogue, the TMA stores, the W loads,
+  or all but one), each timed twice in turns on the same seeded inputs: what
+  each part costs. The copies are sed-edited ``csrc/fused_ln_matmul.cu``; an
+  edit that no longer matches the source fails the run.
 
 Prints the card's name and power limit, each turn's timing lines and, per
 kernel form (and shape), the four times; writes each turn's log and
@@ -71,8 +82,24 @@ gen = torch.Generator(device="cuda").manual_seed(0)
 errs, report = chip_smoke.check_quant_kernels(torch, ops, gen, torch.device("cuda"), 79 * 4096)
 fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")  # a report row, as check_quant_kernels documents
 report = {name: dict(zip(fields, row, strict=True)) for name, row in report.items()}
-print("REPORT " + json.dumps({"errs": errs, "report": report}), flush=True)
+# the D 512 forms at the rows the audio tower gives them (237 windows x 1,500 frames), through the public ops
+from cm3p_torch.ops.quant import quantize_weight_int8
+audio, rows = {}, 237 * 1500
+gen = torch.Generator(device="cuda").manual_seed(512)
+x = (0.5 * torch.randn(rows, 512, generator=gen, device="cuda")).to(torch.bfloat16)
+scale = 1 + 0.1 * torch.randn(512, generator=gen, device="cuda")
+for n_out, suffix in ((1536, ""), (512, "_wo")):
+    w = (0.02 * torch.randn(n_out, 512, generator=gen, device="cuda")).to(torch.bfloat16)
+    w_q = quantize_weight_int8(w)
+    res = (0.5 * torch.randn(rows, n_out, generator=gen, device="cuda")).to(torch.bfloat16) if suffix else None
+    kw = dict(scale=None if suffix else scale, residual=res)
+    audio["fused_ln_matmul" + suffix] = chip_smoke.cuda_ms(lambda: ops.fused_ln_matmul(x, w, **kw), 10)
+    audio["fused_ln_matmul_q" + suffix] = chip_smoke.cuda_ms(lambda: ops.fused_ln_matmul_q(x, w, w_q=w_q, **kw), 10)
+    for name in ("fused_ln_matmul" + suffix, "fused_ln_matmul_q" + suffix):
+        print(f"  {name} 512 -> {n_out}, {rows} rows: {audio[name]:.3f} ms (audio tower shape)", flush=True)
+print("REPORT " + json.dumps({"errs": errs, "report": report, "audio": audio}), flush=True)
 """
+AUDIO_ROWS = 237 * 1500  # the rows of QUANT_TURN's audio-tower timings
 # the 17 maps' packed segments and the audio tower's shape, as chip_smoke's main path makes them
 WO_INPUTS = r"""
 import sys, torch
@@ -264,6 +291,77 @@ for n, (key, (qseg, kseg, heads, window, theta, lse)) in enumerate(FORMS.items()
     torch.cuda.empty_cache()
 print("REPORT " + json.dumps({"errs": errs, "times": times, "library": lib}), flush=True)
 """
+# the int8 LN-matmul kernel beside copies with one part cut out (edits of its namespace's source)
+PARTS = r"""
+import ctypes, json, subprocess, sys, tempfile
+from pathlib import Path
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from cm3p_torch.ops import _build
+from cm3p_torch.ops.fused_ln_matmul import _SIGNATURES
+from cm3p_torch.ops.quant import quantize_weight_int8
+
+csrc = Path(sys.argv[1]) / "cm3p_torch" / "csrc"
+text = (csrc / "fused_ln_matmul.cu").read_text()
+head, body = text.split("namespace w8a8 {", 1)
+CUTS = {
+    "front end": [("    for (int r = 16 * wl; r < 16 * wl + 16; r += 2) {",
+                   "    if (0) for (int r = 16 * wl; r < 16 * wl + 16; r += 2) {")],
+    "products": [("        for (int k = 0; k < KQ / 32; ++k) wgmma_s8_n256(",
+                  "        if (0) for (int k = 0; k < KQ / 32; ++k) wgmma_s8_n256(")],
+    "epilogue": [("        if (n0 + 64 * sl >= N) break;", "        if (1) break;")],
+    "TMA stores": [("          tma_store_2d(&map_out, ebuf, n0 + 64 * sl, r0 + 16 * wl);\n", "")],
+    "W loads": [("            mbar_expect_tx(&full[stage], W_BYTES);\n            tma_load_2d_multicast(", "            mbar_arrive(&full[stage]);\n            if (0) tma_load_2d_multicast(")],
+}
+COPIES = {"kernel": [], **{f"without the {k}": [k] for k in CUTS},
+          "the front end alone": ["products", "epilogue", "W loads"], "the W ring alone": ["front end", "products", "epilogue"]}
+libs = {}
+with tempfile.TemporaryDirectory() as tmp:
+    procs = {}
+    for n, (name, cuts) in enumerate(COPIES.items()):
+        src = body
+        for cut in cuts:
+            for a, b in CUTS[cut]:
+                if src.count(a) != 1:
+                    raise SystemExit(f"the cut of the {cut} no longer matches csrc/fused_ln_matmul.cu")
+                src = src.replace(a, b)
+        path = Path(tmp) / f"part{n}.cu"
+        path.write_text(head + "namespace w8a8 {" + src)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(Path(tmp) / f"part{n}.so"), str(path)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), n)
+    for name, (proc, n) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{name}: build failed\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(Path(tmp) / f"part{n}.so"))
+        lib.cm3p_ln_matmul_q.argtypes = _SIGNATURES["cm3p_ln_matmul_q"]
+        lib.cm3p_ln_matmul_q.restype = ctypes.c_int
+        libs[name] = lib
+dev = torch.device("cuda")
+gen = torch.Generator(device=dev).manual_seed(0)
+stream = torch.cuda.current_stream().cuda_stream
+times = {}
+for row, rows, d, n, ln in (("6", 323584, 768, 2304, True), ("6r", 323584, 768, 768, False)):
+    x = (0.5 * torch.randn(rows, d, generator=gen, device=dev)).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    wq, sw = quantize_weight_int8((0.02 * torch.randn(n, d, generator=gen, device=dev)).to(torch.bfloat16))
+    res = None if ln else (0.5 * torch.randn(rows, n, generator=gen, device=dev)).to(torch.bfloat16)
+    out = torch.empty(rows, n, dtype=torch.bfloat16, device=dev)
+    for turn in range(2):
+        for name, lib in libs.items():
+            def run(lib=lib):
+                err = lib.cm3p_ln_matmul_q(x.data_ptr(), scale.data_ptr() if ln else None, None, wq.data_ptr(),
+                                           sw.data_ptr(), None if res is None else res.data_ptr(), out.data_ptr(),
+                                           None, rows, d, n, 1e-5, int(ln), stream)
+                if err:
+                    raise SystemExit(f"{name}: CUDA error {err}")
+            times.setdefault(f"{row} {name}", []).append(chip_smoke.cuda_ms(run, 20))
+    for name in libs:
+        print(f"  row {row}, {name}: " + " / ".join(f"{t:.3f}" for t in times[f"{row} {name}"]) + " ms", flush=True)
+    del x, wq, sw, res, out
+print("REPORT " + json.dumps({"times": times}), flush=True)
+"""
 # a timing line of check_wo_kernels: form, shape, ms, ..., the unfused pair's ms
 WO_LINE = re.compile(r"^\s*(\w+)\s+(packed|audio)\b.*?: ([0-9.]+) ms \(plain .* ([0-9.]+) ms\)$")
 
@@ -280,15 +378,23 @@ def wo_times(stdout: str) -> dict[str, dict[str, float]]:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--parent", required=True, type=Path, help="root of the other checkout")
-    parser.add_argument("--phase", choices=("quant", "wo", "ffn", "attn"), default="quant",
+    parser.add_argument("--parent", type=Path, help="root of the other checkout (every phase but parts)")
+    parser.add_argument("--phase", choices=("quant", "wo", "ffn", "attn", "parts"), default="quant",
                         help="the kernels to compare")
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out", help="directory for the logs")
     args = parser.parse_args()
+    if (args.parent is None) != (args.phase == "parts"):
+        parser.error("--parent is needed by every phase but parts, which takes none")
     args.out.mkdir(parents=True, exist_ok=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
+    if args.phase == "parts":
+        run = subprocess.run([sys.executable, "-c", PARTS, str(ROOT)], cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+        (args.out / "parts.log").write_text(run.stdout + run.stderr)
+        print(run.stdout if run.returncode == 0 else (run.stdout + run.stderr)[-3000:], flush=True)
+        return run.returncode
     turn_args = []
     if args.phase in ("wo", "attn"):
         inputs = (args.out / f"{args.phase}_inputs.pt").resolve()
@@ -351,6 +457,13 @@ def main() -> int:
         if row["library_ms"] is not None:
             print(f"{name}, one PyTorch call: ms " + ", ".join(
                 f"{r['tree']} {r['report'][name]['library_ms']:.3f}" for r in results), flush=True)
+    from chip_smoke import lnmm_bound_ms
+
+    for name in results[0]["audio"]:
+        wo = name.endswith("_wo")
+        bound, by = lnmm_bound_ms(AUDIO_ROWS, 512, 512 if wo else 1536, wo, "_q" in name)
+        print(f"{name} at {AUDIO_ROWS} x 512: ms " + ", ".join(f"{r['tree']} {r['audio'][name]:.3f}" for r in results)
+              + f"; bound {bound:.3f} ({by})", flush=True)
     return 0
 
 

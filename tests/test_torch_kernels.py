@@ -31,7 +31,10 @@ key ranges, windows 64 / 192 / 256 and the segment form, H 3 / 4 / 8 / 12,
 with rope and lse and without): the same 2e-2 and 1e-3, and exactly log2(1e-30)
 as the lse of a query that sees no key; the rectangular form at lengths off the
 tiles; the int8 epilogue kernel at the bf16 one's edges, with its codes as for
-the LN forms.
+the LN forms. The LN-matmul forms also at the persistent kernels' row counts
+(an odd number of 128-row tiles, several tiles per cluster, zero rows in the
+first and the last tile), and the int8 form at its tile edges as the bf16 one,
+with its codes as above.
 """
 import math
 
@@ -366,19 +369,34 @@ def _assert_codes_agree(got, want):
     assert float((diff > 0).float().mean()) <= CODE_SHARE_MAX
 
 
+def _lnmm_rows(rows):
+    """Row counts of the LN-matmul kernels' persistent paths: "odd" gives an odd number of 128-row tiles
+    (the last cluster's second tile has no row) with R not a multiple of 128; "waves" several tiles for
+    every cluster of the persistent grid and a ragged third for some (resolved on the card)."""
+    return 4 * 128 + 77 if rows == "odd" else _edge_rows(rows, 2 * 128, 1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d, n_out, with_ln, with_bias", [
     (768, 2304, True, False), (512, 1536, True, False), (768, 768, False, False), (512, 512, False, False),
     (768, 2304, True, True), (256, 768, True, True), (256, 256, False, False),
 ])
-def test_fused_ln_matmul_kernels_match_plain(cuda, d, n_out, with_ln, with_bias):
+@pytest.mark.parametrize("rows", [ROWS, "odd", "waves"])
+def test_fused_ln_matmul_kernels_match_plain(cuda, rows, d, n_out, with_ln, with_bias):
+    """Both forms, bf16 and W8A8, against their plain versions, with zero rows in the first and the last
+    row tile; the W8A8 form's activation codes against the plain quantiser's, code by code."""
+    rows = _lnmm_rows(rows)
     gen = torch.Generator(device=cuda).manual_seed(9)
-    x, scale, w = _rows_and_weight(d, n_out, gen, cuda)
-    res = None if with_ln else (0.5 * torch.randn(ROWS, n_out, generator=gen, device=cuda)).to(torch.bfloat16)
+    x = (0.5 * torch.randn(rows, d, generator=gen, device=cuda)).to(torch.bfloat16)
+    zero = torch.cat([torch.arange(5, 20), torch.arange(rows - 10, rows - 3)]).to(cuda)
+    x[zero] = 0
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=cuda)
+    w = (0.02 * torch.randn(n_out, d, generator=gen, device=cuda)).to(torch.bfloat16)
+    res = None if with_ln else (0.5 * torch.randn(rows, n_out, generator=gen, device=cuda)).to(torch.bfloat16)
     bias = 0.1 * torch.randn(d, generator=gen, device=cuda) if with_bias else None
     kw = dict(scale=scale if with_ln else None, bias=bias, residual=res)
     w_q = quantize_weight_int8(w)
-    codes = torch.empty_like(x, dtype=torch.int8)
+    codes = torch.full_like(x, -128, dtype=torch.int8)  # a value the quantiser never gives
     reset_launch_counts()
     got = fused_ln_matmul(x, w, **kw)
     got_q = fused_ln_matmul_q(x, w, w_q=w_q, codes_out=codes, **kw)
@@ -389,9 +407,9 @@ def test_fused_ln_matmul_kernels_match_plain(cuda, d, n_out, with_ln, with_bias)
     assert (got_q.float() - fused_ln_matmul_q_plain(x, w, w_q=w_q, **kw).float()).abs().max().item() <= ATOL
     assert torch.isfinite(got).all() and torch.isfinite(got_q).all()
     if not with_bias:  # a zero row gives a zero product: the residual, or 0
-        want_zero = 0 if res is None else res[ZERO_ROWS].float()
-        assert (got[ZERO_ROWS].float() - want_zero).abs().max().item() == 0.0
-        assert (got_q[ZERO_ROWS].float() - want_zero).abs().max().item() == 0.0
+        want_zero = 0 if res is None else res[zero].float()
+        assert (got[zero].float() - want_zero).abs().max().item() == 0.0
+        assert (got_q[zero].float() - want_zero).abs().max().item() == 0.0
     y = layer_norm_f32(x, scale, bias, 1e-5) if with_ln else x.float()
     _assert_codes_agree(codes, quant_rows_int8(y)[0])
 
@@ -478,6 +496,47 @@ def test_ln_matmul_bf16_kernel_with_a_half_column_tile(cuda, n_out):
     got = fused_ln_matmul(x, w, scale=scale, bias=bias)
     torch.cuda.synchronize()
     assert (got.float() - fused_ln_matmul_plain(x, w, scale=scale, bias=bias).float()).abs().max().item() <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+@pytest.mark.parametrize("d", [768, 512, 256])
+@pytest.mark.parametrize("form", ["ln", "ln_bias", "wo_residual"])
+def test_ln_matmul_q_kernel_at_tile_edges(cuda, rows, d, form):
+    """The wgmma form of cm3p_ln_matmul_q (rows 6 and 6r) against its plain version, and its activation
+    codes against the plain quantiser's."""
+    n_out = 3 * d if form != "wo_residual" else d
+    rows = _edge_rows(rows, 2 * 128, 1)  # a cluster walks every column tile of its two 128-row tiles
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x, scale, bias, zero = _edge_inputs(rows, d, gen, cuda)
+    w = (0.02 * torch.randn(n_out, d, generator=gen, device=cuda)).to(torch.bfloat16)
+    w_q = quantize_weight_int8(w)
+    res = (0.5 * torch.randn(rows, n_out, generator=gen, device=cuda)).to(torch.bfloat16) if form == "wo_residual" else None
+    kw = dict(scale=None if form == "wo_residual" else scale, bias=bias if form == "ln_bias" else None, residual=res)
+    codes = torch.full((rows, d), -128, dtype=torch.int8, device=cuda)  # a value the quantiser never gives
+    got = fused_ln_matmul_q(x, w, w_q=w_q, codes_out=codes, **kw)
+    want = fused_ln_matmul_q_plain(x, w, w_q=w_q, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    if form != "ln_bias":  # a zero row gives a zero product: the residual, or 0
+        assert torch.equal(got[zero], torch.zeros_like(got[zero]) if res is None else res[zero])
+    y = x.float() if form == "wo_residual" else layer_norm_f32(x, scale, kw["bias"], 1e-5)
+    _assert_codes_agree(codes, quant_rows_int8(y)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_out", [128, 384, 640])
+def test_ln_matmul_q_kernel_with_a_half_column_tile(cuda, n_out):
+    """N a multiple of 128 but not of the 256-column tile: the last W slice is half zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x, scale, bias, _ = _edge_inputs(300, 256, gen, cuda)
+    w = (0.02 * torch.randn(n_out, 256, generator=gen, device=cuda)).to(torch.bfloat16)
+    w_q = quantize_weight_int8(w)
+    got = fused_ln_matmul_q(x, w, scale=scale, bias=bias, w_q=w_q)
+    torch.cuda.synchronize()
+    want = fused_ln_matmul_q_plain(x, w, scale=scale, bias=bias, w_q=w_q)
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
 
 
 @pytest.mark.gpu
