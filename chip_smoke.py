@@ -185,7 +185,10 @@ WIDE_WINDOWS = (192, 256)  # windows the TPU dispatcher streams (rows 4 and 9); 
 # kernels without rope (every window layer of a shipped configuration trains with rope inside the kernels; they
 # serve window layers with other positions, other head dims or an odd head count)
 OFF_PATH = ("window_attention_wide", "window_attention_dq_wide", "window_attention_dkv_wide",
-            "window_attention_dq", "window_attention_dkv")
+            "window_attention_dq", "window_attention_dkv",
+            # fp32: the window kernel at a window no configuration has, and the rectangular form, which only
+            # sequence parallelism runs (phase 9 runs it in bf16)
+            "window_attention_f32_wide", "segment_attention_rect_f32")
 LSE_TOL = 1e-3
 BWD_REL_TOL = 1e-2
 LOSS_REL_TOL = 1e-2
@@ -225,6 +228,18 @@ KERNEL_SOURCES = {
     "window_attention_dkv_wide": ("cm3p_torch/csrc/attention_bwd.cu", "cm3p_tpu/ops/flash_attention_bwd.py:129"),
     # the segment kernel's rectangular form (lq != lk), run by sequence parallelism
     "segment_attention_rect": ("cm3p_torch/csrc/attention.cu", "cm3p_tpu/ops/flash_attention.py:513"),
+    # the fp32 forms of the forward kernels (a model run in fp32): each counted, timed and bounded on its own
+    "window_attention_f32": ("cm3p_torch/csrc/attention_f32.cu", "cm3p_tpu/ops/flash_attention.py:294"),
+    "segment_attention_f32": ("cm3p_torch/csrc/attention_f32.cu", "cm3p_tpu/ops/flash_attention.py:513"),
+    "window_attention_f32_wide": ("cm3p_torch/csrc/attention_f32.cu", "cm3p_tpu/ops/flash_attention.py:168"),
+    "segment_attention_rect_f32": ("cm3p_torch/csrc/attention_f32.cu", "cm3p_tpu/ops/flash_attention.py:513"),
+    "fused_ln_ffn_f32": ("cm3p_torch/csrc/fused_ffn_f32.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
+    "fused_ln_ffn_q_f32": ("cm3p_torch/csrc/fused_ffn_f32.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
+    "fused_ln_ffn_q_wo_f32": ("cm3p_torch/csrc/fused_ffn_f32.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
+    "fused_ln_matmul_f32": ("cm3p_torch/csrc/fused_ln_matmul_f32.cu", "cm3p_tpu/ops/fused_ln_matmul.py:79"),
+    "fused_ln_matmul_wo_f32": ("cm3p_torch/csrc/fused_ln_matmul_f32.cu", "cm3p_tpu/ops/fused_ln_matmul.py:79"),
+    "fused_ln_matmul_q_f32": ("cm3p_torch/csrc/fused_ln_matmul_f32.cu", "cm3p_tpu/ops/fused_ln_matmul.py:276"),
+    "fused_ln_matmul_q_wo_f32": ("cm3p_torch/csrc/fused_ln_matmul_f32.cu", "cm3p_tpu/ops/fused_ln_matmul.py:276"),
 }
 
 
@@ -242,6 +257,7 @@ WGMMA_KERNELS = {
     "fused_ffn": ("bf16::ffn_kernel", "w8a8::ffn_kernel", "w8a8::ffn_wo_kernel"),
     "attention": ("sm90_attn::attention_kernel",),
     "attention_wo": ("sm90_wo::attention_wo_kernel",),
+    "attention_bwd": ("sm90_dkv::attention_dkv_kernel",),
 }
 SASS_OPCODES = ("HGMMA", "IGMMA", "UTMALDG", "LDGSTS", "BAR.SYNC")  # IGMMA: wgmma on int8
 SERIAL_WGMMA_NOTES = ("C7514", "C7520")  # ptxas notes that it serialises every wgmma of a kernel
@@ -424,9 +440,12 @@ _CATEGORIES = (  # kernel-name pattern (re.search) -> category, first match wins
     (r"attention_wo_kernel<false, \d+, false>", "segment_attention_wo (ours)"),
     (r"attention_wo_kernel<true, \d+, true>", "window_attention_wo_q (ours)"),
     (r"attention_wo_kernel<false, \d+, true>", "segment_attention_wo_q (ours)"),
+    ("f32::attention_kernel<true>", "window_attention_f32 (ours)"),
+    ("f32::attention_kernel<false>", "segment_attention_f32 (ours)"),
     ("attention_kernel<true>", "window_attention (ours)"),
     ("attention_kernel<false>", "segment_attention (ours)"),
     ("rope_k_kernel", "attention rope pass (ours)"),  # of the window and segment forwards, part of each op
+    ("rope_qk_kernel", "dK/dV rope pass (ours)"),  # of the rope forms of the dK/dV kernel, part of each op
     ("key_tile_ranges_kernel", "segment key-tile ranges (ours)"),  # of the segment forms, part of each op
     ("attention_dq_kernel<true, false>", "window_attention_dq (ours)"),
     ("attention_dkv_kernel<true, false>", "window_attention_dkv (ours)"),
@@ -436,6 +455,8 @@ _CATEGORIES = (  # kernel-name pattern (re.search) -> category, first match wins
     ("attention_dkv_kernel<true, true>", "window_attention_dkv_rope (ours)"),
     ("attention_dq_kernel<false, true>", "segment_attention_dq_rope (ours)"),
     ("attention_dkv_kernel<false, true>", "segment_attention_dkv_rope (ours)"),
+    ("f32::ffn_kernel", "fused_ln_ffn_f32 (ours)"),
+    ("f32::ln_matmul_kernel", "fused_ln_matmul_f32 (ours)"),
     ("bf16::ffn_kernel", "fused_ln_ffn (ours)"),
     ("w8a8::ffn_kernel", "fused_ln_ffn_q (ours)"),
     ("w8a8::ffn_wo_kernel", "fused_ln_ffn_q_wo (ours)"),
@@ -845,8 +866,9 @@ def time_backward(torch, ops, seg, inputs, heads, label, windows):
             bound, bound_by = attention_bwd_bound_ms(b, length, heads, 64, pairs, outputs)
             rows[kname] = (ms, plain_ms, bound, bound_by, lib_ms)
         log(f"  {label} {pre}: forward with lse {lse_ms:.3f} ms (without {nolse_ms:.3f} ms), "
-            f"dq {dq_ms:.3f} ms, dkv {dkv_ms:.3f} ms, "
-            f"plain backward (dq, dk, dv) {plain_ms:.3f} ms, SDPA backward {lib_ms:.3f} ms, {pairs} visible pairs")
+            f"dq {dq_ms:.3f} ms (bound {rows[f'{pre}_dq'][2]:.3f}), dkv {dkv_ms:.3f} ms (bound "
+            f"{rows[f'{pre}_dkv'][2]:.3f}), plain backward (dq, dk, dv) {plain_ms:.3f} ms, SDPA backward "
+            f"{lib_ms:.3f} ms, {pairs} visible pairs")
         del out, lse, delta
     return rows
 
@@ -1893,6 +1915,320 @@ def sp_slice(torch, ops, dev, vocab, audio_id, tmp):
     return results[0]["counts"]
 
 
+# ---------------------------------------------------------------- phase 10
+
+FP32_FLOPS_PER_S = 67e12  # H100 SXM, fp32 on the CUDA cores (NVIDIA's data sheet); the fp32 route uses no TF32
+F32_REL_TOL = 1e-5  # max |kernel - plain| / max |plain| at fp32: the same fp32 arithmetic summed in another order
+F32_EXTRACT_COS_MIN = 0.99999  # per window, the fp32 kernel route against the all-plain fp32 route, same options
+F32_EXTRACT_INT8_COS_MIN = 0.9999  # the same for the settings with int8 products (a code may move by one)
+F32_MAPS = 6  # maps of the 17 that the fp32 extraction runs over (its all-plain reference is dense attention)
+# the fp32 forms that a bf16 form's launches become: the epilogue forms run the fp32 attention kernel, then the
+# fp32 LN-matmul kernel's residual form (the unfused pair the bf16 epilogue replaces)
+F32_FORMS = {
+    "window_attention": ("window_attention_f32",), "segment_attention": ("segment_attention_f32",),
+    "fused_ln_ffn": ("fused_ln_ffn_f32",), "fused_ln_ffn_q": ("fused_ln_ffn_q_f32",),
+    "fused_ln_ffn_q_wo": ("fused_ln_ffn_q_wo_f32",), "fused_ln_matmul": ("fused_ln_matmul_f32",),
+    "fused_ln_matmul_wo": ("fused_ln_matmul_wo_f32",), "fused_ln_matmul_q": ("fused_ln_matmul_q_f32",),
+    "fused_ln_matmul_q_wo": ("fused_ln_matmul_q_wo_f32",),
+    "window_attention_wo": ("window_attention_f32", "fused_ln_matmul_wo_f32"),
+    "window_attention_wo_q": ("window_attention_f32", "fused_ln_matmul_q_wo_f32"),
+    "segment_attention_wo": ("segment_attention_f32", "fused_ln_matmul_wo_f32"),
+    "segment_attention_wo_q": ("segment_attention_f32", "fused_ln_matmul_q_wo_f32"),
+}
+
+
+def f32_per_forward(per_forward):
+    """A setting's launches per forward at fp32, from its bf16 ones (``EXTRACT_ATTENTION`` and the setting's)."""
+    out = {}
+    for name, n in {**EXTRACT_ATTENTION, **per_forward}.items():
+        for f32_name in F32_FORMS[name]:
+            out[f32_name] = out.get(f32_name, 0) + n
+    return out
+
+
+def _f32_bound(bytes_moved, fp32_ops, int8_ops=0):
+    """Bytes at the HBM rate against fp32 operations at the CUDA cores' rate plus int8 ones at the tensor
+    cores' (the least time the card could take for the same work)."""
+    return _bound(bytes_moved, fp32_ops / FP32_FLOPS_PER_S + int8_ops / INT8_OPS_PER_S)
+
+
+def check_fp32_kernels(torch, ops, gen, dev, seg_packed, meta_seg, audio_b, audio_l, seg10):
+    """Phase 10: each fp32 form against its plain version at fp32 (TF32 off) at the path's shapes, held to
+    ``F32_REL_TOL`` of the largest entry (the int8 forms: codes as the plain quantiser's but a share
+    ``CODE_SHARE_MAX`` off by one, and ``F32_REL_TOL`` on the rows whose codes agree), every FFN form at each
+    tower's width and rows (D 768 / 512 / 256); each form timed at the
+    packed beatmap shape beside its bound, its plain version and the PyTorch call where one exists (fp32
+    SDPA, fp32 ``torch.addmm``, the unfused fp32 composition). Returns the max errors and the report rows."""
+    from cm3p_torch.ops.attention import (
+        segment_attention_plain, segment_attention_rect_plain, window_attention_plain)
+    from cm3p_torch.ops.fused_ffn import fused_ln_ffn_q, layer_norm_f32
+    from cm3p_torch.ops.quant import int8_matmul, quant_rows_int8, quantize_weight_int8
+
+    errs, report = {}, {}
+
+    def held(kname, label, got, want, rows=None):
+        """Holds got to want (on ``rows``) relative to want's largest entry; keeps the max abs error."""
+        if rows is not None:
+            got, want = got[rows], want[rows]
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / max(want.float().abs().max().item(), 1e-30)
+        log(f"    {label}: max abs {err:.3e}, {rel:.3e} of the largest entry (limit {F32_REL_TOL:g})")
+        if not rel <= F32_REL_TOL:
+            fail(f"{kname} disagrees with its plain version ({label})")
+        errs[kname] = max(errs.get(kname, 0.0), err)
+
+    log("  fp32 attention (TF32 off; relative to the largest entry)")
+    audio_ones = torch.ones(audio_b, audio_l, dtype=torch.int32, device=dev)
+    cases = [("packed", seg_packed, 12, True), ("audio", audio_ones, 8, False), ("metadata", meta_seg, 4, False)]
+    for label, seg, heads, timed in cases:
+        b, length = seg.shape
+        q, k, v = torch.randn(b, length, 3, heads, 64, generator=gen, device=dev).unbind(2)
+        forms = [("window_attention_f32", 64, 10000.0), ("segment_attention_f32", None, 160000.0)]
+        if label == "metadata":  # the metadata tower's layers are global over meta_pack rows, rope outside
+            forms = [("segment_attention_f32", None, None)]
+        for kname, window, theta in forms:
+            if window:
+                run = lambda: ops.window_attention(q, k, v, seg, seg, window, theta)  # noqa: E731
+                plain = lambda: window_attention_plain(q, k, v, seg, seg, window, theta)  # noqa: E731
+            else:
+                run = lambda: ops.segment_attention(q, k, v, seg, seg, theta)  # noqa: E731
+                plain = lambda: segment_attention_plain(q, k, v, seg, seg, theta)  # noqa: E731
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            dead = seg == 0
+            if dead.any() and got[dead].abs().max().item() != 0.0:
+                fail(f"{kname}: a query that sees no key is not 0 ({label})")
+            held(kname, f"{kname} {label} {b}x{length} H{heads}", got, want)
+            del got, want
+            ms = cuda_ms(run, 3)
+            if timed:
+                plain_ms = cuda_ms(plain, 1)
+                lib = sdpa_ms(q, k, v, seg, window, 3)
+                bytes_moved = 4 * b * length * heads * 64 * 4 + 2 * b * length * 4
+                bound, by = _f32_bound(bytes_moved, 4 * 64 * heads * visible_pairs(seg, window))
+                report[kname] = (ms, plain_ms, bound, by, lib)
+                log(f"    {kname} {label}: {ms:.3f} ms (plain {plain_ms:.3f}, bound {bound:.3f} {by}, fp32 SDPA "
+                    f"{lib:.3f})")
+            else:
+                log(f"    {kname} {label}: {ms:.3f} ms")
+        del q, k, v
+
+    # off the path: the window kernel at a window the TPU streams (row 4) and the rectangular form (row 2r)
+    b, length = seg10.shape
+    q, k, v = torch.randn(b, length, 3, 12, 64, generator=gen, device=dev).unbind(2)
+    run = lambda: ops.window_attention(q, k, v, seg10, seg10, 192, 10000.0)  # noqa: E731
+    plain = lambda: window_attention_plain(q, k, v, seg10, seg10, 192, 10000.0)  # noqa: E731
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    held("window_attention_f32_wide", f"window_attention_f32 w 192 {b}x{length} H12", got, want)
+    del got, want
+    bytes_moved = 4 * b * length * 12 * 64 * 4 + 2 * b * length * 4
+    bound, by = _f32_bound(bytes_moved, 4 * 64 * 12 * visible_pairs(seg10, 192))
+    report["window_attention_f32_wide"] = (cuda_ms(run, 3), cuda_ms(plain, 1), bound, by,
+                                           sdpa_ms(q, k, v, seg10, 192, 3))
+    del q, k, v
+    lq, lk = RECT_CASES[1]
+    q = torch.randn(2, lq, 12, 64, generator=gen, device=dev)
+    k, v = torch.randn(2, lk, 2, 12, 64, generator=gen, device=dev).unbind(2)
+    qseg = torch.ones(2, lq, dtype=torch.int32, device=dev)
+    kseg = torch.ones(2, lk, dtype=torch.int32, device=dev)
+    kseg[0, -1000:], kseg[1] = 0, 0
+    run = lambda: ops.segment_attention_rect(q, k, v, qseg, kseg)  # noqa: E731
+    plain = lambda: segment_attention_rect_plain(q, k, v, qseg, kseg)  # noqa: E731
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if got[1].abs().max().item() != 0.0:
+        fail("segment_attention_rect_f32: a query that sees no key is not 0")
+    held("segment_attention_rect_f32", f"segment_attention_rect_f32 2x{lq} over {lk} H12", got, want)
+    del got, want
+    pairs = lq * (lk - 1000)
+    bound, by = _f32_bound(2 * lq * 12 * 64 * 4 * 2 + 2 * 2 * lk * 12 * 64 * 4 + 2 * (lq + lk) * 4,
+                           4 * 64 * 12 * pairs)
+    report["segment_attention_rect_f32"] = (cuda_ms(run, 3), cuda_ms(plain, 1), bound, by,
+                                            sdpa_rect_ms(q, k, v, qseg, kseg, 3))
+    del q, k, v
+
+    full_rows = seg_packed.numel()
+    log("  fp32 LN-matmul forms (TF32 off; relative to the largest entry)")
+    for d, n_out, with_ln in ((768, 2304, True), (768, 768, False), (512, 1536, True), (512, 512, False)):
+        rows = full_rows if d == 768 else audio_b * audio_l
+        x = torch.randn(rows, d, generator=gen, device=dev)
+        zero = torch.arange(1000, 1100, device=dev)
+        x[zero] = 0
+        w = 0.02 * torch.randn(n_out, d, generator=gen, device=dev)
+        w_q = quantize_weight_int8(w)
+        kw = dict(scale=1 + 0.1 * torch.randn(d, generator=gen, device=dev)) if with_ln else dict(
+            residual=torch.randn(rows, n_out, generator=gen, device=dev))
+        suffix = "" if with_ln else "_wo"
+        y = layer_norm_f32(x, kw["scale"], None, 1e-5) if with_ln else x
+        for int8 in (False, True):
+            kname = ("fused_ln_matmul_q" if int8 else "fused_ln_matmul") + suffix + "_f32"
+            codes = torch.empty(rows, d, dtype=torch.int8, device=dev) if int8 else None
+            if int8:
+                run = lambda: ops.fused_ln_matmul_q(x, None, w_q=w_q, **kw)  # noqa: E731
+                plain = lambda: ops.fused_ln_matmul_q_plain(x, None, w_q=w_q, **kw)  # noqa: E731
+                got = ops.fused_ln_matmul_q(x, None, w_q=w_q, codes_out=codes, **kw)
+            else:
+                run = lambda: ops.fused_ln_matmul(x, w, **kw)  # noqa: E731
+                plain = lambda: ops.fused_ln_matmul_plain(x, w, **kw)  # noqa: E731
+                got = run()
+            want = plain()
+            torch.cuda.synchronize()
+            rows_ok = None
+            if int8:
+                qy = quant_rows_int8(y)[0]
+                _code_report(f"{kname} D {d} activation codes", codes, qy, CODE_SHARE_MAX)
+                rows_ok = (codes == qy).all(dim=1)
+                del qy
+            held(kname, f"{kname} {d} -> {n_out}, {rows} rows", got, want, rows_ok)
+            del got, want, codes
+            if d == 768:
+                ms, plain_ms = cuda_ms(run, 3), cuda_ms(plain, 1)
+                lib = cuda_ms(lambda: torch.addmm(kw["residual"], x, w.t()), 3) if kname == "fused_ln_matmul_wo_f32" else None
+                bytes_moved = rows * d * 4 + n_out * d * (1 if int8 else 4) + rows * n_out * 4 * (1 if with_ln else 2)
+                ops_ = 2 * rows * d * n_out
+                bound, by = _f32_bound(bytes_moved + d * 4, 0 if int8 else ops_, ops_ if int8 else 0)
+                report[kname] = (ms, plain_ms, bound, by, lib)
+                log(f"    {kname}: {ms:.3f} ms (plain {plain_ms:.3f}, bound {bound:.3f} {by}"
+                    f"{'' if lib is None else f', fp32 torch.addmm {lib:.3f}'})")
+        del x, w, w_q, kw, y
+
+    log("  fp32 FFN forms (TF32 off; relative to the largest entry)")
+    for d, f, rows in ((768, 1152, full_rows), (512, 1024, audio_b * audio_l), (256, 512, meta_seg.numel())):
+        x = torch.randn(rows, d, generator=gen, device=dev)
+        x[1000:1100] = 0
+        scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        wi = 0.02 * torch.randn(2 * f, d, generator=gen, device=dev)
+        wo = 0.02 * torch.randn(d, f, generator=gen, device=dev)
+        wi_q, wo_q = quantize_weight_int8(wi), quantize_weight_int8(wo)
+        args = (x, scale, None, wi, wo, 1e-5)
+        y = layer_norm_f32(x, scale, None, 1e-5)
+        for w8a8, w8a8_wo in ((False, False), (True, False), (True, True), (False, True)):
+            kname = "fused_ln_ffn_q_wo_f32" if w8a8_wo else ("fused_ln_ffn_q_f32" if w8a8 else "fused_ln_ffn_f32")
+            form = "+".join(n for n, on in (("w8a8", w8a8), ("w8a8_wo", w8a8_wo)) if on) or "fp32 weights"
+            kw = dict(w8a8=w8a8, w8a8_wo=w8a8_wo, wi_q=wi_q if w8a8 else None, wo_q=wo_q if w8a8_wo else None)
+            cy = torch.empty(rows, d, dtype=torch.int8, device=dev) if w8a8 else None
+            cg = torch.empty(rows, f, dtype=torch.int8, device=dev) if w8a8_wo else None
+            got = fused_ln_ffn_q(*args, **kw, codes_y=cy, codes_g=cg) if (w8a8 or w8a8_wo) else ops.fused_ln_ffn(*args)
+            want = ops.fused_ln_ffn_plain(*args, **kw)
+            torch.cuda.synchronize()
+            rows_ok = torch.ones(rows, dtype=torch.bool, device=dev)
+            if w8a8:
+                qy, sa = quant_rows_int8(y)
+                _code_report(f"{kname} LN codes", cy, qy, CODE_SHARE_MAX)
+                rows_ok &= (cy == qy).all(dim=1)
+                h = int8_matmul(qy, wi_q[0]) * sa * wi_q[1]
+                del qy, sa
+            else:
+                h = y @ wi.t()
+            if w8a8_wo:
+                gq = quant_rows_int8(torch.nn.functional.gelu(h[:, :f]) * h[:, f:])[0]
+                _code_report(f"{kname} gelu(a)*b codes", cg, gq, CODE_SHARE_MAX)
+                rows_ok &= (cg == gq).all(dim=1)
+                del gq
+            del h
+            held(kname, f"{kname} ({form}) D {d} F {f}, {rows} rows", got, want, rows_ok)
+            del got, want, cy, cg
+            if d == 768:
+                run = lambda: ops.fused_ln_ffn(*args, **kw)  # noqa: E731
+                ms, plain_ms = cuda_ms(run, 3), cuda_ms(lambda: ops.fused_ln_ffn_plain(*args, **kw), 1)
+                comp = cuda_ms(lambda: ffn_composition(*args, wi_q=kw["wi_q"], wo_q=kw["wo_q"]), 3)
+                bytes_moved = 2 * rows * d * 4 + 2 * f * d * (1 if w8a8 else 4) + d * f * (1 if w8a8_wo else 4)
+                wi_ops, wo_ops = 4 * rows * d * f, 2 * rows * d * f
+                bound, by = _f32_bound(bytes_moved + d * 4, (0 if w8a8 else wi_ops) + (0 if w8a8_wo else wo_ops),
+                                       (wi_ops if w8a8 else 0) + (wo_ops if w8a8_wo else 0))
+                if w8a8 or not w8a8_wo:  # the forms the settings run (w8a8_wo alone, 3o, is off every path)
+                    report[kname] = (ms, plain_ms, bound, by, comp)
+                log(f"    {kname} ({form}): {ms:.3f} ms (plain {plain_ms:.3f}, bound {bound:.3f} {by}, the unfused "
+                    f"fp32 composition {comp:.3f})")
+        del x, wi, wo, wi_q, wo_q, args, y
+    return errs, report
+
+
+def extract_fp32_slice(torch, ops, dev, tmp):
+    """Phase 10, the extraction entry point at fp32: the phase 8 bundle through ``load_pretrained(dtype=float32)``
+    and ``extract_embeddings`` over ``F32_MAPS`` of its map folders in every setting, each against the all-plain
+    fp32 route with the same options (per window, ``F32_EXTRACT_COS_MIN``; settings with int8 products
+    ``F32_EXTRACT_INT8_COS_MIN``), with the fp32 launch counts exact; then ``python -m cm3p_torch.extract --dtype
+    float32`` over the same folders (the tool's default options, setting D) at per-map cosine >= 0.9999 to the
+    in-process D run. Returns the launches it counted."""
+    import numpy as np
+    import pandas as pd
+
+    from cm3p_torch.data import SampleLoader
+    from cm3p_torch.extract import BeatmapFilesDatasetFactory, extract_embeddings
+    from cm3p_torch.inference import load_pretrained
+    from cm3p_torch.models import EncoderOptions
+
+    tmp = Path(tmp)
+    subset = tmp / "maps32"
+    subset.mkdir()
+    for folder in sorted((tmp / "maps").iterdir())[:F32_MAPS]:
+        shutil.copytree(folder, subset / folder.name)
+    proc, model = load_pretrained(tmp / "model", device=dev, dtype=torch.float32)
+    proc.default_kwargs["beatmap_kwargs"].update(WINDOW_KW)
+    samples = list(SampleLoader(BeatmapFilesDatasetFactory([str(subset)], proc, include_audio=True), num_workers=2))
+    log(f"  fp32 model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters, "
+        f"{len({p.dtype for p in model.parameters()})} dtype(s) {sorted({str(p.dtype) for p in model.parameters()})}; "
+        f"{len(samples)} windows from {F32_MAPS} map folders")
+
+    def run(plain):
+        model.set_plain(plain)
+        stats, windows = {}, {}
+        ops.reset_launch_counts()
+        emb = extract_embeddings(model, proc, samples, device=dev, stats=stats, windows_out=windows)
+        torch.cuda.synchronize()
+        model.set_plain(False)
+        return emb, windows, stats, ops.launch_counts()
+
+    total = {name: 0 for name in ops.KERNELS}
+    d_emb = None
+    for label, (fields, per_forward) in EXTRACT_SETTINGS.items():
+        model.set_options(EncoderOptions(**fields))
+        run(False)  # warm-up: int8 weights are made at first use
+        emb, windows, stats, counts = run(False)
+        want = {k: f32_per_forward(per_forward).get(k, 0) * stats["flushes"] for k in ops.KERNELS}
+        log(f"  fp32 setting {label}: {stats['flushes']} forwards, {stats['device_ms']:.1f} ms on the card, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if counts != want:
+            fail(f"fp32 setting {label}: launches differ from {want}")
+        for k, v in counts.items():
+            total[k] += v
+        _, plain_windows, _, plain_counts = run(True)
+        if any(plain_counts.values()):
+            fail("the plain path launched a kernel")
+        cos = torch.cat([cosines(torch.as_tensor(windows[k]), torch.as_tensor(plain_windows[k])) for k in sorted(windows)])
+        limit = F32_EXTRACT_INT8_COS_MIN if fields.get("w8a8") or fields.get("w8a8_wo") else F32_EXTRACT_COS_MIN
+        vecs = np.stack([emb[k] for k in sorted(emb)])
+        log(f"    {len(emb)} beatmaps; per-window cosine to the all-plain fp32 route with the same options min "
+            f"{cos.min():.8f} (need >= {limit})")
+        if len(emb) != F32_MAPS or not np.isfinite(vecs).all() or np.abs(np.linalg.norm(vecs, axis=1) - 1).max() > 1e-3:
+            fail(f"fp32 setting {label}: not one finite unit-norm embedding per beatmap")
+        if not bool((cos >= limit).all()):
+            fail(f"fp32 setting {label}: kernel path and plain path disagree")
+        if label == "D":
+            d_emb = emb
+    out = tmp / "fp32.parquet"
+    cmd = [sys.executable, "-m", "cm3p_torch.extract", "--model-dir", str(tmp / "model"), "--dtype", "float32",
+           "--max-length", str(ROW_LEN), "--window-length", "16", "--beatmap-files", str(subset), "--output", str(out)]
+    t0 = time.perf_counter()
+    cli = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(f"  python -m cm3p_torch.extract --dtype float32: exit {cli.returncode} in {time.perf_counter() - t0:.1f} s")
+    if cli.returncode != 0:
+        log((cli.stdout + cli.stderr)[-3000:])
+        fail("python -m cm3p_torch.extract --dtype float32 failed on a full-width model")
+    table = pd.read_parquet(out)
+    got = {int(i): np.asarray(e, dtype=np.float64) for i, e in zip(table["beatmap_id"], table["embedding"])}
+    if got.keys() != d_emb.keys():
+        fail("the fp32 CLI and the in-process fp32 run embedded different beatmaps")
+    cos = np.array([got[k] @ d_emb[k] / (np.linalg.norm(got[k]) * np.linalg.norm(d_emb[k])) for k in sorted(got)])
+    log(f"    {len(got)} beatmaps; per-map cosine to the in-process fp32 run of setting D min {cos.min():.8f}")
+    if not bool((cos >= 0.9999).all()):
+        fail("the fp32 CLI disagrees with the in-process fp32 run")
+    del model
+    return total
+
+
 def corpus_windows(proc):
     """The bundled map and the 16 corpus maps through the processor with seeded waveforms: (map paths,
     each window's token ids without padding, the windows' mel features, each map's waveform)."""
@@ -2173,10 +2509,11 @@ def main() -> int:
 
     # ---- 8. the extraction entry point at full width
     log("[8] extraction: save_pretrained -> load_pretrained -> extract_embeddings, full-width CM3PConfig")
-    with tempfile.TemporaryDirectory() as tmp:
-        for kname, n in extract_slice(torch, ops, dev, maps, waves, exact, tmp).items():
-            main_counts[kname] += n
-        check_tiny_extract(Path(tmp) / "maps", tmp)
+    bundle = tempfile.TemporaryDirectory()  # the saved model and the map folders, read again by phase 10
+    tmp = bundle.name
+    for kname, n in extract_slice(torch, ops, dev, maps, waves, exact, tmp).items():
+        main_counts[kname] += n
+    check_tiny_extract(Path(tmp) / "maps", tmp)
 
     # ---- 9. sequence parallelism: the rectangular segment kernel and the sharded beatmap tower
     log(f"[9] sequence parallelism: {SP_RANKS} ranks on the one card over gloo, full-width CM3PConfig, "
@@ -2190,6 +2527,21 @@ def main() -> int:
         for kname, n in sp_slice(torch, ops, dev, tok.vocab_size, tok.audio_token_id, tmp).items():
             main_counts[kname] += n
     log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10. fp32: the fp32 forms against their plain versions, and the extraction entry point at fp32
+    log("[10] fp32: the fp32 kernels vs their plain versions (TF32 off), full-width extraction in fp32")
+    t0 = time.perf_counter()
+    # the plain fp32 versions at "highest" precision: main() turned TF32 off in cuBLAS and cuDNN for the whole run
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("the fp32 references need TF32 off")
+    e10, rows10 = check_fp32_kernels(torch, ops, gen, dev, seg_packed, meta_seg, audio_b, audio_l, seg10)
+    errs.update(e10)
+    for kname, row in rows10.items():
+        kernels.append((kname, *row))
+    for kname, n in extract_fp32_slice(torch, ops, dev, bundle.name).items():
+        main_counts[kname] += n
+    bundle.cleanup()
+    log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:

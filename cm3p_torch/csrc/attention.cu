@@ -105,26 +105,6 @@ namespace {
 using namespace cm3p;
 using namespace cm3p::attn;
 
-// The (L, 32) tables' entries c .. c + 7 at position pos.
-__device__ __forceinline__ void load_tables(const float* cos_t, const float* sin_t, int pos, int c, float (&cs)[8],
-                                            float (&sn)[8]) {
-  const float4* cp = reinterpret_cast<const float4*>(cos_t + (long long)pos * (D / 2) + c);
-  const float4* sp = reinterpret_cast<const float4*>(sin_t + (long long)pos * (D / 2) + c);
-  const float4 c0 = __ldg(cp), c1 = __ldg(cp + 1), s0 = __ldg(sp), s1 = __ldg(sp + 1);
-  cs[0] = c0.x, cs[1] = c0.y, cs[2] = c0.z, cs[3] = c0.w, cs[4] = c1.x, cs[5] = c1.y, cs[6] = c1.z, cs[7] = c1.w;
-  sn[0] = s0.x, sn[1] = s0.y, sn[2] = s0.z, sn[3] = s0.w, sn[4] = s1.x, sn[5] = s1.y, sn[6] = s1.z, sn[7] = s1.w;
-}
-
-// Rotates 8 packed dims of the first half and their 8 partners with rope8.
-__device__ __forceinline__ void rope_packed(uint4& ux, uint4& uy, const float (&cs)[8], const float (&sn)[8]) {
-  float x[8], y[8];
-  unpack8(ux, x);
-  unpack8(uy, y);
-  rope8(x, y, cs, sn);
-  ux = pack8(x);
-  uy = pack8(y);
-}
-
 // ---------------------------------------------------------------------------
 // Key-tile ranges of the segment form (segment_tile_ranges of ops/attention.py,
 // the work of the TPU kernels' _block_ranges): per (row, query tile) the first
@@ -178,28 +158,10 @@ __global__ void __launch_bounds__(RANGE_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// The rope pass: k (a strided (B, L, H, 64) view) rotated into out, contiguous
-// (B, L, H, 64). One thread per 8 dims of the first half and their 8
-// partners; neighbouring threads take neighbouring dims and heads.
-constexpr int ROPE_BLOCK = 256;
-
+// The rope pass: k (a strided (B, L, H, 64) view) rotated into out, contiguous (B, L, H, 64).
 __global__ void __launch_bounds__(ROPE_BLOCK) rope_k_kernel(AttnArgs a, __nv_bfloat16* out, int B) {
-  long long i = (long long)blockIdx.x * ROPE_BLOCK + threadIdx.x;
-  if (i >= (long long)B * a.L * a.H * 4) return;
-  const int c = (int)(i & 3) * 8;
-  i >>= 2;
-  const int h = (int)(i % a.H);
-  i /= a.H;
-  const int pos = (int)(i % a.L);
-  const int b = (int)(i / a.L);
-  const __nv_bfloat16* src = a.k + b * a.k_bstride + pos * a.k_pstride + h * D;
-  uint4 ux = *reinterpret_cast<const uint4*>(src + c), uy = *reinterpret_cast<const uint4*>(src + c + D / 2);
-  float cs[8], sn[8];
-  load_tables(a.cos_t, a.sin_t, pos, c, cs, sn);
-  rope_packed(ux, uy, cs, sn);
-  __nv_bfloat16* dst = out + (((long long)b * a.L + pos) * a.H + h) * D;
-  *reinterpret_cast<uint4*>(dst + c) = ux;
-  *reinterpret_cast<uint4*>(dst + c + D / 2) = uy;
+  const long long i = (long long)blockIdx.x * ROPE_BLOCK + threadIdx.x;
+  if (i < (long long)B * a.L * a.H * 4) rope_item(a.k, a.k_bstride, a.k_pstride, a.cos_t, a.sin_t, out, a.L, a.H, i);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 // Pieces the attention kernels share: the forward's arguments, the rope of
-// 8 dims and their partners with the plain version's rounding (rope8), and the
-// staging of 64 rotated rows into padded shared memory that the backward
-// kernels (csrc/attention_bwd.cu) use.
+// 8 dims and their partners with the plain version's rounding (rope8), the
+// staging of 64 rotated rows into padded shared memory that the dQ kernel
+// (csrc/attention_bwd.cu) uses, and the item of the rope passes (rope_item) that
+// rotate k (the forward) or q and k (the dK/dV kernel) once into a contiguous
+// buffer.
 //
 // Rope is rotate-half at arange positions from (L, 32) fp32 cos/sin tables;
 // rotated values are rounded to bf16 like the plain version. Queries and keys
@@ -139,6 +141,52 @@ __device__ __forceinline__ void load_rows_rope(__nv_bfloat16* sm, int ld, const 
       }
     }
   }
+}
+
+// The (L, 32) tables' entries c .. c + 7 at position pos.
+__device__ __forceinline__ void load_tables(const float* cos_t, const float* sin_t, int pos, int c, float (&cs)[8],
+                                            float (&sn)[8]) {
+  const float4* cp = reinterpret_cast<const float4*>(cos_t + (long long)pos * (D / 2) + c);
+  const float4* sp = reinterpret_cast<const float4*>(sin_t + (long long)pos * (D / 2) + c);
+  const float4 c0 = __ldg(cp), c1 = __ldg(cp + 1), s0 = __ldg(sp), s1 = __ldg(sp + 1);
+  cs[0] = c0.x, cs[1] = c0.y, cs[2] = c0.z, cs[3] = c0.w, cs[4] = c1.x, cs[5] = c1.y, cs[6] = c1.z, cs[7] = c1.w;
+  sn[0] = s0.x, sn[1] = s0.y, sn[2] = s0.z, sn[3] = s0.w, sn[4] = s1.x, sn[5] = s1.y, sn[6] = s1.z, sn[7] = s1.w;
+}
+
+// Rotates 8 packed dims of the first half and their 8 partners with rope8.
+__device__ __forceinline__ void rope_packed(uint4& ux, uint4& uy, const float (&cs)[8], const float (&sn)[8]) {
+  float x[8], y[8];
+  unpack8(ux, x);
+  unpack8(uy, y);
+  rope8(x, y, cs, sn);
+  ux = pack8(x);
+  uy = pack8(y);
+}
+
+// One item of a rope pass: item i of a strided (B, L, H, 64) bf16 view, 8 dims of the first half and their 8
+// partners, rotated with rope8's arithmetic and bf16 rounding into out, contiguous (B, L, H, 64), so that a
+// kernel reading the rotated rows sees the bits a kernel that rotates on load sees. Neighbouring items take
+// neighbouring dims and heads. The passes are the forward's k pass (rope_k_kernel, csrc/attention.cu) and
+// the dK/dV kernel's q and k pass (rope_qk_kernel, csrc/attention_bwd.cu).
+constexpr int ROPE_BLOCK = 256;  // threads of a rope pass's block, one item each
+
+__device__ __forceinline__ void rope_item(const __nv_bfloat16* src, long long bstride, long long pstride,
+                                          const float* cos_t, const float* sin_t, __nv_bfloat16* out, int L, int H,
+                                          long long i) {
+  const int c = (int)(i & 3) * 8;
+  i >>= 2;
+  const int h = (int)(i % H);
+  i /= H;
+  const int pos = (int)(i % L);
+  const int b = (int)(i / L);
+  const __nv_bfloat16* row = src + b * bstride + pos * pstride + h * D;
+  uint4 ux = *reinterpret_cast<const uint4*>(row + c), uy = *reinterpret_cast<const uint4*>(row + c + D / 2);
+  float cs[8], sn[8];
+  load_tables(cos_t, sin_t, pos, c, cs, sn);
+  rope_packed(ux, uy, cs, sn);
+  __nv_bfloat16* dst = out + (((long long)b * L + pos) * H + h) * D;
+  *reinterpret_cast<uint4*>(dst + c) = ux;
+  *reinterpret_cast<uint4*>(dst + c + D / 2) = uy;
 }
 
 }  // namespace attn

@@ -223,6 +223,19 @@ __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da, uint
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 32) [+]= A (64 x 16 bf16) . B (32 x 16 bf16)^T, both from shared memory, K-major (the accumulator
+// layout of the n64 form below, columns 0 .. 31).
+__device__ __forceinline__ void wgmma_bf16_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64) [+]= A (64 x 16 bf16, registers) . B (16 x 64 bf16, shared memory, MN-major: the transpose flag).
 // A's four registers per thread are the mma.sync m16n8k16 A fragment of the warp's 16 rows: rows l / 4 (+ 8),
 // columns 2 (l % 4) (+ 8), two bf16 each; an n64 accumulator's registers 8k .. 8k + 7 packed in pairs are the

@@ -13,6 +13,7 @@ extraction model. Module paths follow the HF state-dict keys
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple, Optional
 
@@ -30,6 +31,21 @@ ACTIVATIONS = {
     "relu": F.relu,
     "silu": F.silu,
 }
+
+
+@contextlib.contextmanager
+def fp32_convolutions(dtype: torch.dtype):
+    """For an fp32 model, cuDNN's TF32 convolutions off for the calls inside (cuDNN runs fp32 convolutions in
+    TF32 unless told otherwise), and back as they were after; other dtypes leave the setting alone."""
+    if dtype != torch.float32:
+        yield
+        return
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -83,8 +99,9 @@ class AudioEncoder(nn.Module):
         cfg = self.config
         dt = self.encoder.compute_dtype or self.conv1.weight.dtype
         x = input_features.to(dt)  # (B, n_mels, frames)
-        x = F.gelu(F.conv1d(x, self.conv1.weight.to(dt), self.conv1.bias.to(dt), padding=1))
-        x = F.gelu(F.conv1d(x, self.conv2.weight.to(dt), self.conv2.bias.to(dt), stride=2, padding=1))
+        with fp32_convolutions(dt):
+            x = F.gelu(F.conv1d(x, self.conv1.weight.to(dt), self.conv1.bias.to(dt), padding=1))
+            x = F.gelu(F.conv1d(x, self.conv2.weight.to(dt), self.conv2.bias.to(dt), stride=2, padding=1))
         hidden = self.encoder(inputs_embeds=x.transpose(1, 2).contiguous())
         b, length, h = hidden.shape
         group = cfg.projector_intermediate_size // cfg.hidden_size  # 4x token reduction

@@ -37,6 +37,14 @@ from .fused_ln_matmul import (
     lnmm_fusable,
 )
 from .quant import int8_matmul, quant_rows_int8, quantize_weight_int8
+from .attention import segment_attention_f32, segment_attention_rect_f32, window_attention_f32
+from .fused_ffn import fused_ln_ffn_f32, fused_ln_ffn_q_f32, fused_ln_ffn_q_wo_f32
+from .fused_ln_matmul import (
+    fused_ln_matmul_f32,
+    fused_ln_matmul_q_f32,
+    fused_ln_matmul_q_wo_f32,
+    fused_ln_matmul_wo_f32,
+)
 
 # one name per kernel, and per form of a kernel whose work differs: what holds each name's launch count
 KERNELS = {
@@ -62,6 +70,17 @@ KERNELS = {
     "segment_attention_dq_rope": segment_attention_dq_rope,
     "segment_attention_dkv_rope": segment_attention_dkv_rope,
     "segment_attention_rect": segment_attention_rect,
+    # the fp32 kernels' forms (a model run in fp32; no-grad)
+    "window_attention_f32": window_attention_f32,
+    "segment_attention_f32": segment_attention_f32,
+    "segment_attention_rect_f32": segment_attention_rect_f32,
+    "fused_ln_ffn_f32": fused_ln_ffn_f32,
+    "fused_ln_ffn_q_f32": fused_ln_ffn_q_f32,
+    "fused_ln_ffn_q_wo_f32": fused_ln_ffn_q_wo_f32,
+    "fused_ln_matmul_f32": fused_ln_matmul_f32,
+    "fused_ln_matmul_wo_f32": fused_ln_matmul_wo_f32,
+    "fused_ln_matmul_q_f32": fused_ln_matmul_q_f32,
+    "fused_ln_matmul_q_wo_f32": fused_ln_matmul_q_wo_f32,
 }
 
 

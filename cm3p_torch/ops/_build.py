@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNEL_SOURCES = ("attention", "attention_wo", "attention_bwd", "fused_ffn", "fused_ln_matmul")
+KERNEL_SOURCES = ("attention", "attention_wo", "attention_bwd", "fused_ffn", "fused_ln_matmul", "attention_f32",
+                  "fused_ffn_f32", "fused_ln_matmul_f32")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

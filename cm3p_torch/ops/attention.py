@@ -64,6 +64,16 @@ raises. The plain versions are also the oracle the kernels are held against on
 the card. The source notes on the kernels' design and bound are in the ``.cu``
 files. The epilogue kernels take H*D in ``WO_KERNEL_WIDTHS`` and an output
 width that is a multiple of 128.
+
+fp32 (a model run in fp32, the JAX package's ``--dtype float32``): the
+forwards launch ``csrc/attention_f32.cu`` (fp32 FMA on the CUDA cores, no
+TF32), counted as ``window_attention_f32``, ``segment_attention_f32`` and
+``segment_attention_rect_f32``; it writes no lse, so an fp32 forward under
+autograd on CUDA raises (the port trains in bf16, as the JAX trainer does, and
+has no fp32 backward kernel). The epilogue forms at fp32 run the fp32
+attention kernel, then the fp32 LN-matmul kernel's residual form (``res +
+o @ Wo^T``, int8 with ``wo_q``): the unfused route the bf16 epilogue replaces,
+and the same function.
 """
 from __future__ import annotations
 
@@ -76,7 +86,13 @@ import torch
 
 from . import _build
 from .fused_ffn import FormLaunches
-from .fused_ln_matmul import COLUMN_TILE, fused_ln_matmul_plain, fused_ln_matmul_q_plain
+from .fused_ln_matmul import (
+    COLUMN_TILE,
+    fused_ln_matmul,
+    fused_ln_matmul_plain,
+    fused_ln_matmul_q,
+    fused_ln_matmul_q_plain,
+)
 
 TILE = 64  # query and key tile of csrc/attention.cu and csrc/attention_bwd.cu
 HEAD_DIM = 64  # the kernels' head dim
@@ -95,11 +111,17 @@ _SIGNATURES = {
                                _I, _P],
     "cm3p_key_tile_ranges": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
+_F32_SIGNATURES = {
+    "cm3p_window_attention_f32": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cm3p_segment_attention_f32": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _P],
+}
+ACTIVATION_DTYPES = (torch.bfloat16, torch.float32)  # bf16: csrc/attention.cu; fp32: csrc/attention_f32.cu
 _WO_SIGNATURES = {
     "cm3p_attention_wo": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P],
 }
-_BWD_ARGTYPES = [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+_BWD_ARGTYPES = [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _P]
 _BWD_SIGNATURES = {
     name: _BWD_ARGTYPES
@@ -339,9 +361,11 @@ def _check(q, k, v, qseg, kseg, square: bool = True):
     b, length, heads, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"the kernels take head dim {HEAD_DIM}, got {d}")
+    if q.dtype not in ACTIVATION_DTYPES:
+        raise ValueError(f"q must be bfloat16 or float32, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype}, got {t.dtype}")
         st = t.stride()
         if st[3] != 1 or st[2] != d or st[1] % 8 or st[0] % 8 or t.data_ptr() % 16:
             raise ValueError(f"{name} needs contiguous 16-byte-aligned heads, got strides {st}")
@@ -352,6 +376,8 @@ def _check(q, k, v, qseg, kseg, square: bool = True):
 
 def _check_bwd(q, k, v, dout, lse, delta, qseg, kseg):
     _check(q, k, v, qseg, kseg)
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"the backward kernels take bfloat16 (training runs in bf16), got {q.dtype}")
     b, length, heads, _ = q.shape
     if dout.shape != q.shape or dout.dtype != torch.bfloat16 or not dout.is_contiguous() or dout.device != q.device:
         raise ValueError("dout must be contiguous bfloat16 of q's shape on q's device")
@@ -366,12 +392,15 @@ def _qkv_args(q, k, v):
 
 
 def _common_args(q, k, v, qseg, kseg, rope_theta):
-    if rope_theta is not None:
-        cos, sin = rope_tables(q.shape[1], q.shape[3], float(rope_theta), str(q.device))
-        tables = (cos.data_ptr(), sin.data_ptr())
-    else:
-        tables = (None, None)
-    return (*_qkv_args(q, k, v), qseg.data_ptr(), kseg.data_ptr(), *tables)
+    return (*_qkv_args(q, k, v), qseg.data_ptr(), kseg.data_ptr(), *_tables(q, rope_theta))
+
+
+def _tables(q, rope_theta):
+    """The rope tables' pointers for (B, L, H, D) q, or two nulls without rope."""
+    if rope_theta is None:
+        return None, None
+    cos, sin = rope_tables(q.shape[1], q.shape[3], float(rope_theta), str(q.device))
+    return cos.data_ptr(), sin.data_ptr()
 
 
 def _lib():
@@ -395,15 +424,39 @@ def _outputs(q, return_lse: bool):
     return out, lse
 
 
+def _f32_lib():
+    return _build.library("attention_f32", _F32_SIGNATURES)
+
+
+def _no_lse_at_f32(q, return_lse):
+    if q.dtype == torch.float32 and return_lse:
+        raise ValueError("the fp32 attention kernel writes no lse: it is a no-grad forward (training runs in "
+                         "bf16, and no fp32 backward kernel exists)")
+
+
+def _launch_window_f32(q, k, v, qseg, kseg, window, rope_theta):
+    b, length, heads, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = _f32_lib().cm3p_window_attention_f32(
+        *_common_args(q, k, v, qseg, kseg, rope_theta), out.data_ptr(), b, length, heads, int(window), _stream(q),
+    )
+    _build.check(err, "cm3p_window_attention_f32")
+    window_attention_f32.launches += 1
+    return out
+
+
 def window_attention(q, k, v, qseg, kseg, window: int, rope_theta: Optional[float] = None,
                      return_lse: bool = False):
     """Local attention (|i - j| <= window) over head-minor (B, L, H, D); with
-    ``return_lse`` returns ``(out, lse)``."""
+    ``return_lse`` returns ``(out, lse)`` (bf16 only on CUDA)."""
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, qseg, kseg, window, rope_theta, return_lse)
     _check(q, k, v, qseg, kseg)
     if window < 0:
         raise ValueError("window must be >= 0")
+    _no_lse_at_f32(q, return_lse)
+    if q.dtype == torch.float32:
+        return _launch_window_f32(q, k, v, qseg, kseg, window, rope_theta)
     b, length, heads, _ = q.shape
     out, lse = _outputs(q, return_lse)
     rot = _rope_scratch(k, rope_theta)
@@ -419,6 +472,14 @@ def window_attention(q, k, v, qseg, kseg, window: int, rope_theta: Optional[floa
 def _launch_segment(q, k, v, qseg, kseg, rope_theta, return_lse):
     b, length, heads, _ = q.shape
     start, count = key_tile_ranges(qseg, kseg)
+    if q.dtype == torch.float32:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        err = _f32_lib().cm3p_segment_attention_f32(
+            *_common_args(q, k, v, qseg, kseg, rope_theta), start.data_ptr(), count.data_ptr(), out.data_ptr(), b,
+            length, k.shape[1], heads, _stream(q),
+        )
+        _build.check(err, "cm3p_segment_attention_f32")
+        return out
     out, lse = _outputs(q, return_lse)
     rot = _rope_scratch(k, rope_theta)
     err = _lib().cm3p_segment_attention(
@@ -436,8 +497,9 @@ def segment_attention(q, k, v, qseg, kseg, rope_theta: Optional[float] = None, r
     if q.device.type == "cpu":
         return segment_attention_plain(q, k, v, qseg, kseg, rope_theta, return_lse)
     _check(q, k, v, qseg, kseg)
+    _no_lse_at_f32(q, return_lse)
     result = _launch_segment(q, k, v, qseg, kseg, rope_theta, return_lse)
-    segment_attention.launches += 1
+    (segment_attention_f32 if q.dtype == torch.float32 else segment_attention).launches += 1
     return result
 
 
@@ -450,28 +512,35 @@ def segment_attention_rect(q, k, v, qseg, kseg):
         return segment_attention_rect_plain(q, k, v, qseg, kseg)
     _check(q, k, v, qseg, kseg, square=False)
     out = _launch_segment(q, k, v, qseg, kseg, None, False)
-    segment_attention_rect.launches += 1
+    (segment_attention_rect_f32 if q.dtype == torch.float32 else segment_attention_rect).launches += 1
     return out
 
 
 def _launch_bwd(entry, q, k, v, dout, lse, delta, qseg, kseg, window, ranges, rope_theta, dq=None, dk=None,
                 dv=None):
     _check_bwd(q, k, v, dout, lse, delta, qseg, kseg)
-    b, length, heads, d = q.shape
+    b, length, heads, _ = q.shape
     start, count = ranges if ranges is not None else (None, None)
-    tables = (None, None)
-    if rope_theta is not None:
-        cos, sin = rope_tables(length, d, float(rope_theta), str(q.device))
-        tables = (cos.data_ptr(), sin.data_ptr())
+    tables = _tables(q, rope_theta)
+    # the dK/dV kernel's rope form reads q and k rotated by the rope pass into this scratch
+    rot = None
+    if dk is not None and rope_theta is not None:
+        rot = torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
     err = getattr(_build.library("attention_bwd", _BWD_SIGNATURES), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         *_qkv_args(q, k, v)[3:], lse.data_ptr(), delta.data_ptr(), qseg.data_ptr(), kseg.data_ptr(),
         None if start is None else start.data_ptr(), None if count is None else count.data_ptr(), *tables,
         None if dq is None else dq.data_ptr(), None if dk is None else dk.data_ptr(),
-        None if dv is None else dv.data_ptr(), b, length, heads, int(window or 0), _stream(q),
+        None if dv is None else dv.data_ptr(), None if rot is None else rot.data_ptr(), b, length, heads,
+        int(window or 0), _stream(q),
     )
     _build.check(err, entry)
 
+
+# the fp32 forms of the forward (csrc/attention_f32.cu): each counted under its own name
+window_attention_f32 = FormLaunches()
+segment_attention_f32 = FormLaunches()
+segment_attention_rect_f32 = FormLaunches()
 
 # the rope forms of the four backward kernels (raw q/k, rope tables): each counted under its own name
 window_attention_dq_rope = FormLaunches()
@@ -605,8 +674,27 @@ def _check_wo(q, weight, w_dtype, sw, residual, o_out, codes_out):
             raise ValueError(f"{name} must be contiguous {dt} with B * L * H * D elements on q's device")
 
 
+def _wo_f32(q, k, v, qseg, kseg, window, weight, sw, residual, rope_theta, o_out, codes_out):
+    """The epilogue forms at fp32: the fp32 attention kernel, then the fp32 LN-matmul kernel's residual form
+    (int8 with scales ``sw``), each launch counted by its own wrapper."""
+    if o_out is not None or codes_out is not None:
+        raise ValueError("o_out and codes_out are outputs of the bf16 epilogue kernel")
+    b, length, heads, d = q.shape
+    if window is None:
+        o = _launch_segment(q, k, v, qseg, kseg, rope_theta, False)
+        segment_attention_f32.launches += 1
+    else:
+        o = _launch_window_f32(q, k, v, qseg, kseg, window, rope_theta)
+    o = o.view(b, length, heads * d)
+    if sw is None:
+        return fused_ln_matmul(o, weight, residual=residual)
+    return fused_ln_matmul_q(o, None, residual=residual, w_q=(weight, sw))
+
+
 def _launch_wo(q, k, v, qseg, kseg, window, weight, sw, residual, rope_theta, o_out, codes_out):
     _check(q, k, v, qseg, kseg)
+    if q.dtype == torch.float32:
+        return _wo_f32(q, k, v, qseg, kseg, window, weight, sw, residual, rope_theta, o_out, codes_out)
     _check_wo(q, weight, torch.int8 if sw is not None else torch.bfloat16, sw, residual, o_out, codes_out)
     b, length, heads, _ = q.shape
     n = weight.shape[0]
@@ -629,7 +717,8 @@ def _reject_check_outputs_on_cpu(o_out, codes_out):
 
 def window_attention_wo(q, k, v, qseg, kseg, window: int, wo, residual, rope_theta: Optional[float] = None,
                         o_out=None):
-    """``residual + bf16(window_attention(...)) @ wo.T`` in one kernel: (B, L, N).
+    """``residual + window_attention(...) @ wo.T`` (o in the activation dtype) in one kernel: (B, L, N); at fp32
+    the fp32 attention kernel, then the fp32 LN-matmul residual form.
 
     ``wo`` (N, H * D) in the activation dtype; ``o_out`` (bf16, B * L * H * D
     elements) receives the attention output the epilogue used, for checks only.
@@ -640,7 +729,8 @@ def window_attention_wo(q, k, v, qseg, kseg, window: int, wo, residual, rope_the
     if window < 0:
         raise ValueError("window must be >= 0")
     out = _launch_wo(q, k, v, qseg, kseg, window, wo, None, residual, rope_theta, o_out, None)
-    window_attention_wo.launches += 1
+    if q.dtype == torch.bfloat16:
+        window_attention_wo.launches += 1
     return out
 
 
@@ -654,17 +744,19 @@ def window_attention_wo_q(q, k, v, qseg, kseg, window: int, w_q, residual, rope_
     if window < 0:
         raise ValueError("window must be >= 0")
     out = _launch_wo(q, k, v, qseg, kseg, window, w_q[0], w_q[1], residual, rope_theta, o_out, codes_out)
-    window_attention_wo_q.launches += 1
+    if q.dtype == torch.bfloat16:
+        window_attention_wo_q.launches += 1
     return out
 
 
 def segment_attention_wo(q, k, v, qseg, kseg, wo, residual, rope_theta: Optional[float] = None, o_out=None):
-    """``residual + bf16(segment_attention(...)) @ wo.T`` in one kernel: (B, L, N)."""
+    """``residual + segment_attention(...) @ wo.T`` in one kernel (at fp32 the fp32 pair): (B, L, N)."""
     if q.device.type == "cpu":
         _reject_check_outputs_on_cpu(o_out, None)
         return segment_attention_wo_plain(q, k, v, qseg, kseg, wo, residual, rope_theta)
     out = _launch_wo(q, k, v, qseg, kseg, None, wo, None, residual, rope_theta, o_out, None)
-    segment_attention_wo.launches += 1
+    if q.dtype == torch.bfloat16:
+        segment_attention_wo.launches += 1
     return out
 
 
@@ -675,7 +767,8 @@ def segment_attention_wo_q(q, k, v, qseg, kseg, w_q, residual, rope_theta: Optio
         _reject_check_outputs_on_cpu(o_out, codes_out)
         return segment_attention_wo_q_plain(q, k, v, qseg, kseg, w_q, residual, rope_theta)
     out = _launch_wo(q, k, v, qseg, kseg, None, w_q[0], w_q[1], residual, rope_theta, o_out, codes_out)
-    segment_attention_wo_q.launches += 1
+    if q.dtype == torch.bfloat16:
+        segment_attention_wo_q.launches += 1
     return out
 
 
@@ -789,6 +882,10 @@ def attention(
     else:
         qseg = kseg = torch.ones(b, length, dtype=torch.int32, device=q.device)
     train = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if train and not plain and q.is_cuda and q.dtype == torch.float32:
+        raise ValueError("an fp32 attention forward under autograd on CUDA has no backward kernel: train in "
+                         "bf16 (as the JAX trainer does), run the forward under torch.no_grad(), or ask for the "
+                         "plain versions (set_plain(True))")
     in_kernel = not train or (not plain and rope_in_kernels(rope_theta, positions, q.shape[3], q.shape[2]))
     if rope_theta is not None and (positions is not None or not in_kernel):
         q, k = apply_rope(q, rope_theta, positions), apply_rope(k, rope_theta, positions)

@@ -13,7 +13,11 @@ accumulation throughout. Weights use the nn.Linear layout: ``wi`` is
 On a CPU tensor the wrapper runs :func:`fused_ln_ffn_plain`; on a CUDA
 tensor it launches ``csrc/fused_ffn.cu`` (bf16, D in {256, 512, 768}, F a
 multiple of 64; with ``w8a8`` and ``w8a8_wo`` at D 768, F <= 1152) or raises. The source note on the kernel's design and bound
-is in ``csrc/fused_ffn.cu``.
+is in ``csrc/fused_ffn.cu``. fp32 activations (a model run in fp32) launch
+the fp32 kernel of ``csrc/fused_ffn_f32.cu`` in every form (fp32 FMA on the
+CUDA cores, dp4a for the int8 products; no TF32; F up to :func:`f32_max_f`),
+counted as ``fused_ln_ffn_f32``, ``fused_ln_ffn_q_f32`` and
+``fused_ln_ffn_q_wo_f32``; its weights are fp32 where they are not int8.
 
 The W8A8 extraction options follow the TPU kernel: ``w8a8`` quantises the
 fp32 LN output per row to int8 and multiplies by an int8 Wi (per output
@@ -49,7 +53,19 @@ _SIGNATURES = {
     "cm3p_fused_ln_ffn_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                             ctypes.c_int, ctypes.c_int, _P],
 }
+_F32_SIGNATURES = {
+    "cm3p_fused_ln_ffn_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
+    "cm3p_fused_ln_ffn_f32_max_f": [ctypes.c_int],
+}
 KERNEL_WIDTHS = (256, 512, 768)
+ACTIVATION_DTYPES = (torch.bfloat16, torch.float32)  # bf16: csrc/fused_ffn.cu; fp32: csrc/fused_ffn_f32.cu
+
+
+def f32_max_f(d: int) -> int:
+    """The largest F the fp32 kernel takes at width ``d`` (a 16-row tile's y and g, their codes, an h tile and
+    a weight stage within a block's shared memory), as the kernel's source reckons it; builds the kernel."""
+    return _build.library("fused_ffn_f32", _F32_SIGNATURES).cm3p_fused_ln_ffn_f32_max_f(d)
 
 
 def ffn_fusable(d_model: int, d_ff: int) -> bool:
@@ -94,10 +110,12 @@ def fused_ln_ffn_plain(x, scale, bias, wi, wo, eps: float, w8a8: bool = False, w
 
 
 def _check_common(x, scale, bias, d, f):
-    if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous bfloat16 CUDA tensor")
+    if not x.is_cuda or x.dtype not in ACTIVATION_DTYPES or not x.is_contiguous():
+        raise ValueError("x must be a contiguous bfloat16 or float32 CUDA tensor")
     if d not in KERNEL_WIDTHS or f % 64 or f <= 0:
         raise ValueError(f"the kernel takes D in {KERNEL_WIDTHS} and F a multiple of 64, got D={d}, F={f}")
+    if x.dtype == torch.float32 and f > (max_f := f32_max_f(d)):
+        raise ValueError(f"the fp32 kernel keeps a tile's g in shared memory: F <= {max_f} at D {d}, got {f}")
     for name, t in (("scale", scale), ("bias", bias)):
         if t is None and name == "bias":
             continue
@@ -115,8 +133,23 @@ def _check(x, scale, bias, wi, wo):
     d = x.shape[-1]
     f = wo.shape[-1] if wo.dim() == 2 else -1
     _check_common(x, scale, bias, d, f)
-    _check_weight("wi", wi, (2 * f, d), torch.bfloat16, x.device)
-    _check_weight("wo", wo, (d, f), torch.bfloat16, x.device)
+    _check_weight("wi", wi, (2 * f, d), x.dtype, x.device)
+    _check_weight("wo", wo, (d, f), x.dtype, x.device)
+
+
+def _launch_f32(x, scale, bias, wi, swi, wo, swo, eps, codes_y=None, codes_g=None):
+    """The fp32 kernel (csrc/fused_ffn_f32.cu) in the form the weights' scales name (``swi`` / ``swo``
+    given: that weight is int8 codes); shapes and types checked by the caller."""
+    d, f = x.shape[-1], wo.shape[1]
+    out = torch.empty_like(x)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _build.library("fused_ffn_f32", _F32_SIGNATURES).cm3p_fused_ln_ffn_f32(
+        x.data_ptr(), scale.data_ptr(), ptr(bias), wi.data_ptr(), ptr(swi), wo.data_ptr(), ptr(swo), out.data_ptr(),
+        ptr(codes_y), ptr(codes_g), x.numel() // d, d, f, float(eps), int(swi is not None), int(swo is not None),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check(err, "cm3p_fused_ln_ffn_f32")
+    return out
 
 
 def fused_ln_ffn(x, scale, bias, wi, wo, eps: float, w8a8: bool = False, w8a8_wo: bool = False,
@@ -129,6 +162,10 @@ def fused_ln_ffn(x, scale, bias, wi, wo, eps: float, w8a8: bool = False, w8a8_wo
     if w8a8 or w8a8_wo:
         return fused_ln_ffn_q(x, scale, bias, wi, wo, eps, w8a8, w8a8_wo, wi_q, wo_q)
     _check(x, scale, bias, wi, wo)
+    if x.dtype == torch.float32:
+        out = _launch_f32(x, scale, bias, wi, None, wo, None, eps)
+        fused_ln_ffn_f32.launches += 1
+        return out
     d = x.shape[-1]
     rows = x.numel() // d
     out = torch.empty_like(x)
@@ -160,7 +197,7 @@ def fused_ln_ffn_q(x, scale, bias, wi, wo, eps: float, w8a8: bool = True, w8a8_w
     d = x.shape[-1]
     f = wo.shape[-1] if wo.dim() == 2 else -1
     _check_common(x, scale, bias, d, f)
-    if w8a8 and w8a8_wo and d == 768 and f > 1152:
+    if w8a8 and w8a8_wo and d == 768 and f > 1152 and x.dtype == torch.bfloat16:
         raise ValueError(f"the w8a8 + w8a8_wo kernel keeps the codes of all F: F <= 1152 at D 768, got F={f}")
     swi = swo = None
     if w8a8:
@@ -169,12 +206,16 @@ def fused_ln_ffn_q(x, scale, bias, wi, wo, eps: float, w8a8: bool = True, w8a8_w
     if w8a8_wo:
         wo, swo = wo_q if wo_q is not None else quantize_weight_int8(wo)
         _check_weight("wo scales", swo, (d,), torch.float32, x.device)
-    _check_weight("wi", wi, (2 * f, d), torch.int8 if w8a8 else torch.bfloat16, x.device)
-    _check_weight("wo", wo, (d, f), torch.int8 if w8a8_wo else torch.bfloat16, x.device)
+    _check_weight("wi", wi, (2 * f, d), torch.int8 if w8a8 else x.dtype, x.device)
+    _check_weight("wo", wo, (d, f), torch.int8 if w8a8_wo else x.dtype, x.device)
     for name, t, width in (("codes_y", codes_y, d), ("codes_g", codes_g, f)):
         if t is not None and (t.dtype != torch.int8 or t.shape != x.shape[:-1] + (width,) or t.device != x.device
                               or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous int8 (..., {width}) on x's device")
+    if x.dtype == torch.float32:
+        out = _launch_f32(x, scale, bias, wi, swi, wo, swo, eps, codes_y, codes_g)
+        (fused_ln_ffn_q_wo_f32 if w8a8_wo else fused_ln_ffn_q_f32).launches += 1
+        return out
     rows = x.numel() // d
     out = torch.empty_like(x)
     err = _build.library("fused_ffn", _SIGNATURES).cm3p_fused_ln_ffn_q(
@@ -200,6 +241,10 @@ class FormLaunches:
 
 
 fused_ln_ffn_q_wo = FormLaunches()  # fused_ln_ffn_q with an int8 Wo: it runs the Wi product twice
+# the fp32 kernel's forms (csrc/fused_ffn_f32.cu): fp32 Wi and Wo, int8 Wi, int8 Wo (with either Wi)
+fused_ln_ffn_f32 = FormLaunches()
+fused_ln_ffn_q_f32 = FormLaunches()
+fused_ln_ffn_q_wo_f32 = FormLaunches()
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

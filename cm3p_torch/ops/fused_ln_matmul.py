@@ -16,10 +16,15 @@ one kernel in ``csrc/fused_ln_matmul.cu``:
   residual added.
 
 Weights use the nn.Linear layout (N, D). On a CPU tensor the wrappers run the
-plain versions; on a CUDA tensor they launch the kernel (bf16, D in {256, 512,
-768}, N a multiple of 128) or raise. These are no-grad ops: under autograd the
-encoder takes the unfused modules, whose autodiff equals the analytic gradient
-the JAX package attaches to its fused ops.
+plain versions; on a CUDA tensor they launch the kernel (D in {256, 512, 768},
+N a multiple of 128) or raise: bf16 activations the bf16 kernels, fp32
+activations the fp32 kernels of ``csrc/fused_ln_matmul_f32.cu`` (fp32 FMA on
+the CUDA cores, dp4a for the int8 form; no TF32), each fp32 form counted under
+its own name (``fused_ln_matmul_f32``, ``fused_ln_matmul_wo_f32``,
+``fused_ln_matmul_q_f32``, ``fused_ln_matmul_q_wo_f32``). The weight, the
+residual and the output take the activation dtype. These are no-grad ops:
+under autograd the encoder takes the unfused modules, whose autodiff equals
+the analytic gradient the JAX package attaches to its fused ops.
 """
 from __future__ import annotations
 
@@ -38,19 +43,30 @@ _SIGNATURES = {
     "cm3p_ln_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
     "cm3p_ln_matmul_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
 }
+_LL = ctypes.c_longlong
+_F32_SIGNATURES = {
+    "cm3p_ln_matmul_f32": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, ctypes.c_float, _I, _P],
+    "cm3p_ln_matmul_q_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, ctypes.c_float, _I, _P],
+}
+ACTIVATION_DTYPES = (torch.bfloat16, torch.float32)  # bf16: csrc/fused_ln_matmul.cu; fp32: its _f32 form
 COLUMN_TILE = 128
 
 
 fused_ln_matmul_wo = FormLaunches()  # fused_ln_matmul without LN: the out-projection with its residual
 fused_ln_matmul_q_wo = FormLaunches()  # the same form of fused_ln_matmul_q
+# the fp32 kernels' forms (csrc/fused_ln_matmul_f32.cu)
+fused_ln_matmul_f32 = FormLaunches()
+fused_ln_matmul_wo_f32 = FormLaunches()
+fused_ln_matmul_q_f32 = FormLaunches()
+fused_ln_matmul_q_wo_f32 = FormLaunches()
 
 
 def lnmm_fusable(d_in: int, d_out: int) -> bool:
     """Shape-only fusability, as the JAX package's: both widths multiples of 128.
 
     The encoder asks this before it routes a projection here. On CUDA the
-    kernels additionally take only D in ``KERNEL_WIDTHS`` and bf16, and raise on
-    anything else.
+    kernels additionally take only D in ``KERNEL_WIDTHS`` and bf16 or fp32, and
+    raise on anything else.
     """
     return d_in % 128 == 0 and d_out % 128 == 0
 
@@ -78,8 +94,8 @@ def fused_ln_matmul_q_plain(x, w, scale=None, bias=None, residual=None, eps: flo
 def _check(x, w, w_dtype, scale, bias, residual, sw=None):
     d = x.shape[-1]
     n = w.shape[0]
-    if not x.is_cuda or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous bfloat16 CUDA tensor")
+    if not x.is_cuda or x.dtype not in ACTIVATION_DTYPES or not x.is_contiguous():
+        raise ValueError("x must be a contiguous bfloat16 or float32 CUDA tensor")
     if d not in KERNEL_WIDTHS or n % COLUMN_TILE or n <= 0:
         raise ValueError(
             f"the kernel takes D in {KERNEL_WIDTHS} and N a multiple of {COLUMN_TILE}, got D={d}, N={n}")
@@ -92,10 +108,10 @@ def _check(x, w, w_dtype, scale, bias, residual, sw=None):
                               or t.device != x.device):
             raise ValueError(f"{name} must be contiguous float32 (D,) on x's device")
     if residual is not None and (
-        residual.device != x.device or residual.dtype != torch.bfloat16 or not residual.is_contiguous()
+        residual.device != x.device or residual.dtype != x.dtype or not residual.is_contiguous()
         or residual.shape != x.shape[:-1] + (n,)
     ):
-        raise ValueError("residual must be contiguous bfloat16 of the output's shape on x's device")
+        raise ValueError("residual must be contiguous, of x's dtype and of the output's shape on x's device")
     if sw is not None and (sw.device != x.device or sw.dtype != torch.float32 or not sw.is_contiguous()
                            or sw.shape != (n,)):
         raise ValueError("the weight scales must be contiguous float32 (N,) on x's device")
@@ -109,10 +125,18 @@ def fused_ln_matmul(x, w, scale=None, bias=None, residual=None, eps: float = 1e-
     """``[residual +] [LN(x)] @ w.T`` over (..., D) -> (..., N); LN skipped when ``scale`` is None."""
     if x.device.type == "cpu":
         return fused_ln_matmul_plain(x, w, scale, bias, residual, eps)
-    _check(x, w, torch.bfloat16, scale, bias, residual)
+    _check(x, w, x.dtype, scale, bias, residual)
     d, n = x.shape[-1], w.shape[0]
     rows = x.numel() // d
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        err = _build.library("fused_ln_matmul_f32", _F32_SIGNATURES).cm3p_ln_matmul_f32(
+            x.data_ptr(), _ptr(scale), _ptr(bias), w.data_ptr(), _ptr(residual), out.data_ptr(),
+            rows, d, n, float(eps), int(scale is not None), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        _build.check(err, "cm3p_ln_matmul_f32")
+        (fused_ln_matmul_f32 if scale is not None else fused_ln_matmul_wo_f32).launches += 1
+        return out
     err = _build.library("fused_ln_matmul", _SIGNATURES).cm3p_ln_matmul(
         x.data_ptr(), _ptr(scale), _ptr(bias), w.data_ptr(), _ptr(residual), out.data_ptr(),
         rows, d, n, float(eps), int(scale is not None), torch.cuda.current_stream(x.device).cuda_stream,
@@ -146,6 +170,15 @@ def fused_ln_matmul_q(x, w, scale=None, bias=None, residual=None, eps: float = 1
     d, n = x.shape[-1], wq.shape[0]
     rows = x.numel() // d
     out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        err = _build.library("fused_ln_matmul_f32", _F32_SIGNATURES).cm3p_ln_matmul_q_f32(
+            x.data_ptr(), _ptr(scale), _ptr(bias), wq.data_ptr(), sw.data_ptr(), _ptr(residual), out.data_ptr(),
+            _ptr(codes_out), rows, d, n, float(eps), int(scale is not None),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        _build.check(err, "cm3p_ln_matmul_q_f32")
+        (fused_ln_matmul_q_f32 if scale is not None else fused_ln_matmul_q_wo_f32).launches += 1
+        return out
     err = _build.library("fused_ln_matmul", _SIGNATURES).cm3p_ln_matmul_q(
         x.data_ptr(), _ptr(scale), _ptr(bias), wq.data_ptr(), sw.data_ptr(), _ptr(residual), out.data_ptr(),
         _ptr(codes_out), rows, d, n, float(eps), int(scale is not None),

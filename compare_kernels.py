@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one phase's kernels of two checkouts on one card, in turns.
 
-    python3 compare_kernels.py --parent DIR [--phase quant|wo|ffn|attn] [--out DIR]
+    python3 compare_kernels.py --parent DIR [--phase quant|wo|ffn|attn|bwd] [--out DIR]
     python3 compare_kernels.py --phase parts [--out DIR]
 
 ``DIR`` is another checkout of this repository (for example ``git archive
@@ -45,6 +45,17 @@ measured on the same card within one run:
   as for ``wo``. The first change turn also times the plain version and one
   SDPA call (memory-efficient backend, the same mask) and computes the bound.
 
+* ``bwd``: the dK/dV forms of the attention backward through the public ops
+  (``ops.segment_attention_dkv`` / ``ops.window_attention_dkv``) on the same
+  seeded inputs in every turn, lse from each tree's forward kernel: the
+  ``v8_packed`` batch (10 x 4096, H 12) in the segment and window (w 64)
+  forms with and without rope (rows 8br, 8b, 7br, 7b), the window form at w =
+  192 and 256 (row 9's dK/dV) and the metadata tower's ``meta_pack`` rows (24
+  x 2048, H 4, row 8b). Each is first held to its plain backward (1e-2 of the
+  largest entry of dk and dv; exactly 0 on keys no query sees), then timed;
+  the first change turn also times the plain version and one SDPA backward
+  and computes the bound. The segments are made as for ``attn``.
+
 * ``parts`` (this tree only, no ``--parent``): the int8 LN-matmul kernel
   (rows 6 and 6r at 323,584 rows) beside copies of it built with one part cut
   out (the front end, the products, the epilogue, the TMA stores, the W loads,
@@ -55,7 +66,8 @@ measured on the same card within one run:
 Prints the card's name and power limit, each turn's timing lines and, per
 kernel form (and shape), the four times; writes each turn's log and
 ``compare.json`` (``compare_wo.json`` for ``wo``, ``compare_ffn.json`` for
-``ffn``, ``compare_attn.json`` for ``attn``) to ``--out``. Exits non-zero
+``ffn``, ``compare_attn.json`` for ``attn``, ``compare_bwd.json`` for ``bwd``)
+to ``--out``. Exits non-zero
 if a turn fails. Needs one GPU.
 """
 from __future__ import annotations
@@ -291,6 +303,64 @@ for n, (key, (qseg, kseg, heads, window, theta, lse)) in enumerate(FORMS.items()
     torch.cuda.empty_cache()
 print("REPORT " + json.dumps({"errs": errs, "times": times, "library": lib}), flush=True)
 """
+# the dK/dV forms of the backward on the attn phase's segments: key -> (segments, heads, window, rope theta)
+BWD_TURN = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from cm3p_torch import ops
+from cm3p_torch.ops import _build
+from cm3p_torch.ops.attention import _attention_bwd_plain, attention_bwd_rope_plain, attention_delta
+_build.build(("attention", "attention_bwd"))
+saved, library = torch.load(sys.argv[2]), sys.argv[3] == "1"
+dev = torch.device("cuda")
+seg10, meta = (saved[k].to(dev).contiguous() for k in ("seg10", "meta_seg"))
+FORMS = {
+    "8br segment train rope": (seg10, 12, None, 160000.0),
+    "8b segment train": (seg10, 12, None, None),
+    "7br window train rope": (seg10, 12, 64, 10000.0),
+    "7b window train": (seg10, 12, 64, None),
+    "9 dkv w192": (seg10, 12, 192, None),
+    "9 dkv w256": (seg10, 12, 256, None),
+    "8b metadata": (meta, 4, None, None),
+}
+errs, times, lib = {}, {}, {}
+for n, (key, (seg, heads, window, theta)) in enumerate(FORMS.items()):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    b, length = seg.shape
+    q, k, v = torch.randn(b, length, 3, heads, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
+    dout = torch.randn(b, length, heads, 64, generator=gen, device=dev).to(torch.bfloat16)
+    wargs = () if window is None else (window,)
+    fwd = ops.segment_attention if window is None else ops.window_attention
+    out, lse = fwd(q, k, v, seg, seg, *wargs, theta, return_lse=True)
+    delta = attention_delta(out, dout)
+    dkv = ops.segment_attention_dkv if window is None else ops.window_attention_dkv
+    run = lambda: dkv(q, k, v, dout, lse, delta, seg, seg, *wargs, rope_theta=theta)
+    if theta is None:
+        plain = lambda: _attention_bwd_plain(q, k, v, dout, lse, delta, seg, seg, window)
+    else:
+        plain = lambda: attention_bwd_rope_plain(q, k, v, dout, lse, delta, seg, seg, window, theta)
+    got, want = run(), plain()[1:]
+    torch.cuda.synchronize()
+    err = max((g.float() - w.float()).abs().max().item() / w.float().abs().max().item() for g, w in zip(got, want))
+    dead = seg == 0
+    dead_max = max(g[dead].abs().max().item() for g in got) if bool(dead.any()) else 0.0
+    errs[key] = {"rel": err, "dead_max": dead_max}
+    if not (err <= chip_smoke.BWD_REL_TOL and dead_max == 0.0):
+        raise SystemExit(f"{key}: the dK/dV kernel disagrees with its plain version ({errs[key]})")
+    del got, want
+    t = {"ms": chip_smoke.cuda_ms(run, 10)}
+    times[key] = t
+    print(f"  {key}: {t['ms']:.3f} ms (relative error {err:.3e})", flush=True)
+    if library:
+        pairs = chip_smoke.visible_pairs(seg, window)
+        bound, by = chip_smoke.attention_bwd_bound_ms(b, length, heads, 64, pairs, 2, theta is not None)
+        lib[key] = {"plain_ms": chip_smoke.cuda_ms(plain, 1), "bound_ms": bound, "bound_by": by,
+                    "sdpa_bwd_ms": chip_smoke.sdpa_bwd_ms(q, k, v, dout, seg, window, 3), "pairs": pairs}
+    del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+print("REPORT " + json.dumps({"errs": errs, "times": times, "library": lib}), flush=True)
+"""
 # the int8 LN-matmul kernel beside copies with one part cut out (edits of its namespace's source)
 PARTS = r"""
 import ctypes, json, subprocess, sys, tempfile
@@ -379,7 +449,7 @@ def wo_times(stdout: str) -> dict[str, dict[str, float]]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, help="root of the other checkout (every phase but parts)")
-    parser.add_argument("--phase", choices=("quant", "wo", "ffn", "attn", "parts"), default="quant",
+    parser.add_argument("--phase", choices=("quant", "wo", "ffn", "attn", "bwd", "parts"), default="quant",
                         help="the kernels to compare")
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out", help="directory for the logs")
     args = parser.parse_args()
@@ -396,8 +466,8 @@ def main() -> int:
         print(run.stdout if run.returncode == 0 else (run.stdout + run.stderr)[-3000:], flush=True)
         return run.returncode
     turn_args = []
-    if args.phase in ("wo", "attn"):
-        inputs = (args.out / f"{args.phase}_inputs.pt").resolve()
+    if args.phase in ("wo", "attn", "bwd"):
+        inputs = (args.out / f"{'wo' if args.phase == 'wo' else 'attn'}_inputs.pt").resolve()
         prep = subprocess.run([sys.executable, "-c", WO_INPUTS if args.phase == "wo" else ATTN_INPUTS, str(ROOT),
                                str(inputs)], cwd=ROOT, capture_output=True, text=True, timeout=900)
         if prep.returncode != 0:
@@ -405,12 +475,13 @@ def main() -> int:
             return 1
         turn_args = [str(inputs)]
     script, prefix = {"quant": (QUANT_TURN, "compare"), "wo": (WO_TURN, "compare_wo"),
-                      "ffn": (FFN_TURN, "compare_ffn"), "attn": (ATTN_TURN, "compare_attn")}[args.phase]
+                      "ffn": (FFN_TURN, "compare_ffn"), "attn": (ATTN_TURN, "compare_attn"),
+                      "bwd": (BWD_TURN, "compare_bwd")}[args.phase]
     results = []
     for turn, label in enumerate(ORDER):
         tree = (args.parent if label == "parent" else ROOT).resolve()
         t0 = time.perf_counter()
-        extra = [str(int(turn == ORDER.index("change")))] if args.phase == "attn" else []
+        extra = [str(int(turn == ORDER.index("change")))] if args.phase in ("attn", "bwd") else []
         run = subprocess.run([sys.executable, "-c", script, str(tree), *turn_args, *extra], cwd=tree,
                              capture_output=True, text=True, timeout=900)
         (args.out / f"{prefix}_{turn}_{label}.log").write_text(run.stdout + run.stderr)
@@ -446,6 +517,13 @@ def main() -> int:
                     line += f"; {label} " + ", ".join(f"{r['times'][key][part]:.3f}" for r in results)
             print(line + f"; plain {row['plain_ms']:.3f}; bound {row['bound_ms']:.3f} ({row['bound_by']}); "
                   f"SDPA {row['sdpa_ms']:.3f}", flush=True)
+        return 0
+    if args.phase == "bwd":
+        lib = results[ORDER.index("change")]["library"]
+        for key, row in lib.items():
+            print(f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)
+                  + f"; plain {row['plain_ms']:.3f}; bound {row['bound_ms']:.3f} ({row['bound_by']}); "
+                  f"SDPA backward {row['sdpa_bwd_ms']:.3f}", flush=True)
         return 0
     if args.phase == "wo":
         for key in results[0]["times"]:

@@ -57,6 +57,7 @@ from cm3p_torch.ops import (
     quantize_weight_int8,
     reset_launch_counts,
 )
+from cm3p_torch.ops.fused_ffn import f32_max_f
 from cm3p_torch.ops.attention import (
     _attention_bwd_plain,
     key_tile_ranges,
@@ -185,8 +186,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = _qkv(1, 128, 2, gen, cuda)
     seg = torch.ones(1, 128, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="bfloat16"):
-        window_attention(q.float(), k.float(), v.float(), seg, seg, 64)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):  # fp32 has its own kernel since the fp32 forms
+        window_attention(q.half(), k.half(), v.half(), seg, seg, 64)
     with pytest.raises(ValueError, match="head dim"):
         segment_attention(q[..., :32], k[..., :32], v[..., :32], seg, seg)
     with pytest.raises(ValueError, match="int32"):
@@ -691,8 +692,8 @@ def test_ffn_kernels_on_a_card_shared_by_three_processes(cuda, form):
 def test_quant_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(8, 768, dtype=torch.bfloat16, device=cuda)
     w = torch.zeros(768, 768, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="bfloat16"):
-        fused_ln_matmul(x.float(), w.float())
+    with pytest.raises(ValueError, match="bfloat16 or float32"):  # fp32 has its own kernel since the fp32 forms
+        fused_ln_matmul(x.half(), w.half())
     with pytest.raises(ValueError, match="multiple of"):
         fused_ln_matmul(x, w[:100].contiguous())
     with pytest.raises(ValueError, match="D in"):
@@ -996,3 +997,295 @@ def test_key_tile_ranges_kernel_equals_the_plain_ranges(cuda, layout):
             qseg, kseg = kseg, qseg
     got, want = key_tile_ranges(qseg, kseg), segment_tile_ranges(qseg, kseg)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ------------------------------------------------------------ the fp32 forms (csrc/*_f32.cu)
+# Each fp32 kernel against its plain version at fp32 with cuBLAS at "highest" precision (TF32 off):
+# max |kernel - plain| <= F32_REL_TOL * max |plain| (the same fp32 arithmetic, summed in another order); the
+# int8 forms' activation codes as the plain quantiser's but a share <= 1e-3 off by one (the LN's or the GeGLU's
+# summation order moves a value across a rounding boundary), and F32_REL_TOL on the rows whose codes agree.
+F32_REL_TOL = 1e-5
+
+
+@pytest.fixture
+def fp32_cuda(cuda):
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _rel_err(got, want, rows=None):
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    return (got.float() - want.float()).abs().max().item() / max(want.float().abs().max().item(), 1e-30)
+
+
+def _fp32_segments(b, length, device):
+    """A segment across a 64-tile boundary, a padding tail (queries that see no key), a row of one segment."""
+    seg = torch.zeros(b, length, dtype=torch.int32, device=device)
+    seg[0, :90], seg[0, 90:700], seg[0, 700:length - 77] = 1, 2, 3
+    seg[-1, : length // 3] = 1
+    return seg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [1000, 1500, 4096])
+@pytest.mark.parametrize("form", ["window", "wide_window", "segment", "key_mask"])
+def test_fp32_attention_kernel_matches_plain(fp32_cuda, form, length):
+    gen = torch.Generator(device=fp32_cuda).manual_seed(21)
+    heads = 12 if length == 4096 else 8
+    qkv = torch.randn(2, length, 3, heads, 64, generator=gen, device=fp32_cuda)
+    q, k, v = qkv.unbind(2)  # strided views, as the model passes them
+    if form == "key_mask":
+        qseg = torch.ones(2, length, dtype=torch.int32, device=fp32_cuda)
+        kseg = torch.ones_like(qseg)
+        kseg[1, length - 300:] = 0
+        kseg[1, 128:448] = 0
+    else:
+        qseg = kseg = _fp32_segments(2, length, fp32_cuda)
+    window = {"window": 64, "wide_window": 192}.get(form)
+    theta = 10000.0 if window else 160000.0
+    reset_launch_counts()
+    if window is None:
+        got = segment_attention(q, k, v, qseg, kseg, theta)
+        want = segment_attention_plain(q, k, v, qseg, kseg, theta)
+        name = "segment_attention_f32"
+    else:
+        got = window_attention(q, k, v, qseg, kseg, window, theta)
+        want = window_attention_plain(q, k, v, qseg, kseg, window, theta)
+        name = "window_attention_f32"
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, name: 1}
+    assert got.dtype == torch.float32 and _rel_err(got, want) <= F32_REL_TOL
+    dead = qseg == 0
+    if dead.any():
+        assert got[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq, lk", [(1088, 2048), (1500, 1500), (63, 4037)])
+def test_fp32_rect_attention_kernel_matches_plain(fp32_cuda, lq, lk):
+    gen = torch.Generator(device=fp32_cuda).manual_seed(22)
+    q = torch.randn(2, lq, 8, 64, generator=gen, device=fp32_cuda)
+    k, v = torch.randn(2, lk, 2, 8, 64, generator=gen, device=fp32_cuda).unbind(2)
+    qseg = torch.ones(2, lq, dtype=torch.int32, device=fp32_cuda)
+    kseg = torch.ones(2, lk, dtype=torch.int32, device=fp32_cuda)
+    kseg[0, lk - 30:] = 0
+    kseg[1] = 0  # no key visible: every query of the row gives exactly 0
+    reset_launch_counts()
+    got = segment_attention_rect(q, k, v, qseg, kseg)
+    want = segment_attention_rect_plain(q, k, v, qseg, kseg)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, "segment_attention_rect_f32": 1}
+    assert _rel_err(got, want) <= F32_REL_TOL and got[1].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [64, None])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fp32_attention_wo_forms_are_the_fp32_pair(fp32_cuda, window, int8):
+    """At fp32 the epilogue forms run the fp32 attention kernel and the fp32 LN-matmul residual form."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(23)
+    seg = _fp32_segments(2, 1000, fp32_cuda)
+    qkv = torch.randn(2, 1000, 3, 8, 64, generator=gen, device=fp32_cuda)
+    q, k, v = qkv.unbind(2)
+    res = torch.randn(2, 1000, 512, generator=gen, device=fp32_cuda)
+    wo = 0.02 * torch.randn(512, 512, generator=gen, device=fp32_cuda)
+    wargs = (window,) if window else ()
+    reset_launch_counts()
+    if int8:
+        w_q = quantize_weight_int8(wo)
+        fn, fn_plain = (window_attention_wo_q, window_attention_wo_q_plain) if window else (
+            segment_attention_wo_q, segment_attention_wo_q_plain)
+        got, want = fn(q, k, v, seg, seg, *wargs, w_q, res), fn_plain(q, k, v, seg, seg, *wargs, w_q, res)
+    else:
+        fn, fn_plain = (window_attention_wo, window_attention_wo_plain) if window else (
+            segment_attention_wo, segment_attention_wo_plain)
+        got, want = fn(q, k, v, seg, seg, *wargs, wo, res), fn_plain(q, k, v, seg, seg, *wargs, wo, res)
+    torch.cuda.synchronize()
+    attn = "window_attention_f32" if window else "segment_attention_f32"
+    assert launch_counts() == {**_NONE, attn: 1, "fused_ln_matmul_q_wo_f32" if int8 else "fused_ln_matmul_wo_f32": 1}
+    assert _rel_err(got, want) <= (2e-3 if int8 else F32_REL_TOL)  # int8: a code off by one on a few rows
+    dead = seg == 0
+    assert torch.equal(got[dead], res[dead])
+
+
+def _fp32_rows(rows, d, gen, device):
+    x = torch.randn(rows, d, generator=gen, device=device)
+    x[rows // 3: rows // 3 + 5] = 0  # zero rows: LN gives the bias, the codes 0
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 37, 4037])
+@pytest.mark.parametrize("d, n_out", [(768, 2304), (768, 768), (512, 1536), (256, 768)])
+@pytest.mark.parametrize("form", ["ln", "ln_bias", "wo_residual"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_fp32_ln_matmul_kernel_matches_plain(fp32_cuda, rows, d, n_out, form, int8):
+    gen = torch.Generator(device=fp32_cuda).manual_seed(24)
+    x = _fp32_rows(rows, d, gen, fp32_cuda)
+    w = 0.05 * torch.randn(n_out, d, generator=gen, device=fp32_cuda)
+    kw = dict(eps=1e-5)
+    if form != "wo_residual":
+        kw["scale"] = 1 + 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
+    if form == "ln_bias":
+        kw["bias"] = 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
+    if form == "wo_residual":
+        kw["residual"] = torch.randn(rows, n_out, generator=gen, device=fp32_cuda)
+    reset_launch_counts()
+    if int8:
+        w_q = quantize_weight_int8(w)
+        codes = torch.empty(rows, d, dtype=torch.int8, device=fp32_cuda)
+        got = fused_ln_matmul_q(x, None, w_q=w_q, codes_out=codes, **kw)
+        want = fused_ln_matmul_q_plain(x, None, w_q=w_q, **kw)
+        y = layer_norm_f32(x, kw["scale"], kw.get("bias"), 1e-5) if "scale" in kw else x
+        want_codes = quant_rows_int8(y)[0]
+        torch.cuda.synchronize()
+        _assert_codes_agree(codes, want_codes)
+        same = (codes == want_codes).all(-1)
+        assert _rel_err(got, want, same) <= F32_REL_TOL
+        name = "fused_ln_matmul_q_wo_f32" if form == "wo_residual" else "fused_ln_matmul_q_f32"
+    else:
+        got = fused_ln_matmul(x, w, **kw)
+        want = fused_ln_matmul_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) <= F32_REL_TOL
+        name = "fused_ln_matmul_wo_f32" if form == "wo_residual" else "fused_ln_matmul_f32"
+    assert got.dtype == torch.float32 and launch_counts() == {**_NONE, name: 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 37, 4037])
+@pytest.mark.parametrize("d, f", [(768, 1152), (512, 1024), (256, 512), (768, 64)])
+@pytest.mark.parametrize("w8a8, w8a8_wo", [(False, False), (True, False), (True, True), (False, True)])
+def test_fp32_ffn_kernel_matches_plain(fp32_cuda, rows, d, f, w8a8, w8a8_wo):
+    gen = torch.Generator(device=fp32_cuda).manual_seed(25)
+    x = _fp32_rows(rows, d, gen, fp32_cuda)
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
+    bias = 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
+    wi = 0.05 * torch.randn(2 * f, d, generator=gen, device=fp32_cuda)
+    wo = 0.05 * torch.randn(d, f, generator=gen, device=fp32_cuda)
+    wi_q = quantize_weight_int8(wi) if w8a8 else None
+    wo_q = quantize_weight_int8(wo) if w8a8_wo else None
+    args = (x, scale, bias, wi, wo, 1e-5)
+    reset_launch_counts()
+    if w8a8 or w8a8_wo:
+        codes_y = torch.empty(rows, d, dtype=torch.int8, device=fp32_cuda)
+        codes_g = torch.empty(rows, f, dtype=torch.int8, device=fp32_cuda)
+        got = fused_ln_ffn_q(*args, w8a8, w8a8_wo, wi_q, wo_q, codes_y=codes_y, codes_g=codes_g)
+        name = "fused_ln_ffn_q_wo_f32" if w8a8_wo else "fused_ln_ffn_q_f32"
+    else:
+        got = fused_ln_ffn(*args)
+        name = "fused_ln_ffn_f32"
+    want = fused_ln_ffn_plain(*args, w8a8, w8a8_wo, wi_q, wo_q)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and launch_counts() == {**_NONE, name: 1}
+    same = torch.ones(rows, dtype=torch.bool, device=fp32_cuda)
+    y = layer_norm_f32(x, scale, bias, 1e-5)
+    if w8a8:
+        want_y = quant_rows_int8(y)[0]
+        _assert_codes_agree(codes_y, want_y)
+        same &= (codes_y == want_y).all(-1)
+    if w8a8_wo:
+        # the GeGLU of the plain version's h, quantised; rows whose y codes moved are compared on their own codes
+        if w8a8:
+            h = int8_matmul(codes_y, wi_q[0]) * quant_rows_int8(y)[1] * wi_q[1]
+        else:
+            h = y @ wi.t()
+        gf = torch.nn.functional.gelu(h[:, :f]) * h[:, f:]
+        want_g = quant_rows_int8(gf)[0]
+        _assert_codes_agree(codes_g, want_g)
+        same &= (codes_g == want_g).all(-1)
+    assert same.float().mean().item() >= 0.9
+    assert _rel_err(got, want, same) <= F32_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d, tower_f", [(768, 1152), (512, 1024), (256, 512)])
+def test_fp32_ffn_kernel_takes_every_f_up_to_its_limit(fp32_cuda, d, tower_f):
+    """The limit the wrapper reads from the kernel's source covers the towers' F, launches at its largest F,
+    and one step past it raises with the limit in the message."""
+    max_f = f32_max_f(d)
+    assert tower_f <= max_f and max_f % 64 == 0
+    gen = torch.Generator(device=fp32_cuda).manual_seed(26)
+    x = _fp32_rows(37, d, gen, fp32_cuda)
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
+    for f in (max_f, max_f + 64):
+        wi = 0.05 * torch.randn(2 * f, d, generator=gen, device=fp32_cuda)
+        wo = 0.05 * torch.randn(d, f, generator=gen, device=fp32_cuda)
+        if f > max_f:
+            with pytest.raises(ValueError, match=f"F <= {max_f} at D {d}"):
+                fused_ln_ffn(x, scale, None, wi, wo, 1e-5)
+        else:
+            got = fused_ln_ffn(x, scale, None, wi, wo, 1e-5)
+            want = fused_ln_ffn_plain(x, scale, None, wi, wo, 1e-5)
+            torch.cuda.synchronize()
+            assert _rel_err(got, want) <= F32_REL_TOL
+
+
+@pytest.mark.gpu
+def test_fp32_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(4, 768, device=cuda)
+    wi, wo = torch.zeros(2 * 2048, 768, device=cuda), torch.zeros(768, 2048, device=cuda)
+    with pytest.raises(ValueError, match="fp32 kernel keeps a tile's g"):
+        fused_ln_ffn(x, torch.ones(768, device=cuda), None, wi, wo, 1e-5)
+    with pytest.raises(ValueError, match="wi must be"):
+        fused_ln_ffn(x, torch.ones(768, device=cuda), None, wi[:256, :].to(torch.bfloat16),
+                     wo[:, :128].contiguous(), 1e-5)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fused_ln_matmul(x.half(), torch.zeros(128, 768, dtype=torch.half, device=cuda))
+    q = torch.zeros(1, 64, 2, 64, device=cuda)
+    seg = torch.ones(1, 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="no lse"):
+        segment_attention(q, q, q, seg, seg, return_lse=True)
+    with pytest.raises(ValueError, match="head dim"):
+        window_attention(q[..., :32], q[..., :32], q[..., :32], seg, seg, 16)
+    with pytest.raises(ValueError, match="backward kernels take bfloat16"):
+        window_attention_dkv(q, q, q, q, torch.zeros(1, 2, 64, device=cuda), torch.zeros(1, 2, 64, device=cuda),
+                             seg, seg, 16)
+
+
+# ------------------------------------------------------------ the dK/dV kernel (sm90_dkv::attention_dkv_kernel)
+
+
+def _dkv_segments(length, device):
+    """qseg and kseg (2, length): packed segments with a padding tail, and keys no query sees (segment 9 in
+    kseg only, and padding): their dk and dv are exactly 0."""
+    qseg = _fp32_segments(2, length, device)
+    kseg = qseg.clone()
+    kseg[0, 300:340] = 9
+    kseg[1, 10:20] = 9
+    return qseg, kseg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [100, 1000, 1500, 4037])
+@pytest.mark.parametrize("window", [64, 192, None], ids=["window", "wide_window", "segment"])
+@pytest.mark.parametrize("rope", [False, True], ids=["no_rope", "rope"])
+def test_dkv_kernel_matches_plain_off_the_key_tile(cuda, length, window, rope):
+    """Lengths not a multiple of the kernel's 128 keys a block; the window and segment forms, with rope
+    (raw q/k, dk counter-rotated) and without; keys no query sees give dk = dv = 0 exactly."""
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    qseg, kseg = _dkv_segments(length, cuda)
+    q, k, v = _qkv(2, length, 4, gen, cuda)
+    dout = torch.randn(2, length, 4, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    theta = (10000.0 if window else 160000.0) if rope else None
+    wargs = (window,) if window else ()
+    fwd_plain = window_attention_plain if window else segment_attention_plain
+    out, lse = fwd_plain(q, k, v, qseg, kseg, *wargs, theta, return_lse=True)
+    delta = attention_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, qseg, kseg, *wargs)
+    reset_launch_counts()
+    dk, dv = (window_attention_dkv if window else segment_attention_dkv)(*args, rope_theta=theta)
+    torch.cuda.synchronize()
+    name = ("window_attention_dkv" if window else "segment_attention_dkv") + ("_rope" if rope else "")
+    assert launch_counts() == {**_NONE, name: 1}
+    if rope:
+        want = attention_bwd_rope_plain(q, k, v, dout, lse, delta, qseg, kseg, window, theta)
+    else:
+        want = _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window)
+    for got, ref in zip((dk, dv), want[1:]):
+        assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    unseen = (kseg == 9) | (kseg == 0)
+    assert dk[unseen].abs().max().item() == 0.0 and dv[unseen].abs().max().item() == 0.0
