@@ -11,7 +11,8 @@ Phases (any failure exits non-zero; nothing is skipped):
                and ``w8a8::ln_matmul_q_kernel``; the FFN's ``bf16::ffn_kernel``, ``w8a8::ffn_kernel`` and
                ``w8a8::ffn_wo_kernel``; the attention forward
                ``sm90_attn::attention_kernel``; ``sm90_wo::attention_wo_kernel``,
-               whose int8 instances multiply by Wo with IGMMA) the
+               whose int8 instances multiply by Wo with IGMMA; the backward's
+               ``sm90_bwd::attention_dq_kernel`` and ``attention_dkv_kernel``) the
                count of their HGMMA and IGMMA (wgmma on bf16 and on int8),
                UTMALDG (TMA load), LDGSTS (cp.async) and BAR.SYNC instructions
                in ``cuobjdump -sass``; fails if one of them has no wgmma or no
@@ -257,7 +258,7 @@ WGMMA_KERNELS = {
     "fused_ffn": ("bf16::ffn_kernel", "w8a8::ffn_kernel", "w8a8::ffn_wo_kernel"),
     "attention": ("sm90_attn::attention_kernel",),
     "attention_wo": ("sm90_wo::attention_wo_kernel",),
-    "attention_bwd": ("sm90_dkv::attention_dkv_kernel",),
+    "attention_bwd": ("sm90_bwd::attention_dq_kernel", "sm90_bwd::attention_dkv_kernel"),
 }
 SASS_OPCODES = ("HGMMA", "IGMMA", "UTMALDG", "LDGSTS", "BAR.SYNC")  # IGMMA: wgmma on int8
 SERIAL_WGMMA_NOTES = ("C7514", "C7520")  # ptxas notes that it serialises every wgmma of a kernel
@@ -445,7 +446,7 @@ _CATEGORIES = (  # kernel-name pattern (re.search) -> category, first match wins
     ("attention_kernel<true>", "window_attention (ours)"),
     ("attention_kernel<false>", "segment_attention (ours)"),
     ("rope_k_kernel", "attention rope pass (ours)"),  # of the window and segment forwards, part of each op
-    ("rope_qk_kernel", "dK/dV rope pass (ours)"),  # of the rope forms of the dK/dV kernel, part of each op
+    ("rope_qk_kernel", "backward rope pass (ours)"),  # one per backward call of the rope forms, before dq and dkv
     ("key_tile_ranges_kernel", "segment key-tile ranges (ours)"),  # of the segment forms, part of each op
     ("attention_dq_kernel<true, false>", "window_attention_dq (ours)"),
     ("attention_dkv_kernel<true, false>", "window_attention_dkv (ours)"),
@@ -457,6 +458,7 @@ _CATEGORIES = (  # kernel-name pattern (re.search) -> category, first match wins
     ("attention_dkv_kernel<false, true>", "segment_attention_dkv_rope (ours)"),
     ("f32::ffn_kernel", "fused_ln_ffn_f32 (ours)"),
     ("f32::ln_matmul_kernel", "fused_ln_matmul_f32 (ours)"),
+    ("f32::ln_matmul_q_kernel", "fused_ln_matmul_q_f32 (ours)"),
     ("bf16::ffn_kernel", "fused_ln_ffn (ours)"),
     ("w8a8::ffn_kernel", "fused_ln_ffn_q (ours)"),
     ("w8a8::ffn_wo_kernel", "fused_ln_ffn_q_wo (ours)"),

@@ -1,9 +1,7 @@
 // Pieces the attention kernels share: the forward's arguments, the rope of
-// 8 dims and their partners with the plain version's rounding (rope8), the
-// staging of 64 rotated rows into padded shared memory that the dQ kernel
-// (csrc/attention_bwd.cu) uses, and the item of the rope passes (rope_item) that
-// rotate k (the forward) or q and k (the dK/dV kernel) once into a contiguous
-// buffer.
+// 8 dims and their partners with the plain version's rounding (rope8), and the
+// item of the rope passes (rope_item) that rotate k (the forward) or q and k
+// (the backward, once for both of its kernels) into a contiguous buffer.
 //
 // Rope is rotate-half at arange positions from (L, 32) fp32 cos/sin tables;
 // rotated values are rounded to bf16 like the plain version. Queries and keys
@@ -23,8 +21,6 @@ namespace attn {
 constexpr int D = 64;          // head dim
 constexpr int BQ = 64;         // query rows per tile
 constexpr int BK = 64;         // keys per tile
-constexpr int GROUP = 128;     // threads that stage a tile with load_rows_rope
-constexpr int LDS = D + 8;     // padded smem row of a staged tile (bf16), 144 bytes
 
 struct AttnArgs {
   const __nv_bfloat16* q;
@@ -94,52 +90,13 @@ __device__ __forceinline__ uint4 pack8(const float f[8]) {
 // contracting them into a fused multiply-add), so the rotated bf16 tiles equal
 // the plain version's bit for bit, and every kernel that rotates a tile gets
 // the same bits: the backward kernels (csrc/attention_bwd.cu) recompute the
-// forward's scores from tiles they rotate themselves.
+// forward's scores from tiles rotated by their rope pass.
 __device__ __forceinline__ void rope8(float x[8], float y[8], const float* ct, const float* st) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const float a = x[i], b = y[i], cs = ct[i], sn = st[i];
     x[i] = __fsub_rn(__fmul_rn(a, cs), __fmul_rn(b, sn));
     y[i] = __fadd_rn(__fmul_rn(b, cs), __fmul_rn(a, sn));
-  }
-}
-
-// Load 64 positions x 64 dims starting at pos0, rotate them (rope) when
-// tables are given, and store bf16 rows into smem (row stride ld) and, when
-// smt is not null, also transposed (smt[dim * ldt + pos]; the backward
-// kernels' second copy). Each item is 8 dims of the first half plus their 8
-// partners of the second half; tid runs over GROUP threads.
-__device__ __forceinline__ void load_rows_rope(__nv_bfloat16* sm, int ld, const __nv_bfloat16* base,
-                                               long long pos_stride, int pos0, int L,
-                                               const float* cos_t, const float* sin_t, int tid,
-                                               __nv_bfloat16* smt = nullptr, int ldt = 0) {
-  for (int item = tid; item < 64 * 4; item += GROUP) {
-    const int r = item >> 2;
-    const int c = (item & 3) * 8;
-    const int pos = pos0 + r;
-    float x[8], y[8];
-    if (pos < L) {
-      const __nv_bfloat16* p = base + (long long)pos * pos_stride;
-      unpack8(*reinterpret_cast<const uint4*>(p + c), x);
-      unpack8(*reinterpret_cast<const uint4*>(p + c + D / 2), y);
-      if (cos_t != nullptr)
-        rope8(x, y, cos_t + (long long)pos * (D / 2) + c, sin_t + (long long)pos * (D / 2) + c);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] = y[i] = 0.f;
-    }
-    const uint4 ux = pack8(x), uy = pack8(y);
-    *reinterpret_cast<uint4*>(sm + r * ld + c) = ux;
-    *reinterpret_cast<uint4*>(sm + r * ld + c + D / 2) = uy;
-    if (smt != nullptr) {
-      const __nv_bfloat16* hx = reinterpret_cast<const __nv_bfloat16*>(&ux);
-      const __nv_bfloat16* hy = reinterpret_cast<const __nv_bfloat16*>(&uy);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        smt[(c + i) * ldt + r] = hx[i];
-        smt[(c + D / 2 + i) * ldt + r] = hy[i];
-      }
-    }
   }
 }
 
@@ -167,7 +124,7 @@ __device__ __forceinline__ void rope_packed(uint4& ux, uint4& uy, const float (&
 // partners, rotated with rope8's arithmetic and bf16 rounding into out, contiguous (B, L, H, 64), so that a
 // kernel reading the rotated rows sees the bits a kernel that rotates on load sees. Neighbouring items take
 // neighbouring dims and heads. The passes are the forward's k pass (rope_k_kernel, csrc/attention.cu) and
-// the dK/dV kernel's q and k pass (rope_qk_kernel, csrc/attention_bwd.cu).
+// the backward's q and k pass (rope_qk_kernel, csrc/attention_bwd.cu).
 constexpr int ROPE_BLOCK = 256;  // threads of a rope pass's block, one item each
 
 __device__ __forceinline__ void rope_item(const __nv_bfloat16* src, long long bstride, long long pstride,

@@ -1,22 +1,38 @@
 // Row-tile pieces of the fp32 kernels (csrc/fused_ffn_f32.cu,
-// csrc/fused_ln_matmul_f32.cu): a block of 256 threads owns a tile of RT = 16
-// rows, normalises them into shared memory and multiplies them by a weight in
-// 128-column tiles on the CUDA cores (fp32 FMA, or dp4a on int8 codes with
-// exact int32 sums). No TF32: the plain fp32 versions multiply at "highest"
-// precision.
+// csrc/fused_ln_matmul_f32.cu), on the CUDA cores (fp32 FMA, or dp4a on int8
+// codes with exact int32 sums). No TF32: the plain fp32 versions multiply at
+// "highest" precision.
 //
 // * ln_row: the flax LayerNorm of one fp32 row by one warp (var = max(E[x^2]
 //   - E[x]^2, 0), y = (x - mu) * (rsqrt(var + eps) * scale) + bias), the
 //   plain version's layer_norm_f32; without scale the row is copied.
+//   ln_moments gives the same mu and rstd (the same sums and shuffle tree)
+//   without writing the row.
 // * quant_row: the per-row symmetric int8 quantiser of _quant_rows_int8 (sa
 //   = max(amax, 1e-30) * (1 / 127), code = clip(rint(y / sa), +-127), a true
-//   division; ln_rows.cuh's quant_code), as the plain quant_rows_int8.
-// * tile_product: acc (rows 2 w, 2 w + 1 of warp w; columns 4 lane .. + 3)
-//   of the 16 x 128 tile A . W^T, where A is RT rows of K words in shared
-//   memory and W two groups of 64 rows in device memory (row-major, K words
-//   a row), staged through shared memory 32 words of K at a time, transposed
-//   so that a lane reads its 4 columns as one float4, the next slice's loads
-//   in flight while the block multiplies the current one.
+//   division; ln_rows.cuh's quant_code), as the plain quantiser.
+// * tile_product: a block of 256 threads owns a tile of RT = 16 rows, kept
+//   (normalised) in shared memory; acc (rows 2 w, 2 w + 1 of warp w; columns
+//   4 lane .. + 3) of the 16 x 128 tile A . W^T, where W is two groups of 64
+//   rows in device memory (row-major, K words a row), staged through shared
+//   memory 32 words of K at a time, transposed so that a lane reads its 4
+//   columns as one float4, the next slice's loads in flight while the block
+//   multiplies the current one. Each lane issues six 16-byte shared-memory
+//   loads for 32 FMAs, and every 16-row tile reads all of W again, so the
+//   shared-memory loads set its pace (the int8 forms and the FFN use it).
+// * row_tile_product (namespace f32tile): the register-tiled fp32 product of
+//   the fp32-weight forms. A block of 256 threads owns 128 rows and walks
+//   over N in 128 x 128 output tiles, each thread holding 8 x 8 sums (rows 4
+//   ty .. + 3 and 64 + 4 ty .. + 3, columns 4 tx .. + 3 and 64 + 4 tx .. + 3
+//   of the tile; a warp takes 4 x 8 of the 16 x 16 (ty, tx) grid). A and W
+//   are staged in slices of 16 of K through two shared-memory buffers, both
+//   K-major (a slice row holds one k of 128 rows, padded against bank
+//   conflicts), W transposed as it is staged and A through the caller's
+//   loader and staging map (which may normalise it as it is staged, a slice
+//   after its load, so that the load's latency stalls nothing); the next
+//   slice's global loads are in flight while the block multiplies the
+//   current one, across column tiles too. Per k each thread makes four
+//   16-byte loads for 64 FMAs, and W is read from L2 once per 128 rows.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,6 +50,37 @@ constexpr int THREADS = 256;  // 8 warps
 constexpr int LDW = NT + 4;   // words between the K rows of a staged slice
 constexpr int STAGE_WORDS = KW * LDW;
 
+// Lane lane's float4s of one fp32 row of D values (D <= 768): columns 4 lane + 128 i .. + 3.
+__device__ __forceinline__ void load_row(const float* __restrict__ xr, int D, int lane, float4 (&v)[6]) {
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const int c = 4 * lane + 128 * i;
+    if (c >= D) break;
+    v[i] = *reinterpret_cast<const float4*>(xr + c);
+  }
+}
+
+// mu and rstd of one fp32 row by one warp (the flax formula; every lane gets them), and the lane's float4s of
+// the row in v.
+__device__ __forceinline__ void ln_moments(const float* __restrict__ xr, int D, float eps, int lane, float4 (&v)[6],
+                                           float& mu, float& rstd) {
+  load_row(xr, D, lane, v);
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    if (4 * lane + 128 * i >= D) break;
+    s1 += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+    s2 += (v[i].x * v[i].x + v[i].y * v[i].y) + (v[i].z * v[i].z + v[i].w * v[i].w);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  }
+  mu = s1 / D;
+  rstd = rsqrtf(fmaxf(s2 / D - mu * mu, 0.f) + eps);
+}
+
 // Row r (< n rows) of x (D fp32 values a row) into y, normalised when scale is given; zeros past n.
 __device__ __forceinline__ void ln_row(float* y, const float* __restrict__ x, long long r, long long n, int D,
                                        const float* __restrict__ scale, const float* __restrict__ bias, float eps,
@@ -42,27 +89,12 @@ __device__ __forceinline__ void ln_row(float* y, const float* __restrict__ x, lo
     for (int c = 4 * lane; c < D; c += 128) *reinterpret_cast<float4*>(y + c) = make_float4(0.f, 0.f, 0.f, 0.f);
     return;
   }
-  const float* xr = x + r * D;
   float4 v[6];  // D <= 768
-  float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    const int c = 4 * lane + 128 * i;
-    if (c >= D) break;
-    v[i] = *reinterpret_cast<const float4*>(xr + c);
-    s1 += (v[i].x + v[i].y) + (v[i].z + v[i].w);
-    s2 += (v[i].x * v[i].x + v[i].y * v[i].y) + (v[i].z * v[i].z + v[i].w * v[i].w);
-  }
   float mu = 0.f, rstd = 1.f;
-  if (scale != nullptr) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-    }
-    mu = s1 / D;
-    rstd = rsqrtf(fmaxf(s2 / D - mu * mu, 0.f) + eps);
-  }
+  if (scale != nullptr)
+    ln_moments(x + r * D, D, eps, lane, v, mu, rstd);
+  else
+    load_row(x + r * D, D, lane, v);
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     const int c = 4 * lane + 128 * i;
@@ -153,4 +185,111 @@ __device__ __forceinline__ void tile_product(Acc (&acc)[2][4], const uint32_t* A
 }
 
 }  // namespace f32rows
+
+namespace f32tile {
+
+constexpr int MT = 128;       // rows of a block's tile
+constexpr int RI = MT / 16;   // rows of a thread's sums
+constexpr int NT = 128;       // output columns of a product tile
+constexpr int KS = 16;        // values of K per staged slice
+constexpr int THREADS = 256;  // a 16 x 16 grid of threads, RI x 8 sums each
+constexpr int LDA = MT + 4;   // floats between the K rows of a staged A slice (16-byte aligned, few bank conflicts)
+constexpr int LDW = NT + 4;   // the same for a W slice
+constexpr int SLICE_FLOATS = KS * (LDA + LDW);  // the A and W slices of one buffer
+constexpr int SMEM_FLOATS = 2 * SLICE_FLOATS;
+
+// This thread's place (ty, tx) in the 16 x 16 grid: a warp takes 4 x 8 of it (warp w: ty 4 (w / 2) .. + 3, tx
+// 8 (w % 2) .. + 7), so that a k step's 16-byte shared-memory loads of a warp read 4 and 8 distinct float4s.
+__device__ __forceinline__ int grid_ty() { return 4 * (threadIdx.x >> 6) + ((threadIdx.x >> 3) & 3); }
+__device__ __forceinline__ int grid_tx() { return 8 * ((threadIdx.x >> 5) & 1) + (threadIdx.x & 7); }
+// The tile row of this thread's sums i (0 .. RI - 1) and the tile column of its sums j (0 .. 7).
+__device__ __forceinline__ int sum_row(int i) { return 4 * grid_ty() + (i & 3) + 64 * (i >> 2); }
+__device__ __forceinline__ int sum_col(int j) { return 4 * grid_tx() + (j & 3) + 64 * (j >> 2); }
+
+// For each 128-column tile n0 = 0, 128, .. < N: acc = A . W^T over K for the block's MT rows, then
+// epilogue(n0, acc) (acc[i][j] at tile row sum_row(i), column n0 + sum_col(j)). load_a(row, k) returns A's
+// values k .. k + 3 of tile row `row` as a float4 (zeros past the caller's rows); stage_a(row, k, v) maps them
+// to what is staged (a LayerNorm, say) when the slice is written to shared memory, a slice after their loads, so
+// that no load's latency stalls the products. W is (N, K) row-major fp32 in device memory, N a multiple of 128
+// and K of KS. smem: SMEM_FLOATS of shared memory. Every thread of the block calls it.
+template <typename LoadA, typename StageA, typename Epilogue>
+__device__ __forceinline__ void row_tile_product(LoadA load_a, StageA stage_a, const float* __restrict__ W, int N,
+                                                 int K, float* smem, Epilogue epilogue) {
+  constexpr int ROW_LOADS = KS / 4, STEP = THREADS / ROW_LOADS;  // float4s of a slice row; rows a pass loads
+  constexpr int LOADS_A = MT / STEP, LOADS_W = NT / STEP;        // float4 loads of a thread per slice
+  static_assert(LOADS_A * STEP == MT && LOADS_W * STEP == NT && RI % 4 == 0, "whole loads, spread evenly");
+  const int ty = grid_ty(), tx = grid_tx();
+  // this thread's loads: slice rows lr + h STEP, values lk .. lk + 3 of K
+  const int lr = threadIdx.x / ROW_LOADS, lk = 4 * (threadIdx.x % ROW_LOADS);
+  const int nk = K / KS, steps = (N / NT) * nk;
+  float4 ra[LOADS_A], rw[LOADS_W];
+  auto fetch = [&](int t) {
+    const int n0 = (t / nk) * NT, k0 = (t % nk) * KS;
+#pragma unroll
+    for (int h = 0; h < LOADS_A; ++h) ra[h] = load_a(lr + h * STEP, k0 + lk);
+#pragma unroll
+    for (int h = 0; h < LOADS_W; ++h)
+      rw[h] = __ldg(reinterpret_cast<const float4*>(W + (long long)(n0 + lr + h * STEP) * K + k0 + lk));
+  };
+  auto stash = [&](int t) {  // the fetched slice t, K-major, into buffer t % 2
+    float* a = smem + (t & 1) * SLICE_FLOATS;
+    float* w = a + KS * LDA;
+    const int k = (t % nk) * KS + lk;
+#pragma unroll
+    for (int h = 0; h < LOADS_A; ++h) {
+      const int m = lr + h * STEP;
+      const float4 v = stage_a(m, k, ra[h]);
+      a[(lk + 0) * LDA + m] = v.x, a[(lk + 1) * LDA + m] = v.y;
+      a[(lk + 2) * LDA + m] = v.z, a[(lk + 3) * LDA + m] = v.w;
+    }
+#pragma unroll
+    for (int h = 0; h < LOADS_W; ++h) {
+      const int m = lr + h * STEP;
+      w[(lk + 0) * LDW + m] = rw[h].x, w[(lk + 1) * LDW + m] = rw[h].y;
+      w[(lk + 2) * LDW + m] = rw[h].z, w[(lk + 3) * LDW + m] = rw[h].w;
+    }
+  };
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  float acc[RI][8];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int t = 0; t < steps; ++t) {
+    if (t + 1 < steps) fetch(t + 1);  // in flight during this slice's products
+    const float* a = smem + (t & 1) * SLICE_FLOATS;
+    const float* w = a + KS * LDA;
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      float av[RI], wv[8];
+#pragma unroll
+      for (int q = 0; q < RI / 4; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(a + k * LDA + 64 * q + 4 * ty);
+        av[4 * q] = v.x, av[4 * q + 1] = v.y, av[4 * q + 2] = v.z, av[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(w + k * LDW + 64 * q + 4 * tx);
+        wv[4 * q] = v.x, wv[4 * q + 1] = v.y, wv[4 * q + 2] = v.z, wv[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
+    if ((t + 1) % nk == 0) {
+      epilogue((t / nk) * NT, acc);
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    }
+    if (t + 1 < steps) stash(t + 1);  // the other buffer: its last readers passed the barrier below
+    __syncthreads();
+  }
+}
+
+}  // namespace f32tile
 }  // namespace cm3p

@@ -49,8 +49,9 @@ Where :func:`rope_in_kernels` admits the layer (the JAX package's
 ``CM3P_TRAIN_FUSED_ROPE`` route) q and k stay raw: the forward kernel rotates
 them and the backward kernels run their rope forms
 (``window_attention_dq(..., rope_theta=...)`` and the other three, counted as
-``*_rope``), which rotate each q/k tile as it is staged and counter-rotate
-dq/dk; :func:`attention_bwd_rope_plain` is their oracle. Elsewhere (positions
+``*_rope``), which read q and k rotated once by :func:`backward_rope_pass`
+(one pass per backward call feeds both kernels) and counter-rotate dq/dk;
+:func:`attention_bwd_rope_plain` is their oracle. Elsewhere (positions
 other than arange) and on the plain route rope is applied outside the kernels,
 and autograd of that rope is the counter-rotation of dq/dk.
 
@@ -124,11 +125,11 @@ _WO_SIGNATURES = {
 _BWD_ARGTYPES = [_P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                  _I, _I, _I, _I, _P]
 _BWD_SIGNATURES = {
-    name: _BWD_ARGTYPES
-    for name in (
+    **{name: _BWD_ARGTYPES for name in (
         "cm3p_window_attention_dq", "cm3p_window_attention_dkv",
         "cm3p_segment_attention_dq", "cm3p_segment_attention_dkv",
-    )
+    )},
+    "cm3p_attention_rope_qk": [_P, _P, _LL, _LL, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -516,16 +517,40 @@ def segment_attention_rect(q, k, v, qseg, kseg):
     return out
 
 
-def _launch_bwd(entry, q, k, v, dout, lse, delta, qseg, kseg, window, ranges, rope_theta, dq=None, dk=None,
+def backward_rope_pass(q, k, rope_theta: float) -> torch.Tensor:
+    """The rope pass of the backward kernels' rope forms on CUDA: raw (B, L, H, D) q and k rotated once, with
+    the forward's arithmetic, into one (2, B, L, H, D) buffer (q, then k) that both kernels read (pass it as
+    ``rotated``). Its plain version is :func:`apply_rope` of each."""
+    if not q.is_cuda or q.dtype != torch.bfloat16 or k.shape != q.shape or k.dtype != q.dtype or k.device != q.device:
+        raise ValueError("the rope pass takes bfloat16 CUDA q and k of one shape")
+    if q.shape[-1] != HEAD_DIM or q.stride(-1) != 1 or k.stride(-1) != 1 or q.stride(2) != HEAD_DIM \
+            or k.stride(2) != HEAD_DIM:
+        raise ValueError(f"the rope pass takes head dim {HEAD_DIM} with heads {HEAD_DIM} elements apart")
+    b, length, heads, _ = q.shape
+    rot = torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
+    err = _build.library("attention_bwd", _BWD_SIGNATURES).cm3p_attention_rope_qk(
+        q.data_ptr(), k.data_ptr(), q.stride(0), k.stride(0), q.stride(1), k.stride(1), *_tables(q, rope_theta),
+        rot.data_ptr(), b, length, heads, _stream(q))
+    _build.check(err, "cm3p_attention_rope_qk")
+    return rot
+
+
+def _launch_bwd(entry, q, k, v, dout, lse, delta, qseg, kseg, window, ranges, rope_theta, rotated, dq=None, dk=None,
                 dv=None):
     _check_bwd(q, k, v, dout, lse, delta, qseg, kseg)
     b, length, heads, _ = q.shape
     start, count = ranges if ranges is not None else (None, None)
     tables = _tables(q, rope_theta)
-    # the dK/dV kernel's rope form reads q and k rotated by the rope pass into this scratch
+    # the rope forms read q and k rotated by the rope pass: the caller's, or one run here
     rot = None
-    if dk is not None and rope_theta is not None:
-        rot = torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
+    if rope_theta is not None:
+        if rotated is None:
+            rot = backward_rope_pass(q, k, rope_theta)
+        elif rotated.shape != (2, *q.shape) or rotated.dtype != q.dtype or rotated.device != q.device \
+                or not rotated.is_contiguous():
+            raise ValueError("rotated must be the rope pass's contiguous (2, B, L, H, D) output on q's device")
+        else:
+            rot = rotated
     err = getattr(_build.library("attention_bwd", _BWD_SIGNATURES), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         *_qkv_args(q, k, v)[3:], lse.data_ptr(), delta.data_ptr(), qseg.data_ptr(), kseg.data_ptr(),
@@ -553,55 +578,64 @@ def _count(plain_form, rope_form, rope_theta) -> None:
     (plain_form if rope_theta is None else rope_form).launches += 1
 
 
-def window_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, window: int, rope_theta: Optional[float] = None):
+def window_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, window: int, rope_theta: Optional[float] = None,
+                        rotated: Optional[torch.Tensor] = None):
     """dq of :func:`window_attention` (lse from its forward; delta from
     :func:`attention_delta`). Without ``rope_theta`` q and k are rotated and dq
     is with respect to them; with it (the rope form) q and k are raw, as the
-    forward took them, and so is dq."""
+    forward took them, and so is dq. ``rotated``: on CUDA, the output of
+    :func:`backward_rope_pass` over these q and k, which the rope form then
+    reads instead of running its own pass."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta)[0]
     if window < 0:
         raise ValueError("window must be >= 0")
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("cm3p_window_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, window, None, rope_theta, dq=dq)
+    _launch_bwd("cm3p_window_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, window, None, rope_theta, rotated,
+                dq=dq)
     _count(window_attention_dq, window_attention_dq_rope, rope_theta)
     return dq
 
 
-def window_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, window: int, rope_theta: Optional[float] = None):
-    """(dk, dv) of :func:`window_attention` (``rope_theta`` as for :func:`window_attention_dq`)."""
+def window_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, window: int, rope_theta: Optional[float] = None,
+                         rotated: Optional[torch.Tensor] = None):
+    """(dk, dv) of :func:`window_attention` (``rope_theta`` and ``rotated`` as for :func:`window_attention_dq`)."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta)[1:]
     if window < 0:
         raise ValueError("window must be >= 0")
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     _launch_bwd("cm3p_window_attention_dkv", q, k, v, dout, lse, delta, qseg, kseg, window, None, rope_theta,
-                dk=dk, dv=dv)
+                rotated, dk=dk, dv=dv)
     _count(window_attention_dkv, window_attention_dkv_rope, rope_theta)
     return dk, dv
 
 
-def segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, rope_theta: Optional[float] = None):
+def segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, rope_theta: Optional[float] = None,
+                         rotated: Optional[torch.Tensor] = None):
     """dq of :func:`segment_attention`, visiting the key tiles of
-    ``segment_tile_ranges(qseg, kseg)`` (``rope_theta`` as for :func:`window_attention_dq`)."""
+    ``segment_tile_ranges(qseg, kseg)`` (``rope_theta`` and ``rotated`` as for :func:`window_attention_dq`)."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, None, rope_theta)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ranges = key_tile_ranges(qseg, kseg)
-    _launch_bwd("cm3p_segment_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, rope_theta, dq=dq)
+    _launch_bwd("cm3p_segment_attention_dq", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, rope_theta, rotated,
+                dq=dq)
     _count(segment_attention_dq, segment_attention_dq_rope, rope_theta)
     return dq
 
 
-def segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, rope_theta: Optional[float] = None):
+def segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, rope_theta: Optional[float] = None,
+                          rotated: Optional[torch.Tensor] = None):
     """(dk, dv) of :func:`segment_attention`, visiting the query tiles of
-    ``segment_tile_ranges(kseg, qseg)`` (the q/k roles swapped)."""
+    ``segment_tile_ranges(kseg, qseg)`` (the q/k roles swapped; ``rope_theta`` and ``rotated`` as for
+    :func:`window_attention_dq`)."""
     if q.device.type == "cpu":
         return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, None, rope_theta)[1:]
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
     ranges = key_tile_ranges(kseg, qseg)
     _launch_bwd("cm3p_segment_attention_dkv", q, k, v, dout, lse, delta, qseg, kseg, None, ranges, rope_theta,
-                dk=dk, dv=dv)
+                rotated, dk=dk, dv=dv)
     _count(segment_attention_dkv, segment_attention_dkv_rope, rope_theta)
     return dk, dv
 
@@ -787,11 +821,13 @@ def attention_bwd(q, k, v, out, dout, lse, qseg, kseg, window: Optional[int], pl
     delta = attention_delta(out, dout)
     if plain:
         return _bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta)
+    # on CUDA one rope pass feeds both kernels
+    rot = backward_rope_pass(q, k, rope_theta) if rope_theta is not None and q.is_cuda else None
     if window is None:
-        dq = segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, rope_theta)
-        return (dq, *segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, rope_theta))
-    dq = window_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta)
-    return (dq, *window_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta))
+        dq = segment_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, rope_theta, rot)
+        return (dq, *segment_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, rope_theta, rot))
+    dq = window_attention_dq(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta, rot)
+    return (dq, *window_attention_dkv(q, k, v, dout, lse, delta, qseg, kseg, window, rope_theta, rot))
 
 
 class AttentionFunction(torch.autograd.Function):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time one phase's kernels of two checkouts on one card, in turns.
 
-    python3 compare_kernels.py --parent DIR [--phase quant|wo|ffn|attn|bwd] [--out DIR]
-    python3 compare_kernels.py --phase parts [--out DIR]
+    python3 compare_kernels.py --parent DIR [--phase quant|wo|ffn|attn|bwd|f32] [--out DIR]
+    python3 compare_kernels.py --phase parts|f32parts [--out DIR]
 
 ``DIR`` is another checkout of this repository (for example ``git archive
 <commit> | tar -x -C _scratch/parent``). Each turn runs one tree's phase 7
@@ -45,16 +45,36 @@ measured on the same card within one run:
   as for ``wo``. The first change turn also times the plain version and one
   SDPA call (memory-efficient backend, the same mask) and computes the bound.
 
-* ``bwd``: the dK/dV forms of the attention backward through the public ops
-  (``ops.segment_attention_dkv`` / ``ops.window_attention_dkv``) on the same
-  seeded inputs in every turn, lse from each tree's forward kernel: the
-  ``v8_packed`` batch (10 x 4096, H 12) in the segment and window (w 64)
-  forms with and without rope (rows 8br, 8b, 7br, 7b), the window form at w =
-  192 and 256 (row 9's dK/dV) and the metadata tower's ``meta_pack`` rows (24
-  x 2048, H 4, row 8b). Each is first held to its plain backward (1e-2 of the
-  largest entry of dk and dv; exactly 0 on keys no query sees), then timed;
-  the first change turn also times the plain version and one SDPA backward
-  and computes the bound. The segments are made as for ``attn``.
+* ``bwd``: the dQ and dK/dV forms of the attention backward through the public
+  ops (``ops.segment_attention_dq`` / ``ops.window_attention_dq`` and the
+  ``_dkv`` ones) on the same seeded inputs in every turn, lse from each tree's
+  forward kernel: the ``v8_packed`` batch (10 x 4096, H 12) in the segment and
+  window (w 64) forms with and without rope (rows 8ar, 8a, 7ar, 7a and 8br,
+  8b, 7br, 7b), the window form at w = 192 and 256 (row 9's dQ and dK/dV) and
+  the metadata tower's ``meta_pack`` rows (24 x 2048, H 4, rows 8a and 8b).
+  Each is first held to its plain backward (1e-2 of the largest entry of each
+  gradient; exactly 0 on queries that see no key and on keys no query sees),
+  then timed (a rope form called alone runs its own rope pass); the first
+  change turn also times the plain version and one SDPA backward and
+  computes the bound. The segments are made as for ``attn``.
+
+* ``f32``: the fp32-weight LN-matmul forms through ``ops.fused_ln_matmul`` at
+  fp32 (TF32 off) on the same seeded inputs in every turn: LN -> QKV (row
+  5-f32) at 323,584 x 768 -> 2304 and 355,500 x 512 -> 1536, Wo + residual
+  (row 5r-f32) at 323,584 x 768 -> 768 and 355,500 x 512 -> 512, each first
+  held to its plain version (``chip_smoke.F32_REL_TOL`` of the largest entry),
+  then timed, the Wo forms beside one fp32 ``torch.addmm`` of the same function
+  in every turn; the first change turn also times the plain version, and the
+  bound is computed.
+
+* ``f32parts`` (this tree only, no ``--parent``): the fp32-weight LN-matmul
+  kernel (rows 5r-f32 and 5-f32 at 323,584 rows) beside copies built with its
+  slices' loads and stores cut out (the products alone, wrong sums), with one
+  block an SM (no spills) and with 8 values of K a slice, each timed twice in
+  turns on the same seeded inputs beside the one PyTorch call (fp32
+  ``torch.addmm``, or the bare product for 5-f32), with each copy's registers
+  and spills: what bounds the tiled product. The copies are sed-edited
+  ``csrc/``; an edit that no longer matches the source fails the run.
 
 * ``parts`` (this tree only, no ``--parent``): the int8 LN-matmul kernel
   (rows 6 and 6r at 323,584 rows) beside copies of it built with one part cut
@@ -66,8 +86,8 @@ measured on the same card within one run:
 Prints the card's name and power limit, each turn's timing lines and, per
 kernel form (and shape), the four times; writes each turn's log and
 ``compare.json`` (``compare_wo.json`` for ``wo``, ``compare_ffn.json`` for
-``ffn``, ``compare_attn.json`` for ``attn``, ``compare_bwd.json`` for ``bwd``)
-to ``--out``. Exits non-zero
+``ffn``, ``compare_attn.json`` for ``attn``, ``compare_bwd.json`` for ``bwd``,
+``compare_f32.json`` for ``f32``) to ``--out``. Exits non-zero
 if a turn fails. Needs one GPU.
 """
 from __future__ import annotations
@@ -303,7 +323,8 @@ for n, (key, (qseg, kseg, heads, window, theta, lse)) in enumerate(FORMS.items()
     torch.cuda.empty_cache()
 print("REPORT " + json.dumps({"errs": errs, "times": times, "library": lib}), flush=True)
 """
-# the dK/dV forms of the backward on the attn phase's segments: key -> (segments, heads, window, rope theta)
+# the dQ and dK/dV forms of the backward on the attn phase's segments: key -> (segments, heads, window, rope theta,
+# kernel)
 BWD_TURN = r"""
 import json, sys, torch
 sys.path.insert(0, sys.argv[1])
@@ -315,17 +336,18 @@ _build.build(("attention", "attention_bwd"))
 saved, library = torch.load(sys.argv[2]), sys.argv[3] == "1"
 dev = torch.device("cuda")
 seg10, meta = (saved[k].to(dev).contiguous() for k in ("seg10", "meta_seg"))
-FORMS = {
-    "8br segment train rope": (seg10, 12, None, 160000.0),
-    "8b segment train": (seg10, 12, None, None),
-    "7br window train rope": (seg10, 12, 64, 10000.0),
-    "7b window train": (seg10, 12, 64, None),
-    "9 dkv w192": (seg10, 12, 192, None),
-    "9 dkv w256": (seg10, 12, 256, None),
-    "8b metadata": (meta, 4, None, None),
+SHAPES = {  # (segments, heads, window, rope theta) -> the rows of the dQ form and of the dK/dV form
+    (0, 12, None, 160000.0): ("8ar segment train rope", "8br segment train rope"),
+    (0, 12, None, None): ("8a segment train", "8b segment train"),
+    (0, 12, 64, 10000.0): ("7ar window train rope", "7br window train rope"),
+    (0, 12, 64, None): ("7a window train", "7b window train"),
+    (0, 12, 192, None): ("9 dq w192", "9 dkv w192"),
+    (0, 12, 256, None): ("9 dq w256", "9 dkv w256"),
+    (1, 4, None, None): ("8a metadata", "8b metadata"),
 }
 errs, times, lib = {}, {}, {}
-for n, (key, (seg, heads, window, theta)) in enumerate(FORMS.items()):
+for n, ((si, heads, window, theta), keys) in enumerate(SHAPES.items()):
+    seg = (seg10, meta)[si]
     gen = torch.Generator(device=dev).manual_seed(n)
     b, length = seg.shape
     q, k, v = torch.randn(b, length, 3, heads, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
@@ -334,32 +356,80 @@ for n, (key, (seg, heads, window, theta)) in enumerate(FORMS.items()):
     fwd = ops.segment_attention if window is None else ops.window_attention
     out, lse = fwd(q, k, v, seg, seg, *wargs, theta, return_lse=True)
     delta = attention_delta(out, dout)
-    dkv = ops.segment_attention_dkv if window is None else ops.window_attention_dkv
-    run = lambda: dkv(q, k, v, dout, lse, delta, seg, seg, *wargs, rope_theta=theta)
     if theta is None:
         plain = lambda: _attention_bwd_plain(q, k, v, dout, lse, delta, seg, seg, window)
     else:
         plain = lambda: attention_bwd_rope_plain(q, k, v, dout, lse, delta, seg, seg, window, theta)
-    got, want = run(), plain()[1:]
-    torch.cuda.synchronize()
-    err = max((g.float() - w.float()).abs().max().item() / w.float().abs().max().item() for g, w in zip(got, want))
+    want = plain()
     dead = seg == 0
-    dead_max = max(g[dead].abs().max().item() for g in got) if bool(dead.any()) else 0.0
-    errs[key] = {"rel": err, "dead_max": dead_max}
-    if not (err <= chip_smoke.BWD_REL_TOL and dead_max == 0.0):
-        raise SystemExit(f"{key}: the dK/dV kernel disagrees with its plain version ({errs[key]})")
-    del got, want
-    t = {"ms": chip_smoke.cuda_ms(run, 10)}
-    times[key] = t
-    print(f"  {key}: {t['ms']:.3f} ms (relative error {err:.3e})", flush=True)
-    if library:
-        pairs = chip_smoke.visible_pairs(seg, window)
-        bound, by = chip_smoke.attention_bwd_bound_ms(b, length, heads, 64, pairs, 2, theta is not None)
-        lib[key] = {"plain_ms": chip_smoke.cuda_ms(plain, 1), "bound_ms": bound, "bound_by": by,
-                    "sdpa_bwd_ms": chip_smoke.sdpa_bwd_ms(q, k, v, dout, seg, window, 3), "pairs": pairs}
-    del q, k, v, dout, out, lse, delta
+    for key, kernel in zip(keys, ("dq", "dkv")):
+        fn = getattr(ops, ("segment_attention_" if window is None else "window_attention_") + kernel)
+        run = lambda: fn(q, k, v, dout, lse, delta, seg, seg, *wargs, rope_theta=theta)
+        got = run()
+        got = (got,) if kernel == "dq" else got
+        torch.cuda.synchronize()
+        ref = want[:1] if kernel == "dq" else want[1:]
+        err = max((g.float() - w.float()).abs().max().item() / w.float().abs().max().item() for g, w in zip(got, ref))
+        dead_max = max(g[dead].abs().max().item() for g in got) if bool(dead.any()) else 0.0
+        errs[key] = {"rel": err, "dead_max": dead_max}
+        if not (err <= chip_smoke.BWD_REL_TOL and dead_max == 0.0):
+            raise SystemExit(f"{key}: the {kernel} kernel disagrees with its plain version ({errs[key]})")
+        del got
+        # the metadata forms take about 0.1 ms: more launches, so that the host's share between them evens out
+        t = {"ms": chip_smoke.cuda_ms(run, 100 if si else 10)}
+        times[key] = t
+        print(f"  {key}: {t['ms']:.3f} ms (relative error {err:.3e})", flush=True)
+        if library:
+            pairs = chip_smoke.visible_pairs(seg, window)
+            bound, by = chip_smoke.attention_bwd_bound_ms(b, length, heads, 64, pairs, 1 if kernel == "dq" else 2,
+                                                          theta is not None)
+            lib[key] = {"plain_ms": chip_smoke.cuda_ms(plain, 1), "bound_ms": bound, "bound_by": by,
+                        "sdpa_bwd_ms": chip_smoke.sdpa_bwd_ms(q, k, v, dout, seg, window, 3), "pairs": pairs}
+    del q, k, v, dout, out, lse, delta, want
     torch.cuda.empty_cache()
 print("REPORT " + json.dumps({"errs": errs, "times": times, "library": lib}), flush=True)
+"""
+# the fp32-weight LN-matmul forms (rows 5-f32 and 5r-f32) at the towers' shapes: (D, N, with LN, rows)
+F32_SHAPES = ((768, 2304, True, 79 * 4096), (768, 768, False, 79 * 4096), (512, 1536, True, 237 * 1500),
+              (512, 512, False, 237 * 1500))
+F32_TURN = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from cm3p_torch import ops
+from cm3p_torch.ops import _build
+_build.build(("fused_ln_matmul_f32",))
+torch.backends.cuda.matmul.allow_tf32 = False
+library = sys.argv[2] == "1"
+dev = torch.device("cuda")
+errs, times = {}, {}
+for d, n_out, with_ln, rows in json.loads(sys.argv[3]):
+    gen = torch.Generator(device=dev).manual_seed(d + n_out)
+    x = torch.randn(rows, d, generator=gen, device=dev)
+    x[1000:1100] = 0
+    w = 0.02 * torch.randn(n_out, d, generator=gen, device=dev)
+    kw = dict(scale=1 + 0.1 * torch.randn(d, generator=gen, device=dev)) if with_ln else dict(
+        residual=torch.randn(rows, n_out, generator=gen, device=dev))
+    key = f"{'5-f32' if with_ln else '5r-f32'} {d} -> {n_out}, {rows} rows"
+    run = lambda: ops.fused_ln_matmul(x, w, **kw)
+    plain = lambda: ops.fused_ln_matmul_plain(x, w, **kw)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    errs[key] = err = (got - want).abs().max().item() / want.abs().max().item()
+    if not err <= chip_smoke.F32_REL_TOL:
+        raise SystemExit(f"{key}: the fp32 kernel disagrees with its plain version ({err:.3e})")
+    del got, want
+    t = {"ms": chip_smoke.cuda_ms(run, 5)}
+    if not with_ln:  # one PyTorch call of the same function (same code in every turn)
+        t["addmm_ms"] = chip_smoke.cuda_ms(lambda: torch.addmm(kw["residual"], x, w.t()), 5)
+    if library:
+        t["plain_ms"] = chip_smoke.cuda_ms(plain, 1)
+    times[key] = t
+    print(f"  {key}: {t['ms']:.3f} ms (" + (f"fp32 torch.addmm {t['addmm_ms']:.3f} ms; " if "addmm_ms" in t else "")
+          + f"relative error {err:.3e})", flush=True)
+    del x, w, kw
+    torch.cuda.empty_cache()
+print("REPORT " + json.dumps({"errs": errs, "times": times}), flush=True)
 """
 # the int8 LN-matmul kernel beside copies with one part cut out (edits of its namespace's source)
 PARTS = r"""
@@ -432,6 +502,81 @@ for row, rows, d, n, ln in (("6", 323584, 768, 2304, True), ("6r", 323584, 768, 
     del x, wq, sw, res, out
 print("REPORT " + json.dumps({"times": times}), flush=True)
 """
+# the fp32-weight LN-matmul kernel beside copies with one part cut out or one choice changed (edits of csrc/)
+F32_PARTS = r"""
+import ctypes, json, shutil, subprocess, sys, tempfile
+from pathlib import Path
+import torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from cm3p_torch import ops
+from cm3p_torch.ops import _build
+from cm3p_torch.ops.fused_ln_matmul import _F32_SIGNATURES
+
+csrc = Path(sys.argv[1]) / "cm3p_torch" / "csrc"
+COPIES = {  # name -> {file: [(text, replacement)]}
+    "kernel": {},
+    "products alone (no slice loads or stores: wrong sums)": {"rows_f32.cuh": [
+        ("    if (t + 1 < steps) fetch(t + 1);", "    if (0) fetch(t + 1);"),
+        ("    if (t + 1 < steps) stash(t + 1);", "    if (0) stash(t + 1);")]},
+    "one block an SM": {"fused_ln_matmul_f32.cu": [
+        ("__launch_bounds__(cm3p::f32tile::THREADS, 2)", "__launch_bounds__(cm3p::f32tile::THREADS, 1)")]},
+    "8 values of K a slice": {"rows_f32.cuh": [("constexpr int KS = 16;", "constexpr int KS = 8;")]},
+}
+dev = torch.device("cuda")
+torch.backends.cuda.matmul.allow_tf32 = False
+stream = torch.cuda.current_stream().cuda_stream
+times = {}
+with tempfile.TemporaryDirectory() as tmp:
+    procs, libs = {}, {}
+    for n, (name, edits) in enumerate(COPIES.items()):
+        d = Path(tmp) / f"copy{n}"
+        shutil.copytree(csrc, d)
+        for fname, reps in edits.items():
+            text = (d / fname).read_text()
+            for a, b in reps:
+                if text.count(a) != 1:
+                    raise SystemExit(f"{name}: the edit no longer matches csrc/{fname}")
+                text = text.replace(a, b)
+            (d / fname).write_text(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "fused_ln_matmul_f32.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
+    for name, (proc, d) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"{name}: build failed\n{log[-3000:]}")
+        for kernel, regs, spills in chip_smoke.ptxas_report(log):
+            if kernel.startswith("f32::ln_matmul_kernel"):
+                print(f"  {name}, {kernel}: {regs}; {spills}", flush=True)
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        lib.cm3p_ln_matmul_f32.argtypes = _F32_SIGNATURES["cm3p_ln_matmul_f32"]
+        lib.cm3p_ln_matmul_f32.restype = ctypes.c_int
+        libs[name] = lib
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for row, d, n, ln in (("5r-f32", 768, 768, False), ("5-f32", 768, 2304, True)):
+        rows = 79 * 4096
+        x = torch.randn(rows, d, generator=gen, device=dev)
+        scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        w = 0.02 * torch.randn(n, d, generator=gen, device=dev)
+        res = None if ln else torch.randn(rows, n, generator=gen, device=dev)
+        out = torch.empty(rows, n, device=dev)
+        for turn in range(2):
+            for name, lib in libs.items():
+                def run(lib=lib):
+                    err = lib.cm3p_ln_matmul_f32(x.data_ptr(), scale.data_ptr() if ln else None, None, w.data_ptr(),
+                                                 None if res is None else res.data_ptr(), out.data_ptr(), rows, d, n,
+                                                 1e-5, int(ln), stream)
+                    if err:
+                        raise SystemExit(f"{name}: CUDA error {err}")
+                times.setdefault(f"{row} {name}", []).append(chip_smoke.cuda_ms(run, 5))
+            one_call = (lambda: torch.addmm(res, x, w.t())) if res is not None else (lambda: x @ w.t())
+            times.setdefault(f"{row} torch", []).append(chip_smoke.cuda_ms(one_call, 5))
+        for name in (*libs, "torch"):
+            print(f"  row {row}, {name}: " + " / ".join(f"{t:.3f}" for t in times[f"{row} {name}"]) + " ms",
+                  flush=True)
+        del x, w, res, out
+print("REPORT " + json.dumps({"times": times}), flush=True)
+"""
 # a timing line of check_wo_kernels: form, shape, ms, ..., the unfused pair's ms
 WO_LINE = re.compile(r"^\s*(\w+)\s+(packed|audio)\b.*?: ([0-9.]+) ms \(plain .* ([0-9.]+) ms\)$")
 
@@ -449,20 +594,22 @@ def wo_times(stdout: str) -> dict[str, dict[str, float]]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, help="root of the other checkout (every phase but parts)")
-    parser.add_argument("--phase", choices=("quant", "wo", "ffn", "attn", "bwd", "parts"), default="quant",
+    parser.add_argument("--phase", choices=("quant", "wo", "ffn", "attn", "bwd", "f32", "parts", "f32parts"),
+                        default="quant",
                         help="the kernels to compare")
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out", help="directory for the logs")
     args = parser.parse_args()
-    if (args.parent is None) != (args.phase == "parts"):
-        parser.error("--parent is needed by every phase but parts, which takes none")
+    alone = args.phase in ("parts", "f32parts")  # this tree only
+    if (args.parent is None) != alone:
+        parser.error("--parent is needed by every phase but parts and f32parts, which take none")
     args.out.mkdir(parents=True, exist_ok=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    if args.phase == "parts":
-        run = subprocess.run([sys.executable, "-c", PARTS, str(ROOT)], cwd=ROOT, capture_output=True, text=True,
-                             timeout=900)
-        (args.out / "parts.log").write_text(run.stdout + run.stderr)
+    if alone:
+        run = subprocess.run([sys.executable, "-c", PARTS if args.phase == "parts" else F32_PARTS, str(ROOT)],
+                             cwd=ROOT, capture_output=True, text=True, timeout=900)
+        (args.out / f"{args.phase}.log").write_text(run.stdout + run.stderr)
         print(run.stdout if run.returncode == 0 else (run.stdout + run.stderr)[-3000:], flush=True)
         return run.returncode
     turn_args = []
@@ -476,12 +623,14 @@ def main() -> int:
         turn_args = [str(inputs)]
     script, prefix = {"quant": (QUANT_TURN, "compare"), "wo": (WO_TURN, "compare_wo"),
                       "ffn": (FFN_TURN, "compare_ffn"), "attn": (ATTN_TURN, "compare_attn"),
-                      "bwd": (BWD_TURN, "compare_bwd")}[args.phase]
+                      "bwd": (BWD_TURN, "compare_bwd"), "f32": (F32_TURN, "compare_f32")}[args.phase]
     results = []
     for turn, label in enumerate(ORDER):
         tree = (args.parent if label == "parent" else ROOT).resolve()
         t0 = time.perf_counter()
-        extra = [str(int(turn == ORDER.index("change")))] if args.phase in ("attn", "bwd") else []
+        extra = [str(int(turn == ORDER.index("change")))] if args.phase in ("attn", "bwd", "f32") else []
+        if args.phase == "f32":
+            extra.append(json.dumps(F32_SHAPES))
         run = subprocess.run([sys.executable, "-c", script, str(tree), *turn_args, *extra], cwd=tree,
                              capture_output=True, text=True, timeout=900)
         (args.out / f"{prefix}_{turn}_{label}.log").write_text(run.stdout + run.stderr)
@@ -524,6 +673,18 @@ def main() -> int:
             print(f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)
                   + f"; plain {row['plain_ms']:.3f}; bound {row['bound_ms']:.3f} ({row['bound_by']}); "
                   f"SDPA backward {row['sdpa_bwd_ms']:.3f}", flush=True)
+        return 0
+    if args.phase == "f32":
+        from chip_smoke import _f32_bound
+
+        first = results[ORDER.index("change")]["times"]
+        for (d, n_out, with_ln, rows), key in zip(F32_SHAPES, first):
+            line = f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)
+            if "addmm_ms" in first[key]:
+                line += "; fp32 torch.addmm " + ", ".join(f"{r['times'][key]['addmm_ms']:.3f}" for r in results)
+            bytes_moved = rows * d * 4 + n_out * d * 4 + rows * n_out * 4 * (1 if with_ln else 2) + d * 4
+            bound, by = _f32_bound(bytes_moved, 2 * rows * d * n_out)
+            print(line + f"; plain {first[key]['plain_ms']:.3f}; bound {bound:.3f} ({by})", flush=True)
         return 0
     if args.phase == "wo":
         for key in results[0]["times"]:

@@ -10,6 +10,11 @@
   and lse given to both; in bf16 also against float64 autograd. Tolerances
   (``JAX_TOL``, ``BWD_TOL``) of each gradient's largest entry, and dq exactly 0
   on queries that see no key.
+* The arithmetic of the rope forms on the card, where one rope pass per
+  backward call feeds both kernels (q and k rotated once with the forward's
+  rope, the backward without rope, dq and dk counter-rotated), against the
+  same JAX backward in interpret mode, window and segment, fp32
+  (``JAX_TOL["float32"]``), and dq exactly 0 on queries that see no key.
 * ``attention()`` under autograd, rope inside the kernels (its training route)
   against rope outside (q/k rotated first, and the ``plain`` route): the same
   gradients (fp32: 1e-5; bf16: 1e-2 of the largest entry, the two routes
@@ -166,6 +171,40 @@ def test_plain_rope_backward_matches_the_jax_rope_kernels(interpret_mode, window
     assert float(got[0].float().numpy()[dead].__abs__().max()) == 0.0  # queries that see no key
     assert float(got[1].float().numpy()[dead].__abs__().max()) == 0.0  # keys no query sees
     assert float(got[2].float().numpy()[dead].__abs__().max()) == 0.0
+
+
+@pytest.mark.parametrize("window", [64, None], ids=["window", "segment"])
+def test_one_rope_pass_backward_matches_the_jax_rope_kernels(interpret_mode, window):
+    """The arithmetic of the rope forms on the card, where one rope pass per backward call feeds the dq and the
+    dkv kernel: q and k rotated once with the forward's rope (``apply_rope``, the pass's plain version), the
+    backward without rope over them, then dq and dk counter-rotated (rope's transpose). Held in fp32 against
+    ``flash_attention_bwd(..., rope_theta=...)`` in interpret mode (its window route rotates inside its
+    fuse_rope kernels; at fp32 its segment route rotates outside them and counter-rotates at the end), at
+    ``JAX_TOL["float32"]`` of each gradient's largest entry, and dq exactly 0 on queries that see no key."""
+    theta = 10000.0
+    q, k, v, g = (torch.as_tensor(x) for x in _inputs(3))
+    seg = torch.as_tensor(_segments())
+    wargs = (window,) if window else ()
+    plain = window_attention_plain if window else segment_attention_plain
+    out, lse = plain(q, k, v, seg, seg, *wargs, rope_theta=theta, return_lse=True)
+    delta = attention_delta(out, g)
+    cos, sin = attention_mod.rope_tables(L, D, theta, "cpu")
+    dq, dk, dv = attention_mod._attention_bwd_plain(apply_rope(q, theta), apply_rope(k, theta), v, g, lse, delta,
+                                                    seg, seg, window)
+    got = (attention_mod._counter_rope(dq, cos, sin), attention_mod._counter_rope(dk, cos, sin), dv)
+
+    flat = [jnp.asarray(x.reshape(B, L, H * D).numpy(), jnp.float32) for x in (q, k, v, out, g)]
+    jseg = jnp.asarray(_segments())
+    block = 128 if window else 256  # the dispatcher's blocks at L = 256
+    want = flash_attention_bwd(
+        flat[0], flat[1], flat[2], jseg, jseg, flat[3], jnp.asarray(lse.numpy()), flat[4], window, block, block, H,
+        rope_theta=theta,
+    )
+    for name, a, b in zip("qkv", got, want):
+        a = a.numpy()
+        b = np.asarray(b, np.float32).reshape(B, L, H, D)
+        assert np.abs(a - b).max() <= JAX_TOL["float32"] * np.abs(b).max(), (name, np.abs(a - b).max())
+    assert float(np.abs(got[0].numpy()[_segments() == 0]).max()) == 0.0  # queries that see no key
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])

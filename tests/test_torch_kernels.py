@@ -34,8 +34,14 @@ tiles; the int8 epilogue kernel at the bf16 one's edges, with its codes as for
 the LN forms. The LN-matmul forms also at the persistent kernels' row counts
 (an odd number of 128-row tiles, several tiles per cluster, zero rows in the
 first and the last tile), and the int8 form at its tile edges as the bf16 one,
-with its codes as above.
+with its codes as above. The fp32 LN-matmul forms at the fp32-weight kernel's
+128-row tile edges (1, 127, 128, 129 rows, a ragged count, three waves of the
+card's SMs), N 128 to 2304 and D 256 to 768: 1e-5 of the largest entry. The
+dQ kernel at the dK/dV kernel's lengths, windows and rope settings (1e-2 of the
+largest entry, dq exactly 0 on queries that see no key), and one rope pass
+per backward call feeding both kernels, bit-equal to the kernels called alone.
 """
+import importlib
 import math
 
 import pytest
@@ -304,6 +310,37 @@ def test_rope_forms_of_the_backward_kernels_match_the_plain_rope_backward(cuda, 
     dead = seg == 0
     assert dq[dead].abs().max().item() == 0.0
     assert dk[dead].abs().max().item() == 0.0 and dv[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [64, None], ids=["window", "segment"])
+def test_one_rope_pass_feeds_both_backward_kernels(cuda, window, monkeypatch):
+    """attention_bwd with rope runs the rope pass once per call and hands its output to the dq and the dkv
+    kernel; the gradients equal bit for bit those of the two kernels called alone, each with its own pass."""
+    attention_mod = importlib.import_module("cm3p_torch.ops.attention")
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    seg = _packed_segments(2, 1000, cuda)
+    q, k, v = _qkv(2, 1000, 4, gen, cuda)
+    dout = torch.randn(2, 1000, 4, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    theta = 10000.0 if window else 160000.0
+    wargs = (window,) if window else ()
+    fwd = window_attention if window else segment_attention
+    out, lse = fwd(q, k, v, seg, seg, *wargs, theta, return_lse=True)
+    passes = []
+    orig = attention_mod.backward_rope_pass
+    monkeypatch.setattr(attention_mod, "backward_rope_pass", lambda *a: passes.append(1) or orig(*a))
+    reset_launch_counts()
+    got = attention_mod.attention_bwd(q, k, v, out, dout, lse, seg, seg, window, rope_theta=theta)
+    pre = "window_attention" if window else "segment_attention"
+    assert len(passes) == 1 and launch_counts() == {**_NONE, f"{pre}_dq_rope": 1, f"{pre}_dkv_rope": 1}
+    args = (q, k, v, dout.contiguous(), lse, attention_delta(out, dout), seg, seg, *wargs)
+    if window:
+        alone = (window_attention_dq(*args, rope_theta=theta), *window_attention_dkv(*args, rope_theta=theta))
+    else:
+        alone = (segment_attention_dq(*args, rope_theta=theta), *segment_attention_dkv(*args, rope_theta=theta))
+    torch.cuda.synchronize()
+    assert len(passes) == 3
+    assert all(torch.equal(a, b) for a, b in zip(got, alone))
 
 
 def test_rope_forms_on_cpu_take_the_plain_rope_backward_and_launch_nothing():
@@ -1117,9 +1154,14 @@ def _fp32_rows(rows, d, gen, device):
     return x
 
 
+# the fp32-weight form's 128-row tiles: one row, one short of a tile, a tile, one past it, a ragged count, and
+# three waves of the card's 132 SMs at two blocks an SM plus a ragged tile
+FP32_LNMM_ROWS = [1, 37, 127, 128, 129, 4037, 3 * 2 * 132 * 128 + 77]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [1, 37, 4037])
-@pytest.mark.parametrize("d, n_out", [(768, 2304), (768, 768), (512, 1536), (256, 768)])
+@pytest.mark.parametrize("rows", FP32_LNMM_ROWS)
+@pytest.mark.parametrize("d, n_out", [(768, 2304), (768, 768), (512, 1536), (256, 768), (768, 128), (256, 128)])
 @pytest.mark.parametrize("form", ["ln", "ln_bias", "wo_residual"])
 @pytest.mark.parametrize("int8", [False, True])
 def test_fp32_ln_matmul_kernel_matches_plain(fp32_cuda, rows, d, n_out, form, int8):
@@ -1246,7 +1288,7 @@ def test_fp32_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                              seg, seg, 16)
 
 
-# ------------------------------------------------------------ the dK/dV kernel (sm90_dkv::attention_dkv_kernel)
+# ------------------------------------------------------------ the dQ and dK/dV kernels (sm90_bwd::attention_dq_kernel, attention_dkv_kernel)
 
 
 def _dkv_segments(length, device):
@@ -1263,9 +1305,11 @@ def _dkv_segments(length, device):
 @pytest.mark.parametrize("length", [100, 1000, 1500, 4037])
 @pytest.mark.parametrize("window", [64, 192, None], ids=["window", "wide_window", "segment"])
 @pytest.mark.parametrize("rope", [False, True], ids=["no_rope", "rope"])
-def test_dkv_kernel_matches_plain_off_the_key_tile(cuda, length, window, rope):
-    """Lengths not a multiple of the kernel's 128 keys a block; the window and segment forms, with rope
-    (raw q/k, dk counter-rotated) and without; keys no query sees give dk = dv = 0 exactly."""
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_dkv_kernel_matches_plain_off_the_key_tile(cuda, length, window, rope, kernel):
+    """Lengths not a multiple of the kernels' 128 rows a block; the window and segment forms, with rope (raw q/k,
+    dq / dk counter-rotated) and without, for the dq and the dkv kernel; keys no query sees give dk = dv = 0
+    exactly, queries that see no key dq = 0 exactly."""
     gen = torch.Generator(device=cuda).manual_seed(26)
     qseg, kseg = _dkv_segments(length, cuda)
     q, k, v = _qkv(2, length, 4, gen, cuda)
@@ -1277,15 +1321,21 @@ def test_dkv_kernel_matches_plain_off_the_key_tile(cuda, length, window, rope):
     delta = attention_delta(out, dout)
     args = (q, k, v, dout, lse, delta, qseg, kseg, *wargs)
     reset_launch_counts()
-    dk, dv = (window_attention_dkv if window else segment_attention_dkv)(*args, rope_theta=theta)
+    if kernel == "dq":
+        grads = ((window_attention_dq if window else segment_attention_dq)(*args, rope_theta=theta),)
+    else:
+        grads = (window_attention_dkv if window else segment_attention_dkv)(*args, rope_theta=theta)
     torch.cuda.synchronize()
-    name = ("window_attention_dkv" if window else "segment_attention_dkv") + ("_rope" if rope else "")
+    name = ("window_attention_" if window else "segment_attention_") + kernel + ("_rope" if rope else "")
     assert launch_counts() == {**_NONE, name: 1}
     if rope:
         want = attention_bwd_rope_plain(q, k, v, dout, lse, delta, qseg, kseg, window, theta)
     else:
         want = _attention_bwd_plain(q, k, v, dout, lse, delta, qseg, kseg, window)
-    for got, ref in zip((dk, dv), want[1:]):
+    for got, ref in zip(grads, want[:1] if kernel == "dq" else want[1:]):
         assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
-    unseen = (kseg == 9) | (kseg == 0)
-    assert dk[unseen].abs().max().item() == 0.0 and dv[unseen].abs().max().item() == 0.0
+    if kernel == "dq":
+        assert grads[0][qseg == 0].abs().max().item() == 0.0
+    else:
+        unseen = (kseg == 9) | (kseg == 0)
+        assert grads[0][unseen].abs().max().item() == 0.0 and grads[1][unseen].abs().max().item() == 0.0
