@@ -2003,16 +2003,16 @@ def check_fp32_kernels(torch, ops, gen, dev, seg_packed, meta_seg, audio_b, audi
             held(kname, f"{kname} {label} {b}x{length} H{heads}", got, want)
             del got, want
             ms = cuda_ms(run, 3)
+            bytes_moved = 4 * b * length * heads * 64 * 4 + 2 * b * length * 4
+            bound, by = _f32_bound(bytes_moved, 4 * 64 * heads * visible_pairs(seg, window))
             if timed:
                 plain_ms = cuda_ms(plain, 1)
                 lib = sdpa_ms(q, k, v, seg, window, 3)
-                bytes_moved = 4 * b * length * heads * 64 * 4 + 2 * b * length * 4
-                bound, by = _f32_bound(bytes_moved, 4 * 64 * heads * visible_pairs(seg, window))
                 report[kname] = (ms, plain_ms, bound, by, lib)
                 log(f"    {kname} {label}: {ms:.3f} ms (plain {plain_ms:.3f}, bound {bound:.3f} {by}, fp32 SDPA "
                     f"{lib:.3f})")
             else:
-                log(f"    {kname} {label}: {ms:.3f} ms")
+                log(f"    {kname} {label}: {ms:.3f} ms (bound {bound:.3f} {by})")
         del q, k, v
 
     # off the path: the window kernel at a window the TPU streams (row 4) and the rectangular form (row 2r)
@@ -2081,6 +2081,9 @@ def check_fp32_kernels(torch, ops, gen, dev, seg_packed, meta_seg, audio_b, audi
                 qy = quant_rows_int8(y)[0]
                 _code_report(f"{kname} D {d} activation codes", codes, qy, CODE_SHARE_MAX)
                 rows_ok = (codes == qy).all(dim=1)
+                bit_equal = (got[rows_ok] == want[rows_ok]).all(dim=1).float().mean().item()
+                log(f"    {kname} {d} -> {n_out}: {bit_equal:.6f} of the rows with the plain codes equal the plain "
+                    "version bit for bit (reported; the limit below is the gate)")
                 del qy
             held(kname, f"{kname} {d} -> {n_out}, {rows} rows", got, want, rows_ok)
             del got, want, codes
@@ -2096,7 +2099,12 @@ def check_fp32_kernels(torch, ops, gen, dev, seg_packed, meta_seg, audio_b, audi
         del x, w, w_q, kw, y
 
     log("  fp32 FFN forms (TF32 off; relative to the largest entry)")
+    from cm3p_torch.ops.fused_ffn import f32_scratch_bytes
     for d, f, rows in ((768, 1152, full_rows), (512, 1024, audio_b * audio_l), (256, 512, meta_seg.numel())):
+        scratch = {form: f32_scratch_bytes(rows, d, f, *form) for form in ((False, False), (True, False), (True, True))}
+        log(f"    FFN scratch at D {d}, F {f}, {rows} rows (a 128-row slot per block of the persistent grid): "
+            f"fp32 weights {scratch[False, False]} bytes ({scratch[False, False] // (128 * 4 * f)} slots), w8a8 "
+            f"{scratch[True, False]}, w8a8 + w8a8_wo {scratch[True, True]} (all R rows of g alone: {rows * f * 4})")
         x = torch.randn(rows, d, generator=gen, device=dev)
         x[1000:1100] = 0
         scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
@@ -2188,10 +2196,12 @@ def extract_fp32_slice(torch, ops, dev, tmp):
     for label, (fields, per_forward) in EXTRACT_SETTINGS.items():
         model.set_options(EncoderOptions(**fields))
         run(False)  # warm-up: int8 weights are made at first use
+        torch.cuda.reset_peak_memory_stats(dev)
         emb, windows, stats, counts = run(False)
+        peak = torch.cuda.max_memory_allocated(dev)
         want = {k: f32_per_forward(per_forward).get(k, 0) * stats["flushes"] for k in ops.KERNELS}
-        log(f"  fp32 setting {label}: {stats['flushes']} forwards, {stats['device_ms']:.1f} ms on the card, launches "
-            f"{ {k: v for k, v in counts.items() if v} }")
+        log(f"  fp32 setting {label}: {stats['flushes']} forwards, {stats['device_ms']:.1f} ms on the card, peak "
+            f"memory {peak / 2**30:.3f} GiB, launches { {k: v for k, v in counts.items() if v} }")
         if counts != want:
             fail(f"fp32 setting {label}: launches differ from {want}")
         for k, v in counts.items():

@@ -31,7 +31,7 @@
 // epilogue adds the residual with float4 loads and stores. Bound on the H100:
 // 2 R D N operations at the CUDA cores' fp32 rate (67 TFLOP/s). Four 16-byte
 // shared-memory loads per 64 FMAs, and W read from L2 once per 128 rows; the
-// first version (16-row tiles of tile_product: six such loads per 32 FMAs, W
+// first version (16-row tiles: six such loads per 32 FMAs, W
 // read once per 16 rows) ran at 23-25 % of that rate, below one torch.addmm.
 // Tried and measured (compare_kernels.py --phase f32parts, PERF.md §6): a
 // copy without the slices' loads and stores (products alone, wrong sums) runs
@@ -41,11 +41,23 @@
 // slice 27 % slower (twice the barriers). Normalising A as it was fetched
 // stalled the products on each load; it is normalised as it is staged.
 // Int8 forms (f32::ln_matmul_q_kernel<WITH_LN>): one block of 256 threads per
-// 16-row tile; each warp normalises two rows into shared memory and
-// quantises them, then the block walks over N in 128-column tiles
-// (tile_product: W staged 32 words of K at a time, dp4a) and writes each
-// tile with its residual. Its dp4a runs at four products per instruction and
-// it moves fewer bytes.
+// 128-row tile, two blocks an SM. In a front end each warp takes 16 of the
+// rows, two at a time (both rows' loads in flight together): the row's mean
+// and rstd as above, its values by ln_row's expression, its amax and scale,
+// and its codes (rows_f32.cuh quant4: the true division's codes) into the
+// block's resident 128 x D code tile (swizzled) and codes_out. Then the block
+// walks over N in 128 x 128 tiles (rows_f32.cuh f32tile::row_tile_product_s8:
+// int8 mma.sync with exact int32 sums, W through two cp.async stages of 64
+// bytes of K) and each epilogue writes float(acc) * sa * sw (+ residual) with
+// float4 stores. The codes and sums are the first version's (dp4a on 16-row
+// tiles), so the outputs are too, bit for bit. Bound on the H100: bytes (fp32
+// x in, fp32 out, the residual). Measured (compare_kernels.py --phase
+// f32parts, PERF.md §6): the products alone take a fraction of the time; the
+// front end and the epilogue's stores, which one block runs one after the
+// other, set the pace, and a second block an SM overlaps them with its
+// products (four stages at one block an SM were 17-19 % slower). Staging the
+// output in shared memory and writing it by 128-byte bulk copies was slower
+// still, and four front-end rows in flight did not help.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,13 +67,14 @@ namespace {
 
 namespace f32 {
 
+namespace ft = cm3p::f32tile;
 using namespace cm3p::f32rows;
 
 struct Args {
   const float* x;          // (R, D)
   const float* scale;      // (D,) LN, or null without LN
   const float* bias;       // (D,) or null
-  const uint32_t* w;       // (N, D) fp32, or (N, D) int8 codes, as words
+  const void* w;           // (N, D) fp32, or (N, D) int8 codes
   const float* sw;         // (N,) weight scales, int8 form only
   const float* residual;   // (R, N) or null
   float* out;              // (R, N)
@@ -71,11 +84,16 @@ struct Args {
   float eps;
 };
 
-__host__ __device__ constexpr int smem_words(int D) { return RT * D + RT * D / 4 + STAGE_WORDS + RT; }
+// cp.async stages of the int8 product: two, so that two blocks fit on an SM at D 768 (96 KB of codes and 16 KB of
+// stages each), which overlaps one block's front end and stores with the other's products
+constexpr int Q_STAGES = 2;
+constexpr int FRONT_ROWS = 2;  // rows a warp of the int8 front end has in flight
+
+// the resident code tile, the product's stages, the rows' scales
+__host__ __device__ constexpr int q_smem_bytes(int D) { return ft::MT * D + Q_STAGES * ft::S8_STAGE + ft::MT * 4; }
 
 template <bool WITH_LN>
-__global__ void __launch_bounds__(cm3p::f32tile::THREADS, 2) ln_matmul_kernel(const Args a) {  // 128 registers
-  namespace ft = cm3p::f32tile;
+__global__ void __launch_bounds__(ft::THREADS, 2) ln_matmul_kernel(const Args a) {  // 128 registers
   __shared__ __align__(16) float smem[ft::SMEM_FLOATS];
   // with LN: the rows' statistics, and the LN scale and bias (768 at most)
   __shared__ float mu_s[ft::MT], rstd_s[ft::MT], scale_s[WITH_LN ? 768 : 1], bias_s[WITH_LN ? 768 : 1];
@@ -107,14 +125,14 @@ __global__ void __launch_bounds__(cm3p::f32tile::THREADS, 2) ln_matmul_kernel(co
     }
     return v;
   };
-  auto store = [&](int n0, const float (&acc)[ft::RI][8]) {
+  auto store = [&](int tile, const float (&acc)[ft::RI][8]) {
 #pragma unroll
     for (int i = 0; i < ft::RI; ++i) {
       const long long r = r0 + ft::sum_row(i);
       if (r >= a.R) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int n = n0 + ft::sum_col(4 * h);
+        const int n = tile * ft::NT + ft::sum_col(4 * h);
         float4 o = make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
         if (a.residual != nullptr) {
           const float4 res = __ldg(reinterpret_cast<const float4*>(a.residual + r * a.N + n));
@@ -124,70 +142,110 @@ __global__ void __launch_bounds__(cm3p::f32tile::THREADS, 2) ln_matmul_kernel(co
       }
     }
   };
-  ft::row_tile_product(load_a, stage_a, reinterpret_cast<const float*>(a.w), a.N, D, smem, store);
+  auto w_row = [](int tile, int c) { return (long long)(tile * ft::NT + c); };
+  ft::row_tile_product(load_a, stage_a, static_cast<const float*>(a.w), w_row, a.N / ft::NT, D, smem, store);
 }
 
 template <bool WITH_LN>
-__global__ void __launch_bounds__(THREADS) ln_matmul_q_kernel(const Args a) {
-  extern __shared__ uint4 smem4[];
-  float* y = reinterpret_cast<float*>(smem4);                  // RT x D
-  int8_t* yq = reinterpret_cast<int8_t*>(y + RT * a.D);         // RT x D codes
-  uint32_t* stage = reinterpret_cast<uint32_t*>(yq + RT * a.D);
-  float* sa = reinterpret_cast<float*>(stage + STAGE_WORDS);    // RT row scales
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long r0 = (long long)blockIdx.x * RT;
+__global__ void __launch_bounds__(ft::THREADS, 2) ln_matmul_q_kernel(const Args a) {  // 128 registers
+  extern __shared__ __align__(128) uint4 smem4[];
   const int D = a.D;
+  int8_t* codes = reinterpret_cast<int8_t*>(smem4);  // MT x D, resident (rows_f32.cuh resident_off)
+  int8_t* stages = codes + ft::MT * D;
+  float* sa_s = reinterpret_cast<float*>(stages + Q_STAGES * ft::S8_STAGE);  // the rows' scales
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long r0 = (long long)blockIdx.x * ft::MT;
+  // front end: warp w takes rows 16 w .. + 15, FRONT_ROWS at a time
+  for (int r = 16 * warp; r < 16 * warp + 16; r += FRONT_ROWS) {
+    float4 v[FRONT_ROWS][6];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = 2 * warp + i;
-    ln_row(y + r * D, a.x, r0 + r, a.R, D, WITH_LN ? a.scale : nullptr, a.bias, a.eps, lane);
-    __syncwarp();
-    const float s = quant_row(y + r * D, D, yq + r * D,
-                              a.codes_out != nullptr && r0 + r < a.R ? a.codes_out + (r0 + r) * D : nullptr, lane);
-    if (lane == 0) sa[r] = s;
-  }
-  __syncthreads();
-  const int kwords = D / 4;
-  for (int n0 = 0; n0 < a.N; n0 += NT) {
-    int acc[2][4] = {};
-    tile_product<true>(acc, reinterpret_cast<const uint32_t*>(yq), kwords, a.w, n0, n0 + 64, kwords, stage);
-    const int n = n0 + 4 * lane;
+    for (int u = 0; u < FRONT_ROWS; ++u) {
+      if (r0 + r + u < a.R) {
+        load_row(a.x + (r0 + r + u) * D, D, lane, v[u]);
+      } else {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = 2 * warp + i;
-      if (r0 + r >= a.R) continue;
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = (float)acc[i][j] * sa[r] * a.sw[n + j];
-      if (a.residual != nullptr) {
-        const float4 res = *reinterpret_cast<const float4*>(a.residual + (r0 + r) * a.N + n);
-        v[0] = res.x + v[0], v[1] = res.y + v[1], v[2] = res.z + v[2], v[3] = res.w + v[3];
+        for (int i = 0; i < 6; ++i) v[u][i] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      *reinterpret_cast<float4*>(a.out + (r0 + r) * a.N + n) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+#pragma unroll
+    for (int u = 0; u < FRONT_ROWS; ++u) {
+      const bool live = r0 + r + u < a.R;
+      float mu = 0.f, rstd = 1.f;
+      if (WITH_LN && live) row_moments(v[u], D, a.eps, lane, mu, rstd);
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int c = 4 * lane + 128 * i;
+        if (c >= D) break;
+        if (WITH_LN && live) {  // ln_row's expression
+          float e[4] = {v[u][i].x, v[u][i].y, v[u][i].z, v[u][i].w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) e[j] = (e[j] - mu) * (rstd * a.scale[c + j]) + (a.bias ? a.bias[c + j] : 0.f);
+          v[u][i] = make_float4(e[0], e[1], e[2], e[3]);
+        }
+        amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[u][i].x), fabsf(v[u][i].y)), fmaxf(fabsf(v[u][i].z), fabsf(v[u][i].w))));
+      }
+      const float sa = fmaxf(warp_max(amax), 1e-30f) * cm3p::kInv127, inv = 1.f / sa;
+      int8_t* codes_row = a.codes_out != nullptr && live ? a.codes_out + (r0 + r + u) * D : nullptr;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int c = 4 * lane + 128 * i;
+        if (c >= D) break;
+        const uint32_t q = live ? quant4(v[u][i], sa, inv) : 0u;
+        *reinterpret_cast<uint32_t*>(codes + ft::resident_off(r + u, c, D)) = q;
+        if (codes_row != nullptr) *reinterpret_cast<uint32_t*>(codes_row + c) = q;
+      }
+      if (lane == 0) sa_s[r + u] = sa;
     }
   }
+  __syncthreads();
+  auto store = [&](int tile, const int (&acc)[2][8][4]) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = ft::s8_row(mi, h);
+        if (r0 + r >= a.R) continue;
+        const float s = sa_s[r];
+        float* out_row = a.out + (r0 + r) * a.N;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int n = tile * ft::NT + ft::s8_col(p);
+          const int4 q = ft::s8_quad(acc, mi, h, p);
+          const float4 w = __ldg(reinterpret_cast<const float4*>(a.sw + n));
+          float4 o = make_float4((float)q.x * s * w.x, (float)q.y * s * w.y, (float)q.z * s * w.z, (float)q.w * s * w.w);
+          if (a.residual != nullptr) {
+            const float4 res = __ldg(reinterpret_cast<const float4*>(a.residual + (r0 + r) * a.N + n));
+            o = make_float4(res.x + o.x, res.y + o.y, res.z + o.z, res.w + o.w);
+          }
+          *reinterpret_cast<float4*>(out_row + n) = o;
+        }
+      }
+  };
+  auto w_row = [](int tile, int c) { return (long long)(tile * ft::NT + c); };
+  ft::row_tile_product_s8<Q_STAGES, true>(codes, D, static_cast<const int8_t*>(a.w), w_row, a.N / ft::NT,
+                                          stages, store);
 }
 
 template <bool WITH_LN, bool INT8>
 int launch_form(const Args& a, void* stream) {
+  const long long blocks = (a.R + ft::MT - 1) / ft::MT;
   if (!INT8) {
-    const long long blocks = (a.R + cm3p::f32tile::MT - 1) / cm3p::f32tile::MT;
-    ln_matmul_kernel<WITH_LN><<<(unsigned)blocks, cm3p::f32tile::THREADS, 0, (cudaStream_t)stream>>>(a);
+    ln_matmul_kernel<WITH_LN><<<(unsigned)blocks, ft::THREADS, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
   }
-  const int bytes = smem_words(a.D) * 4;
+  const int bytes = q_smem_bytes(a.D);
   const void* kernel = (const void*)ln_matmul_q_kernel<WITH_LN>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (a.R + RT - 1) / RT;
-  ln_matmul_q_kernel<WITH_LN><<<(unsigned)blocks, THREADS, bytes, (cudaStream_t)stream>>>(a);
+  ln_matmul_q_kernel<WITH_LN><<<(unsigned)blocks, ft::THREADS, bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <bool INT8>
 int launch(const Args& a, int with_ln, void* stream) {
-  if (a.R <= 0 || a.R > (long long)RT * 0x7fffffff) return (int)cudaErrorInvalidValue;
-  if ((a.D != 256 && a.D != 512 && a.D != 768) || a.N <= 0 || a.N % NT) return (int)cudaErrorInvalidValue;
+  if (a.R <= 0 || a.R > (long long)ft::MT * 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if ((a.D != 256 && a.D != 512 && a.D != 768) || a.N <= 0 || a.N % ft::NT) return (int)cudaErrorInvalidValue;
   if (with_ln && a.scale == nullptr) return (int)cudaErrorInvalidValue;
   return with_ln ? launch_form<true, INT8>(a, stream) : launch_form<false, INT8>(a, stream);
 }
@@ -202,7 +260,7 @@ int launch(const Args& a, int with_ln, void* stream) {
 extern "C" int cm3p_ln_matmul_f32(const void* x, const void* scale, const void* bias, const void* w,
                                   const void* residual, void* out, long long R, int D, int N, float eps,
                                   int with_ln, void* stream) {
-  const f32::Args a{(const float*)x, (const float*)scale, (const float*)bias, (const uint32_t*)w, nullptr,
+  const f32::Args a{(const float*)x, (const float*)scale, (const float*)bias, w, nullptr,
                     (const float*)residual, (float*)out, nullptr, R, D, N, eps};
   return f32::launch<false>(a, with_ln, stream);
 }
@@ -212,7 +270,7 @@ extern "C" int cm3p_ln_matmul_f32(const void* x, const void* scale, const void* 
 extern "C" int cm3p_ln_matmul_q_f32(const void* x, const void* scale, const void* bias, const void* wq,
                                     const void* sw, const void* residual, void* out, void* codes_out, long long R,
                                     int D, int N, float eps, int with_ln, void* stream) {
-  const f32::Args a{(const float*)x, (const float*)scale, (const float*)bias, (const uint32_t*)wq,
+  const f32::Args a{(const float*)x, (const float*)scale, (const float*)bias, wq,
                     (const float*)sw, (const float*)residual, (float*)out, (int8_t*)codes_out, R, D, N, eps};
   return f32::launch<true>(a, with_ln, stream);
 }

@@ -14,10 +14,13 @@ On a CPU tensor the wrapper runs :func:`fused_ln_ffn_plain`; on a CUDA
 tensor it launches ``csrc/fused_ffn.cu`` (bf16, D in {256, 512, 768}, F a
 multiple of 64; with ``w8a8`` and ``w8a8_wo`` at D 768, F <= 1152) or raises. The source note on the kernel's design and bound
 is in ``csrc/fused_ffn.cu``. fp32 activations (a model run in fp32) launch
-the fp32 kernel of ``csrc/fused_ffn_f32.cu`` in every form (fp32 FMA on the
-CUDA cores, dp4a for the int8 products; no TF32; F up to :func:`f32_max_f`),
-counted as ``fused_ln_ffn_f32``, ``fused_ln_ffn_q_f32`` and
-``fused_ln_ffn_q_wo_f32``; its weights are fp32 where they are not int8.
+the fp32 kernel of ``csrc/fused_ffn_f32.cu`` in every form (register-tiled
+fp32 FMA on the CUDA cores, int8 ``mma.sync`` with exact int32 sums for the
+int8 products; no TF32; any F that is a multiple of 64), counted as
+``fused_ln_ffn_f32``, ``fused_ln_ffn_q_f32`` and ``fused_ln_ffn_q_wo_f32``; its
+weights are fp32 where they are not int8. It passes ``gelu(a) * b`` through a
+device scratch that the wrapper allocates (:func:`f32_scratch_bytes`: one slot
+of 128 rows per block of the kernel's persistent grid).
 
 The W8A8 extraction options follow the TPU kernel: ``w8a8`` quantises the
 fp32 LN output per row to int8 and multiplies by an int8 Wi (per output
@@ -53,19 +56,26 @@ _SIGNATURES = {
     "cm3p_fused_ln_ffn_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                             ctypes.c_int, ctypes.c_int, _P],
 }
+_LL = ctypes.c_longlong
 _F32_SIGNATURES = {
-    "cm3p_fused_ln_ffn_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    "cm3p_fused_ln_ffn_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
                               ctypes.c_float, ctypes.c_int, ctypes.c_int, _P],
-    "cm3p_fused_ln_ffn_f32_max_f": [ctypes.c_int],
+    "cm3p_fused_ln_ffn_f32_scratch_bytes": [_LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(_LL)],
 }
 KERNEL_WIDTHS = (256, 512, 768)
 ACTIVATION_DTYPES = (torch.bfloat16, torch.float32)  # bf16: csrc/fused_ffn.cu; fp32: csrc/fused_ffn_f32.cu
 
 
-def f32_max_f(d: int) -> int:
-    """The largest F the fp32 kernel takes at width ``d`` (a 16-row tile's y and g, their codes, an h tile and
-    a weight stage within a block's shared memory), as the kernel's source reckons it; builds the kernel."""
-    return _build.library("fused_ffn_f32", _F32_SIGNATURES).cm3p_fused_ln_ffn_f32_max_f(d)
+def f32_scratch_bytes(rows: int, d: int, f: int, w8a8: bool = False, w8a8_wo: bool = False) -> int:
+    """The device scratch the fp32 kernel takes for ``rows`` rows in a form on the current card: 128 rows of
+    ``gelu(a) * b`` in fp32 (and the y and g codes of the int8 forms) per block of its persistent grid, as the
+    kernel's source reckons it; builds the kernel."""
+    n = ctypes.c_longlong(0)
+    err = _build.library("fused_ffn_f32", _F32_SIGNATURES).cm3p_fused_ln_ffn_f32_scratch_bytes(
+        rows, d, f, int(w8a8), int(w8a8_wo), ctypes.byref(n))
+    _build.check(err, "cm3p_fused_ln_ffn_f32_scratch_bytes")
+    return n.value
 
 
 def ffn_fusable(d_model: int, d_ff: int) -> bool:
@@ -114,8 +124,6 @@ def _check_common(x, scale, bias, d, f):
         raise ValueError("x must be a contiguous bfloat16 or float32 CUDA tensor")
     if d not in KERNEL_WIDTHS or f % 64 or f <= 0:
         raise ValueError(f"the kernel takes D in {KERNEL_WIDTHS} and F a multiple of 64, got D={d}, F={f}")
-    if x.dtype == torch.float32 and f > (max_f := f32_max_f(d)):
-        raise ValueError(f"the fp32 kernel keeps a tile's g in shared memory: F <= {max_f} at D {d}, got {f}")
     for name, t in (("scale", scale), ("bias", bias)):
         if t is None and name == "bias":
             continue
@@ -141,12 +149,15 @@ def _launch_f32(x, scale, bias, wi, swi, wo, swo, eps, codes_y=None, codes_g=Non
     """The fp32 kernel (csrc/fused_ffn_f32.cu) in the form the weights' scales name (``swi`` / ``swo``
     given: that weight is int8 codes); shapes and types checked by the caller."""
     d, f = x.shape[-1], wo.shape[1]
+    rows, w8a8, w8a8_wo = x.numel() // d, swi is not None, swo is not None
     out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        scratch = torch.empty(f32_scratch_bytes(rows, d, f, w8a8, w8a8_wo), dtype=torch.uint8, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _build.library("fused_ffn_f32", _F32_SIGNATURES).cm3p_fused_ln_ffn_f32(
         x.data_ptr(), scale.data_ptr(), ptr(bias), wi.data_ptr(), ptr(swi), wo.data_ptr(), ptr(swo), out.data_ptr(),
-        ptr(codes_y), ptr(codes_g), x.numel() // d, d, f, float(eps), int(swi is not None), int(swo is not None),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        ptr(codes_y), ptr(codes_g), scratch.data_ptr(), scratch.numel(), rows, d, f, float(eps), int(w8a8),
+        int(w8a8_wo), torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "cm3p_fused_ln_ffn_f32")
     return out

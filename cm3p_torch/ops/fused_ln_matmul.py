@@ -18,8 +18,9 @@ one kernel in ``csrc/fused_ln_matmul.cu``:
 Weights use the nn.Linear layout (N, D). On a CPU tensor the wrappers run the
 plain versions; on a CUDA tensor they launch the kernel (D in {256, 512, 768},
 N a multiple of 128) or raise: bf16 activations the bf16 kernels, fp32
-activations the fp32 kernels of ``csrc/fused_ln_matmul_f32.cu`` (fp32 FMA on
-the CUDA cores, dp4a for the int8 form; no TF32), each fp32 form counted under
+activations the fp32 kernels of ``csrc/fused_ln_matmul_f32.cu`` (register-tiled
+fp32 FMA on the CUDA cores; the int8 form on int8 ``mma.sync`` with exact int32
+sums, its activation codes resident per 128-row tile; no TF32), each fp32 form counted under
 its own name (``fused_ln_matmul_f32``, ``fused_ln_matmul_wo_f32``,
 ``fused_ln_matmul_q_f32``, ``fused_ln_matmul_q_wo_f32``). The weight, the
 residual and the output take the activation dtype. These are no-grad ops:

@@ -58,23 +58,32 @@ measured on the same card within one run:
   change turn also times the plain version and one SDPA backward and
   computes the bound. The segments are made as for ``attn``.
 
-* ``f32``: the fp32-weight LN-matmul forms through ``ops.fused_ln_matmul`` at
-  fp32 (TF32 off) on the same seeded inputs in every turn: LN -> QKV (row
-  5-f32) at 323,584 x 768 -> 2304 and 355,500 x 512 -> 1536, Wo + residual
-  (row 5r-f32) at 323,584 x 768 -> 768 and 355,500 x 512 -> 512, each first
-  held to its plain version (``chip_smoke.F32_REL_TOL`` of the largest entry),
-  then timed, the Wo forms beside one fp32 ``torch.addmm`` of the same function
-  in every turn; the first change turn also times the plain version, and the
-  bound is computed.
+* ``f32``: the fp32 forms through the public ops at fp32 (TF32 off) on the
+  same seeded inputs in every turn, at 323,584 rows (D 768) and the audio
+  tower's 355,500 (D 512): the LN-matmul forms LN -> QKV and Wo + residual
+  with fp32 weights (rows 5-f32, 5r-f32) and int8 weights (6-f32, 6r-f32), and
+  the FFN forms with fp32 weights (3-f32), ``w8a8`` (3q-f32) and ``w8a8 +
+  w8a8_wo`` (3qq-f32) at F 1152 / 1024. Each is first held to its plain
+  version (``chip_smoke.F32_REL_TOL`` of the largest entry; the int8 forms on
+  the rows whose exported codes are the plain quantiser's, at least 90 % of
+  them), then timed beside its yardstick in every turn: one fp32
+  ``torch.addmm`` for the Wo forms, the unfused fp32 composition
+  (``chip_smoke.ffn_composition``) for the FFN; the first change turn also
+  times the plain version, and the bound is computed.
 
-* ``f32parts`` (this tree only, no ``--parent``): the fp32-weight LN-matmul
-  kernel (rows 5r-f32 and 5-f32 at 323,584 rows) beside copies built with its
-  slices' loads and stores cut out (the products alone, wrong sums), with one
-  block an SM (no spills) and with 8 values of K a slice, each timed twice in
-  turns on the same seeded inputs beside the one PyTorch call (fp32
-  ``torch.addmm``, or the bare product for 5-f32), with each copy's registers
-  and spills: what bounds the tiled product. The copies are sed-edited
-  ``csrc/``; an edit that no longer matches the source fails the run.
+* ``f32parts`` (this tree only, no ``--parent``): the fp32 kernels at 323,584
+  rows (D 768) beside copies built with one part cut out or one choice
+  changed, each timed twice in turns on the same seeded inputs beside the one
+  PyTorch call (fp32 ``torch.addmm``, the bare product for 5-f32 / 6-f32, the
+  unfused fp32 composition for the FFN), with each copy's registers and spills:
+  the fp32 LN-matmul (rows 5r-f32, 5-f32) with its slices' loads and stores cut
+  (the products alone, wrong sums), at one block an SM and with 8 values of K a
+  slice; the int8 LN-matmul (6r-f32, 6-f32) without its front end, without its
+  epilogue, with the products alone and with four stages at one block an SM;
+  the FFN (3-f32, 3q-f32, 3qq-f32)
+  without g's round trip through the scratch (wrong sums) and at one block an
+  SM. The copies are sed-edited ``csrc/``; an edit that no longer matches the
+  source fails the run.
 
 * ``parts`` (this tree only, no ``--parent``): the int8 LN-matmul kernel
   (rows 6 and 6r at 323,584 rows) beside copies of it built with one part cut
@@ -389,45 +398,91 @@ for n, ((si, heads, window, theta), keys) in enumerate(SHAPES.items()):
     torch.cuda.empty_cache()
 print("REPORT " + json.dumps({"errs": errs, "times": times, "library": lib}), flush=True)
 """
-# the fp32-weight LN-matmul forms (rows 5-f32 and 5r-f32) at the towers' shapes: (D, N, with LN, rows)
-F32_SHAPES = ((768, 2304, True, 79 * 4096), (768, 768, False, 79 * 4096), (512, 1536, True, 237 * 1500),
-              (512, 512, False, 237 * 1500))
+# the fp32 forms at the towers' shapes: (row, D, N or F, LN / w8a8, int8 / w8a8_wo, rows). LN-matmul rows 5-f32 /
+# 5r-f32 (fp32 W) and 6-f32 / 6r-f32 (int8 W), LN -> QKV and Wo + residual; FFN rows 3-f32, 3q-f32 and 3qq-f32
+BEATMAP_ROWS = 79 * 4096
+F32_SHAPES = tuple(
+    [(row, d, n, ln, int8, rows) for d, rows in ((768, BEATMAP_ROWS), (512, AUDIO_ROWS))
+     for row, n, ln, int8 in (("5-f32", 3 * d, True, False), ("5r-f32", d, False, False),
+                              ("6-f32", 3 * d, True, True), ("6r-f32", d, False, True))]
+    + [(row, d, f, w8a8, w8a8_wo, rows) for d, f, rows in ((768, 1152, BEATMAP_ROWS), (512, 1024, AUDIO_ROWS))
+       for row, w8a8, w8a8_wo in (("3-f32", False, False), ("3q-f32", True, False), ("3qq-f32", True, True))])
 F32_TURN = r"""
 import json, sys, torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 from cm3p_torch import ops
 from cm3p_torch.ops import _build
-_build.build(("fused_ln_matmul_f32",))
+from cm3p_torch.ops.fused_ffn import layer_norm_f32
+from cm3p_torch.ops.quant import int8_matmul, quant_rows_int8, quantize_weight_int8
+_build.build(("fused_ln_matmul_f32", "fused_ffn_f32"))
 torch.backends.cuda.matmul.allow_tf32 = False
 library = sys.argv[2] == "1"
 dev = torch.device("cuda")
 errs, times = {}, {}
-for d, n_out, with_ln, rows in json.loads(sys.argv[3]):
-    gen = torch.Generator(device=dev).manual_seed(d + n_out)
+for row, d, n, opt1, opt2, rows in json.loads(sys.argv[3]):
+    gen = torch.Generator(device=dev).manual_seed(d + n + 7 * opt1 + 13 * opt2)
     x = torch.randn(rows, d, generator=gen, device=dev)
     x[1000:1100] = 0
-    w = 0.02 * torch.randn(n_out, d, generator=gen, device=dev)
-    kw = dict(scale=1 + 0.1 * torch.randn(d, generator=gen, device=dev)) if with_ln else dict(
-        residual=torch.randn(rows, n_out, generator=gen, device=dev))
-    key = f"{'5-f32' if with_ln else '5r-f32'} {d} -> {n_out}, {rows} rows"
-    run = lambda: ops.fused_ln_matmul(x, w, **kw)
-    plain = lambda: ops.fused_ln_matmul_plain(x, w, **kw)
-    got, want = run(), plain()
+    scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    key = f"{row} {d} -> {n}, {rows} rows" if row[0] in "56" else f"{row} D {d} F {n}, {rows} rows"
+    t, rows_ok = {}, torch.ones(rows, dtype=torch.bool, device=dev)
+    if row[0] in "56":  # LN-matmul: opt1 = LN, opt2 = int8 W
+        w = 0.02 * torch.randn(n, d, generator=gen, device=dev)
+        w_q = quantize_weight_int8(w) if opt2 else None
+        kw = dict(scale=scale) if opt1 else dict(residual=torch.randn(rows, n, generator=gen, device=dev))
+        if opt2:
+            run = lambda: ops.fused_ln_matmul_q(x, None, w_q=w_q, **kw)
+            plain = lambda: ops.fused_ln_matmul_q_plain(x, None, w_q=w_q, **kw)
+            codes = torch.empty(rows, d, dtype=torch.int8, device=dev)
+            got = ops.fused_ln_matmul_q(x, None, w_q=w_q, codes_out=codes, **kw)
+            rows_ok = (codes == quant_rows_int8(layer_norm_f32(x, scale, None, 1e-5) if opt1 else x)[0]).all(1)
+            del codes
+        else:
+            run = lambda: ops.fused_ln_matmul(x, w, **kw)
+            plain = lambda: ops.fused_ln_matmul_plain(x, w, **kw)
+            got = run()
+        if not opt1:  # one PyTorch call of the same function at fp32 (same code in every turn)
+            lib = lambda: torch.addmm(kw["residual"], x, w.t())
+            t["addmm_ms"] = chip_smoke.cuda_ms(lib, 5)
+    else:  # FFN: opt1 = w8a8, opt2 = w8a8_wo
+        wi = 0.02 * torch.randn(2 * n, d, generator=gen, device=dev)
+        wo = 0.02 * torch.randn(d, n, generator=gen, device=dev)
+        wi_q = quantize_weight_int8(wi) if opt1 else None
+        wo_q = quantize_weight_int8(wo) if opt2 else None
+        args, kw = (x, scale, None, wi, wo, 1e-5), dict(w8a8=bool(opt1), w8a8_wo=bool(opt2), wi_q=wi_q, wo_q=wo_q)
+        run = lambda: ops.fused_ln_ffn(*args, **kw)
+        plain = lambda: ops.fused_ln_ffn_plain(*args, **kw)
+        if opt1:
+            cy = torch.empty(rows, d, dtype=torch.int8, device=dev)
+            cg = torch.empty(rows, n, dtype=torch.int8, device=dev) if opt2 else None
+            got = ops.fused_ln_ffn_q(*args, **kw, codes_y=cy, codes_g=cg)
+            y = layer_norm_f32(x, scale, None, 1e-5)
+            qy, sa = quant_rows_int8(y)
+            rows_ok &= (cy == qy).all(1)
+            if opt2:  # g's codes from the plain h on the kernel's own y codes
+                h = int8_matmul(cy, wi_q[0]) * sa * wi_q[1]
+                rows_ok &= (cg == quant_rows_int8(torch.nn.functional.gelu(h[:, :n]) * h[:, n:])[0]).all(1)
+                del h
+            del cy, cg, y, qy, sa
+        else:
+            got = run()
+        t["composition_ms"] = chip_smoke.cuda_ms(lambda: chip_smoke.ffn_composition(*args, wi_q=wi_q, wo_q=wo_q), 3)
+    want = plain()
     torch.cuda.synchronize()
-    errs[key] = err = (got - want).abs().max().item() / want.abs().max().item()
-    if not err <= chip_smoke.F32_REL_TOL:
-        raise SystemExit(f"{key}: the fp32 kernel disagrees with its plain version ({err:.3e})")
+    errs[key] = err = (got[rows_ok] - want[rows_ok]).abs().max().item() / want.abs().max().item()
+    share = rows_ok.float().mean().item()
+    if not err <= chip_smoke.F32_REL_TOL or share < 0.9:
+        raise SystemExit(f"{key}: the fp32 kernel disagrees with its plain version ({err:.3e} on {share:.4f} of rows)")
     del got, want
-    t = {"ms": chip_smoke.cuda_ms(run, 5)}
-    if not with_ln:  # one PyTorch call of the same function (same code in every turn)
-        t["addmm_ms"] = chip_smoke.cuda_ms(lambda: torch.addmm(kw["residual"], x, w.t()), 5)
+    t["ms"] = chip_smoke.cuda_ms(run, 5 if row[0] in "56" else 3)
     if library:
         t["plain_ms"] = chip_smoke.cuda_ms(plain, 1)
     times[key] = t
-    print(f"  {key}: {t['ms']:.3f} ms (" + (f"fp32 torch.addmm {t['addmm_ms']:.3f} ms; " if "addmm_ms" in t else "")
-          + f"relative error {err:.3e})", flush=True)
-    del x, w, kw
+    extra = "; ".join(f"{k[:-3]} {v:.3f} ms" for k, v in t.items() if k not in ("ms", "plain_ms"))
+    print(f"  {key}: {t['ms']:.3f} ms (" + (extra + "; " if extra else "")
+          + f"relative error {err:.3e} on {share:.4f} of rows)", flush=True)
+    del x
     torch.cuda.empty_cache()
 print("REPORT " + json.dumps({"errs": errs, "times": times}), flush=True)
 """
@@ -502,26 +557,55 @@ for row, rows, d, n, ln in (("6", 323584, 768, 2304, True), ("6r", 323584, 768, 
     del x, wq, sw, res, out
 print("REPORT " + json.dumps({"times": times}), flush=True)
 """
-# the fp32-weight LN-matmul kernel beside copies with one part cut out or one choice changed (edits of csrc/)
+# the fp32 kernels beside copies with one part cut out or one choice changed (edits of csrc/)
 F32_PARTS = r"""
 import ctypes, json, shutil, subprocess, sys, tempfile
 from pathlib import Path
 import torch
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-from cm3p_torch import ops
 from cm3p_torch.ops import _build
-from cm3p_torch.ops.fused_ln_matmul import _F32_SIGNATURES
+from cm3p_torch.ops.fused_ffn import _F32_SIGNATURES as FFN_SIGNATURES
+from cm3p_torch.ops.fused_ln_matmul import _F32_SIGNATURES as LNMM_SIGNATURES
+from cm3p_torch.ops.quant import quantize_weight_int8
 
 csrc = Path(sys.argv[1]) / "cm3p_torch" / "csrc"
-COPIES = {  # name -> {file: [(text, replacement)]}
-    "kernel": {},
-    "products alone (no slice loads or stores: wrong sums)": {"rows_f32.cuh": [
+NEVER = "if (gv.x == -1234.5f) "  # a store the run never makes, so that what feeds it stays computed
+CUT_FRONT = ("  for (int r = 16 * warp; r < 16 * warp + 16; r += FRONT_ROWS) {",
+             "  if (0) for (int r = 16 * warp; r < 16 * warp + 16; r += FRONT_ROWS) {")
+CUT_EPILOGUE = ("        if (r0 + r >= a.R) continue;\n        const float s = sa_s[r];\n        float* out_row",
+                "        if (r0 + r >= 0) continue;\n        const float s = sa_s[r];\n        float* out_row")
+COPIES = {  # name -> ({file: [(text, replacement)]}, the rows it is timed on)
+    "kernel": ({}, ("5r-f32", "5-f32", "6r-f32", "6-f32", "3-f32", "3q-f32", "3qq-f32")),
+    "fp32 products alone (no slice loads or stores: wrong sums)": ({"rows_f32.cuh": [
         ("    if (t + 1 < steps) fetch(t + 1);", "    if (0) fetch(t + 1);"),
-        ("    if (t + 1 < steps) stash(t + 1);", "    if (0) stash(t + 1);")]},
-    "one block an SM": {"fused_ln_matmul_f32.cu": [
-        ("__launch_bounds__(cm3p::f32tile::THREADS, 2)", "__launch_bounds__(cm3p::f32tile::THREADS, 1)")]},
-    "8 values of K a slice": {"rows_f32.cuh": [("constexpr int KS = 16;", "constexpr int KS = 8;")]},
+        ("    if (t + 1 < steps) stash(t + 1);", "    if (0) stash(t + 1);")]}, ("5r-f32", "5-f32", "3-f32")),
+    "fp32 LN-matmul at one block an SM": ({"fused_ln_matmul_f32.cu": [
+        ("__launch_bounds__(ft::THREADS, 2) ln_matmul_kernel", "__launch_bounds__(ft::THREADS, 1) ln_matmul_kernel")]},
+        ("5r-f32", "5-f32")),
+    "8 values of K a slice": ({"rows_f32.cuh": [("constexpr int KS = 16;", "constexpr int KS = 8;")]},
+                              ("5r-f32", "5-f32")),
+    "int8 LN-matmul without its front end (wrong codes)": ({"fused_ln_matmul_f32.cu": [CUT_FRONT]}, ("6r-f32", "6-f32")),
+    "int8 LN-matmul without its epilogue (no output)": ({"fused_ln_matmul_f32.cu": [CUT_EPILOGUE]}, ("6r-f32", "6-f32")),
+    "int8 products alone (no front end, no epilogue)": ({"fused_ln_matmul_f32.cu": [CUT_FRONT, CUT_EPILOGUE]},
+                                                        ("6r-f32", "6-f32")),
+    "int8 LN-matmul with 4 stages at one block an SM": ({"fused_ln_matmul_f32.cu": [
+        ("constexpr int Q_STAGES = 2;", "constexpr int Q_STAGES = 4;"),
+        ("__launch_bounds__(ft::THREADS, 2) ln_matmul_q_kernel", "__launch_bounds__(ft::THREADS, 1) ln_matmul_q_kernel")]},
+        ("6r-f32", "6-f32")),
+    "FFN without g's round trip through the scratch (wrong sums)": ({"fused_ffn_f32.cu": [
+        ("              *reinterpret_cast<float4*>(g + r * F + j) = gv;\n              m = fmaxf",
+         "              " + NEVER + "*reinterpret_cast<float4*>(g + r * F + j) = gv;\n              m = fmaxf"),
+        ("          *reinterpret_cast<float4*>(g + r * F + j) = gv;\n          if (W8A8_WO)",
+         "          " + NEVER + "*reinterpret_cast<float4*>(g + r * F + j) = gv;\n          if (W8A8_WO)"),
+        ("return __ldcg(reinterpret_cast<const float4*>(g + row * F + k)); };",
+         "return make_float4((float)row, (float)k, 0.f, 1.f); };"),
+        ("          const uint32_t q = quant4(__ldcg(reinterpret_cast<const float4*>(g + r * F + c)), sg, inv);",
+         "          const uint32_t q = quant4(make_float4((float)r, (float)c, 0.f, 1.f), sg, inv);")]},
+        ("3-f32", "3q-f32", "3qq-f32")),
+    "FFN at one block an SM": ({"fused_ffn_f32.cu": [
+        ("__launch_bounds__(ft::THREADS, 2) ffn_kernel", "__launch_bounds__(ft::THREADS, 1) ffn_kernel")]},
+        ("3-f32", "3q-f32", "3qq-f32")),
 }
 dev = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -529,7 +613,7 @@ stream = torch.cuda.current_stream().cuda_stream
 times = {}
 with tempfile.TemporaryDirectory() as tmp:
     procs, libs = {}, {}
-    for n, (name, edits) in enumerate(COPIES.items()):
+    for n, (name, (edits, _)) in enumerate(COPIES.items()):
         d = Path(tmp) / f"copy{n}"
         shutil.copytree(csrc, d)
         for fname, reps in edits.items():
@@ -539,42 +623,79 @@ with tempfile.TemporaryDirectory() as tmp:
                     raise SystemExit(f"{name}: the edit no longer matches csrc/{fname}")
                 text = text.replace(a, b)
             (d / fname).write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "fused_ln_matmul_f32.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
-    for name, (proc, d) in procs.items():
+        for src in ("fused_ln_matmul_f32", "fused_ffn_f32"):
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / f"{src}.so"), str(d / f"{src}.cu")]
+            procs[name, src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
+    for (name, src), (proc, d) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            raise SystemExit(f"{name}: build failed\n{log[-3000:]}")
+            raise SystemExit(f"{name}: {src} build failed\n{log[-3000:]}")
         for kernel, regs, spills in chip_smoke.ptxas_report(log):
-            if kernel.startswith("f32::ln_matmul_kernel"):
+            if kernel.startswith("f32::"):
                 print(f"  {name}, {kernel}: {regs}; {spills}", flush=True)
-        lib = ctypes.CDLL(str(d / "lib.so"))
-        lib.cm3p_ln_matmul_f32.argtypes = _F32_SIGNATURES["cm3p_ln_matmul_f32"]
-        lib.cm3p_ln_matmul_f32.restype = ctypes.c_int
-        libs[name] = lib
+        lib = libs.setdefault(name, {})[src] = ctypes.CDLL(str(d / f"{src}.so"))
+        for fn, argtypes in (LNMM_SIGNATURES if src == "fused_ln_matmul_f32" else FFN_SIGNATURES).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
     gen = torch.Generator(device=dev).manual_seed(0)
-    for row, d, n, ln in (("5r-f32", 768, 768, False), ("5-f32", 768, 2304, True)):
-        rows = 79 * 4096
-        x = torch.randn(rows, d, generator=gen, device=dev)
-        scale = 1 + 0.1 * torch.randn(d, generator=gen, device=dev)
-        w = 0.02 * torch.randn(n, d, generator=gen, device=dev)
-        res = None if ln else torch.randn(rows, n, generator=gen, device=dev)
-        out = torch.empty(rows, n, device=dev)
+    rows = 79 * 4096
+    x = torch.randn(rows, 768, generator=gen, device=dev)
+    scale = 1 + 0.1 * torch.randn(768, generator=gen, device=dev)
+    ROWS = {"5r-f32": (768, False, False), "5-f32": (2304, True, False), "6r-f32": (768, False, True),
+            "6-f32": (2304, True, True), "3-f32": (1152, False, False), "3q-f32": (1152, True, False),
+            "3qq-f32": (1152, True, True)}
+    for row, (n, opt1, opt2) in ROWS.items():
+        names = [name for name, (_, rows_of) in COPIES.items() if row in rows_of]
+        if row[0] in "56":
+            w = 0.02 * torch.randn(n, 768, generator=gen, device=dev)
+            wq, sw = quantize_weight_int8(w)
+            res = None if opt1 else torch.randn(rows, n, generator=gen, device=dev)
+            out = torch.empty(rows, n, device=dev)
+            def run(lib):
+                ln, resp = scale.data_ptr() if opt1 else None, None if res is None else res.data_ptr()
+                if opt2:
+                    return lib["fused_ln_matmul_f32"].cm3p_ln_matmul_q_f32(
+                        x.data_ptr(), ln, None, wq.data_ptr(), sw.data_ptr(), resp, out.data_ptr(), None, rows, 768,
+                        n, 1e-5, int(opt1), stream)
+                return lib["fused_ln_matmul_f32"].cm3p_ln_matmul_f32(
+                    x.data_ptr(), ln, None, w.data_ptr(), resp, out.data_ptr(), rows, 768, n, 1e-5, int(opt1), stream)
+            one_call = (lambda: torch.addmm(res, x, w.t())) if res is not None else (lambda: x @ w.t())
+        else:
+            wi = 0.02 * torch.randn(2 * n, 768, generator=gen, device=dev)
+            wo = 0.02 * torch.randn(768, n, generator=gen, device=dev)
+            wiq, swi = quantize_weight_int8(wi)
+            woq, swo = quantize_weight_int8(wo)
+            wi_arg, swi_arg = (wiq, swi) if opt1 else (wi, None)
+            wo_arg, swo_arg = (woq, swo) if opt2 else (wo, None)
+            out = torch.empty(rows, 768, device=dev)
+            scratch = {}
+            for name in names:
+                nb = ctypes.c_longlong(0)
+                assert libs[name]["fused_ffn_f32"].cm3p_fused_ln_ffn_f32_scratch_bytes(
+                    rows, 768, n, int(opt1), int(opt2), ctypes.byref(nb)) == 0
+                scratch[name] = torch.empty(nb.value, dtype=torch.uint8, device=dev)
+                print(f"  row {row}, {name}: scratch {nb.value} bytes", flush=True)
+            def run(lib, name=None):
+                sc = scratch[name]
+                return lib["fused_ffn_f32"].cm3p_fused_ln_ffn_f32(
+                    x.data_ptr(), scale.data_ptr(), None, wi_arg.data_ptr(), None if swi_arg is None else swi_arg.data_ptr(),
+                    wo_arg.data_ptr(), None if swo_arg is None else swo_arg.data_ptr(), out.data_ptr(), None, None,
+                    sc.data_ptr(), sc.numel(), rows, 768, n, 1e-5, int(opt1), int(opt2), stream)
+            one_call = lambda: chip_smoke.ffn_composition(x, scale, None, wi, wo, 1e-5, (wiq, swi) if opt1 else None,
+                                                          (woq, swo) if opt2 else None)
         for turn in range(2):
-            for name, lib in libs.items():
-                def run(lib=lib):
-                    err = lib.cm3p_ln_matmul_f32(x.data_ptr(), scale.data_ptr() if ln else None, None, w.data_ptr(),
-                                                 None if res is None else res.data_ptr(), out.data_ptr(), rows, d, n,
-                                                 1e-5, int(ln), stream)
+            for name in names:
+                def call(name=name):
+                    err = run(libs[name], name) if row[0] == "3" else run(libs[name])
                     if err:
                         raise SystemExit(f"{name}: CUDA error {err}")
-                times.setdefault(f"{row} {name}", []).append(chip_smoke.cuda_ms(run, 5))
-            one_call = (lambda: torch.addmm(res, x, w.t())) if res is not None else (lambda: x @ w.t())
-            times.setdefault(f"{row} torch", []).append(chip_smoke.cuda_ms(one_call, 5))
-        for name in (*libs, "torch"):
+                times.setdefault(f"{row} {name}", []).append(chip_smoke.cuda_ms(call, 5 if row[0] in "56" else 3))
+            times.setdefault(f"{row} torch", []).append(chip_smoke.cuda_ms(one_call, 3))
+        for name in (*names, "torch"):
             print(f"  row {row}, {name}: " + " / ".join(f"{t:.3f}" for t in times[f"{row} {name}"]) + " ms",
                   flush=True)
-        del x, w, res, out
+        del out
+        torch.cuda.empty_cache()
 print("REPORT " + json.dumps({"times": times}), flush=True)
 """
 # a timing line of check_wo_kernels: form, shape, ms, ..., the unfused pair's ms
@@ -678,12 +799,20 @@ def main() -> int:
         from chip_smoke import _f32_bound
 
         first = results[ORDER.index("change")]["times"]
-        for (d, n_out, with_ln, rows), key in zip(F32_SHAPES, first):
+        for (row, d, n, opt1, opt2, rows), key in zip(F32_SHAPES, first):
             line = f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)
-            if "addmm_ms" in first[key]:
-                line += "; fp32 torch.addmm " + ", ".join(f"{r['times'][key]['addmm_ms']:.3f}" for r in results)
-            bytes_moved = rows * d * 4 + n_out * d * 4 + rows * n_out * 4 * (1 if with_ln else 2) + d * 4
-            bound, by = _f32_bound(bytes_moved, 2 * rows * d * n_out)
+            for part, label in (("addmm_ms", "fp32 torch.addmm"), ("composition_ms", "the unfused fp32 composition")):
+                if part in first[key]:
+                    line += f"; {label} " + ", ".join(f"{r['times'][key][part]:.3f}" for r in results)
+            if row[0] in "56":  # LN-matmul: x in, W, out (and the residual) once
+                ops_ = 2 * rows * d * n
+                bytes_moved = rows * d * 4 + n * d * (1 if opt2 else 4) + rows * n * 4 * (1 if opt1 else 2) + d * 4
+                bound, by = _f32_bound(bytes_moved, 0 if opt2 else ops_, ops_ if opt2 else 0)
+            else:  # FFN: x in, out, the weights once
+                wi_ops, wo_ops = 4 * rows * d * n, 2 * rows * d * n
+                bytes_moved = 2 * rows * d * 4 + 2 * n * d * (1 if opt1 else 4) + d * n * (1 if opt2 else 4) + d * 4
+                bound, by = _f32_bound(bytes_moved, (0 if opt1 else wi_ops) + (0 if opt2 else wo_ops),
+                                       (wi_ops if opt1 else 0) + (wo_ops if opt2 else 0))
             print(line + f"; plain {first[key]['plain_ms']:.3f}; bound {bound:.3f} ({by})", flush=True)
         return 0
     if args.phase == "wo":

@@ -178,16 +178,22 @@ def test_fp32_rect_attention_plain_matches_the_jax_kernel(jax_fp32):
     assert np.all(got[1] == 0.0)
 
 
-@pytest.mark.parametrize("w8a8,w8a8_wo", [(False, False), (True, False), (True, True), (False, True)],
-                         ids=["fp32-weights", "w8a8", "w8a8+w8a8_wo", "w8a8_wo"])
-def test_fp32_ffn_plain_matches_the_interpreted_pallas_kernel(jax_fp32, w8a8, w8a8_wo):
-    """``fused_ln_ffn`` at fp32 (its plain version on the CPU) against ``_pallas_ln_ffn`` at D 256, F 512,
-    rows not a multiple of the TPU kernel's 128-row blocks, with zero rows and an LN bias."""
+_FFN_FORMS = [(False, False), (True, False), (True, True), (False, True)]
+_FFN_FORM_IDS = ["fp32-weights", "w8a8", "w8a8+w8a8_wo", "w8a8_wo"]
+
+
+# F 512 (the metadata tower's), and F 2368: past every F the first fp32 kernel kept in shared memory (2304 at D 256),
+# which the kernel now takes (g goes through a device scratch)
+@pytest.mark.parametrize("w8a8,w8a8_wo,f", [(*form, 512) for form in _FFN_FORMS] + [(*form, 2368) for form in _FFN_FORMS],
+                         ids=_FFN_FORM_IDS + [f"{name}-F2368" for name in _FFN_FORM_IDS])
+def test_fp32_ffn_plain_matches_the_interpreted_pallas_kernel(jax_fp32, w8a8, w8a8_wo, f):
+    """``fused_ln_ffn`` at fp32 (its plain version on the CPU) against ``_pallas_ln_ffn`` at D 256, F 512 and F
+    2368, rows not a multiple of the TPU kernel's 128-row blocks, with zero rows and an LN bias."""
     _, ffn = jax_fp32
     import jax.numpy as jnp
 
     rng = np.random.default_rng(13)
-    rows, d, f = 150, 256, 512
+    rows, d = 150, 256
     x = rng.standard_normal((rows, d)).astype(np.float32)
     x[5:9] = 0.0
     scale = rng.uniform(0.5, 1.5, d).astype(np.float32)

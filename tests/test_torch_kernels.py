@@ -36,7 +36,13 @@ the LN forms. The LN-matmul forms also at the persistent kernels' row counts
 first and the last tile), and the int8 form at its tile edges as the bf16 one,
 with its codes as above. The fp32 LN-matmul forms at the fp32-weight kernel's
 128-row tile edges (1, 127, 128, 129 rows, a ragged count, three waves of the
-card's SMs), N 128 to 2304 and D 256 to 768: 1e-5 of the largest entry. The
+card's SMs), N 128 to 2304 and D 256 to 768: 1e-5 of the largest entry; the
+int8 form also at every N that is a multiple of 128 up to 2304, and the share
+of its rows that equal the plain version bit for bit (where the codes agree)
+reported. The fp32 FFN at the same row edges (and past a wave of its
+persistent grid) in every form, and at every F that is a multiple of 64 up to
+past the first version's shared-memory limit (1792 / 2048 / 2304 at D 768 /
+512 / 256), with and without an LN bias. The
 dQ kernel at the dK/dV kernel's lengths, windows and rope settings (1e-2 of the
 largest entry, dq exactly 0 on queries that see no key), and one rope pass
 per backward call feeding both kernels, bit-equal to the kernels called alone.
@@ -63,7 +69,6 @@ from cm3p_torch.ops import (
     quantize_weight_int8,
     reset_launch_counts,
 )
-from cm3p_torch.ops.fused_ffn import f32_max_f
 from cm3p_torch.ops.attention import (
     _attention_bwd_plain,
     key_tile_ranges,
@@ -1198,7 +1203,70 @@ def test_fp32_ln_matmul_kernel_matches_plain(fp32_cuda, rows, d, n_out, form, in
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [1, 37, 4037])
+@pytest.mark.parametrize("n_out", [768, 2304])
+@pytest.mark.parametrize("d", [768, 512, 256])
+@pytest.mark.parametrize("form", ["ln_bias", "wo_residual"])
+def test_fp32_ln_matmul_q_kernel_at_every_column_tile_count(fp32_cuda, form, d, n_out):
+    """The int8 form at every N that is a multiple of 128 up to n_out (1 to 18 column tiles of its product), on a
+    row count one past a 128-row tile, with both exported codes."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(27)
+    rows = 129
+    x = _fp32_rows(rows, d, gen, fp32_cuda)
+    kw = dict(eps=1e-5)
+    if form == "ln_bias":
+        kw["scale"] = 1 + 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
+        kw["bias"] = 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
+    y = layer_norm_f32(x, kw["scale"], kw["bias"], 1e-5) if form == "ln_bias" else x
+    want_codes = quant_rows_int8(y)[0]
+    for n in range(128, n_out + 1, 128):
+        w_q = quantize_weight_int8(0.05 * torch.randn(n, d, generator=gen, device=fp32_cuda))
+        if form == "wo_residual":
+            kw["residual"] = torch.randn(rows, n, generator=gen, device=fp32_cuda)
+        codes = torch.empty(rows, d, dtype=torch.int8, device=fp32_cuda)
+        got = fused_ln_matmul_q(x, None, w_q=w_q, codes_out=codes, **kw)
+        want = fused_ln_matmul_q_plain(x, None, w_q=w_q, **kw)
+        torch.cuda.synchronize()
+        _assert_codes_agree(codes, want_codes)
+        assert _rel_err(got, want, (codes == want_codes).all(-1)) <= F32_REL_TOL, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d, n_out", [(768, 2304), (768, 768), (512, 1536), (512, 512)])
+@pytest.mark.parametrize("form", ["ln", "ln_bias", "wo_residual"])
+def test_fp32_ln_matmul_q_kernel_bit_equal_rows_are_reported(fp32_cuda, form, d, n_out):
+    """The int8 form against its plain version on the rows whose codes agree: the share of those rows that equal
+    it bit for bit is printed (the same codes, exact int32 sums and the same rounding points give the plain
+    version's numbers, but for an LN whose sums run in another order than PyTorch's, which moves a row's scale);
+    F32_REL_TOL is the gate."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(28)
+    rows = 4037
+    x = _fp32_rows(rows, d, gen, fp32_cuda)
+    w_q = quantize_weight_int8(0.05 * torch.randn(n_out, d, generator=gen, device=fp32_cuda))
+    kw = dict(eps=1e-5)
+    if form != "wo_residual":
+        kw["scale"] = 1 + 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
+    if form == "ln_bias":
+        kw["bias"] = 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
+    if form == "wo_residual":
+        kw["residual"] = torch.randn(rows, n_out, generator=gen, device=fp32_cuda)
+    codes = torch.empty(rows, d, dtype=torch.int8, device=fp32_cuda)
+    got = fused_ln_matmul_q(x, None, w_q=w_q, codes_out=codes, **kw)
+    want = fused_ln_matmul_q_plain(x, None, w_q=w_q, **kw)
+    y = layer_norm_f32(x, kw["scale"], kw.get("bias"), 1e-5) if "scale" in kw else x
+    same = (codes == quant_rows_int8(y)[0]).all(-1)
+    torch.cuda.synchronize()
+    bit_equal = (got[same] == want[same]).all(-1).float().mean().item()
+    print(f"int8 LN-matmul fp32 {form} {d} -> {n_out}: {same.float().mean().item():.4f} of rows with the plain "
+          f"codes, {bit_equal:.4f} of those bit-equal to the plain version")
+    assert _rel_err(got, want, same) <= F32_REL_TOL
+
+
+# the fp32 FFN's persistent grid (two 128-row blocks an SM) walks several tiles a block past this many rows
+FP32_FFN_ROWS = [1, 37, 127, 128, 129, 4037, 3 * 2 * 132 * 128 + 77]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", FP32_FFN_ROWS)
 @pytest.mark.parametrize("d, f", [(768, 1152), (512, 1024), (256, 512), (768, 64)])
 @pytest.mark.parametrize("w8a8, w8a8_wo", [(False, False), (True, False), (True, True), (False, True)])
 def test_fp32_ffn_kernel_matches_plain(fp32_cuda, rows, d, f, w8a8, w8a8_wo):
@@ -1208,22 +1276,29 @@ def test_fp32_ffn_kernel_matches_plain(fp32_cuda, rows, d, f, w8a8, w8a8_wo):
     bias = 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
     wi = 0.05 * torch.randn(2 * f, d, generator=gen, device=fp32_cuda)
     wo = 0.05 * torch.randn(d, f, generator=gen, device=fp32_cuda)
+    reset_launch_counts()
+    _hold_fp32_ffn(x, scale, bias, wi, wo, w8a8, w8a8_wo)
+    name = "fused_ln_ffn_q_wo_f32" if w8a8_wo else ("fused_ln_ffn_q_f32" if w8a8 else "fused_ln_ffn_f32")
+    assert launch_counts() == {**_NONE, name: 1}
+
+
+def _hold_fp32_ffn(x, scale, bias, wi, wo, w8a8, w8a8_wo):
+    """The fp32 FFN kernel in a form against its plain version: the int8 forms' exported codes as the plain
+    quantiser's (but a share off by one), and F32_REL_TOL on the rows whose codes agree (at least 90 %)."""
+    rows, d, f = x.shape[0], x.shape[1], wo.shape[1]
     wi_q = quantize_weight_int8(wi) if w8a8 else None
     wo_q = quantize_weight_int8(wo) if w8a8_wo else None
     args = (x, scale, bias, wi, wo, 1e-5)
-    reset_launch_counts()
     if w8a8 or w8a8_wo:
-        codes_y = torch.empty(rows, d, dtype=torch.int8, device=fp32_cuda)
-        codes_g = torch.empty(rows, f, dtype=torch.int8, device=fp32_cuda)
+        codes_y = torch.empty(rows, d, dtype=torch.int8, device=x.device)
+        codes_g = torch.empty(rows, f, dtype=torch.int8, device=x.device)
         got = fused_ln_ffn_q(*args, w8a8, w8a8_wo, wi_q, wo_q, codes_y=codes_y, codes_g=codes_g)
-        name = "fused_ln_ffn_q_wo_f32" if w8a8_wo else "fused_ln_ffn_q_f32"
     else:
         got = fused_ln_ffn(*args)
-        name = "fused_ln_ffn_f32"
     want = fused_ln_ffn_plain(*args, w8a8, w8a8_wo, wi_q, wo_q)
     torch.cuda.synchronize()
-    assert got.dtype == torch.float32 and launch_counts() == {**_NONE, name: 1}
-    same = torch.ones(rows, dtype=torch.bool, device=fp32_cuda)
+    assert got.dtype == torch.float32
+    same = torch.ones(rows, dtype=torch.bool, device=x.device)
     y = layer_norm_f32(x, scale, bias, 1e-5)
     if w8a8:
         want_y = quant_rows_int8(y)[0]
@@ -1244,33 +1319,29 @@ def test_fp32_ffn_kernel_matches_plain(fp32_cuda, rows, d, f, w8a8, w8a8_wo):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d, tower_f", [(768, 1152), (512, 1024), (256, 512)])
-def test_fp32_ffn_kernel_takes_every_f_up_to_its_limit(fp32_cuda, d, tower_f):
-    """The limit the wrapper reads from the kernel's source covers the towers' F, launches at its largest F,
-    and one step past it raises with the limit in the message."""
-    max_f = f32_max_f(d)
-    assert tower_f <= max_f and max_f % 64 == 0
+@pytest.mark.parametrize("d, first_limit", [(768, 1792), (512, 2048), (256, 2304)])
+def test_fp32_ffn_kernel_takes_every_f_past_the_first_versions_limit(fp32_cuda, d, first_limit):
+    """Every F that is a multiple of 64 up to the first version's limit (a 16-row tile's y and g in shared
+    memory), and two past it, without an LN bias: nothing in shared memory grows with F now. The int8 forms at the
+    smallest F, the limit and past it."""
     gen = torch.Generator(device=fp32_cuda).manual_seed(26)
     x = _fp32_rows(37, d, gen, fp32_cuda)
     scale = 1 + 0.1 * torch.randn(d, generator=gen, device=fp32_cuda)
-    for f in (max_f, max_f + 64):
+    for f in [*range(64, first_limit + 1, 64), first_limit + 64, 2 * first_limit]:
         wi = 0.05 * torch.randn(2 * f, d, generator=gen, device=fp32_cuda)
         wo = 0.05 * torch.randn(d, f, generator=gen, device=fp32_cuda)
-        if f > max_f:
-            with pytest.raises(ValueError, match=f"F <= {max_f} at D {d}"):
-                fused_ln_ffn(x, scale, None, wi, wo, 1e-5)
-        else:
-            got = fused_ln_ffn(x, scale, None, wi, wo, 1e-5)
-            want = fused_ln_ffn_plain(x, scale, None, wi, wo, 1e-5)
-            torch.cuda.synchronize()
-            assert _rel_err(got, want) <= F32_REL_TOL
+        forms = [(False, False)]
+        if f in (64, first_limit, first_limit + 64):
+            forms += [(True, False), (True, True), (False, True)]
+        for w8a8, w8a8_wo in forms:
+            _hold_fp32_ffn(x, scale, None, wi, wo, w8a8, w8a8_wo)
 
 
 @pytest.mark.gpu
 def test_fp32_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(4, 768, device=cuda)
-    wi, wo = torch.zeros(2 * 2048, 768, device=cuda), torch.zeros(768, 2048, device=cuda)
-    with pytest.raises(ValueError, match="fp32 kernel keeps a tile's g"):
+    wi, wo = torch.zeros(2 * 2000, 768, device=cuda), torch.zeros(768, 2000, device=cuda)
+    with pytest.raises(ValueError, match="F a multiple of 64"):
         fused_ln_ffn(x, torch.ones(768, device=cuda), None, wi, wo, 1e-5)
     with pytest.raises(ValueError, match="wi must be"):
         fused_ln_ffn(x, torch.ones(768, device=cuda), None, wi[:256, :].to(torch.bfloat16),
