@@ -94,8 +94,9 @@ Phases (any failure exits non-zero; nothing is skipped):
                by one at most, on a share of 1e-3 at most (5e-2 for
                ``gelu(a) * b`` behind a bf16 Wi product). Each form that a setting of
                phase 8 runs (with LN / the out-projection with its residual;
-               the FFN with a bf16 / an int8 Wo) is counted, timed and bounded
-               on its own and has its own entry in the ``kernels`` line.
+               the FFN's ``w8a8``, ``w8a8 + w8a8_wo`` and ``w8a8_wo`` forms)
+               is counted, timed and bounded on its own and has its own entry
+               in the ``kernels`` line.
                Then the four forms of the attention kernels with the Wo
                epilogue (window / segment, bf16 / int8) against their plain
                versions at the packed beatmap shape (79 x 4096, H 12) and the
@@ -113,9 +114,11 @@ Phases (any failure exits non-zero; nothing is skipped):
                fused LN-matmul routes) and in the tool's settings A
                (``w8a8``), B (A + fused LN-matmul QKV and Wo), C (B +
                ``w8a8_wo``), D (A + ``fused_wo``: the tool's default, the
-               Wo epilogue in the attention kernels) and E (D +
-               ``fused_wo_q``): exact launch counts per forward, per-window
-               cosine >= 0.9999 to the all-plain path with the same options
+               Wo epilogue in the attention kernels), E (D +
+               ``fused_wo_q``) and precise + ``w8a8_wo`` (a bf16 Wi, an int8
+               Wo: the tool's ``--precise --w8a8-wo``): exact launch counts
+               per forward, per-window cosine >= 0.9999 to the all-plain path
+               with the same options
                and of D to A, drift to exact bf16 held to cosine >= 0.9995
                (E: to ``DRIFT_E_COS_MIN``), one unit-norm
                embedding per beatmap, windows/s and tokens/s, a profiler
@@ -213,6 +216,7 @@ KERNEL_SOURCES = {
     "fused_ln_matmul_wo": ("cm3p_torch/csrc/fused_ln_matmul.cu", "cm3p_tpu/ops/fused_ln_matmul.py:79"),
     "fused_ln_matmul_q_wo": ("cm3p_torch/csrc/fused_ln_matmul.cu", "cm3p_tpu/ops/fused_ln_matmul.py:276"),
     "fused_ln_ffn_q_wo": ("cm3p_torch/csrc/fused_ffn.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
+    "fused_ln_ffn_wo": ("cm3p_torch/csrc/fused_ffn.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
     # the attention kernels' Wo epilogue forms (fuse_wo / wo_q of the two TPU kernels)
     "window_attention_wo": ("cm3p_torch/csrc/attention_wo.cu", "cm3p_tpu/ops/flash_attention.py:294"),
     "window_attention_wo_q": ("cm3p_torch/csrc/attention_wo.cu", "cm3p_tpu/ops/flash_attention.py:294"),
@@ -237,6 +241,7 @@ KERNEL_SOURCES = {
     "fused_ln_ffn_f32": ("cm3p_torch/csrc/fused_ffn_f32.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
     "fused_ln_ffn_q_f32": ("cm3p_torch/csrc/fused_ffn_f32.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
     "fused_ln_ffn_q_wo_f32": ("cm3p_torch/csrc/fused_ffn_f32.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
+    "fused_ln_ffn_wo_f32": ("cm3p_torch/csrc/fused_ffn_f32.cu", "cm3p_tpu/ops/fused_ffn.py:133"),
     "fused_ln_matmul_f32": ("cm3p_torch/csrc/fused_ln_matmul_f32.cu", "cm3p_tpu/ops/fused_ln_matmul.py:79"),
     "fused_ln_matmul_wo_f32": ("cm3p_torch/csrc/fused_ln_matmul_f32.cu", "cm3p_tpu/ops/fused_ln_matmul.py:79"),
     "fused_ln_matmul_q_f32": ("cm3p_torch/csrc/fused_ln_matmul_f32.cu", "cm3p_tpu/ops/fused_ln_matmul.py:276"),
@@ -255,7 +260,7 @@ def fail(msg: str) -> None:
 # per source, the name prefixes of its wgmma kernels (every instance must issue wgmma fed by TMA)
 WGMMA_KERNELS = {
     "fused_ln_matmul": ("bf16::ln_matmul_kernel", "w8a8::ln_matmul_q_kernel"),
-    "fused_ffn": ("bf16::ffn_kernel", "w8a8::ffn_kernel", "w8a8::ffn_wo_kernel"),
+    "fused_ffn": ("bf16::ffn_kernel", "bf16::ffn_wo_kernel", "w8a8::ffn_kernel", "w8a8::ffn_wo_kernel"),
     "attention": ("sm90_attn::attention_kernel",),
     "attention_wo": ("sm90_wo::attention_wo_kernel",),
     "attention_bwd": ("sm90_bwd::attention_dq_kernel", "sm90_bwd::attention_dkv_kernel"),
@@ -462,7 +467,7 @@ _CATEGORIES = (  # kernel-name pattern (re.search) -> category, first match wins
     ("bf16::ffn_kernel", "fused_ln_ffn (ours)"),
     ("w8a8::ffn_kernel", "fused_ln_ffn_q (ours)"),
     ("w8a8::ffn_wo_kernel", "fused_ln_ffn_q_wo (ours)"),
-    ("fused_ln_ffn_q_kernel", "fused_ln_ffn_q_wo (ours)"),  # the w8a8_wo form alone (3o)
+    ("bf16::ffn_wo_kernel", "fused_ln_ffn_wo (ours)"),
     ("ln_matmul_kernel", "fused_ln_matmul (ours)"),
     ("ln_matmul_q_kernel", "fused_ln_matmul_q (ours)"),
     ("conv", "convolution (cuDNN)"),
@@ -1111,7 +1116,7 @@ DRIFT_COS_MIN = 0.9995    # int8 settings against exact bf16, per window
 EXTRACT_ATTENTION = {"segment_attention": 8 + 2, "window_attention": 14 + 4}
 # per forward: 22 + 6 MLP half-blocks; QKV on every layer but layer 0 of each tower (21 + 5); Wo on all 28.
 # Launches are counted by form: "_wo" is the LN-matmul without LN (out-projection + residual), and the FFN
-# with an int8 Wo.
+# with an int8 Wo ("fused_ln_ffn_q_wo" behind an int8 Wi, "fused_ln_ffn_wo" behind a bf16 one).
 EXTRACT_SETTINGS = {
     "precise": (dict(), {"fused_ln_ffn": 28}),
     "precise + fused_lnmm": (dict(fused_lnmm_qkv=True, fused_lnmm_wo=True),
@@ -1130,6 +1135,8 @@ EXTRACT_SETTINGS = {
     "E": (dict(w8a8=True, fused_wo=True, fused_wo_q=True),
           {"fused_ln_ffn_q": 28, "window_attention": 0, "segment_attention": 0,
            "window_attention_wo_q": 14 + 4, "segment_attention_wo": 8, "segment_attention_wo_q": 2}),
+    # the tool's --precise --w8a8-wo (the JAX tool's CM3P_W8A8=0 CM3P_W8A8_WO=1): a bf16 Wi, an int8 Wo (row 3o)
+    "precise + w8a8_wo": (dict(w8a8_wo=True), {"fused_ln_ffn_wo": 28}),
 }
 D_VS_A_COS_MIN = 0.9999  # the bf16 epilogue changes no number: D against A, per window
 DRIFT_E_COS_MIN = 0.9997  # E against exact bf16, per window (readings 0.999972 on an H100 at these weights)
@@ -1209,7 +1216,7 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows, meta_rows=24 * 2048, au
     from cm3p_torch.ops.quant import quant_rows_int8, quantize_weight_int8
 
     errs = dict.fromkeys(("fused_ln_matmul", "fused_ln_matmul_wo", "fused_ln_matmul_q", "fused_ln_matmul_q_wo",
-                          "fused_ln_ffn", "fused_ln_ffn_q", "fused_ln_ffn_q_wo"), 0.0)
+                          "fused_ln_ffn", "fused_ln_ffn_q", "fused_ln_ffn_q_wo", "fused_ln_ffn_wo"), 0.0)
     rows_small = 4037  # not a multiple of the 64- and 32-row tiles
 
     def inputs(rows, d, n_out, std=0.02):
@@ -1337,7 +1344,7 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows, meta_rows=24 * 2048, au
                     del gf
                 if not (err <= TOL and finite and zero_out == 0.0):
                     fail(f"fused_ln_ffn_q ({form}) disagrees with its plain version at D={d}, {rows} rows")
-                kname = "fused_ln_ffn_q_wo" if w8a8_wo else "fused_ln_ffn_q"
+                kname = "fused_ln_ffn_q" if not w8a8_wo else "fused_ln_ffn_q_wo" if w8a8 else "fused_ln_ffn_wo"
                 errs[kname] = max(errs[kname], err)
                 del y, h, cy, cg, rows_ok
                 if rows != rows_small:
@@ -1351,8 +1358,8 @@ def check_quant_kernels(torch, ops, gen, dev, full_rows, meta_rows=24 * 2048, au
                         comp = f"; the unfused composition (torch._int_mm) {comp_ms:.3f} ms"
                     log(f"    {form} D {d} F {f}, {rows} rows: {ms:.3f} ms (plain {plain:.3f}, bound {b:.3f} {by}; "
                         f"the bf16 form on the same inputs {exact_ms:.3f} ms{comp})")
-                    if d == 768 and w8a8:  # the two forms the tool's settings run
-                        report["fused_ln_ffn_q_wo" if w8a8_wo else "fused_ln_ffn_q"] = (ms, plain, b, by, None)
+                    if d == 768:
+                        report[kname] = (ms, plain, b, by, None)
                 del x, wi, wo, wi_q, wo_q, args
     return errs, report
 
@@ -1929,7 +1936,8 @@ F32_MAPS = 6  # maps of the 17 that the fp32 extraction runs over (its all-plain
 F32_FORMS = {
     "window_attention": ("window_attention_f32",), "segment_attention": ("segment_attention_f32",),
     "fused_ln_ffn": ("fused_ln_ffn_f32",), "fused_ln_ffn_q": ("fused_ln_ffn_q_f32",),
-    "fused_ln_ffn_q_wo": ("fused_ln_ffn_q_wo_f32",), "fused_ln_matmul": ("fused_ln_matmul_f32",),
+    "fused_ln_ffn_q_wo": ("fused_ln_ffn_q_wo_f32",), "fused_ln_ffn_wo": ("fused_ln_ffn_wo_f32",),
+    "fused_ln_matmul": ("fused_ln_matmul_f32",),
     "fused_ln_matmul_wo": ("fused_ln_matmul_wo_f32",), "fused_ln_matmul_q": ("fused_ln_matmul_q_f32",),
     "fused_ln_matmul_q_wo": ("fused_ln_matmul_q_wo_f32",),
     "window_attention_wo": ("window_attention_f32", "fused_ln_matmul_wo_f32"),
@@ -2114,7 +2122,8 @@ def check_fp32_kernels(torch, ops, gen, dev, seg_packed, meta_seg, audio_b, audi
         args = (x, scale, None, wi, wo, 1e-5)
         y = layer_norm_f32(x, scale, None, 1e-5)
         for w8a8, w8a8_wo in ((False, False), (True, False), (True, True), (False, True)):
-            kname = "fused_ln_ffn_q_wo_f32" if w8a8_wo else ("fused_ln_ffn_q_f32" if w8a8 else "fused_ln_ffn_f32")
+            kname = {(False, False): "fused_ln_ffn_f32", (True, False): "fused_ln_ffn_q_f32",
+                     (True, True): "fused_ln_ffn_q_wo_f32", (False, True): "fused_ln_ffn_wo_f32"}[w8a8, w8a8_wo]
             form = "+".join(n for n, on in (("w8a8", w8a8), ("w8a8_wo", w8a8_wo)) if on) or "fp32 weights"
             kw = dict(w8a8=w8a8, w8a8_wo=w8a8_wo, wi_q=wi_q if w8a8 else None, wo_q=wo_q if w8a8_wo else None)
             cy = torch.empty(rows, d, dtype=torch.int8, device=dev) if w8a8 else None
@@ -2147,8 +2156,7 @@ def check_fp32_kernels(torch, ops, gen, dev, seg_packed, meta_seg, audio_b, audi
                 wi_ops, wo_ops = 4 * rows * d * f, 2 * rows * d * f
                 bound, by = _f32_bound(bytes_moved + d * 4, (0 if w8a8 else wi_ops) + (0 if w8a8_wo else wo_ops),
                                        (wi_ops if w8a8 else 0) + (wo_ops if w8a8_wo else 0))
-                if w8a8 or not w8a8_wo:  # the forms the settings run (w8a8_wo alone, 3o, is off every path)
-                    report[kname] = (ms, plain_ms, bound, by, comp)
+                report[kname] = (ms, plain_ms, bound, by, comp)
                 log(f"    {kname} ({form}): {ms:.3f} ms (plain {plain_ms:.3f}, bound {bound:.3f} {by}, the unfused "
                     f"fp32 composition {comp:.3f})")
         del x, wi, wo, wi_q, wo_q, args, y

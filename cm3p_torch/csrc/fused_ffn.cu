@@ -7,10 +7,9 @@
 // an int8 Wi (row 3q, the extraction tool's default, w8a8::ffn_kernel);
 // w8a8 + w8a8_wo with an int8 Wi and an int8 Wo (row 3qq,
 // w8a8::ffn_wo_kernel); and w8a8_wo alone with an int8 Wo behind a bf16 Wi
-// (row 3o, on no setting's path), which keeps the first-version kernel
-// fused_ln_ffn_q_kernel (its own note further down). The training path runs
-// none: under autograd the layer runs the plain composition and its analytic
-// backward (ops/fused_ffn.py), as the JAX package does.
+// (row 3o, the tool's --precise --w8a8-wo, bf16::ffn_wo_kernel). The training
+// path runs none: under autograd the layer runs the plain composition and its
+// analytic backward (ops/fused_ffn.py), as the JAX package does.
 //
 // Rounding points kept from the TPU kernel: LN statistics and output in
 // fp32 (flax formula, var = E[x^2] - E[x]^2), LN output cast to bf16 before
@@ -24,11 +23,11 @@
 // Bound on the H100: 6 * rows * DM * F operations against 4 * rows * DM bytes
 // of activations, about 1,700 per byte at DM = 768: bound by the tensor cores
 // (1.74 ms at 323,584 rows, DM 768, F 1152 in bf16; 1.16 ms with an int8 Wi,
-// 0.87 ms with both weights int8).
+// 0.87 ms with both weights int8, 1.45 ms with an int8 Wo alone).
 //
 // The wgmma design, 3q's (w8a8::ffn_kernel, below as it was designed) and
-// that of rows 3 and 3qq (sm90_ffn::ffn_body, the same with a bf16 Wi or an
-// int8 Wo). Persistent blocks of 384 threads, one per SM, in clusters of two;
+// that of rows 3, 3qq and 3o (sm90_ffn::ffn_body, the same with a bf16 Wi or
+// an int8 Wo, or both). Persistent blocks of 384 threads, one per SM, in clusters of two;
 // a cluster walks pairs of 64-row tiles x NO output columns (NO = 384 at
 // DM 768 with a bf16 Wo, so two column tiles per 64 rows; DM otherwise). Why
 // two column tiles at DM 768: the fp32 accumulator of 64 rows x 768 columns is
@@ -77,6 +76,17 @@
 // takes at DM 768) beside its Wo product of columns 0-383 (one 48 KB Wo slot,
 // 3 Wi stages), and a last pass multiplies the kept codes by columns 384-767.
 // So the Wi product runs twice at every DM: 10 R DM F int8 operations.
+//   w8a8_wo alone (3o): row 3's bf16 LN operand and Wi product (fp32 sums, h
+// rounded to bf16) with 3qq's absmax pass over F and int8 Wo product. The
+// bf16 Wi product gives the same sums for the same operands in the same
+// order, so a quantising pass quantises the values the absmax pass measured.
+// Row 3's layout holds no codes of all F beside the 96 KB bf16 LN operand at
+// DM 768, so there an item of 64 rows x 768 columns runs one absmax pass, then
+// one quantising pass per Wo half of 384 columns (the Wi product three times:
+// 12 R DM F bf16 operations; no F limit), each with double-buffered code tiles
+// of a chunk pair and one Wo slot (4 Wi stages; at 512 one half, 5 stages; at
+// 256 6 stages, two slots). Keeping the codes of all F in a device scratch
+// slot per block instead, so that the Wi product runs twice, was not tried.
 // What holds them below the bound: the weight stages' turnover. Each 64-row
 // tile streams all of Wi (twice at DM 768 in 3q and row 3) through a ring of
 // 3-5 stages, as deep as shared memory allows; a copy of row 3 with its Wi
@@ -96,203 +106,6 @@ using namespace cm3p;
 
 __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
-}
-
-// ---------------------------------------------------------------------------
-// The w8a8_wo form alone (row 3o: a bf16 Wi, an int8 Wo; on no setting's
-// path), the first-version kernel: one 256-thread block per 32 rows, weights
-// staged synchronously through shared memory, mma.sync products.
-//
-// The fp32 gelu(a) * b row is quantised per row over all F columns and Wo is
-// int8; o = bf16(float(acc) * sg * swo). The row scale sg needs the absmax
-// over all F columns, but this kernel never holds the (rows, F) intermediate:
-// it walks F in chunks of 64. So the chunk loop runs twice: pass 0 recomputes
-// h and gelu(a) * b only to find each row's absmax (registers, then an
-// atomicMax per row in shared memory), pass 1 recomputes them, quantises with
-// the now known scale and accumulates the int8 Wo product in int32 (exact, so
-// the chunk order does not matter). Both passes run the same instructions on
-// the same operands, so the values quantised are the values measured.
-constexpr int BR = 32;          // rows per block
-constexpr int NTHREADS = 256;   // 8 warps: 2 row groups x 4 column groups
-constexpr int FC = 64;          // F chunk (columns of a; the same of b)
-constexpr int KS = 64;          // DM slice staged per step of the Wi product
-constexpr int LDW = 64 + 8;     // padded smem row of a staged Wi slice (bf16)
-constexpr int LDG = FC + 16;    // row of int8 gelu(a) * b codes, and of a staged Wo chunk, in bytes
-
-template <int DM>
-constexpr int smem_bytes_q() {
-  return BR * (DM + 8) * 2 + 2 * FC * LDW * 2 + BR * LDG + DM * LDG + BR * 4;
-}
-
-template <int DM>
-__global__ void __launch_bounds__(NTHREADS, 1)
-    fused_ln_ffn_q_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale,
-                          const float* __restrict__ bias, const __nv_bfloat16* __restrict__ wi,
-                          const int8_t* __restrict__ woq, const float* __restrict__ swo,
-                          __nv_bfloat16* __restrict__ out, int8_t* __restrict__ codes_g, int R, int F,
-                          float eps) {
-  constexpr int LDY = DM + 8;  // bf16 LN row (elements)
-  constexpr int NT = DM / 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sY = reinterpret_cast<__nv_bfloat16*>(smem_raw);      // BR x LDY   LN output
-  __nv_bfloat16* sWi = sY + BR * LDY;                                    // 2FC x LDW  Wi slice: a rows, then b rows
-  unsigned char* sG = reinterpret_cast<unsigned char*>(sWi + 2 * FC * LDW);  // BR x LDG  gelu(a) * b codes
-  unsigned char* sWo = sG + BR * LDG;                                    // DM x LDG   Wo[:, chunk] codes
-  unsigned int* sMax = reinterpret_cast<unsigned int*>(sWo + DM * LDG);  // BR  absmax of gelu(a) * b (bits)
-
-  const int row0 = blockIdx.x * BR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  // ---- LayerNorm: each warp normalises 4 rows into sY (bf16)
-  for (int rr = warp; rr < BR; rr += NTHREADS / 32) {
-    const int row = row0 + rr;
-    if (lane == 0) sMax[rr] = 0u;
-    if (row < R) {
-      float2 y[DM / 64];
-      ln_row_f32<DM>(x + (long long)row * DM, scale, bias, eps, lane, y);
-#pragma unroll
-      for (int i = 0; i < DM / 64; ++i)
-        *reinterpret_cast<uint32_t*>(sY + rr * LDY + i * 64 + lane * 2) = pack_bf16(y[i].x, y[i].y);
-    } else {
-      for (int c = lane * 2; c < DM; c += 64) *reinterpret_cast<uint32_t*>(sY + rr * LDY + c) = 0u;
-    }
-  }
-
-  const int rg = warp & 1;   // rows rg*16 .. rg*16+15
-  const int cg = warp >> 1;  // column group 0..3
-  const int ar = rg * 16;
-
-  int acc[NT][4];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
-  float gmax[2] = {0.f, 0.f};  // pass 0: this thread's absmax for rows ar+g, ar+g+8
-  float sg[2] = {1.f, 1.f};    // pass 1: those rows' scales
-
-  for (int pass = 0; pass < 2; ++pass) {
-    if (pass == 1) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float m = gmax[hr];
-        m = fmaxf(m, __shfl_xor_sync(0xffffffff, m, 1));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffff, m, 2));
-        if (t == 0) atomicMax(&sMax[ar + g + hr * 8], __float_as_uint(m));
-      }
-      __syncthreads();
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr)
-        sg[hr] = fmaxf(__uint_as_float(sMax[ar + g + hr * 8]), 1e-30f) * kInv127;
-    }
-    for (int f0 = 0; f0 < F; f0 += FC) {
-      // ---- 1. h chunk: this warp owns a-columns cg*16..cg*16+15 of the chunk
-      //         (n-tiles 0, 1) and the same b-columns (n-tiles 2, 3)
-      float h[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) h[i][0] = h[i][1] = h[i][2] = h[i][3] = 0.f;
-      for (int k0 = 0; k0 < DM; k0 += KS) {
-        __syncthreads();
-        for (int item = threadIdx.x; item < 2 * FC * (KS / 8); item += NTHREADS) {
-          const int r = item / (KS / 8);
-          const int c = (item % (KS / 8)) * 8;
-          const int wrow = r < FC ? f0 + r : F + f0 + (r - FC);
-          *reinterpret_cast<uint4*>(sWi + r * LDW + c) =
-              *reinterpret_cast<const uint4*>(wi + (long long)wrow * DM + k0 + c);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int ks = 0; ks < KS / 16; ++ks) {
-          uint32_t af[4];
-          const __nv_bfloat16* yp = sY + (ar + g) * LDY + k0 + ks * 16 + t * 2;
-          af[0] = lds32(yp);
-          af[1] = lds32(yp + 8 * LDY);
-          af[2] = lds32(yp + 8);
-          af[3] = lds32(yp + 8 * LDY + 8);
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int wr = (nt < 2 ? 0 : FC) + cg * 16 + (nt & 1) * 8 + g;
-            const __nv_bfloat16* wp = sWi + wr * LDW + ks * 16 + t * 2;
-            mma_bf16(h[nt], af, lds32(wp), lds32(wp + 8));
-          }
-        }
-      }
-      // ---- 2. gelu(a) * b in fp32, with a and b rounded to bf16 first
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          const float a0 = bf16_round(h[nt][2 * hr]), a1 = bf16_round(h[nt][2 * hr + 1]);
-          const float b0 = bf16_round(h[nt + 2][2 * hr]), b1 = bf16_round(h[nt + 2][2 * hr + 1]);
-          const float g0 = gelu_erf(a0) * b0, g1 = gelu_erf(a1) * b1;
-          const int r = ar + g + hr * 8;
-          const int c = cg * 16 + nt * 8 + t * 2;
-          if (pass == 0) {
-            gmax[hr] = fmaxf(gmax[hr], fmaxf(fabsf(g0), fabsf(g1)));
-          } else {
-            char2 q;
-            q.x = (signed char)quant_code(g0, sg[hr]);
-            q.y = (signed char)quant_code(g1, sg[hr]);
-            *reinterpret_cast<char2*>(sG + r * LDG + c) = q;
-            if (codes_g && row0 + r < R)
-              *reinterpret_cast<char2*>(codes_g + (long long)(row0 + r) * F + f0 + c) = q;
-          }
-        }
-      }
-      if (pass == 0) continue;
-      // stage Wo[:, f0:f0+64] as DM rows of 64 codes
-      for (int item = threadIdx.x; item < DM * (FC / 16); item += NTHREADS) {
-        const int r = item / (FC / 16);
-        const int c = (item % (FC / 16)) * 16;
-        *reinterpret_cast<uint4*>(sWo + r * LDG + c) =
-            *reinterpret_cast<const uint4*>(woq + (long long)r * F + f0 + c);
-      }
-      __syncthreads();
-      // ---- 3. acc += g . Wo_chunk^T over this warp's DM/4 output columns
-#pragma unroll
-      for (int ks = 0; ks < FC / 32; ++ks) {
-        uint32_t af[4];
-        const unsigned char* gp = sG + (ar + g) * LDG + ks * 32 + t * 4;
-        af[0] = lds32(gp);
-        af[1] = lds32(gp + 8 * LDG);
-        af[2] = lds32(gp + 16);
-        af[3] = lds32(gp + 8 * LDG + 16);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const unsigned char* wp = sWo + (cg * (DM / 4) + nt * 8 + g) * LDG + ks * 32 + t * 4;
-          mma_s8(acc[nt], af, lds32(wp), lds32(wp + 16));
-        }
-      }
-    }
-  }
-
-  // ---- epilogue: out = x + bf16(o), rounded to bf16; o = float(acc) * sg * swo[column]
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = row0 + ar + g + hr * 8;
-    if (row >= R) continue;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = cg * (DM / 4) + nt * 8 + t * 2;
-      const float2 xv =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + (long long)row * DM + c));
-      const float o0 = bf16_round((float)acc[nt][2 * hr] * sg[hr] * swo[c]);
-      const float o1 = bf16_round((float)acc[nt][2 * hr + 1] * sg[hr] * swo[c + 1]);
-      *reinterpret_cast<uint32_t*>(out + (long long)row * DM + c) = pack_bf16(xv.x + o0, xv.y + o1);
-    }
-  }
-}
-
-template <int DM>
-int launch_q(const void* x, const void* scale, const void* bias, const void* wi, const void* wo, const void* swo,
-             void* out, void* codes_g, int R, int F, float eps, void* stream) {
-  constexpr int bytes = smem_bytes_q<DM>();
-  cudaError_t err =
-      cudaFuncSetAttribute(fused_ln_ffn_q_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (R + BR - 1) / BR;
-  fused_ln_ffn_q_kernel<DM><<<blocks, NTHREADS, bytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const float*)scale, (const float*)bias, (const __nv_bfloat16*)wi,
-      (const int8_t*)wo, (const float*)swo, (__nv_bfloat16*)out, (int8_t*)codes_g, R, F, eps);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -567,30 +380,33 @@ constexpr int WI_BYTES = 2 * FC * 128;   // 16 KB: a rows, then b rows, of 128 b
 constexpr int G_BYTES = BM * 128;        // a g tile: one chunk's bf16 g, or a chunk pair's int8 codes
 constexpr int THREADS = 384;             // two consumer warpgroups + a producer warpgroup
 
-enum Form { BF16, W8A8_WO };
+// row 3: bf16 Wi and Wo; row 3qq: int8 Wi and Wo; row 3o: a bf16 Wi and an int8 Wo
+enum Form { BF16, W8A8_WO, W8A8_WO_ALONE };
 
 template <int DM, int FORM>
 struct Cfg {
-  // int8 weights: int8 LN codes and Wi; g quantised per row over all F (two passes) and an int8 Wo
-  static constexpr bool Q = FORM == W8A8_WO;
+  static constexpr bool QI = FORM == W8A8_WO;  // int8 LN codes and Wi (else the bf16 LN row and a bf16 Wi)
+  static constexpr bool QO = FORM != BF16;     // g quantised per row over all F (an absmax pass first), int8 Wo
   // NC output columns per Wo pass, NW = NC / 2 of them per consumer warpgroup. At DM 768 (the
-  // accumulators of 768 columns do not fit) the forms with a bf16 Wo take two items of 384 columns
-  // per 64 rows, the int8 Wo form one item whose Wo product runs in NH = 2 halves of 384 columns
-  // from the codes of all F, kept in shared memory.
+  // accumulators of 768 columns do not fit) the bf16 form takes two items of 384 columns per 64 rows;
+  // the int8 Wo forms take one item whose Wo product runs in NH = 2 halves of 384 columns: 3qq from the
+  // codes of all F, kept in shared memory (KEEP), 3o (no room for them beside the bf16 LN operand) in a
+  // quantising pass over F of its own per half, after the one absmax pass.
   static constexpr int NC = DM == 768 ? 384 : DM, NW = NC / 2;
-  static constexpr int NH = Q ? DM / NC : 1;
+  static constexpr int NH = QO ? DM / NC : 1;
+  static constexpr bool KEEP = QI && NH == 2;
   static constexpr int NO = NC * NH, NP = DM / NO;  // output columns per item, items per 64 rows
-  static constexpr int KS = Q ? 128 : 64;          // DM columns per Wi stage (128 bytes)
+  static constexpr int KS = QI ? 128 : 64;         // DM columns per Wi stage (128 bytes)
   static constexpr int KB = DM / KS;                // Wi stages per chunk
-  static constexpr int A_BYTES = BM * DM * (Q ? 1 : 2);  // LN operand: KB blocks of 64 rows x 128 bytes
+  static constexpr int A_BYTES = BM * DM * (QI ? 1 : 2);  // LN operand: KB blocks of 64 rows x 128 bytes
   static constexpr int WO_BYTES = NC * 128;         // NC rows x one bf16 chunk or an int8 chunk pair
-  static constexpr int WOS = Q ? (NH == 2 ? 1 : 2) : (DM == 256 ? 2 : 1);  // Wo slots
+  static constexpr int WOS = QI ? (NH == 2 ? 1 : 2) : (DM == 256 ? 2 : 1);  // Wo slots
   // one Wo slot, bf16: each warpgroup's half of it is its own ring, so that neither waits on the other
-  static constexpr bool WO_SPLIT = WOS == 1 && !Q;
-  static constexpr int F_MAX = NH == 2 ? 1152 : 1 << 30;  // NH = 2: the codes of all F are kept
-  static constexpr int G_TILES = NH == 2 ? F_MAX / 128 : 2;  // g tiles: double-buffered, or one per chunk pair
-  static constexpr int WIS = Q ? (DM == 256 ? 4 : 3) : (DM == 768 ? 4 : DM == 512 ? 5 : 6);  // Wi stages
-  static constexpr int PASSES = Q ? 2 : 1;
+  static constexpr bool WO_SPLIT = WOS == 1 && !QO;
+  static constexpr int F_MAX = KEEP ? 1152 : 1 << 30;
+  static constexpr int G_TILES = KEEP ? F_MAX / 128 : 2;  // g tiles: double-buffered, or one per chunk pair
+  static constexpr int WIS = QI ? (DM == 256 ? 4 : 3) : (DM == 768 ? 4 : DM == 512 ? 5 : 6);  // Wi stages
+  static constexpr int PASSES = !QO ? 1 : KEEP ? 2 : 1 + NH;  // over F: the absmax pass, then the quantising ones
   static constexpr int SMEM = 1024 + WIS * WI_BYTES + WOS * WO_BYTES + A_BYTES + G_TILES * G_BYTES + 2 * BM * 4 +
                               (2 * WIS + 2 * 2 + 6) * 8;
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
@@ -627,7 +443,8 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
                                          float eps) {
   using namespace sm90;
   using C = Cfg<DM, FORM>;
-  using Acc = typename std::conditional<C::Q, int, float>::type;  // both products': exact s32, or fp32
+  using HAcc = typename std::conditional<C::QI, int, float>::type;  // the Wi product's: exact s32, or fp32
+  using OAcc = typename std::conditional<C::QO, int, float>::type;  // the Wo product's
   constexpr int NO = C::NO, NP = C::NP, NC = C::NC, NW = C::NW, NH = C::NH, KB = C::KB, WIS = C::WIS, WOS = C::WOS;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sWi = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -654,7 +471,7 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
     for (int s = 0; s < WIS; ++s) mbar_init(&wi_full[s], 1), mbar_init(&wi_empty[s], 4 * CM);
     for (int s = 0; s < 2; ++s) mbar_init(&wo_full[s], 1), mbar_init(&wo_empty[s], (C::WO_SPLIT ? 4 : 8) * CM);
     for (int s = 0; s < 2; ++s)
-      mbar_init(&g_ready[s], C::Q ? 8 : 4), mbar_init(&g_free[s], 8), mbar_init(&landed[s], 4);
+      mbar_init(&g_ready[s], C::QO ? 8 : 4), mbar_init(&g_free[s], 8), mbar_init(&landed[s], 4);
     fence_mbar_init();
   }
   __syncthreads();
@@ -695,7 +512,7 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
       for (int item = cluster; item < items; item += clusters) {
         const int n0 = item % NP * NO;
         for (int half = 0; half < NH; ++half)
-          for (int c = 0; c < chunks; c += C::Q ? 2 : 1) {
+          for (int c = 0; c < chunks; c += C::QO ? 2 : 1) {
             mbar_wait(&empty[so], po ^ 1);
             mbar_expect_tx(&full[so], C::WO_BYTES / (C::WO_SPLIT ? 2 : 1));
             for (int w = C::WO_SPLIT ? ring : 0; w < (C::WO_SPLIT ? ring + 1 : 2); ++w) {
@@ -720,8 +537,8 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
   // NW output columns of Wo.
   regs_alloc<232>();
   const int wg = warp >> 2, wl = warp & 3;
-  Acc acc[NW / 2];
-  Acc h[64];  // h of the own chunk: a columns in blocks 0-7, b columns in blocks 8-15
+  OAcc acc[NW / 2];
+  HAcc h[64];  // h of the own chunk: a columns in blocks 0-7, b columns in blocks 8-15
   int so = 0;
   uint32_t po = 0;
   int gc = 0;  // chunks of earlier passes: chunk c of this pass is the block's chunk gc + c
@@ -745,7 +562,7 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
         const long long at = (long long)row * DM + col;
         const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + at));
         float o0, o1;
-        if constexpr (C::Q) {
+        if constexpr (C::QO) {
           o0 = bf16_round((float)acc[4 * j + 2 * hr] * sg[hr] * swo[col]);
           o1 = bf16_round((float)acc[4 * j + 2 * hr + 1] * sg[hr] * swo[col + 1]);
         } else {
@@ -776,11 +593,11 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
     named_barrier(1, 256);  // both warpgroups are done with the previous tile's sA, sSa and sMax
     for (int r = warp; r < BM; r += 8) {
       const int row = m0 + r;
-      if (C::Q && lane == 0) sMax[r] = 0u;
+      if (C::QO && lane == 0) sMax[r] = 0u;
       if (row < R) {
         float2 y[DM / 64];
         ln_row_f32<DM>(x + (long long)row * DM, scale, bias, eps, lane, y);
-        if constexpr (C::Q) {
+        if constexpr (C::QI) {
           int8_t* cy = codes_y && p == 0 ? codes_y + (long long)row * DM : nullptr;
           const float sa = quant_row_int8_each<DM>(y, lane, [&](int c, char2 q) {
             *reinterpret_cast<char2*>(sA + (c >> 7) * (BM * 128) + swizzle128(r, c & 127)) = q;
@@ -795,7 +612,7 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
       } else {
         for (int c = lane * 4; c < C::A_BYTES / BM; c += 128)
           *reinterpret_cast<uint32_t*>(sA + (c >> 7) * (BM * 128) + swizzle128(r, c & 127)) = 0u;
-        if (C::Q && lane == 0) sSa[r] = 0.f;
+        if (C::QI && lane == 0) sSa[r] = 0.f;
       }
     }
     fence_proxy_async();
@@ -829,9 +646,9 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
           release(&wi_empty[(t0 + KB - 1) % WIS]);
           // GeGLU: h rounded to bf16 (int8 Wi: float(acc) * sa * swi[column], in that order, first)
           // into g tile b: double-buffered (the chunk's, or the int8 Wo pair's), or the pair's own
-          const int b = !C::Q ? (gc + c) & 1 : NH == 2 ? c0 / 2 : gp & 1;
-          const int use = C::Q ? gp >> 1 : (gc + c) >> 1;
-          if (use > 0 && (!C::Q || (pass == 1 && NH == 1))) mbar_wait(&g_free[b], (use - 1) & 1);
+          const int b = !C::QO ? (gc + c) & 1 : C::KEEP ? c0 / 2 : gp & 1;
+          const int use = C::QO ? gp >> 1 : (gc + c) >> 1;
+          if (use > 0 && (!C::QO || (pass >= 1 && !C::KEEP))) mbar_wait(&g_free[b], (use - 1) & 1);
           unsigned char* g = sG + b * G_BYTES;
 #pragma unroll
           for (int i = 0; i < 32; i += 2) {
@@ -839,7 +656,7 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
             const int r = 16 * wl + (lane >> 2) + 8 * hr;
             const int cc = 8 * (i >> 2) + 2 * (lane & 3);  // column in the chunk
             float a0, a1, b0, b1;
-            if constexpr (C::Q) {
+            if constexpr (C::QI) {
               const int col = c * FC + cc;
               const float sa = sSa[r];
               a0 = bf16_round((float)h[i] * sa * swi[col]);
@@ -851,7 +668,7 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
               b0 = bf16_round(h[i + 32]), b1 = bf16_round(h[i + 33]);
             }
             const float g0 = gelu_erf(a0) * b0, g1 = gelu_erf(a1) * b1;
-            if constexpr (!C::Q) {
+            if constexpr (!C::QO) {
               *reinterpret_cast<uint32_t*>(g + swizzle128(r, 2 * cc)) = pack_bf16(g0, g1);
             } else if (pass == 0) {
               gmax[hr] = fmaxf(gmax[hr], fmaxf(fabsf(g0), fabsf(g1)));
@@ -860,17 +677,17 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
               q.x = (signed char)quant_code(g0, sg[hr]);
               q.y = (signed char)quant_code(g1, sg[hr]);
               *reinterpret_cast<char2*>(g + swizzle128(r, 64 * wg + cc)) = q;
-              if (codes_g && p == 0 && m0 + r < R)
+              if (codes_g && p == 0 && pass == 1 && m0 + r < R)
                 *reinterpret_cast<char2*>(codes_g + (long long)(m0 + r) * F + c * FC + cc) = q;
             }
           }
-          if (!C::Q || pass == 1) fence_proxy_async();
-          if constexpr (!C::Q) {
+          if (!C::QO || pass >= 1) fence_proxy_async();
+          if constexpr (!C::QO) {
             __syncwarp();
             if (lane == 0) mbar_arrive(&g_ready[b]);
           }
         }
-        if constexpr (!C::Q) {
+        if constexpr (!C::QO) {
           // Wo products of chunks c0 and c0 + 1, each from the g tile its owner wrote
           const int last = c0 + 2 < chunks ? c0 + 2 : chunks;
           for (int j = c0; j < last; ++j) {
@@ -898,17 +715,17 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
               if (lane == 0) mbar_arrive(&g_free[(gc + j) & 1]);
             }
           }
-        } else if (pass == 1) {  // the pair's Wo product (the first Wo pass), once both halves are written
+        } else if (pass >= 1) {  // the pair's Wo product (this pass's Wo half), once both halves are written
           __syncwarp();
           if (lane == 0) mbar_arrive(&g_ready[gp & 1]);
           mbar_wait(&g_ready[gp & 1], (gp >> 1) & 1);
-          wo_pair(c0 / 2, NH == 2 ? c0 / 2 : gp & 1);
-          if (NH == 1 && lane == 0) mbar_arrive(&g_free[gp & 1]);
+          wo_pair(c0 / 2, C::KEEP ? c0 / 2 : gp & 1);
+          if (!C::KEEP && lane == 0) mbar_arrive(&g_free[gp & 1]);
           ++gp;
         }
       }
       gc += chunks;
-      if (C::Q && pass == 0) {  // every row's absmax over all F, from both warpgroups, then its scale
+      if (C::QO && pass == 0) {  // every row's absmax over all F, from both warpgroups, then its scale
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           float m = gmax[hr];
@@ -921,9 +738,10 @@ __device__ __forceinline__ void ffn_body(const CUtensorMap* map_wi, const CUtens
         for (int hr = 0; hr < 2; ++hr)
           sg[hr] = fmaxf(__uint_as_float(sMax[16 * wl + (lane >> 2) + 8 * hr]), 1e-30f) * kInv127;
       }
+      if (C::QO && !C::KEEP && pass >= 1) epilogue(m0, n0 + (pass - 1) * NC);  // this quantising pass's half
     }
-    epilogue(m0, n0);
-    for (int half = 1; half < NH; ++half) {  // int8 Wo: the other Wo passes, from the kept codes of all F
+    if (!C::QO || C::KEEP) epilogue(m0, n0);
+    for (int half = 1; half < (C::KEEP ? NH : 1); ++half) {  // 3qq: the other Wo passes, from the kept codes
       for (int kp = 0; kp < (chunks + 1) / 2; ++kp) wo_pair(kp, kp);
       epilogue(m0, n0 + half * NC);
     }
@@ -943,6 +761,17 @@ __global__ void __cluster_dims__(sm90_ffn::CM, 1, 1) __launch_bounds__(sm90_ffn:
                const float* __restrict__ swi, const float* __restrict__ swo, __nv_bfloat16* __restrict__ out,
                int8_t* __restrict__ codes_y, int8_t* __restrict__ codes_g, int R, int F, float eps) {
   sm90_ffn::ffn_body<DM, sm90_ffn::BF16>(&map_wi, &map_wo, x, scale, bias, swi, swo, out, codes_y, codes_g, R, F, eps);
+}
+
+// row 3o
+template <int DM>
+__global__ void __cluster_dims__(sm90_ffn::CM, 1, 1) __launch_bounds__(sm90_ffn::THREADS, 1)
+    ffn_wo_kernel(const __grid_constant__ CUtensorMap map_wi, const __grid_constant__ CUtensorMap map_wo,
+               const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale, const float* __restrict__ bias,
+               const float* __restrict__ swi, const float* __restrict__ swo, __nv_bfloat16* __restrict__ out,
+               int8_t* __restrict__ codes_y, int8_t* __restrict__ codes_g, int R, int F, float eps) {
+  sm90_ffn::ffn_body<DM, sm90_ffn::W8A8_WO_ALONE>(&map_wi, &map_wo, x, scale, bias, swi, swo, out, codes_y, codes_g, R,
+                                                  F, eps);
 }
 
 }  // namespace bf16
@@ -968,12 +797,14 @@ int launch(const void* x, const void* scale, const void* bias, const void* wi, c
            const void* swo, void* out, void* codes_y, void* codes_g, int R, int F, float eps, void* stream) {
   using C = Cfg<DM, FORM>;
   if (F > C::F_MAX) return (int)cudaErrorInvalidValue;
-  auto kernel = FORM == BF16 ? bf16::ffn_kernel<DM> : w8a8::ffn_wo_kernel<DM>;
+  auto kernel = FORM == BF16      ? bf16::ffn_kernel<DM>
+                : FORM == W8A8_WO ? w8a8::ffn_wo_kernel<DM>
+                                  : bf16::ffn_wo_kernel<DM>;
   CUtensorMap map_wi, map_wo;
-  if (!make_map_2d(&map_wi, wi, C::Q ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                   C::Q ? 1 : 2, 2LL * F, DM, FC / CM, C::KS) ||
-      !make_map_2d(&map_wo, wo, C::Q ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                   C::Q ? 1 : 2, DM, F, C::NW / CM, C::Q ? 2 * FC : FC))
+  if (!make_map_2d(&map_wi, wi, C::QI ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   C::QI ? 1 : 2, 2LL * F, DM, FC / CM, C::KS) ||
+      !make_map_2d(&map_wo, wo, C::QO ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   C::QO ? 1 : 2, DM, F, C::NW / CM, C::QO ? 2 * FC : FC))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -995,7 +826,7 @@ int dispatch_q(const void* x, const void* scale, const void* bias, const void* w
   if (w8a8 && w8a8_wo)
     return launch<DM, W8A8_WO>(x, scale, bias, wi, swi, wo, swo, out, codes_y, codes_g, R, F, eps, stream);
   if (w8a8) return w8a8::launch<DM>(x, scale, bias, wi, swi, wo, out, codes_y, R, F, eps, stream);
-  return launch_q<DM>(x, scale, bias, wi, wo, swo, out, codes_g, R, F, eps, stream);
+  return launch<DM, W8A8_WO_ALONE>(x, scale, bias, wi, nullptr, wo, swo, out, nullptr, codes_g, R, F, eps, stream);
 }
 
 }  // namespace
@@ -1007,7 +838,7 @@ extern "C" int cm3p_fused_ln_ffn(const void* x, const void* scale, const void* b
                                  float eps, void* stream) {
   using sm90_ffn::BF16;
   using sm90_ffn::launch;
-  if (R <= 0 || F <= 0 || F % FC != 0) return (int)cudaErrorInvalidValue;
+  if (R <= 0 || F <= 0 || F % sm90_ffn::FC != 0) return (int)cudaErrorInvalidValue;
   if (DM == 768) return launch<768, BF16>(x, scale, bias, wi, nullptr, wo, nullptr, out, nullptr, nullptr, R, F, eps, stream);
   if (DM == 512) return launch<512, BF16>(x, scale, bias, wi, nullptr, wo, nullptr, out, nullptr, nullptr, R, F, eps, stream);
   if (DM == 256) return launch<256, BF16>(x, scale, bias, wi, nullptr, wo, nullptr, out, nullptr, nullptr, R, F, eps, stream);
@@ -1023,7 +854,7 @@ extern "C" int cm3p_fused_ln_ffn_q(const void* x, const void* scale, const void*
                                    const void* wi, const void* swi, const void* wo, const void* swo,
                                    void* out, void* codes_y, void* codes_g, int R, int DM, int F,
                                    float eps, int w8a8, int w8a8_wo, void* stream) {
-  if (R <= 0 || F <= 0 || F % FC != 0 || !(w8a8 || w8a8_wo)) return (int)cudaErrorInvalidValue;
+  if (R <= 0 || F <= 0 || F % sm90_ffn::FC != 0 || !(w8a8 || w8a8_wo)) return (int)cudaErrorInvalidValue;
   if ((w8a8 && swi == nullptr) || (w8a8_wo && swo == nullptr)) return (int)cudaErrorInvalidValue;
   if (DM == 768)
     return dispatch_q<768>(x, scale, bias, wi, swi, wo, swo, out, codes_y, codes_g, R, F, eps, w8a8, w8a8_wo, stream);

@@ -26,7 +26,7 @@ from .attention import (
     wo_fusable,
     wo_shape_ok,
 )
-from .fused_ffn import fused_ln_ffn, fused_ln_ffn_plain, fused_ln_ffn_q, fused_ln_ffn_q_wo, layer_norm_f32
+from .fused_ffn import fused_ln_ffn, fused_ln_ffn_plain, fused_ln_ffn_q, fused_ln_ffn_q_wo, fused_ln_ffn_wo, layer_norm_f32
 from .fused_ln_matmul import (
     fused_ln_matmul,
     fused_ln_matmul_plain,
@@ -38,7 +38,7 @@ from .fused_ln_matmul import (
 )
 from .quant import int8_matmul, quant_rows_int8, quantize_weight_int8
 from .attention import segment_attention_f32, segment_attention_rect_f32, window_attention_f32
-from .fused_ffn import fused_ln_ffn_f32, fused_ln_ffn_q_f32, fused_ln_ffn_q_wo_f32
+from .fused_ffn import fused_ln_ffn_f32, fused_ln_ffn_q_f32, fused_ln_ffn_q_wo_f32, fused_ln_ffn_wo_f32
 from .fused_ln_matmul import (
     fused_ln_matmul_f32,
     fused_ln_matmul_q_f32,
@@ -59,6 +59,7 @@ KERNELS = {
     "fused_ln_matmul": fused_ln_matmul,
     "fused_ln_matmul_q": fused_ln_matmul_q,
     "fused_ln_ffn_q_wo": fused_ln_ffn_q_wo,
+    "fused_ln_ffn_wo": fused_ln_ffn_wo,
     "fused_ln_matmul_wo": fused_ln_matmul_wo,
     "fused_ln_matmul_q_wo": fused_ln_matmul_q_wo,
     "window_attention_wo": window_attention_wo,
@@ -77,6 +78,7 @@ KERNELS = {
     "fused_ln_ffn_f32": fused_ln_ffn_f32,
     "fused_ln_ffn_q_f32": fused_ln_ffn_q_f32,
     "fused_ln_ffn_q_wo_f32": fused_ln_ffn_q_wo_f32,
+    "fused_ln_ffn_wo_f32": fused_ln_ffn_wo_f32,
     "fused_ln_matmul_f32": fused_ln_matmul_f32,
     "fused_ln_matmul_wo_f32": fused_ln_matmul_wo_f32,
     "fused_ln_matmul_q_f32": fused_ln_matmul_q_f32,

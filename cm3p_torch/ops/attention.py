@@ -67,14 +67,16 @@ files. The epilogue kernels take H*D in ``WO_KERNEL_WIDTHS`` and an output
 width that is a multiple of 128.
 
 fp32 (a model run in fp32, the JAX package's ``--dtype float32``): the
-forwards launch ``csrc/attention_f32.cu`` (fp32 FMA on the CUDA cores, no
-TF32), counted as ``window_attention_f32``, ``segment_attention_f32`` and
-``segment_attention_rect_f32``; it writes no lse, so an fp32 forward under
-autograd on CUDA raises (the port trains in bf16, as the JAX trainer does, and
-has no fp32 backward kernel). The epilogue forms at fp32 run the fp32
-attention kernel, then the fp32 LN-matmul kernel's residual form (``res +
-o @ Wo^T``, int8 with ``wo_q``): the unfused route the bf16 epilogue replaces,
-and the same function.
+forwards launch ``csrc/attention_f32.cu`` (register-tiled fp32 FMA on the CUDA
+cores, 4 x 8 sums a thread in both products, no TF32; with rope the segment
+forms first rotate k once by :func:`rope_k_f32`, the window form rotates each
+key tile it stages), counted as ``window_attention_f32``,
+``segment_attention_f32`` and ``segment_attention_rect_f32``; it writes no
+lse, so an fp32 forward under autograd on CUDA raises (the port trains in
+bf16, as the JAX trainer does, and has no fp32 backward kernel). The
+epilogue forms at fp32 run the fp32 attention kernel, then the fp32 LN-matmul
+kernel's residual form (``res + o @ Wo^T``, int8 with ``wo_q``): the unfused
+route the bf16 epilogue replaces, and the same function.
 """
 from __future__ import annotations
 
@@ -116,6 +118,7 @@ _F32_SIGNATURES = {
     "cm3p_window_attention_f32": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cm3p_segment_attention_f32": [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _P],
+    "cm3p_rope_k_f32": [_P, _LL, _LL, _P, _P, _P, _I, _I, _I, _P],
 }
 ACTIVATION_DTYPES = (torch.bfloat16, torch.float32)  # bf16: csrc/attention.cu; fp32: csrc/attention_f32.cu
 _WO_SIGNATURES = {
@@ -435,6 +438,23 @@ def _no_lse_at_f32(q, return_lse):
                          "bf16, and no fp32 backward kernel exists)")
 
 
+def rope_k_f32(k, rope_theta: float) -> torch.Tensor:
+    """The fp32 segment forms' rope pass on CUDA: a (B, L, H, D) fp32 view rotated once, with the kernels'
+    arithmetic (the window kernel's in-kernel rotation gives the same bits), into a contiguous buffer. Its plain
+    version is :func:`apply_rope`."""
+    if not k.is_cuda or k.dtype != torch.float32 or k.dim() != 4 or k.shape[-1] != HEAD_DIM:
+        raise ValueError(f"the fp32 rope pass takes float32 CUDA (B, L, H, {HEAD_DIM}) rows")
+    st = k.stride()
+    if st[3] != 1 or st[2] != HEAD_DIM or st[1] % 4 or st[0] % 4 or k.data_ptr() % 16:
+        raise ValueError(f"the fp32 rope pass needs contiguous 16-byte-aligned heads, got strides {st}")
+    b, length, heads, _ = k.shape
+    out = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    err = _f32_lib().cm3p_rope_k_f32(k.data_ptr(), st[0], st[1], *_tables(k, rope_theta), out.data_ptr(), b, length,
+                                     heads, _stream(k))
+    _build.check(err, "cm3p_rope_k_f32")
+    return out
+
+
 def _launch_window_f32(q, k, v, qseg, kseg, window, rope_theta):
     b, length, heads, _ = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -475,6 +495,8 @@ def _launch_segment(q, k, v, qseg, kseg, rope_theta, return_lse):
     start, count = key_tile_ranges(qseg, kseg)
     if q.dtype == torch.float32:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        if rope_theta is not None:  # k rotated once by the pass; the kernel rotates each Q tile
+            k = rope_k_f32(k, rope_theta)
         err = _f32_lib().cm3p_segment_attention_f32(
             *_common_args(q, k, v, qseg, kseg, rope_theta), start.data_ptr(), count.data_ptr(), out.data_ptr(), b,
             length, k.shape[1], heads, _stream(q),

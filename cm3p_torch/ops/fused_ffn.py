@@ -12,12 +12,17 @@ accumulation throughout. Weights use the nn.Linear layout: ``wi`` is
 
 On a CPU tensor the wrapper runs :func:`fused_ln_ffn_plain`; on a CUDA
 tensor it launches ``csrc/fused_ffn.cu`` (bf16, D in {256, 512, 768}, F a
-multiple of 64; with ``w8a8`` and ``w8a8_wo`` at D 768, F <= 1152) or raises. The source note on the kernel's design and bound
-is in ``csrc/fused_ffn.cu``. fp32 activations (a model run in fp32) launch
-the fp32 kernel of ``csrc/fused_ffn_f32.cu`` in every form (register-tiled
+multiple of 64; with ``w8a8`` and ``w8a8_wo`` at D 768, F <= 1152) or raises:
+warp-specialised ``wgmma`` kernels in every form; the forms with an int8 Wo
+run the Wi product once more to find each row's absmax of ``gelu(a) * b``
+first (``w8a8_wo`` alone at D 768: an absmax pass, then a quantising pass per
+384-column half of the output). The source note on the kernel's design and
+bound is in ``csrc/fused_ffn.cu``. fp32 activations (a model run in fp32)
+launch the fp32 kernel of ``csrc/fused_ffn_f32.cu`` in every form (register-tiled
 fp32 FMA on the CUDA cores, int8 ``mma.sync`` with exact int32 sums for the
 int8 products; no TF32; any F that is a multiple of 64), counted as
-``fused_ln_ffn_f32``, ``fused_ln_ffn_q_f32`` and ``fused_ln_ffn_q_wo_f32``; its
+``fused_ln_ffn_f32``, ``fused_ln_ffn_q_f32``, ``fused_ln_ffn_q_wo_f32`` and
+``fused_ln_ffn_wo_f32``; its
 weights are fp32 where they are not int8. It passes ``gelu(a) * b`` through a
 device scratch that the wrapper allocates (:func:`f32_scratch_bytes`: one slot
 of 128 rows per block of the kernel's persistent grid).
@@ -28,8 +33,10 @@ channel), ``h = bf16(acc * sa * swi)``; ``w8a8_wo`` quantises the fp32
 ``gelu(a) * b`` row over all F columns and multiplies by an int8 Wo. The
 quantised weights may be passed in (``wi_q``/``wo_q`` = (codes, scales) from
 :func:`~cm3p_torch.ops.quant.quantize_weight_int8`, made once per model) or
-are made from ``wi``/``wo`` on the fly. The int8 forms count their launches
-on :func:`fused_ln_ffn_q`'s counter, the bf16 form on :func:`fused_ln_ffn`'s.
+are made from ``wi``/``wo`` on the fly. Each form counts its launches on its
+own counter: ``w8a8`` on :func:`fused_ln_ffn_q`'s, ``w8a8 + w8a8_wo`` on
+``fused_ln_ffn_q_wo``, ``w8a8_wo`` alone on ``fused_ln_ffn_wo``, the bf16 form
+on :func:`fused_ln_ffn`'s.
 
 The kernel is the no-grad path. Under autograd :class:`LnFfnFunction` runs the
 JAX package's training composition (``_ln_ffn_fwd``: LN in fp32, matmuls in
@@ -225,7 +232,7 @@ def fused_ln_ffn_q(x, scale, bias, wi, wo, eps: float, w8a8: bool = True, w8a8_w
             raise ValueError(f"{name} must be contiguous int8 (..., {width}) on x's device")
     if x.dtype == torch.float32:
         out = _launch_f32(x, scale, bias, wi, swi, wo, swo, eps, codes_y, codes_g)
-        (fused_ln_ffn_q_wo_f32 if w8a8_wo else fused_ln_ffn_q_f32).launches += 1
+        (fused_ln_ffn_q_f32 if not w8a8_wo else fused_ln_ffn_q_wo_f32 if w8a8 else fused_ln_ffn_wo_f32).launches += 1
         return out
     rows = x.numel() // d
     out = torch.empty_like(x)
@@ -238,11 +245,11 @@ def fused_ln_ffn_q(x, scale, bias, wi, wo, eps: float, w8a8: bool = True, w8a8_w
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "cm3p_fused_ln_ffn_q")
-    (fused_ln_ffn_q_wo if w8a8_wo else fused_ln_ffn_q).launches += 1
+    (fused_ln_ffn_q if not w8a8_wo else fused_ln_ffn_q_wo if w8a8 else fused_ln_ffn_wo).launches += 1
     return out
 
 
-fused_ln_ffn_q.launches = 0  # the forms with a bf16 Wo
+fused_ln_ffn_q.launches = 0  # the w8a8 form: an int8 Wi, a bf16 Wo
 
 
 class FormLaunches:
@@ -252,10 +259,12 @@ class FormLaunches:
 
 
 fused_ln_ffn_q_wo = FormLaunches()  # fused_ln_ffn_q with an int8 Wo: it runs the Wi product twice
-# the fp32 kernel's forms (csrc/fused_ffn_f32.cu): fp32 Wi and Wo, int8 Wi, int8 Wo (with either Wi)
+fused_ln_ffn_wo = FormLaunches()  # w8a8_wo alone: a bf16 Wi, an int8 Wo (the Wi product three times at D 768)
+# the fp32 kernel's forms (csrc/fused_ffn_f32.cu): fp32 Wi and Wo, int8 Wi, both int8, int8 Wo alone
 fused_ln_ffn_f32 = FormLaunches()
 fused_ln_ffn_q_f32 = FormLaunches()
 fused_ln_ffn_q_wo_f32 = FormLaunches()
+fused_ln_ffn_wo_f32 = FormLaunches()
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time one phase's kernels of two checkouts on one card, in turns.
 
-    python3 compare_kernels.py --parent DIR [--phase quant|wo|ffn|attn|bwd|f32] [--out DIR]
+    python3 compare_kernels.py --parent DIR [--phase quant|wo|ffn|attn|bwd|f32|f32attn] [--out DIR]
     python3 compare_kernels.py --phase parts|f32parts [--out DIR]
 
 ``DIR`` is another checkout of this repository (for example ``git archive
@@ -71,6 +71,19 @@ measured on the same card within one run:
   (``chip_smoke.ffn_composition``) for the FFN; the first change turn also
   times the plain version, and the bound is computed.
 
+* ``f32attn``: the fp32 forms of the forward attention (rows 1-f32, 2-f32,
+  2r-f32, 4-f32) through the public ops at fp32 (TF32 off) on the same seeded
+  inputs in every turn, on the ``attn`` phase's segments: window and segment
+  at the packed beatmap shape (79 x 4096, H 12) and the audio tower's (237 x
+  1500, H 8), with rope; the metadata tower's ``meta_pack`` rows (24 x 2048,
+  H 4, segment, no rope); the window form at w 192 on the ``v8_packed`` batch
+  (10 x 4096, H 12, rope); the rectangular form at phase 10's shape (B 2, Lq
+  1,088 over Lk 8,704). Each is first held to its plain version
+  (``chip_smoke.F32_REL_TOL`` of the largest entry, exactly 0 on queries that
+  see no key), then timed; the first change turn also times the plain version
+  and one fp32 SDPA call (memory-efficient backend, the same mask) and
+  computes the bound (``chip_smoke._f32_bound``).
+
 * ``f32parts`` (this tree only, no ``--parent``): the fp32 kernels at 323,584
   rows (D 768) beside copies built with one part cut out or one choice
   changed, each timed twice in turns on the same seeded inputs beside the one
@@ -82,8 +95,12 @@ measured on the same card within one run:
   epilogue, with the products alone and with four stages at one block an SM;
   the FFN (3-f32, 3q-f32, 3qq-f32)
   without g's round trip through the scratch (wrong sums) and at one block an
-  SM. The copies are sed-edited ``csrc/``; an edit that no longer matches the
-  source fails the run.
+  SM; the fp32 attention (1-f32 with and without rope, audio, 4-f32, 2-f32
+  and the metadata rows, on the ``attn`` phase's segments) with its products
+  alone (no K / V copies after the first tile), at 8 query rows a thread
+  (128-query blocks, two an SM) and without the test that skips a warp of
+  padding queries. The copies are sed-edited ``csrc/``; an edit that no longer
+  matches the source fails the run.
 
 * ``parts`` (this tree only, no ``--parent``): the int8 LN-matmul kernel
   (rows 6 and 6r at 323,584 rows) beside copies of it built with one part cut
@@ -96,7 +113,8 @@ Prints the card's name and power limit, each turn's timing lines and, per
 kernel form (and shape), the four times; writes each turn's log and
 ``compare.json`` (``compare_wo.json`` for ``wo``, ``compare_ffn.json`` for
 ``ffn``, ``compare_attn.json`` for ``attn``, ``compare_bwd.json`` for ``bwd``,
-``compare_f32.json`` for ``f32``) to ``--out``. Exits non-zero
+``compare_f32.json`` for ``f32``, ``compare_f32attn.json`` for ``f32attn``) to
+``--out``. Exits non-zero
 if a turn fails. Needs one GPU.
 """
 from __future__ import annotations
@@ -326,6 +344,80 @@ for n, (key, (qseg, kseg, heads, window, theta, lse)) in enumerate(FORMS.items()
             pairs = chip_smoke.visible_pairs(qseg, window)
             bound, by = chip_smoke.attention_bound_ms(b, lq, heads, 64, pairs)
             sdpa = chip_smoke.sdpa_ms(q, k, v, qseg, window, 3)
+        lib[key] = {"plain_ms": chip_smoke.cuda_ms(plain, 1), "sdpa_ms": sdpa, "bound_ms": bound, "bound_by": by,
+                    "pairs": pairs}
+    del q, k, v
+    torch.cuda.empty_cache()
+print("REPORT " + json.dumps({"errs": errs, "times": times, "library": lib}), flush=True)
+"""
+# the fp32 forms of the forward attention on the attn phase's segments: key -> (qseg, kseg, heads, window, theta)
+F32ATTN_TURN = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from cm3p_torch import ops
+from cm3p_torch.ops import _build
+from cm3p_torch.ops.attention import segment_attention_plain, segment_attention_rect_plain, window_attention_plain
+_build.build(("attention", "attention_f32"))
+torch.backends.cuda.matmul.allow_tf32 = False
+saved, library = torch.load(sys.argv[2]), sys.argv[3] == "1"
+dev = torch.device("cuda")
+ones = torch.ones(saved["audio_b"], saved["audio_l"], dtype=torch.int32, device=dev)
+packed, seg10, meta = (saved[k].to(dev).contiguous() for k in ("seg_packed", "seg10", "meta_seg"))
+lq, lk = chip_smoke.RECT_CASES[1]  # phase 10's rectangular case: the last 1,000 keys of row 0 masked, row 1 all
+rect_q = torch.ones(2, lq, dtype=torch.int32, device=dev)
+rect_k = torch.ones(2, lk, dtype=torch.int32, device=dev)
+rect_k[0, -1000:], rect_k[1] = 0, 0
+FORMS = {
+    "window packed": (packed, packed, 12, 64, 10000.0),
+    "segment packed": (packed, packed, 12, None, 160000.0),
+    "window audio": (ones, ones, 8, 64, 10000.0),
+    "segment audio": (ones, ones, 8, None, 160000.0),
+    "segment metadata": (meta, meta, 4, None, None),
+    "window w192": (seg10, seg10, 12, 192, 10000.0),
+    "rect": (rect_q, rect_k, 12, "rect", None),
+}
+errs, times, lib = {}, {}, {}
+for n, (key, (qseg, kseg, heads, window, theta)) in enumerate(FORMS.items()):
+    gen = torch.Generator(device=dev).manual_seed(n)
+    b, lq_, lk_ = qseg.shape[0], qseg.shape[1], kseg.shape[1]
+    if window == "rect":
+        q = torch.randn(b, lq_, heads, 64, generator=gen, device=dev)
+        k, v = torch.randn(b, lk_, 2, heads, 64, generator=gen, device=dev).unbind(2)
+        run = lambda: ops.segment_attention_rect(q, k, v, qseg, kseg)
+        plain = lambda: segment_attention_rect_plain(q, k, v, qseg, kseg)
+        dead = (kseg > 0).sum(1)[:, None].expand_as(qseg) == 0
+    else:
+        q, k, v = torch.randn(b, lq_, 3, heads, 64, generator=gen, device=dev).unbind(2)
+        if window is None:
+            run = lambda: ops.segment_attention(q, k, v, qseg, kseg, theta)
+            plain = lambda: segment_attention_plain(q, k, v, qseg, kseg, theta)
+        else:
+            run = lambda: ops.window_attention(q, k, v, qseg, kseg, window, theta)
+            plain = lambda: window_attention_plain(q, k, v, qseg, kseg, window, theta)
+        dead = qseg == 0
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rel = err / want.abs().max().item()
+    dead_max = got[dead].abs().max().item() if bool(dead.any()) else 0.0
+    errs[key] = {"max_abs_err": err, "rel": rel, "dead_max": dead_max}
+    if not (rel <= chip_smoke.F32_REL_TOL and dead_max == 0.0):
+        raise SystemExit(f"{key}: the fp32 kernel disagrees with its plain version ({errs[key]})")
+    del got, want
+    ms = chip_smoke.cuda_ms(run, 5)
+    times[key] = {"ms": ms if ms >= 1.0 else chip_smoke.cuda_ms(run, 50)}  # short forms: more launches a reading
+    print(f"  {key}: {times[key]['ms']:.3f} ms (max_abs_err {err:.3e}, {rel:.3e} of the largest entry)", flush=True)
+    if library:
+        if window == "rect":
+            pairs = lq_ * int((kseg > 0).sum())
+            bytes_moved = 2 * lq_ * heads * 64 * 4 * 2 + 2 * 2 * lk_ * heads * 64 * 4 + 2 * (lq_ + lk_) * 4
+            sdpa = chip_smoke.sdpa_rect_ms(q, k, v, qseg, kseg, 3)
+        else:
+            pairs = chip_smoke.visible_pairs(qseg, window)
+            bytes_moved = 4 * b * lq_ * heads * 64 * 4 + 2 * b * lq_ * 4
+            sdpa = chip_smoke.sdpa_ms(q, k, v, qseg, window, 3)
+        bound, by = chip_smoke._f32_bound(bytes_moved, 4 * 64 * heads * pairs)
         lib[key] = {"plain_ms": chip_smoke.cuda_ms(plain, 1), "sdpa_ms": sdpa, "bound_ms": bound, "bound_by": by,
                     "pairs": pairs}
     del q, k, v
@@ -566,17 +658,60 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 from cm3p_torch.ops import _build
 from cm3p_torch.ops.fused_ffn import _F32_SIGNATURES as FFN_SIGNATURES
+from cm3p_torch.ops.attention import _F32_SIGNATURES as ATTN_SIGNATURES, key_tile_ranges, rope_k_f32, rope_tables
 from cm3p_torch.ops.fused_ln_matmul import _F32_SIGNATURES as LNMM_SIGNATURES
 from cm3p_torch.ops.quant import quantize_weight_int8
 
 csrc = Path(sys.argv[1]) / "cm3p_torch" / "csrc"
+ATTN_ROWS = ("1-f32", "1-f32 no rope", "1-f32 audio", "4-f32", "2-f32", "2-f32 metadata")
 NEVER = "if (gv.x == -1234.5f) "  # a store the run never makes, so that what feeds it stays computed
 CUT_FRONT = ("  for (int r = 16 * warp; r < 16 * warp + 16; r += FRONT_ROWS) {",
              "  if (0) for (int r = 16 * warp; r < 16 * warp + 16; r += FRONT_ROWS) {")
 CUT_EPILOGUE = ("        if (r0 + r >= a.R) continue;\n        const float s = sa_s[r];\n        float* out_row",
                 "        if (r0 + r >= 0) continue;\n        const float s = sa_s[r];\n        float* out_row")
+# the fp32 attention at 8 query rows a thread: a block spans two query tiles of the key-tile ranges, so it walks
+# the union of their ranges and each warp skips the tiles outside its own tile's range
+RPT8 = [
+    ("constexpr int RPT = 4; ", "constexpr int RPT = 8; "),
+    ("constexpr int BQ = 64; ", "constexpr int TILE = 64;\nconstexpr int BQ = 128; "),
+    ("constexpr int BLOCKS_PER_SM = 3;", "constexpr int BLOCKS_PER_SM = 2;"),
+    ("static_assert(RPT == 4 && BQ == 16 * RPT,", "static_assert(BQ == 16 * RPT,"),
+    ("  int kt_begin, kt_end;\n", "  int kt_begin, kt_end, w_begin = 0, w_end = 0;\n"),
+    ('''    const long long t = (long long)b * ((L + BQ - 1) / BQ) + qt;
+    kt_begin = p.tile_start[t];
+    kt_end = kt_begin + p.tile_count[t];''',
+     '''    const int nq = (L + TILE - 1) / TILE, t0 = q0 / TILE;
+    kt_begin = 1 << 30, kt_end = 0;
+    for (int t = t0; t < min(t0 + BQ / TILE, nq); ++t) {
+      const int s = p.tile_start[(long long)b * nq + t], n = p.tile_count[(long long)b * nq + t];
+      if (n > 0) kt_begin = min(kt_begin, s), kt_end = max(kt_end, s + n);
+      if (t == wr0 / TILE) w_begin = s, w_end = s + n;
+    }'''),
+    ("(!WINDOW || (k0 <= wr1 + p.window && k0 + BK - 1 >= wr0 - p.window));",
+     "(WINDOW ? (k0 <= wr1 + p.window && k0 + BK - 1 >= wr0 - p.window) : (kt >= w_begin && kt < w_end));"),
+    ("        *reinterpret_cast<float4*>(sPt + (tx + 8 * j) * LDP + RPT * ty) = make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);",
+     '''#pragma unroll
+        for (int i = 0; i < RPT; i += 4)
+          *reinterpret_cast<float4*>(sPt + (tx + 8 * j) * LDP + RPT * ty + i) =
+              make_float4(s[i][j], s[i + 1][j], s[i + 2][j], s[i + 3][j]);'''),
+    ('''        const float4 t = *reinterpret_cast<const float4*>(sPt + kk * LDP + RPT * ty);
+        const float pv[RPT] = {t.x, t.y, t.z, t.w};''',
+     '''        float pv[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; i += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(sPt + kk * LDP + RPT * ty + i);
+          pv[i] = t.x, pv[i + 1] = t.y, pv[i + 2] = t.z, pv[i + 3] = t.w;
+        }'''),
+]
 COPIES = {  # name -> ({file: [(text, replacement)]}, the rows it is timed on)
-    "kernel": ({}, ("5r-f32", "5-f32", "6r-f32", "6-f32", "3-f32", "3q-f32", "3qq-f32")),
+    "kernel": ({}, ("5r-f32", "5-f32", "6r-f32", "6-f32", "3-f32", "3q-f32", "3qq-f32", *ATTN_ROWS)),
+    "attention products alone (no K / V copies after the first tile: wrong sums)": ({"attention_f32.cu": [
+        ("    if (kt + 1 < kt_end) {\n      issue_rows<BK, LDQ>(sK", "    if (0) {\n      issue_rows<BK, LDQ>(sK"),
+        ("    if (kt + 1 < kt_end) issue_rows<BK, D>(sV", "    if (0) issue_rows<BK, D>(sV")]}, ATTN_ROWS),
+    "attention at 8 query rows a thread (128-query blocks, two an SM)": ({"attention_f32.cu": RPT8}, ATTN_ROWS),
+    "attention without the padding-warp test": ({"attention_f32.cu": [
+        ("  const bool has_rows = __any_sync(0xffffffffu, qr < L && p.qseg[(long long)b * L + qr] > 0);",
+         "  const bool has_rows = qr == qr && wr0 < L;")]}, ATTN_ROWS),
     "fp32 products alone (no slice loads or stores: wrong sums)": ({"rows_f32.cuh": [
         ("    if (t + 1 < steps) fetch(t + 1);", "    if (0) fetch(t + 1);"),
         ("    if (t + 1 < steps) stash(t + 1);", "    if (0) stash(t + 1);")]}, ("5r-f32", "5-f32", "3-f32")),
@@ -623,7 +758,11 @@ with tempfile.TemporaryDirectory() as tmp:
                     raise SystemExit(f"{name}: the edit no longer matches csrc/{fname}")
                 text = text.replace(a, b)
             (d / fname).write_text(text)
-        for src in ("fused_ln_matmul_f32", "fused_ffn_f32"):
+        rows_of = COPIES[name][1]
+        srcs = [src for src, on in (("fused_ln_matmul_f32", any(r[0] in "56" for r in rows_of)),
+                                    ("fused_ffn_f32", any(r[0] == "3" for r in rows_of)),
+                                    ("attention_f32", any(r in ATTN_ROWS for r in rows_of))) if on]
+        for src in srcs:
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / f"{src}.so"), str(d / f"{src}.cu")]
             procs[name, src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), d)
     for (name, src), (proc, d) in procs.items():
@@ -634,7 +773,8 @@ with tempfile.TemporaryDirectory() as tmp:
             if kernel.startswith("f32::"):
                 print(f"  {name}, {kernel}: {regs}; {spills}", flush=True)
         lib = libs.setdefault(name, {})[src] = ctypes.CDLL(str(d / f"{src}.so"))
-        for fn, argtypes in (LNMM_SIGNATURES if src == "fused_ln_matmul_f32" else FFN_SIGNATURES).items():
+        sigs = {"fused_ln_matmul_f32": LNMM_SIGNATURES, "fused_ffn_f32": FFN_SIGNATURES, "attention_f32": ATTN_SIGNATURES}
+        for fn, argtypes in sigs[src].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -696,6 +836,43 @@ with tempfile.TemporaryDirectory() as tmp:
                   flush=True)
         del out
         torch.cuda.empty_cache()
+    # the fp32 attention forms on the attn phase's segments (the segment form's k rotated by the pass beforehand)
+    saved = torch.load(sys.argv[2])
+    ones = torch.ones(saved["audio_b"], saved["audio_l"], dtype=torch.int32, device=dev)
+    packed, seg10, meta = (saved[k].to(dev).contiguous() for k in ("seg_packed", "seg10", "meta_seg"))
+    SHAPES = {"1-f32": (packed, 12, 64, 10000.0), "1-f32 no rope": (packed, 12, 64, None),
+              "1-f32 audio": (ones, 8, 64, 10000.0), "4-f32": (seg10, 12, 192, 10000.0),
+              "2-f32": (packed, 12, None, 160000.0), "2-f32 metadata": (meta, 4, None, None)}
+    for row, (seg, heads, window, theta) in SHAPES.items():
+        names = [name for name, (_, rows_of) in COPIES.items() if row in rows_of]
+        b, length = seg.shape
+        q, k, v = torch.randn(b, length, 3, heads, 64, generator=gen, device=dev).unbind(2)
+        out = torch.empty(b, length, heads, 64, device=dev)
+        tables = rope_tables(length, 64, theta, str(dev)) if theta is not None else None
+        tabs = (tables[0].data_ptr(), tables[1].data_ptr()) if tables is not None else (None, None)
+        if window is None:
+            start, count = key_tile_ranges(seg, seg)
+            k = rope_k_f32(k, theta) if theta is not None else k
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), k.stride(0), v.stride(0), q.stride(1),
+                k.stride(1), v.stride(1), seg.data_ptr(), seg.data_ptr(), *tabs)
+        def run(lib):
+            if window is None:
+                return lib["attention_f32"].cm3p_segment_attention_f32(
+                    *args, start.data_ptr(), count.data_ptr(), out.data_ptr(), b, length, length, heads, stream)
+            return lib["attention_f32"].cm3p_window_attention_f32(*args, out.data_ptr(), b, length, heads, window,
+                                                                  stream)
+        for turn in range(2):
+            for name in names:
+                def call(name=name):
+                    err = run(libs[name])
+                    if err:
+                        raise SystemExit(f"{name}: CUDA error {err}")
+                times.setdefault(f"{row} {name}", []).append(chip_smoke.cuda_ms(call, 5 if window else 3))
+        for name in names:
+            print(f"  row {row}, {name}: " + " / ".join(f"{t:.3f}" for t in times[f"{row} {name}"]) + " ms",
+                  flush=True)
+        del q, k, v, out
+        torch.cuda.empty_cache()
 print("REPORT " + json.dumps({"times": times}), flush=True)
 """
 # a timing line of check_wo_kernels: form, shape, ms, ..., the unfused pair's ms
@@ -715,7 +892,8 @@ def wo_times(stdout: str) -> dict[str, dict[str, float]]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, help="root of the other checkout (every phase but parts)")
-    parser.add_argument("--phase", choices=("quant", "wo", "ffn", "attn", "bwd", "f32", "parts", "f32parts"),
+    parser.add_argument("--phase", choices=("quant", "wo", "ffn", "attn", "bwd", "f32", "f32attn", "parts",
+                                            "f32parts"),
                         default="quant",
                         help="the kernels to compare")
     parser.add_argument("--out", type=Path, default=ROOT / "chiprun_out", help="directory for the logs")
@@ -727,14 +905,8 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
-    if alone:
-        run = subprocess.run([sys.executable, "-c", PARTS if args.phase == "parts" else F32_PARTS, str(ROOT)],
-                             cwd=ROOT, capture_output=True, text=True, timeout=900)
-        (args.out / f"{args.phase}.log").write_text(run.stdout + run.stderr)
-        print(run.stdout if run.returncode == 0 else (run.stdout + run.stderr)[-3000:], flush=True)
-        return run.returncode
     turn_args = []
-    if args.phase in ("wo", "attn", "bwd"):
+    if args.phase in ("wo", "attn", "bwd", "f32attn", "f32parts"):
         inputs = (args.out / f"{'wo' if args.phase == 'wo' else 'attn'}_inputs.pt").resolve()
         prep = subprocess.run([sys.executable, "-c", WO_INPUTS if args.phase == "wo" else ATTN_INPUTS, str(ROOT),
                                str(inputs)], cwd=ROOT, capture_output=True, text=True, timeout=900)
@@ -742,14 +914,21 @@ def main() -> int:
             print((prep.stdout + prep.stderr)[-3000:], file=sys.stderr)
             return 1
         turn_args = [str(inputs)]
+    if alone:
+        run = subprocess.run([sys.executable, "-c", PARTS if args.phase == "parts" else F32_PARTS, str(ROOT),
+                              *turn_args], cwd=ROOT, capture_output=True, text=True, timeout=900)
+        (args.out / f"{args.phase}.log").write_text(run.stdout + run.stderr)
+        print(run.stdout if run.returncode == 0 else (run.stdout + run.stderr)[-3000:], flush=True)
+        return run.returncode
     script, prefix = {"quant": (QUANT_TURN, "compare"), "wo": (WO_TURN, "compare_wo"),
                       "ffn": (FFN_TURN, "compare_ffn"), "attn": (ATTN_TURN, "compare_attn"),
-                      "bwd": (BWD_TURN, "compare_bwd"), "f32": (F32_TURN, "compare_f32")}[args.phase]
+                      "bwd": (BWD_TURN, "compare_bwd"), "f32": (F32_TURN, "compare_f32"),
+                      "f32attn": (F32ATTN_TURN, "compare_f32attn")}[args.phase]
     results = []
     for turn, label in enumerate(ORDER):
         tree = (args.parent if label == "parent" else ROOT).resolve()
         t0 = time.perf_counter()
-        extra = [str(int(turn == ORDER.index("change")))] if args.phase in ("attn", "bwd", "f32") else []
+        extra = [str(int(turn == ORDER.index("change")))] if args.phase in ("attn", "bwd", "f32", "f32attn") else []
         if args.phase == "f32":
             extra.append(json.dumps(F32_SHAPES))
         run = subprocess.run([sys.executable, "-c", script, str(tree), *turn_args, *extra], cwd=tree,
@@ -788,6 +967,13 @@ def main() -> int:
             print(line + f"; plain {row['plain_ms']:.3f}; bound {row['bound_ms']:.3f} ({row['bound_by']}); "
                   f"SDPA {row['sdpa_ms']:.3f}", flush=True)
         return 0
+    if args.phase == "f32attn":
+        lib = results[ORDER.index("change")]["library"]
+        for key, row in lib.items():
+            print(f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)
+                  + f"; plain {row['plain_ms']:.3f}; bound {row['bound_ms']:.3f} ({row['bound_by']}); "
+                  f"fp32 SDPA {row['sdpa_ms']:.3f}", flush=True)
+        return 0
     if args.phase == "bwd":
         lib = results[ORDER.index("change")]["library"]
         for key, row in lib.items():
@@ -820,11 +1006,14 @@ def main() -> int:
             print(f"{key}: ms " + ", ".join(f"{r['tree']} {r['times'][key]['ms']:.3f}" for r in results)
                   + "; unfused pair " + ", ".join(f"{r['times'][key]['pair_ms']:.3f}" for r in results), flush=True)
         return 0
-    for name, row in results[0]["report"].items():
-        print(f"{name}: ms " + ", ".join(f"{r['tree']} {r['report'][name]['ms']:.3f}" for r in results), flush=True)
-        if row["library_ms"] is not None:
-            print(f"{name}, one PyTorch call: ms " + ", ".join(
-                f"{r['tree']} {r['report'][name]['library_ms']:.3f}" for r in results), flush=True)
+    def each(name, key):  # a report entry of every turn; "-" where a tree does not report it
+        values = [r["report"].get(name, {}).get(key) for r in results]
+        return ", ".join(f"{r['tree']} " + ("-" if v is None else f"{v:.3f}") for r, v in zip(results, values))
+
+    for name in dict.fromkeys(n for r in results for n in r["report"]):
+        print(f"{name}: ms " + each(name, "ms"), flush=True)
+        if any(r["report"].get(name, {}).get("library_ms") is not None for r in results):
+            print(f"{name}, one PyTorch call: ms " + each(name, "library_ms"), flush=True)
     from chip_smoke import lnmm_bound_ms
 
     for name in results[0]["audio"]:

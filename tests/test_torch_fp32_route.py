@@ -138,16 +138,30 @@ def _visible(qseg, kseg, window):
     return ok.any(-1)
 
 
-@pytest.mark.parametrize("form", ["window", "wide_window", "segment"])
-def test_fp32_attention_plain_matches_the_jax_kernels(jax_fp32, form):
+def _across_tiles(b, length):
+    """Segments that cross 128-position boundaries (at 100-300 and 250): the fp32 kernel's 64-query tiles
+    and 64-key tiles, ends off every tile."""
+    seg = np.zeros((b, length), np.int32)
+    seg[0, :100], seg[0, 100:300], seg[0, 300:length - 14] = 1, 2, 3
+    seg[1, :250], seg[1, 250:] = 1, 2
+    return seg
+
+
+_ATTENTION_CASES = [(form, layout) for layout in ("packed", "across_tiles") for form in ("window", "wide_window", "segment")]
+
+
+@pytest.mark.parametrize("form, layout", _ATTENTION_CASES,
+                         ids=[form if layout == "packed" else f"{form}_{layout}" for form, layout in _ATTENTION_CASES])
+def test_fp32_attention_plain_matches_the_jax_kernels(jax_fp32, form, layout):
     """Window w 64 (``_window_fused_kernel``), w 192 (the streaming ``_fa_kernel``) and segment
-    (``_seg_unrolled_kernel``) attention with rope inside, packed segments, L 256."""
+    (``_seg_unrolled_kernel``) attention with rope inside: packed segments at L 256, and segments across
+    128-position boundaries at L 384."""
     fa, _ = jax_fp32
     import jax.numpy as jnp
 
-    b, length = 2, 256
+    b, length = 2, 256 if layout == "packed" else 384
     q, k, v = _qkv(b, length, length, seed=11)
-    seg = _packed(b, length)
+    seg = _packed(b, length) if layout == "packed" else _across_tiles(b, length)
     window = {"window": 64, "wide_window": 192, "segment": None}[form]
     theta = 10000.0 if window else 160000.0
     want = np.asarray(fa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window,

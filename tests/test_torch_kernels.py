@@ -71,6 +71,7 @@ from cm3p_torch.ops import (
 )
 from cm3p_torch.ops.attention import (
     _attention_bwd_plain,
+    apply_rope,
     key_tile_ranges,
     attention_bwd_rope_plain,
     attention_delta,
@@ -85,6 +86,7 @@ from cm3p_torch.ops.attention import (
     segment_attention_wo_plain,
     segment_attention_wo_q,
     segment_attention_wo_q_plain,
+    rope_k_f32,
     window_attention,
     window_attention_dkv,
     window_attention_dq,
@@ -472,7 +474,8 @@ def test_fused_ffn_int8_forms_match_plain(cuda, d, f, w8a8, w8a8_wo):
     again = fused_ln_ffn(x, scale, None, wi, wo, 1e-5, **kw)  # the public wrapper routes to the same kernel
     want = fused_ln_ffn_plain(x, scale, None, wi, wo, 1e-5, **kw)
     torch.cuda.synchronize()
-    assert launch_counts() == {**_NONE, "fused_ln_ffn_q_wo" if w8a8_wo else "fused_ln_ffn_q": 2}
+    name = "fused_ln_ffn_q" if not w8a8_wo else "fused_ln_ffn_q_wo" if w8a8 else "fused_ln_ffn_wo"
+    assert launch_counts() == {**_NONE, name: 2}
     assert torch.equal(got, again)
     assert (got.float() - want.float()).abs().max().item() <= ATOL
     assert torch.isfinite(got).all()
@@ -683,7 +686,8 @@ x = (0.5 * torch.randn(16384, 768, generator=g, device="cuda")).to(torch.bfloat1
 scale = 1 + 0.1 * torch.randn(768, generator=g, device="cuda")
 wi = (0.02 * torch.randn(2304, 768, generator=g, device="cuda")).to(torch.bfloat16)
 wo = (0.02 * torch.randn(768, 1152, generator=g, device="cuda")).to(torch.bfloat16)
-w8a8, w8a8_wo = {"w8a8": (True, False), "bf16": (False, False), "w8a8_wo": (True, True)}[sys.argv[3]]
+w8a8, w8a8_wo = {"w8a8": (True, False), "bf16": (False, False), "w8a8_wo": (True, True),
+                 "w8a8_wo_alone": (False, True)}[sys.argv[3]]
 kw = dict(w8a8=w8a8, w8a8_wo=w8a8_wo, wi_q=quantize_weight_int8(wi) if w8a8 else None,
           wo_q=quantize_weight_int8(wo) if w8a8_wo else None)
 want = fused_ln_ffn_plain(x, scale, None, wi, wo, 1e-5, **kw)
@@ -722,10 +726,11 @@ def test_ffn_w8a8_kernel_on_a_card_shared_by_three_processes(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("form", ["bf16", "w8a8_wo"])
+@pytest.mark.parametrize("form", ["bf16", "w8a8_wo", "w8a8_wo_alone"])
 def test_ffn_kernels_on_a_card_shared_by_three_processes(cuda, form):
-    """The same for the bf16 form (row 3) and the w8a8 + w8a8_wo form (row 3qq), which share that design
-    and add their own rings' order (one Wo slot in bf16, two passes over F with an int8 Wo)."""
+    """The same for the bf16 form (row 3), the w8a8 + w8a8_wo form (row 3qq) and the w8a8_wo form alone (row
+    3o), which share that design and add their own rings' order (one Wo slot in bf16, two passes over F with
+    an int8 Wo)."""
     outs = _run_on_a_shared_card(form)
     assert all(rc == 0 for rc, _ in outs), outs
 
@@ -1153,6 +1158,137 @@ def test_fp32_attention_wo_forms_are_the_fp32_pair(fp32_cuda, window, int8):
     assert torch.equal(got[dead], res[dead])
 
 
+# the fp32 kernel's tiles: 64 queries a block (16 a warp), 64 keys a tile
+F32_EDGE_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 1000, 4096]
+
+
+def _fp32_segments_across_tiles(b, length, device):
+    """Segments that cross 128-position boundaries (two 64-query tiles, two key tiles), a padding tail whose queries see no key, and
+    a row of one segment over all but its last position."""
+    seg = torch.zeros(b, length, dtype=torch.int32, device=device)
+    tail = length // 10
+    seg[0, :100], seg[0, 100:300], seg[0, 300:length - tail] = 1, 2, 3
+    seg[-1, : max(1, length - 1)] = 1
+    return seg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", F32_EDGE_LENGTHS)
+@pytest.mark.parametrize("form", ["window", "segment"])
+def test_fp32_attention_kernel_at_tile_edges(fp32_cuda, form, length):
+    """The register-tiled fp32 kernel at its tile edges, with rope, strided qkv views and H 4 / 8 / 12."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(31)
+    heads = (4, 8, 12)[F32_EDGE_LENGTHS.index(length) % 3]
+    q, k, v = torch.randn(2, length, 3, heads, 64, generator=gen, device=fp32_cuda).unbind(2)
+    seg = _fp32_segments_across_tiles(2, length, fp32_cuda)
+    reset_launch_counts()
+    if form == "window":
+        got = window_attention(q, k, v, seg, seg, 64, 10000.0)
+        want = window_attention_plain(q, k, v, seg, seg, 64, 10000.0)
+    else:
+        got = segment_attention(q, k, v, seg, seg, 160000.0)
+        want = segment_attention_plain(q, k, v, seg, seg, 160000.0)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, f"{form}_attention_f32": 1}
+    assert _rel_err(got, want) <= F32_REL_TOL
+    dead = seg == 0
+    if dead.any():
+        assert got[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("length", [1000, 4096])
+@pytest.mark.parametrize("window", [64, 192, 256])
+@pytest.mark.parametrize("rope", [False, True])
+def test_fp32_window_kernel_at_every_window(fp32_cuda, window, length, rope):
+    gen = torch.Generator(device=fp32_cuda).manual_seed(32)
+    q, k, v = torch.randn(1, length, 3, 8, 64, generator=gen, device=fp32_cuda).unbind(2)
+    seg = _fp32_segments_across_tiles(1, length, fp32_cuda)
+    theta = 10000.0 if rope else None
+    got = window_attention(q, k, v, seg, seg, window, theta)
+    want = window_attention_plain(q, k, v, seg, seg, window, theta)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= F32_REL_TOL
+    assert got[seg == 0].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq, lk", [(1, 64), (63, 65), (127, 129), (129, 1000), (1000, 129), (4096, 200)])
+def test_fp32_rect_attention_kernel_at_tile_edges(fp32_cuda, lq, lk):
+    gen = torch.Generator(device=fp32_cuda).manual_seed(33)
+    q = torch.randn(2, lq, 12, 64, generator=gen, device=fp32_cuda)
+    k, v = torch.randn(2, lk, 2, 12, 64, generator=gen, device=fp32_cuda).unbind(2)
+    qseg = torch.ones(2, lq, dtype=torch.int32, device=fp32_cuda)
+    kseg = torch.ones(2, lk, dtype=torch.int32, device=fp32_cuda)
+    kseg[0, lk // 2:] = 0
+    qseg[1, lq // 2:] = 0  # queries that see no key write exactly 0
+    got = segment_attention_rect(q, k, v, qseg, kseg)
+    want = segment_attention_rect_plain(q, k, v, qseg, kseg)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= F32_REL_TOL
+    if lq > 1:
+        assert got[1, lq // 2:].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["window", "segment"])
+def test_fp32_rope_pass_is_bit_equal_to_the_kernels_rotation(fp32_cuda, form):
+    """The segment forms' rope pass gives the plain rotation's bits, and the kernels with rope tables (Q
+    rotated as it is staged, K in shared memory in the window form, K from the pass in the segment form) give
+    the bits of the kernels without tables on q and k rotated by the pass."""
+    gen = torch.Generator(device=fp32_cuda).manual_seed(34)
+    q, k, v = torch.randn(2, 1000, 3, 8, 64, generator=gen, device=fp32_cuda).unbind(2)
+    seg = _fp32_segments_across_tiles(2, 1000, fp32_cuda)
+    theta = 10000.0 if form == "window" else 160000.0
+    rq, rk = rope_k_f32(q, theta), rope_k_f32(k, theta)
+    assert torch.equal(rk, apply_rope(k, theta)) and torch.equal(rq, apply_rope(q, theta))
+    if form == "window":
+        got, again = window_attention(q, k, v, seg, seg, 64, theta), window_attention(rq, rk, v, seg, seg, 64)
+    else:
+        got, again = segment_attention(q, k, v, seg, seg, theta), segment_attention(rq, rk, v, seg, seg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+G_CODE_SHARE_MAX = 5e-2  # gelu(a) * b codes behind a bf16 Wi product: h rounded to bf16 after sums in another order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", EDGE_ROWS)
+@pytest.mark.parametrize("d, f", [(768, 64), (768, 1088), (768, 1152), (768, 2048), (512, 64), (512, 1024),
+                                  (512, 1152), (256, 64), (256, 512), (256, 1152)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_ffn_w8a8_wo_alone_kernel_at_tile_edges(cuda, rows, d, f, with_bias):
+    """The w8a8_wo form alone of cm3p_fused_ln_ffn_q (row 3o: a bf16 Wi, an int8 Wo; two passes over F)
+    against its plain version, with no F limit (one 64-column chunk of F, an odd count of chunks: the last
+    one alone), and the gelu(a) * b codes it exports against the plain quantiser of the plain h. h is
+    rounded to bf16 after fp32 sums in another order, so a value of a or b may round to the other bf16
+    neighbour (a step of up to 2^-7 of it): where that happens at an element and at its row's absmax
+    (which sets the row's scale), the element's code moves by up to 2. So a share of the codes (at most
+    G_CODE_SHARE_MAX) may differ, by 2 at most."""
+    rows = _edge_rows(rows, 2 * 64, 2 if d == 768 else 1)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x, scale, bias, zero = _edge_inputs(rows, d, gen, cuda)
+    bias = bias if with_bias else None
+    wi = (d ** -0.5 * torch.randn(2 * f, d, generator=gen, device=cuda)).to(torch.bfloat16)
+    wo = (0.25 * f ** -0.5 * torch.randn(d, f, generator=gen, device=cuda)).to(torch.bfloat16)
+    wo_q = quantize_weight_int8(wo)
+    kw = dict(w8a8=False, w8a8_wo=True, wo_q=wo_q)
+    codes_g = torch.full((rows, f), -128, dtype=torch.int8, device=cuda)  # a value the quantiser never gives
+    reset_launch_counts()
+    got = fused_ln_ffn_q(x, scale, bias, wi, wo, 1e-5, **kw, codes_g=codes_g)
+    want = fused_ln_ffn_plain(x, scale, bias, wi, wo, 1e-5, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts() == {**_NONE, "fused_ln_ffn_wo": 1}
+    assert torch.isfinite(got).all()
+    assert (want.float() - x.float()).pow(2).mean().sqrt().item() > 2 * ATOL  # the FFN's own part, rms
+    assert (got.float() - want.float()).abs().max().item() <= ATOL
+    h = torch.nn.functional.linear(layer_norm_f32(x, scale, bias, 1e-5).to(torch.bfloat16), wi)
+    gf = torch.nn.functional.gelu(h[:, :f].float()) * h[:, f:].float()
+    diff = (codes_g.short() - quant_rows_int8(gf)[0].short()).abs()
+    assert int(diff.max()) <= 2 and float((diff > 0).float().mean()) <= G_CODE_SHARE_MAX
+
+
 def _fp32_rows(rows, d, gen, device):
     x = torch.randn(rows, d, generator=gen, device=device)
     x[rows // 3: rows // 3 + 5] = 0  # zero rows: LN gives the bias, the codes 0
@@ -1278,7 +1414,8 @@ def test_fp32_ffn_kernel_matches_plain(fp32_cuda, rows, d, f, w8a8, w8a8_wo):
     wo = 0.05 * torch.randn(d, f, generator=gen, device=fp32_cuda)
     reset_launch_counts()
     _hold_fp32_ffn(x, scale, bias, wi, wo, w8a8, w8a8_wo)
-    name = "fused_ln_ffn_q_wo_f32" if w8a8_wo else ("fused_ln_ffn_q_f32" if w8a8 else "fused_ln_ffn_f32")
+    name = {(False, False): "fused_ln_ffn_f32", (True, False): "fused_ln_ffn_q_f32", (True, True): "fused_ln_ffn_q_wo_f32",
+            (False, True): "fused_ln_ffn_wo_f32"}[w8a8, w8a8_wo]
     assert launch_counts() == {**_NONE, name: 1}
 
 

@@ -278,6 +278,32 @@ def test_fused_ln_ffn_int8_matches_interpreted_pallas(w8a8, w8a8_wo, dtype):
     assert float((got.float() - exact.float()).abs().max()) < 0.2  # and stayed in the quantisation band
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_ln_ffn_w8a8_wo_matches_interpreted_pallas_at_the_beatmap_width(dtype):
+    """The ``w8a8_wo`` form alone (row 3o: a bf16 Wi, an int8 Wo) at D 768 and F 1152, the width whose
+    layout the CUDA kernel changes (two 384-column items, both passes over F in each), against
+    ``_pallas_ln_ffn(interpret=True)``, with the tolerances above."""
+    rng = np.random.default_rng(7)
+    rows, d, f = 40, 768, 1152
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    x[3:5] = 0.0
+    scale = rng.uniform(0.5, 1.5, d).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    wi = (d ** -0.5 * rng.standard_normal((d, 2 * f))).astype(np.float32)
+    wo = (0.25 * f ** -0.5 * rng.standard_normal((f, d))).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    want = _pallas_ln_ffn(
+        jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(bias), jnp.asarray(wi), jnp.asarray(wo),
+        eps=EPS, residual=True, block_rows=128, w8a8=False, w8a8_wo=True, interpret=True,
+    )
+    args = (_t(x, tdt), _t(scale), _t(bias), _t(wi.T), _t(wo.T), EPS)
+    got = ops.fused_ln_ffn(*args, w8a8=False, w8a8_wo=True)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32), atol=2e-2 if dtype == "bfloat16" else 1e-2)
+    exact = ops.fused_ln_ffn(*args)
+    assert not torch.equal(got, exact)  # the quantised path really ran
+
+
 @pytest.mark.parametrize("rows", [37, 150])
 @pytest.mark.parametrize("with_bias", [False, True], ids=["no-bias", "bias"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
