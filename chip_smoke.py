@@ -147,6 +147,29 @@ Phases (any failure exits non-zero; nothing is skipped):
                rank ms per forward, peak memory and the rect kernel's ms,
                bound and SDPA ms. Two ranks on one card test correctness, not
                scaling.
+ 10. fp32   - the fp32 kernels against their plain versions (TF32 off) and the
+               extraction entry point at fp32 (``extract_fp32_slice``).
+ 11. heads  - full width, seeded weights: ``masked_predict`` with a
+               ``MaskedLMModel`` (tokenizer vocabulary) on the bundled map in
+               exact bf16 and setting D, exact launches, masked-position logits
+               at cosine >= 0.999 to the all-plain path, top-1 agreement; the
+               trainer entry point (``main``) on synthetic 8 x 2,000 batches with
+               audio for ``v6_mask``, ``v7`` (decoder head, 256 metadata
+               variations) and ``v7_classifier`` (``from_pretrained`` the ``v7``
+               run's bundle, allow_missing: tower equal to it, classifier as
+               seeded), 3 steps each with exact launches and finite losses, step
+               ms, windows/s, peak memory and a profiler breakdown, and for
+               ``v6_mask`` and ``v7`` one micro-step against the plain path (phase
+               6's rule); ``forward_packed`` with the decoder head on phase 6's
+               batch (loss = contrastive + 0.5 x CE of its own outputs); the MLM
+               and classifier through ``save_pretrained`` / ``load_pretrained``
+               (logits bit-equal, ``architectures``); ``zero_shot_classify`` with
+               the ``v7`` bundle against 4 candidates (fp32 (windows, 4), cosine
+               >= 0.999 per window to the plain path); ``extract_embeddings`` of
+               a saved ``CM3PModel(has_decoder_head=True)`` over phase 8's windows,
+               bit-equal to the headless model with the same tower, with no
+               product of vocabulary width in its profile (a forward with the
+               head shows one, as the control).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
@@ -883,7 +906,7 @@ def time_backward(torch, ops, seg, inputs, heads, label, windows):
 def path_grads(torch, step, batch, plain=False, fp32=False):
     """(loss, gradients) of one micro-batch on one route of the model, which is put back as it was."""
     model = step.model
-    dtype = model.metadata_model.encoder.compute_dtype
+    dtype = model.encoders()[0].compute_dtype
     model.set_plain(plain)
     if fp32:
         model.set_compute_dtype(torch.float32)
@@ -1474,7 +1497,8 @@ def write_wav_f32(path, samples, rate=16000):
 
 def extract_slice(torch, ops, dev, maps, waves, exact, tmp):
     """Phase 8: ``save_pretrained`` -> ``load_pretrained`` -> ``extract_embeddings`` over a folder
-    of maps with audio files, in the tool's settings; returns the launches it counted."""
+    of maps with audio files, in the tool's settings; returns the launches it counted and the loaded
+    windows (phase 11 extracts them again)."""
     import numpy as np
 
     from cm3p_torch.configs import CM3PConfig
@@ -1596,7 +1620,7 @@ def extract_slice(torch, ops, dev, maps, waves, exact, tmp):
             f"{stats['tokens'] / dev_s:.0f} tokens/s; with packing and transfers {stats['wall'] * 1e3:.1f} ms wall = "
             f"{stats['windows'] / stats['wall']:.2f} windows/s")
         device_breakdown(torch, lambda: run(False), f"setting {label}, one extraction pass")
-    return total
+    return total, samples
 
 
 TINY_EXTRACT_COS_MIN = 0.9999  # per map, the card's fp32 plain route against the CPU's (sums in another order)
@@ -2249,6 +2273,350 @@ def extract_fp32_slice(torch, ops, dev, tmp):
     return total
 
 
+# ---------------------------------------------------------------- phase 11
+
+HEADS_BUDGET_S = 150
+HEADS_COS_MIN = 0.999  # masked-position logits and zero-shot logits per window, kernel path against the plain path
+TRAIN_STEPS = 3
+# one unpacked micro-step of a beatmap-tower model with audio (v6_mask, v7_classifier): 14 window and 8 segment
+# beatmap layers and 4 window and 2 segment audio layers, each with rope inside the kernels
+HEAD_MICRO_STEP = {
+    "window_attention": 14 + 4, "segment_attention": 8 + 2,
+    "window_attention_dq_rope": 14 + 4, "window_attention_dkv_rope": 14 + 4,
+    "segment_attention_dq_rope": 8 + 2, "segment_attention_dkv_rope": 8 + 2,
+}
+# v7 adds the metadata tower's 6 segment layers (meta_pack rows restart positions: rope outside, the plain forms)
+V7_MICRO_STEP = {**HEAD_MICRO_STEP, "segment_attention": 8 + 2 + 6,
+                 "segment_attention_dq": 6, "segment_attention_dkv": 6}
+HEAD_EVAL = {"window_attention": 14 + 4, "segment_attention": 8 + 2, "fused_ln_ffn": 22 + 6}
+V7_EVAL = {**HEAD_EVAL, "segment_attention": 8 + 2 + 6, "fused_ln_ffn": 22 + 6 + 6}
+# masked_predict's one forward of the first window, no audio: the beatmap tower alone
+MLM_FORWARD = {"exact bf16": {"window_attention": 14, "segment_attention": 8, "fused_ln_ffn": 22},
+               "the tool's default (w8a8 + fused_wo)": {"window_attention_wo": 14, "segment_attention_wo": 8,
+                                                       "fused_ln_ffn_q": 22}}
+ZERO_SHOT_CANDIDATES = [  # in the synthetic vocabularies of the trainer's metadata tokenizer
+    {"mode": "osu", "mapper": "mapper_a"},
+    {"mode": "osu", "mapper": "mapper_b", "status": "ranked"},
+    {"mode": "taiko", "mapper": "mapper_a", "status": "graveyard"},
+    {"mode": "mania", "mapper": "mapper_b"},
+]
+VOCAB_OPS = ("aten::mm", "aten::addmm", "aten::matmul", "aten::linear", "aten::bmm", "aten::_int_mm")
+
+
+def vocab_products(prof, vocab: int) -> list:
+    """The product ops of a profile (``record_shapes``) with an operand as wide as the vocabulary."""
+    return sorted({evt.key for evt in prof.key_averages(group_by_input_shape=True)
+                   if evt.key in VOCAB_OPS and any(vocab in tuple(shape) for shape in evt.input_shapes if shape)})
+
+
+def cuda_timed(torch, fn):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def head_trainer(torch, ops, dev, name, out_dir, per_micro_step, per_eval, extra=()):
+    """``python -m cm3p_torch.train -cn <name>`` on synthetic 8 x 2,000 batches with audio for
+    ``TRAIN_STEPS`` optimizer steps of one micro-step and one eval batch, exact launches, finite
+    losses; then two more steps timed with CUDA events (step ms, windows/s, peak memory). Returns
+    (trainer, launches of the trainer run)."""
+    from cm3p_torch.train.__main__ import main
+
+    argv = ["--config-name", name, "--device", str(dev), f"training.output_dir={out_dir}",
+            "dataset.synthetic=true", f"training.max_steps={TRAIN_STEPS}", "training.gradient_accumulation_steps=1",
+            "training.logging_steps=1", "training.eval_steps=0", "training.max_eval_batches=1",
+            f"training.save_steps={TRAIN_STEPS}", "training.load_best_model_at_end=false",
+            "dataset.test_metadata_variations=8", *extra]
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {k: TRAIN_STEPS * per_micro_step.get(k, 0) + per_eval.get(k, 0) for k in ops.KERNELS}
+    label = f"{name} trainer ({TRAIN_STEPS} steps, 1 eval batch, save_pretrained)"
+    log(f"  {label} in {wall:.1f} s: launches {counts} (want {want})")
+    if counts != want:
+        fail(f"{label}: the trainer did not launch each kernel as expected")
+    records = [json.loads(line) for line in (Path(out_dir) / "train_log.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in records if "loss" in r]
+    final = [r for r in records if "final_eval_loss" in r]
+    log(f"  losses {[round(x, 5) for x in losses]}; final eval {final}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses) or not final:
+        fail(f"{label}: missing or non-finite losses")
+    from cm3p_torch.train import to_device
+    from cm3p_torch.train.__main__ import CONFIG_DIR, build_processor, model_config, synthetic_batches
+    from cm3p_torch.utils.config import load_config
+
+    args = load_config(CONFIG_DIR, name, ["dataset.synthetic=true", *extra])
+    cfg = model_config(args, build_processor(args))
+    batch = to_device(next(iter(synthetic_batches(args, cfg, test=False, seed=7)())), dev, packed=False)
+    times = [cuda_timed(torch, lambda: trainer.step_fn(batch))[1] for _ in range(2)]
+    rows = int(batch["input_ids"].shape[0])
+    step_ms = min(times)
+    log(f"  {name} training step (8 x {batch['input_ids'].shape[1]} tokens, audio"
+        f"{', metadata ' + str(tuple(batch['metadata_ids'].shape)) if 'metadata_ids' in batch else ''}; CUDA events, "
+        f"best of {[round(t, 1) for t in times]}): {step_ms:.1f} ms, {1e3 * rows / step_ms:.2f} windows/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    device_breakdown(torch, lambda: trainer.step_fn(batch), f"one {name} training step", grad=True)
+    return trainer, counts, batch
+
+
+def masked_predict_check(torch, ops, dev, bundled, label, model, proc):
+    """``masked_predict`` once with exact launches, then the masked positions' logits against the
+    all-plain path with the same options (cosine per position) and the top-1 agreement."""
+    import numpy as np
+
+    from cm3p_torch.inference import masked_predict
+
+    ops.reset_launch_counts()
+    positions, true_ids, topk = masked_predict(model, proc, bundled, seed=0, device=dev, **WINDOW_KW)
+    torch.cuda.synchronize()
+    counts = expect_counts(ops, f"masked_predict, {label}", 1, MLM_FORWARD[label])
+    inputs = proc(beatmap=bundled, **WINDOW_KW)
+    ids = np.asarray(inputs["input_ids"])[:1].copy()
+    ids[0, positions] = proc.beatmap_tokenizer.mask_token_id
+    batch = dict(input_ids=torch.as_tensor(ids, dtype=torch.int64, device=dev),
+                 attention_mask=torch.as_tensor(np.asarray(inputs["attention_mask"])[:1], device=dev))
+    with torch.no_grad():
+        logits = model(**batch).logits[0, positions]
+        model.set_plain(True)
+        ref = model(**batch).logits[0, positions]
+        model.set_plain(False)
+    cos = cosines(logits, ref)
+    agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    # masked_predict's first pick holds the largest logit of its position (bf16 logits tie, so ids may differ)
+    top1 = torch.as_tensor(topk[:, :1], device=dev)
+    consistent = bool((logits.gather(1, top1) == logits.max(dim=1, keepdim=True).values).all())
+    log(f"  masked_predict, {label}: {len(positions)} masked positions of {int(batch['attention_mask'].sum())}, "
+        f"logits cosine to the all-plain path min {cos.min():.6f} (need >= {HEADS_COS_MIN}); top-1 agreement "
+        f"{agree:.4f}; its top-1 at the largest logit: {consistent}; true id in the top 5 "
+        f"{float((topk == true_ids[:, None]).any(1).mean()):.4f} (random weights)")
+    if not bool((cos >= HEADS_COS_MIN).all()) or not bool(torch.isfinite(logits).all()) or not consistent:
+        fail(f"masked_predict, {label}: kernel path and plain path disagree")
+    return counts
+
+
+def heads_slice(torch, ops, dev, bundled, packed_batch, bundle_dir, samples):
+    """Phase 11: the masked-LM and classifier models, the decoder head and the inference API at full width;
+    returns the launches counted on these paths."""
+    import numpy as np
+
+    from cm3p_torch.configs import CM3PConfig
+    from cm3p_torch.extract import extract_embeddings
+    from cm3p_torch.inference import load_pretrained, place_model, save_pretrained, zero_shot_classify
+    from cm3p_torch.interop import init_weights
+    from cm3p_torch.models import (CM3PBeatmapModel, CM3PModel, ClassifierModel, EncoderOptions, MaskedLMModel,
+                                   cross_entropy_ignore_index)
+    from cm3p_torch.processing import CM3PProcessor
+    from cm3p_torch.train import TrainStep, to_device
+    from cm3p_torch.train.trainer import from_pretrained
+
+    total = {name: 0 for name in ops.KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    def timestamp(what):
+        log(f"  ({what}: {time.perf_counter() - t_phase:.1f} s into phase 11)")
+
+    t_phase = time.perf_counter()
+    work = tempfile.TemporaryDirectory()
+    tmp = Path(work.name)
+
+    # 1. masked_predict with a full-width MaskedLMModel (tokenizer vocabulary), exact bf16 and the tool's default
+    proc = CM3PProcessor()
+    tok = proc.beatmap_tokenizer
+    bc = CM3PConfig().beatmap_config
+    bc.vocab_size, bc.audio_token_id = tok.vocab_size, tok.audio_token_id
+    mlm = MaskedLMModel(bc)
+    mlm.load_state_dict(init_weights(bc, torch.Generator(device=dev).manual_seed(0), head="mlm"))
+    mlm = place_model(mlm, dev, torch.bfloat16)
+    log(f"  MaskedLMModel: {sum(p.numel() for p in mlm.parameters()) / 1e6:.1f} M parameters, vocab {bc.vocab_size}")
+    add(masked_predict_check(torch, ops, dev, bundled, "exact bf16", mlm, proc))
+    mlm.set_options(EncoderOptions(w8a8=True, fused_wo=True))
+    add(masked_predict_check(torch, ops, dev, bundled, "the tool's default (w8a8 + fused_wo)", mlm, proc))
+    mlm.set_options(EncoderOptions())
+    timestamp("masked_predict")
+
+    # 2. v6_mask through the trainer entry point; one micro-step against the plain path
+    trainer, counts, batch = head_trainer(torch, ops, dev, "v6_mask", tmp / "v6_mask", HEAD_MICRO_STEP, HEAD_EVAL)
+    add(counts)
+    if not isinstance(trainer.model, MaskedLMModel):
+        fail("v6_mask did not build a MaskedLMModel")
+    check_gradients(torch, trainer.step_fn, batch, "v6_mask, one micro-step")
+    trainer.close()
+    del trainer, batch
+    torch.cuda.empty_cache()
+    timestamp("v6_mask")
+
+    # 3. v7: CM3PModel with the decoder head, unpacked, with metadata variations
+    trainer, counts, batch = head_trainer(torch, ops, dev, "v7", tmp / "v7", V7_MICRO_STEP, V7_EVAL)
+    add(counts)
+    model = trainer.model
+    if not (isinstance(model, CM3PModel) and model.config.has_decoder_head):
+        fail("v7 did not build a CM3PModel with the decoder head")
+    check_gradients(torch, trainer.step_fn, batch, "v7, one micro-step")
+    # forward_packed with the decoder head on phase 6's packed batch, labels from its own ids
+    pb = to_device(packed_batch, dev, packed=True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pick = (torch.rand(pb["input_ids"].shape, generator=gen, device=dev) < 0.15) & (pb["segment_ids"] > 0)
+    labels = torch.where(pick, pb["input_ids"], torch.full_like(pb["input_ids"], -100))
+    model.eval()
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        out = model.forward_packed(**pb, labels=labels)
+        torch.cuda.synchronize()
+        add(expect_counts(ops, "forward_packed with the decoder head", 1,
+                          {"window_attention": 14, "segment_attention": 8 + 6, "fused_ln_ffn": 22 + 6}))
+        contrastive = model.forward_packed(**pb).loss
+        ce = cross_entropy_ignore_index(out.logits, labels)
+    want = float(contrastive) + 0.5 * float(ce)
+    log(f"  forward_packed with the decoder head: logits {tuple(out.logits.shape)} {out.logits.dtype}, "
+        f"{int(pick.sum())} labels; loss {float(out.loss):.6f} = contrastive {float(contrastive):.6f} + 0.5 x CE "
+        f"{float(ce):.6f} ({want:.6f})")
+    if not (math.isfinite(float(out.loss)) and abs(float(out.loss) - want) <= 1e-5 * abs(want)):
+        fail("forward_packed: the loss is not contrastive + 0.5 x the decoder's cross entropy")
+    del out, pb, labels, pick, model, batch
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    timestamp("v7")
+
+    # 4. v7_classifier from_pretrained the v7 run's bundle, allow_missing
+    v7_dir = tmp / "v7" / "model"
+    from cm3p_torch.train.__main__ import CONFIG_DIR, build_model, build_processor, model_config
+    from cm3p_torch.utils.config import load_config
+
+    args = load_config(CONFIG_DIR, "v7_classifier", ["dataset.synthetic=true"])
+    cfg = model_config(args, build_processor(args))
+    clf = build_model(args, cfg, dev, seed=0)
+    seeded = {k: v.clone() for k, v in clf.state_dict().items() if k.startswith("classifier.")}
+    info = from_pretrained(clf, v7_dir, allow_missing=True)
+    _, v7_model = load_pretrained(v7_dir, device=dev, dtype=torch.float32)
+    source = v7_model.state_dict()
+    same_tower = all(torch.equal(v, source[k]) for k, v in clf.state_dict().items() if not k.startswith("classifier."))
+    fresh = all(torch.equal(clf.state_dict()[k], v) for k, v in seeded.items())
+    log(f"  v7_classifier from_pretrained {v7_dir.name}: {len(info['loaded'])} loaded, missing {info['missing']}, "
+        f"{len(info['ignored'])} ignored; tower equal to the bundle's {same_tower}, classifier as seeded {fresh}")
+    if not (same_tower and fresh and info["missing"] == ["classifier.bias", "classifier.weight"]):
+        fail("v7_classifier: from_pretrained did not carry the tower and keep the seeded classifier")
+    del clf, v7_model, source
+    trainer, counts, _ = head_trainer(torch, ops, dev, "v7_classifier", tmp / "v7_classifier", HEAD_MICRO_STEP,
+                                      HEAD_EVAL, extra=(f"from_pretrained={v7_dir}",))
+    add(counts)
+    if not isinstance(trainer.model, ClassifierModel):
+        fail("v7_classifier did not build a ClassifierModel")
+    timestamp("v7_classifier")
+
+    # 5. flat bundles: the MLM of step 1 and the classifier of step 4 through save_pretrained / load_pretrained
+    clf = trainer.model.eval()
+    trainer.close()
+    clf_proc = CM3PProcessor.from_pretrained(tmp / "v7_classifier" / "model")
+    for label, model, mproc, arch in (("MaskedLMModel", mlm, proc, "CM3PForMaskedLM"),
+                                      ("ClassifierModel", clf, clf_proc, "CM3PForBeatmapClassification")):
+        out_dir = tmp / f"flat_{label}"
+        t0 = time.perf_counter()
+        save_pretrained(model, out_dir, processor=mproc)
+        fp32_masters = next(model.parameters()).dtype == torch.float32
+        _, loaded = load_pretrained(out_dir, device=dev, dtype=torch.float32 if fp32_masters else torch.bfloat16)
+        if fp32_masters:  # the trained model: fp32 masters, bf16 compute
+            loaded.set_compute_dtype(model.encoders()[0].compute_dtype)
+        inputs = mproc(beatmap=bundled)
+        ids = torch.as_tensor(np.asarray(inputs["input_ids"])[:2], dtype=torch.int64, device=dev)
+        amask = torch.as_tensor(np.asarray(inputs["attention_mask"])[:2], device=dev)
+        with torch.no_grad():
+            a = model(ids, attention_mask=amask).logits
+            b = loaded(ids, attention_mask=amask).logits
+        written = json.loads((out_dir / "config.json").read_text())["architectures"]
+        equal = type(loaded) is type(model) and torch.equal(a, b)
+        log(f"  flat bundle {label}: save + load {time.perf_counter() - t0:.1f} s, architectures {written}, "
+            f"logits {tuple(a.shape)} bit-equal after the round trip: {equal}")
+        if written != [arch] or not equal:
+            fail(f"flat bundle {label}: the round trip changed the model")
+        del loaded
+    del clf, trainer, mlm
+    torch.cuda.empty_cache()
+    timestamp("flat bundles")
+
+    # 6. zero_shot_classify with the v7 run's bundle (its processor) against 4 candidates
+    zproc, zmodel = load_pretrained(v7_dir, device=dev)
+    ops.reset_launch_counts()
+    scores = zero_shot_classify(zmodel, zproc, bundled, ZERO_SHOT_CANDIDATES, device=dev)
+    torch.cuda.synchronize()
+    n_windows = scores.shape[0]
+    add(expect_counts(ops, "zero_shot_classify (no audio)", 1,
+                      {"window_attention": 14, "segment_attention": 8 + 6, "fused_ln_ffn": 22 + 6}))
+    zmodel.set_plain(True)
+    ref = zero_shot_classify(zmodel, zproc, bundled, ZERO_SHOT_CANDIDATES, device=dev)
+    zmodel.set_plain(False)
+    cos = cosines(torch.as_tensor(scores), torch.as_tensor(ref))
+    log(f"  zero_shot_classify: logits {scores.shape} {scores.dtype}, per-window cosine to the all-plain path min "
+        f"{cos.min():.6f} (need >= {HEADS_COS_MIN}); argmax agreement "
+        f"{float((scores.argmax(1) == ref.argmax(1)).mean()):.4f}")
+    if scores.shape != (n_windows, 4) or scores.dtype != np.float32 or not np.isfinite(scores).all():
+        fail("zero_shot_classify: not fp32 (windows, 4) finite logits")
+    if not bool((cos >= HEADS_COS_MIN).all()):
+        fail("zero_shot_classify: kernel path and plain path disagree")
+    del zmodel
+    timestamp("zero-shot")
+
+    # 7. extraction of a checkpoint with a decoder head: the embeddings of the same tower without it, no vocab product
+    proc8 = CM3PProcessor.from_pretrained(bundle_dir / "model")
+    proc8.default_kwargs["beatmap_kwargs"].update(WINDOW_KW)
+    hcfg = CM3PConfig(has_decoder_head=True)
+    hcfg.beatmap_config.vocab_size, hcfg.beatmap_config.audio_token_id = tok.vocab_size, tok.audio_token_id
+    head_model = CM3PModel(hcfg)
+    head_model.load_state_dict(init_weights(hcfg, torch.Generator(device=dev).manual_seed(0), with_metadata=True))
+    save_pretrained(head_model, tmp / "with_head", processor=proc8)
+    del head_model
+    _, with_head = load_pretrained(tmp / "with_head", device=dev)
+    _, headless = load_pretrained(bundle_dir / "model", device=dev)
+    if not (isinstance(with_head, CM3PModel) and with_head.config.has_decoder_head):
+        fail("the bundle with a decoder head did not load as a CM3PModel with its head")
+    head_state, plain_state = with_head.state_dict(), headless.state_dict()
+    same = all(torch.equal(head_state[k], v) for k, v in plain_state.items())
+    from torch.profiler import ProfilerActivity, profile
+
+    windows_h, windows_p = {}, {}
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        extract_embeddings(with_head, proc8, samples, device=dev, windows_out=windows_h)
+        torch.cuda.synchronize()
+    add(ops.launch_counts())
+    extract_embeddings(headless, proc8, samples, device=dev, windows_out=windows_p)
+    vocab = hcfg.beatmap_config.vocab_size
+    vocab_ops = vocab_products(prof, vocab)
+    # the control: a forward that runs the head shows its product in the same kind of profile
+    inputs = proc8(beatmap=bundled)
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as ctl:
+        with_head(torch.as_tensor(np.asarray(inputs["input_ids"])[:1], dtype=torch.int64, device=dev),
+                  attention_mask=torch.as_tensor(np.asarray(inputs["attention_mask"])[:1], device=dev))
+        torch.cuda.synchronize()
+    control = vocab_products(ctl, vocab)
+    equal = sorted(windows_h) == sorted(windows_p) and all(np.array_equal(windows_h[k], windows_p[k])
+                                                            for k in windows_p)
+    n = sum(len(v) for v in windows_h.values())
+    log(f"  extraction of a checkpoint with a decoder head ({len(head_state)} tensors, the tower's {len(plain_state)} "
+        f"equal to phase 8's bundle: {same}): {n} windows, embeddings bit-equal to the headless model's: {equal}; "
+        f"products with a {vocab}-wide operand in the profile: {vocab_ops or 'none'} (a forward with the head: "
+        f"{control})")
+    if not (same and equal and n == len(samples)) or vocab_ops or not control:
+        fail("extraction of a checkpoint with a decoder head differs from the headless model, or ran the head")
+    del with_head, headless
+    work.cleanup()
+    torch.cuda.empty_cache()
+    timestamp("extraction with a decoder head")
+    log(f"  phase 11 launches: { {k: v for k, v in total.items() if v} }")
+    return total
+
+
+
 def corpus_windows(proc):
     """The bundled map and the 16 corpus maps through the processor with seeded waveforms: (map paths,
     each window's token ids without padding, the windows' mel features, each map's waveform)."""
@@ -2531,7 +2899,8 @@ def main() -> int:
     log("[8] extraction: save_pretrained -> load_pretrained -> extract_embeddings, full-width CM3PConfig")
     bundle = tempfile.TemporaryDirectory()  # the saved model and the map folders, read again by phase 10
     tmp = bundle.name
-    for kname, n in extract_slice(torch, ops, dev, maps, waves, exact, tmp).items():
+    counts8, samples8 = extract_slice(torch, ops, dev, maps, waves, exact, tmp)
+    for kname, n in counts8.items():
         main_counts[kname] += n
     check_tiny_extract(Path(tmp) / "maps", tmp)
 
@@ -2560,8 +2929,16 @@ def main() -> int:
         kernels.append((kname, *row))
     for kname, n in extract_fp32_slice(torch, ops, dev, bundle.name).items():
         main_counts[kname] += n
-    bundle.cleanup()
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11. the heads: masked-LM and classifier models, the decoder head, the inference API
+    log("[11] heads: masked_predict, v6_mask / v7 / v7_classifier training, flat bundles, zero-shot, "
+        "extraction of a checkpoint with a decoder head")
+    t0 = time.perf_counter()
+    for kname, n in heads_slice(torch, ops, dev, bundled, train_batch, Path(bundle.name), samples8).items():
+        main_counts[kname] += n
+    bundle.cleanup()
+    log(f"  phase 11: {time.perf_counter() - t0:.1f} s (budget {HEADS_BUDGET_S} s)")
 
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:

@@ -5,11 +5,22 @@ Counterpart of the JAX package's ``models/cm3p.py``: ``MultiModalProjector``,
 ``_packed_hidden``, ``_pool_packed``, ``l2_normalize``,
 ``_similarity_logits``, ``contrastive_loss``, ``cm3p_loss`` and
 ``CM3PModule`` (:class:`CM3PModel`: ``get_metadata_features`` with
-``meta_pack``, ``forward_packed`` and the unpacked ``forward``).
+``meta_pack``, ``forward_packed`` and the unpacked ``forward``, with the MLM
+decoder head under ``has_decoder_head``), ``cross_entropy_ignore_index``,
+``PredictionHead`` and the single-tower models ``BeatmapModelWithProjection``,
+``MetadataModelWithProjection``, ``MaskedLMModule`` (:class:`MaskedLMModel`)
+and ``ClassifierModule`` (:class:`ClassifierModel`).
 :class:`CM3PBeatmapModel` is the beatmap tower with its projection alone, the
 extraction model. Module paths follow the HF state-dict keys
 (``beatmap_model.audio_encoder.conv1.weight``, ``beatmap_projection.weight``,
-``metadata_model.encoder.layers.0.attn.Wqkv.weight``, ``logit_scale``).
+``metadata_model.encoder.layers.0.attn.Wqkv.weight``, ``logit_scale``,
+``head.dense.weight``, ``head.norm.weight``, ``decoder.weight`` / ``.bias``,
+``classifier.weight`` / ``.bias``). A tied MLM decoder's weight is the beatmap
+token table; its bias is ``decoder.bias`` (``decoder_bias`` in the JAX tree).
+
+The heads' products are ``nn.Linear`` layers (or the tied table's product)
+through cuBLAS, as they are plain ``nn.Dense`` layers outside any kernel in the
+JAX package; the towers under them run the kernels as everywhere else.
 """
 from __future__ import annotations
 
@@ -22,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import AudioConfig, BeatmapConfig, CM3PConfig, MetadataConfig
-from .modernbert import EncoderOptions, ModernBertEncoder, linear, pool_hidden
+from .modernbert import EncoderOptions, LayerNormF32, ModernBertEncoder, linear, pool_hidden
 
 # the projector's activations, as the JAX package's ``ACTIVATIONS``
 ACTIVATIONS = {
@@ -52,6 +63,60 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     # eps inside the sqrt, as the JAX package: zero vectors stay finite
     nsq = x.float().square().sum(dim=-1, keepdim=True)
     return (x / torch.sqrt(nsq + eps * eps).to(x.dtype)).to(x.dtype)
+
+
+def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """flax ``nn.Dense`` in x's dtype: weight and bias cast at use."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+class _CrossEntropyIgnoreIndex(torch.autograd.Function):
+    """The loss in fp32 over logits of any dtype, holding no fp32 copy of them for the backward:
+    it keeps the logits as given and each row's fp32 log-sum-exp, and remakes the softmax from them."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, ignore_index):
+        flat = logits.reshape(-1, logits.shape[-1])
+        labels = labels.reshape(-1)
+        valid = labels != ignore_index
+        safe = torch.where(valid, labels, torch.zeros_like(labels))
+        lse = torch.logsumexp(flat.float(), dim=-1)
+        nll = torch.where(valid, lse - flat.gather(1, safe[:, None])[:, 0].float(), torch.zeros_like(lse))
+        count = valid.sum().clamp_min(1)
+        ctx.save_for_backward(logits, safe, valid, lse, count)
+        return nll.sum() / count
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, safe, valid, lse, count = ctx.saved_tensors
+        flat = logits.reshape(-1, logits.shape[-1])
+        g = torch.exp(flat.float() - lse[:, None])
+        g.scatter_add_(1, safe[:, None], -torch.ones_like(lse)[:, None])
+        g.mul_((valid.float() * (grad / count))[:, None])
+        return g.to(logits.dtype).reshape(logits.shape), None, None
+
+
+def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
+    """Token-level cross entropy in fp32, the mean over labels that are not ``ignore_index``
+    (divided by max(count, 1): all ignored gives 0)."""
+    return _CrossEntropyIgnoreIndex.apply(logits, labels.to(torch.int64), int(ignore_index))
+
+
+class PredictionHead(nn.Module):
+    """Dense(hidden) -> ``classifier_activation`` -> fp32 LayerNorm: the MLM and decoder head."""
+
+    def __init__(self, config: BeatmapConfig):
+        super().__init__()
+        if config.classifier_activation not in ACTIVATIONS:
+            raise ValueError(f"unknown classifier_activation {config.classifier_activation!r}; "
+                             f"the port has {sorted(ACTIVATIONS)}")
+        self.act = ACTIVATIONS[config.classifier_activation]
+        self.dense = nn.Linear(config.hidden_size, config.hidden_size, bias=config.classifier_bias)
+        self.norm = LayerNormF32(config.hidden_size, config.norm_eps, config.norm_bias)
+
+    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
+        return self.norm(self.act(dense(hidden, self.dense)))
 
 
 def _pool_packed(hidden, segment_ids, window_rows, window_segments, cls_embed: bool):
@@ -144,7 +209,29 @@ class BeatmapTransformer(nn.Module):
         )
 
 
-class CM3PBeatmapModel(nn.Module):
+class TowerModel(nn.Module):
+    """What every model of the family sets on all of its encoders (:meth:`encoders`)."""
+
+    def encoders(self) -> list[ModernBertEncoder]:
+        raise NotImplementedError
+
+    def set_plain(self, plain: bool) -> None:
+        """Route every attention and FFN call to its plain version (the oracle)."""
+        for enc in self.encoders():
+            enc.plain = plain
+
+    def set_options(self, options: EncoderOptions) -> None:
+        """Extraction options (W8A8, fused LN-matmul routes) of every tower."""
+        for enc in self.encoders():
+            enc.set_options(options)
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        """Activation dtype of every tower (flax ``dtype``); parameters keep theirs."""
+        for enc in self.encoders():
+            enc.compute_dtype = dtype
+
+
+class CM3PBeatmapModel(TowerModel):
     """The beatmap tower of CM3P with its projection: beatmap embeddings.
 
     ``beatmap_model`` and ``beatmap_projection`` carry the same names as in the
@@ -166,21 +253,6 @@ class CM3PBeatmapModel(nn.Module):
     def encoders(self) -> list[ModernBertEncoder]:
         bm = self.beatmap_model
         return [bm.encoder, bm.audio_encoder.encoder]
-
-    def set_plain(self, plain: bool) -> None:
-        """Route every attention and FFN call to its plain version (the oracle)."""
-        for enc in self.encoders():
-            enc.plain = plain
-
-    def set_options(self, options: EncoderOptions) -> None:
-        """Extraction options (W8A8, fused LN-matmul routes) of every tower."""
-        for enc in self.encoders():
-            enc.set_options(options)
-
-    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
-        """Activation dtype of every tower (flax ``dtype``); parameters keep theirs."""
-        for enc in self.encoders():
-            enc.compute_dtype = dtype
 
     def get_beatmap_features(self, input_ids, input_features=None, attention_mask=None, normalize: bool = False):
         hidden = self.beatmap_model(
@@ -296,6 +368,7 @@ class CM3POutput(NamedTuple):
     logits_per_metadata: Optional[torch.Tensor] = None
     metadata_embeds: Optional[torch.Tensor] = None
     beatmap_embeds: Optional[torch.Tensor] = None
+    logits: Optional[torch.Tensor] = None
 
 
 class MetadataTransformer(nn.Module):
@@ -311,19 +384,23 @@ class CM3PModel(CM3PBeatmapModel):
 
     ``meta_pack`` packs that many metadata sequences per encoder row (0/1 =
     off) with block-diagonal segments and restarting positions: the same
-    attention, in fewer, longer rows. The decoder head (``has_decoder_head``)
-    is not ported yet.
+    attention, in fewer, longer rows. With ``has_decoder_head`` the beatmap
+    tower's hidden states also go through ``head`` and an untied ``decoder``
+    to vocabulary logits (``forward`` and ``forward_packed`` only: the feature
+    methods never call it); with ``labels`` the loss adds 0.5 x their cross
+    entropy (ignore index -100).
     """
 
     def __init__(self, config: CM3PConfig, meta_pack: int = 0, sp_group=None):
         super().__init__(config, sp_group)
-        if config.has_decoder_head:
-            raise NotImplementedError("the port has no decoder head yet")
-        mc = config.metadata_config
+        mc, bc = config.metadata_config, config.beatmap_config
         self.meta_pack = int(meta_pack)
         self.metadata_model = MetadataTransformer(mc)
         self.metadata_projection = nn.Linear(mc.hidden_size, config.projection_dim, bias=False)
         self.logit_scale = nn.Parameter(torch.tensor(config.logit_scale_init_value, dtype=torch.float32))
+        if config.has_decoder_head:
+            self.head = PredictionHead(bc)
+            self.decoder = nn.Linear(bc.hidden_size, bc.vocab_size, bias=bc.decoder_bias)
 
     def encoders(self) -> list[ModernBertEncoder]:
         return super().encoders() + [self.metadata_model.encoder]
@@ -375,6 +452,16 @@ class CM3PModel(CM3PBeatmapModel):
             loss = cm3p_loss(logits_per_metadata, classes, valid=valid)
         return CM3POutput(loss, logits_per_beatmap, logits_per_metadata, metadata_embeds, beatmap_embeds)
 
+    def _decode(self, out: CM3POutput, hidden, labels, return_loss) -> CM3POutput:
+        """The decoder head's logits, and 0.5 x their cross entropy added to the loss."""
+        if not self.config.has_decoder_head:
+            return out
+        logits = dense(self.head(hidden), self.decoder)
+        loss = out.loss
+        if labels is not None and return_loss:
+            loss = loss + 0.5 * cross_entropy_ignore_index(logits, labels)
+        return out._replace(loss=loss, logits=logits)
+
     def forward_packed(
         self,
         input_ids,
@@ -386,12 +473,14 @@ class CM3PModel(CM3PBeatmapModel):
         metadata_ids=None,
         metadata_attention_mask=None,
         metadata_variation_classes=None,
+        labels=None,
         return_loss: bool = True,
     ) -> CM3POutput:
         """Contrastive step over windows packed into rows (``packed_batches``).
 
         Windows are padded to a fixed count; ``window_valid`` marks the real
-        ones, and dummy slots are excluded from the loss.
+        ones, and dummy slots are excluded from the loss. ``labels`` (rows, L)
+        are the decoder head's, per packed position.
         """
         window_rows = window_rows.to(torch.int64)
         window_segments = window_segments.to(torch.int64)
@@ -400,10 +489,11 @@ class CM3PModel(CM3PBeatmapModel):
         )
         pooled = _pool_packed(hidden, segment_ids, window_rows, window_segments, self.config.beatmap_config.cls_embed)
         beatmap_embeds = l2_normalize(linear(pooled, self.beatmap_projection.weight))
-        return self._contrast(
+        out = self._contrast(
             beatmap_embeds, metadata_ids, metadata_attention_mask, metadata_variation_classes,
             window_valid.to(torch.float32), return_loss,
         )
+        return self._decode(out, hidden, labels, return_loss)
 
     def forward(
         self,
@@ -413,12 +503,162 @@ class CM3PModel(CM3PBeatmapModel):
         attention_mask=None,
         metadata_attention_mask=None,
         metadata_variation_classes=None,
+        labels=None,
         return_loss: bool = True,
     ) -> CM3POutput:
         """The unpacked contrastive forward (``CM3PModule.__call__``)."""
-        beatmap_embeds = self.get_beatmap_features(
-            input_ids, input_features=input_features, attention_mask=attention_mask, normalize=True
+        hidden = self.beatmap_model(
+            input_ids, input_features=input_features, attention_mask=attention_mask, sp_group=self.sp_group
         )
-        return self._contrast(
+        pooled = pool_hidden(hidden, attention_mask, self.config.beatmap_config.cls_embed)
+        beatmap_embeds = l2_normalize(linear(pooled, self.beatmap_projection.weight))
+        out = self._contrast(
             beatmap_embeds, metadata_ids, metadata_attention_mask, metadata_variation_classes, None, return_loss
         )
+        return self._decode(out, hidden, labels, return_loss)
+
+
+# --------------------------------------------------------------------- single-tower models
+
+
+class BeatmapModelWithProjection(CM3PBeatmapModel):
+    """``BeatmapModelWithProjection``: the beatmap tower and its projection, built from a flat
+    ``BeatmapConfig`` (its own ``projection_dim``); calling it gives the beatmap features."""
+
+    def __init__(self, config: BeatmapConfig):
+        super().__init__(CM3PConfig(beatmap_config=config, projection_dim=config.projection_dim,
+                                    initializer_factor=config.initializer_factor))
+
+    def forward(self, input_ids, input_features=None, attention_mask=None, normalize: bool = False):
+        return self.get_beatmap_features(input_ids, input_features, attention_mask, normalize=normalize)
+
+
+class MetadataModelWithProjection(TowerModel):
+    """``MetadataModelWithProjection``: the metadata tower and its projection from a ``MetadataConfig``."""
+
+    def __init__(self, config: MetadataConfig):
+        super().__init__()
+        self.config = config
+        self.metadata_model = MetadataTransformer(config)
+        self.metadata_projection = nn.Linear(config.hidden_size, config.projection_dim, bias=False)
+
+    def encoders(self) -> list[ModernBertEncoder]:
+        return [self.metadata_model.encoder]
+
+    def forward(self, input_ids, attention_mask=None, normalize: bool = False):
+        hidden = self.metadata_model.encoder(input_ids=input_ids, attention_mask=attention_mask)
+        pooled = pool_hidden(hidden, attention_mask, self.config.cls_embed)
+        feats = linear(pooled, self.metadata_projection.weight)
+        return l2_normalize(feats) if normalize else feats
+
+
+class _BeatmapTowerModel(TowerModel):
+    """A flat ``BeatmapConfig`` model: the beatmap tower (``beatmap_model``) under a head."""
+
+    def __init__(self, config: BeatmapConfig):
+        super().__init__()
+        self.config = config
+        self.beatmap_model = BeatmapTransformer(config)
+
+    def encoders(self) -> list[ModernBertEncoder]:
+        bm = self.beatmap_model
+        return [bm.encoder, bm.audio_encoder.encoder]
+
+
+class MaskedLMOutput(NamedTuple):
+    loss: Optional[torch.Tensor] = None
+    logits: Optional[torch.Tensor] = None
+
+
+class TiedDecoder(nn.Module):
+    """The tied decoder's own parameter, its bias (``decoder.bias``; ``decoder_bias`` in the JAX
+    tree): the weight is the beatmap token table."""
+
+    def __init__(self, vocab_size: int, bias: bool):
+        super().__init__()
+        self.bias = nn.Parameter(torch.zeros(vocab_size)) if bias else None
+
+
+class MaskedLMModel(_BeatmapTowerModel):
+    """``MaskedLMModule``: beatmap tower -> :class:`PredictionHead` -> vocabulary decoder.
+
+    Untied (the default): ``decoder`` is an ``nn.Linear``. Tied
+    (``tie_word_embeddings``): the logits are ``h @ table.T`` with the beatmap
+    token table (whose gradient then takes both uses) plus :class:`TiedDecoder`'s
+    bias. With ``sparse_prediction`` and ``labels`` only a static budget of
+    ``max(1, int(N * 0.3))`` of the N positions is decoded: the masked ones in
+    index order, then unmasked ones in index order up to the budget (the order of
+    ``jax.lax.top_k`` over the mask flags; a stable descending sort here), those
+    labelled ``sparse_pred_ignore_index``. Both losses ignore that index.
+    """
+
+    def __init__(self, config: BeatmapConfig):
+        super().__init__(config)
+        self.head = PredictionHead(config)
+        if config.tie_word_embeddings:
+            self.decoder = TiedDecoder(config.vocab_size, config.decoder_bias)
+        else:
+            self.decoder = nn.Linear(config.hidden_size, config.vocab_size, bias=config.decoder_bias)
+
+    def decode(self, h: torch.Tensor) -> torch.Tensor:
+        if not self.config.tie_word_embeddings:
+            return dense(h, self.decoder)
+        table = self.beatmap_model.encoder.embeddings.tok_embeddings.weight
+        logits = h @ table.t().to(h.dtype)
+        bias = self.decoder.bias
+        return logits if bias is None else logits + bias.to(h.dtype)
+
+    def forward(self, input_ids, input_features=None, attention_mask=None, labels=None) -> MaskedLMOutput:
+        hidden = self.beatmap_model(input_ids, input_features=input_features, attention_mask=attention_mask)
+        ignore = self.config.sparse_pred_ignore_index
+        if self.config.sparse_prediction and labels is not None:
+            flat_h = hidden.reshape(-1, hidden.shape[-1])
+            flat_labels = labels.reshape(-1)
+            is_masked = flat_labels != ignore
+            budget = max(1, int(flat_labels.shape[0] * 0.3))
+            idx = torch.sort(is_masked.to(torch.int32), descending=True, stable=True).indices[:budget]
+            sel_labels = torch.where(is_masked[idx], flat_labels[idx], torch.full_like(flat_labels[idx], ignore))
+            logits = self.decode(self.head(flat_h[idx]))
+            return MaskedLMOutput(cross_entropy_ignore_index(logits, sel_labels, ignore), logits)
+        logits = self.decode(self.head(hidden))
+        loss = None if labels is None else cross_entropy_ignore_index(logits, labels, ignore)
+        return MaskedLMOutput(loss, logits)
+
+
+class ClassifierOutput(NamedTuple):
+    loss: Optional[torch.Tensor] = None
+    logits: Optional[torch.Tensor] = None
+
+
+def classification_loss(logits, labels, num_labels: int, problem_type: Optional[str]) -> torch.Tensor:
+    """``ClassifierModule``'s loss; ``problem_type`` None is inferred from ``num_labels`` and the labels' dtype."""
+    if problem_type is None:
+        if num_labels == 1:
+            problem_type = "regression"
+        elif not (labels.is_floating_point() or labels.is_complex() or labels.dtype == torch.bool):
+            problem_type = "single_label_classification"
+        else:
+            problem_type = "multi_label_classification"
+    if problem_type == "regression":
+        return (logits.squeeze().float() - labels.squeeze()).square().mean()
+    if problem_type == "single_label_classification":
+        logprobs = torch.log_softmax(logits.float(), dim=-1)
+        return -logprobs.gather(-1, labels[:, None].to(torch.int64)).mean()
+    logits32 = logits.float()
+    return (logits32.clamp_min(0) - logits32 * labels + torch.log1p(torch.exp(-logits32.abs()))).mean()
+
+
+class ClassifierModel(_BeatmapTowerModel):
+    """``ClassifierModule``: the pooled beatmap tower -> ``nn.Linear(num_labels)``, with
+    :func:`classification_loss` when ``labels`` are given."""
+
+    def __init__(self, config: BeatmapConfig):
+        super().__init__(config)
+        self.classifier = nn.Linear(config.hidden_size, config.num_labels)
+
+    def forward(self, input_ids, input_features=None, attention_mask=None, labels=None) -> ClassifierOutput:
+        cfg = self.config
+        hidden = self.beatmap_model(input_ids, input_features=input_features, attention_mask=attention_mask)
+        logits = dense(pool_hidden(hidden, attention_mask, cfg.cls_embed), self.classifier)
+        loss = None if labels is None else classification_loss(logits, labels, cfg.num_labels, cfg.problem_type)
+        return ClassifierOutput(loss, logits)

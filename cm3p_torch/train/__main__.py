@@ -1,25 +1,34 @@
-"""Contrastive training from the composed YAML config: the port's ``train.py``.
+"""Training from the composed YAML config: the port's ``train.py``.
 
     python -m cm3p_torch.train --config-name v8_packed --beatmap-files resources --beatmap-files resources/perf_corpus
     python -m cm3p_torch.train --config-name smoke --device cpu      # synthetic data, tiny model
+    python -m cm3p_torch.train --config-name v6_mask dataset.synthetic=true    # masked LM, synthetic labels
 
 Builds the processor, the model (seeded fp32 master weights; bf16 compute on
 the GPU, fp32 on the CPU), the optimizer (Muon + AdamW, or AdamW) and the
 batch source from ``configs/train/<name>.yaml`` with ``a.b=c`` overrides,
 then runs :class:`~cm3p_torch.train.trainer.Trainer` and a final evaluation.
+``model_cls`` keeps the JAX names: ``CM3PModule`` (:class:`CM3PModel`, with
+the decoder head under ``model.has_decoder_head``), ``MaskedLMModule``
+(:class:`MaskedLMModel`) and ``ClassifierModule`` (:class:`ClassifierModel`),
+the last two on ``model.beatmap_config``. ``from_pretrained`` (a local
+HF-layout directory, such as an earlier run's ``<output_dir>/model``)
+initialises the parameters it holds (:func:`~cm3p_torch.train.trainer.from_pretrained`;
+``from_pretrained_allow_missing`` lets the rest keep their seeded values).
 The final model goes to ``<output_dir>/model`` in the layout
 :func:`~cm3p_torch.inference.load_pretrained` reads (``model.safetensors``,
 the HF ``config.json`` and the processor's files); periodic checkpoints stay
 ``torch.save`` files under ``checkpoints/``.
-Batches are synthetic (``dataset.synthetic``) or come from local ``.osu``
-files (``--beatmap-files``: files or directories of them), processed with
-generated metadata and packed when ``training.packed`` is set. Runs on
-``cuda`` unless ``--device cpu``; without a GPU it raises unless asked for
-the CPU.
+Batches are synthetic (``dataset.synthetic``; with ``labels`` for
+``dataset.labels`` ``masked_lm`` and ``ranked_classification``) or come from
+local ``.osu`` files (``--beatmap-files``: files or directories of them),
+processed with generated metadata and packed when ``training.packed`` is set
+(``CM3PModule`` only). Runs on ``cuda`` unless ``--device cpu``; without a
+GPU it raises unless asked for the CPU.
 
-Not ported yet: the MMRS dataset loader, audio from beatmap folders,
-``from_pretrained``, freezing, the MLM and classifier heads, multi-device
-training and rematerialisation (``remat`` is ignored with a warning).
+Not ported yet: the MMRS dataset loader (and with it labels for batches from
+``.osu`` files), audio from beatmap folders, freezing, multi-device training
+and rematerialisation (``remat`` is ignored with a warning).
 """
 from __future__ import annotations
 
@@ -40,13 +49,13 @@ from ..configs import BeatmapConfig, CM3PConfig, MetadataConfig
 from ..data import packed_batches
 from ..inference import resolve_device, save_pretrained
 from ..interop import init_weights
-from ..models import CM3PModel
+from ..models import ClassifierModel, CM3PModel, MaskedLMModel, TowerModel
 from ..processing import CM3PProcessor
 from ..tokenize import BeatmapTokenizer, MetadataTokenizer
 from ..utils.config import load_config
 from .muon import MuonAdamW, flax_layouts
 from .step import lr_schedule
-from .trainer import Trainer
+from .trainer import Trainer, from_pretrained
 
 logger = logging.getLogger(__name__)
 
@@ -96,17 +105,28 @@ def model_config(args: dict, processor: CM3PProcessor) -> CM3PConfig:
     return cfg
 
 
-def build_model(args: dict, cfg: CM3PConfig, device: torch.device, seed: int) -> CM3PModel:
-    """Seeded fp32 master weights on ``device``; bf16 compute unless on the CPU; the plain
-    versions of every op with ``attn_impl: xla`` (the smoke configs: no kernel takes their
-    head dims), else the kernels, which raise on a shape or dtype they do not take."""
-    if args.get("model_cls", "CM3PModule") != "CM3PModule":
-        raise NotImplementedError(f"the port trains the contrastive model only, not {args['model_cls']}")
+MODEL_CLASSES = ("CM3PModule", "MaskedLMModule", "ClassifierModule")
+
+
+def build_model(args: dict, cfg: CM3PConfig, device: torch.device, seed: int) -> TowerModel:
+    """``model_cls``'s model with seeded fp32 master weights on ``device``; bf16 compute unless on
+    the CPU; the plain versions of every op with ``attn_impl: xla`` (the smoke configs: no kernel takes
+    their head dims), else the kernels, which raise on a shape or dtype they do not take."""
+    model_cls = args.get("model_cls", "CM3PModule")
+    if model_cls not in MODEL_CLASSES:
+        raise ValueError(f"model_cls must be one of {MODEL_CLASSES}, not {model_cls!r}")
     if args.get("remat"):
         logger.warning("remat=%s: the port has no rematerialisation; training without it", args["remat"])
-    model = CM3PModel(cfg, meta_pack=int(args.get("meta_pack", 0)))
     gen = torch.Generator(device=device).manual_seed(seed)
-    model.load_state_dict(init_weights(cfg, gen, with_metadata=True))
+    bc = cfg.beatmap_config
+    if model_cls == "MaskedLMModule":
+        model, weights = MaskedLMModel(bc), init_weights(bc, gen, head="mlm")
+    elif model_cls == "ClassifierModule":
+        model, weights = ClassifierModel(bc), init_weights(bc, gen, head="classifier")
+    else:
+        model = CM3PModel(cfg, meta_pack=int(args.get("meta_pack", 0)))
+        weights = init_weights(cfg, gen, with_metadata=True)
+    model.load_state_dict(weights)
     model.to(device)
     model.set_compute_dtype(torch.bfloat16 if device.type != "cpu" else torch.float32)
     if args.get("attn_impl", "pallas") == "xla":  # the JAX package's route without its kernels
@@ -134,7 +154,9 @@ def build_optimizer(args: dict, model: torch.nn.Module) -> MuonAdamW:
 
 
 def synthetic_batches(args: dict, cfg: CM3PConfig, test: bool, seed: int = 0):
-    """Random fixed-shape unpacked batches of the processor's contract (``train.py``'s)."""
+    """Random fixed-shape unpacked batches of the processor's contract (``train.py``'s): metadata for
+    ``CM3PModule`` only, ``labels`` for ``dataset.labels`` ``masked_lm`` (15 % of the ids, else -100)
+    and ``ranked_classification`` (0 or 1 per row)."""
     training, dataset = args["training"], args["dataset"]
     bsz = training["per_device_eval_batch_size" if test else "per_device_train_batch_size"]
     kwargs = args["processor"]["default_kwargs"]
@@ -156,13 +178,17 @@ def synthetic_batches(args: dict, cfg: CM3PConfig, test: bool, seed: int = 0):
                 "attention_mask": np.ones((bsz, seq), np.int32),
                 "input_features": rng.standard_normal((bsz, bc.audio_config.n_mels, mel_frames)).astype(np.float32),
             }
-            if dataset["include_metadata"]:
+            if dataset["include_metadata"] and args.get("model_cls", "CM3PModule") == "CM3PModule":
                 mv = max(variations, 1)
                 batch["metadata_ids"] = rng.integers(0, cfg.metadata_config.vocab_size, (bsz, mv, 24)).astype(np.int32)
                 batch["metadata_attention_mask"] = np.ones((bsz, mv, 24), np.int32)
                 classes = np.ones((bsz, mv), np.int32)
                 classes[:, 0] = 0
                 batch["metadata_variation_classes"] = classes
+            if dataset.get("labels") == "masked_lm":
+                batch["labels"] = np.where(rng.random((bsz, seq)) < 0.15, ids, -100).astype(np.int32)
+            elif dataset.get("labels") == "ranked_classification":
+                batch["labels"] = rng.integers(0, 2, (bsz,)).astype(np.int32)
             yield batch
 
     return gen
@@ -189,6 +215,11 @@ def beatmap_file_batches(args: dict, processor: CM3PProcessor, paths: list[str],
     training, dataset = args["training"], args["dataset"]
     if dataset.get("include_audio"):
         raise NotImplementedError("batches from .osu files carry no audio: set dataset.include_audio=false")
+    if dataset.get("labels", "none") != "none":
+        raise NotImplementedError(
+            f"dataset.labels={dataset['labels']!r}: batches from .osu files carry no labels; masked-LM masking and "
+            "ranked-classification labels come with the MMRS dataset loader (ROADMAP.md Queue 1 item 3)"
+        )
     bsz = training["per_device_eval_batch_size" if test else "per_device_train_batch_size"]
     variations = dataset["test_metadata_variations" if test else "train_metadata_variations"]
     dropout = 0.0 if test else dataset.get("metadata_dropout_prob", 0.0)
@@ -250,7 +281,11 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
     processor = build_processor(args)
     cfg = model_config(args, processor)
     model = build_model(args, cfg, device, seed)
+    if args.get("from_pretrained"):
+        from_pretrained(model, args["from_pretrained"], bool(args.get("from_pretrained_allow_missing", False)))
     packed = bool(training.get("packed", False))
+    if packed and args.get("model_cls", "CM3PModule") != "CM3PModule":
+        raise ValueError("training.packed currently supports model_cls=CM3PModule")
     if args["dataset"].get("synthetic"):
         if packed:
             raise NotImplementedError("synthetic batches are unpacked; set training.packed=false")
@@ -279,6 +314,7 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
         save_total_limit=training["save_total_limit"],
         resume=not training.get("overwrite_output_dir", False),
         load_best_model_at_end=training.get("load_best_model_at_end", False),
+        labels_kind=args["dataset"].get("labels", "none"),
     )
     try:
         results = trainer.train()

@@ -1,7 +1,8 @@
 """The training and evaluation steps: the port's counterpart of ``train/train_state.py``.
 
 :class:`TrainStep` is one micro-step of ``make_train_step``: the forward
-(``CM3PModel.forward_packed`` for packed batches, ``forward`` otherwise), the
+(``CM3PModel.forward_packed`` for packed batches, the model's ``forward``
+otherwise: any model of the family, with its ``labels``), the
 loss, the gradients of every trainable parameter, their global norm, and, on
 the last micro-step of an accumulation window, the optimizer step on the mean
 gradient (``optax.MultiSteps``). :func:`eval_step` is the no-grad forward.
@@ -18,11 +19,11 @@ from torch import nn
 
 PACKED_KEYS = (
     "input_ids", "segment_ids", "window_rows", "window_segments", "window_valid", "input_features",
-    "metadata_ids", "metadata_attention_mask", "metadata_variation_classes",
+    "metadata_ids", "metadata_attention_mask", "metadata_variation_classes", "labels",
 )
 UNPACKED_KEYS = (
     "input_ids", "input_features", "metadata_ids", "attention_mask", "metadata_attention_mask",
-    "metadata_variation_classes",
+    "metadata_variation_classes", "labels",
 )
 
 
@@ -40,7 +41,8 @@ def lr_schedule(lr: float, max_steps: int, warmup_steps: int = 0) -> Callable[[i
 
 
 def to_device(batch: dict, device, packed: bool) -> dict:
-    """The model's arguments from a numpy batch: ints as int64, floats as fp32."""
+    """The model's arguments from a numpy batch: ints as int64, floats as fp32 (so integer class
+    labels stay integer and regression labels floating, which the classifier's loss reads)."""
     keys = PACKED_KEYS if packed else UNPACKED_KEYS
     out = {}
     for key in keys:

@@ -5,10 +5,12 @@ device: :class:`~cm3p_torch.train.step.TrainStep` per micro-batch, one
 optimizer step every ``gradient_accumulation_steps`` micro-steps (on the mean
 gradient), a ``train_log.jsonl`` record every ``logging_steps`` optimizer
 steps, evaluation every ``eval_steps`` (zero-shot variation ranking and loss,
-``MetricAccumulator``), checkpoints every ``save_steps`` with
+``MetricAccumulator``; masked-LM or classification accuracy by the
+batches' ``labels_kind``), checkpoints every ``save_steps`` with
 ``save_total_limit`` retention and resume of the latest, and
 ``train_results.json`` / ``eval_results.json`` at the end. Losses stay on the
-device until a log record needs them.
+device until a log record needs them. :func:`from_pretrained` initialises a
+model from a local HF-layout directory (the JAX trainer's ``from_pretrained``).
 """
 from __future__ import annotations
 
@@ -48,6 +50,7 @@ class Trainer:
         save_total_limit: int = 3,
         resume: bool = True,
         load_best_model_at_end: bool = False,
+        labels_kind: str = "none",
     ):
         self.model = model
         self.optimizer = optimizer
@@ -64,6 +67,7 @@ class Trainer:
         self.max_eval_batches = max_eval_batches
         self.resume = resume
         self.load_best_model_at_end = load_best_model_at_end
+        self.labels_kind = labels_kind
         self.step_fn = TrainStep(model, optimizer, packed, self.grad_accum)
         self.ckpt = CheckpointManager(
             str(self.output_dir / "checkpoints"), save_interval_steps=save_steps, max_to_keep=save_total_limit
@@ -168,7 +172,7 @@ class Trainer:
             return next(data_iter), data_iter
 
     def evaluate(self) -> dict:
-        """Loss and zero-shot ranking over at most ``max_eval_batches`` eval batches."""
+        """Loss, zero-shot ranking and the labels' accuracy over at most ``max_eval_batches`` eval batches."""
         acc = MetricAccumulator()
         losses = []
         for i, batch in enumerate(self.eval_iter_factory()):
@@ -177,10 +181,15 @@ class Trainer:
             out = eval_step(self.model, to_device(batch, self.device, self.packed), self.packed)
             if out.loss is not None:
                 losses.append(float(out.loss))
-            if out.logits_per_beatmap is not None and "metadata_variation_classes" in batch:
+            if getattr(out, "logits_per_beatmap", None) is not None and "metadata_variation_classes" in batch:
                 acc.update_zero_shot(
                     out.logits_per_beatmap.float().cpu().numpy(), np.asarray(batch["metadata_variation_classes"])
                 )
+            if "labels" in batch and out.logits is not None:
+                if self.labels_kind == "masked_lm":
+                    acc.update_masked_lm(out.logits.float().cpu().numpy(), np.asarray(batch["labels"]))
+                elif self.labels_kind == "ranked_classification":
+                    acc.update_classification(out.logits.float().cpu().numpy(), np.asarray(batch["labels"]))
         result = acc.result()
         if losses:
             result["loss"] = float(np.mean(losses))
@@ -188,3 +197,39 @@ class Trainer:
 
     def close(self) -> None:
         self._log_file.close()
+
+
+def from_pretrained(model: torch.nn.Module, model_dir, allow_missing: bool = False) -> dict:
+    """Copy the parameters a local HF-layout directory holds into ``model`` (the JAX trainer's
+    ``from_pretrained``): any model of the family from a bundle of any other, by HF name.
+
+    Every parameter of the model must be in the checkpoint unless ``allow_missing``; then the
+    missing ones are logged and keep their values (the staged lineage: an MLM or contrastive run
+    into a classifier), but a checkpoint with no parameter of the model at all raises. Parameters
+    found only in the checkpoint are logged and ignored; a shape mismatch raises. Returns
+    ``{"loaded", "missing", "ignored"}``, lists of names.
+    """
+    from ..inference import read_bundle
+
+    _, state = read_bundle(model_dir)
+    own = model.state_dict()
+    missing = sorted(set(own) - set(state))
+    ignored = sorted(set(state) - set(own))
+    loaded = sorted(set(own) & set(state))
+    if missing:
+        if not allow_missing:
+            raise ValueError(f"from_pretrained is missing params: {missing[:5]}")
+        if not loaded:
+            raise ValueError("from_pretrained: no overlapping params at all")
+        logger.warning("from_pretrained: %d/%d params newly initialized (e.g. %s)", len(missing), len(own), missing[0])
+    if ignored:
+        logger.info("from_pretrained: ignoring %d checkpoint-only params (e.g. %s)", len(ignored), ignored[0])
+    for name in loaded:
+        if tuple(state[name].shape) != tuple(own[name].shape):
+            raise ValueError(f"from_pretrained shape mismatch at {name}: {tuple(state[name].shape)} "
+                             f"vs model {tuple(own[name].shape)}")
+    with torch.no_grad():
+        for name in loaded:
+            own[name].copy_(state[name])
+    logger.info("Initialized params from %s", model_dir)
+    return {"loaded": loaded, "missing": missing, "ignored": ignored}
