@@ -2,6 +2,7 @@
 """Drive the PyTorch port on one NVIDIA GPU: beatmap-embedding extraction and training.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profile-tree DIR   # phase 12's host profile of an older checkout only
 
 Phases (any failure exits non-zero; nothing is skipped):
   1. build   - nvcc builds every kernel of ``cm3p_torch/csrc`` (one process
@@ -170,6 +171,30 @@ Phases (any failure exits non-zero; nothing is skipped):
                bit-equal to the headless model with the same tower, with no
                product of vocabulary width in its profile (a forward with the
                head shows one, as the control).
+
+ 12. host front end - the 17 maps as phase 8's folders (16 kHz float32 WAVE
+               files) copied 8 times under new ids (1,896 windows), and per map a
+               44.1 kHz stereo 16-bit WAVE: ms per map of WAVE decode, decode +
+               resample, parse + lowering, log-mel and the rest of the processor
+               call in one process on the Python and the native route (fails
+               unless all 17 maps and WAVE files go the native way and the
+               native window ids equal the Python path's on this host); then, in
+               setting D at full width over the 17 folders' windows in one order,
+               the full fp32 mel wire, the compact bf16 wire (window embeddings
+               bit-equal to the full wire's), int8 and pcm (cosine >= 0.999 per
+               window to bf16), exact launches, pickled bytes a sample, and
+               ``DeviceLogMel`` on the card within 1e-4 of the host mel with TF32
+               turned on globally; ``SampleLoader`` at 1, 2, 4 and 8 workers (time
+               to the first sample, steady-state windows/s) and the tool
+               (``extract_embeddings`` fed by 4 workers) over the 1,896 windows per
+               wire, and for the int8 wire once more with the loader's int8 queue
+               hop (``int8_ipc``; per-beatmap cosine >= 0.999 to the int8 wire
+               without it): wall and device windows/s, mel bytes a window, every
+               map parsed and decoded natively. Prints every number as one JSON
+               line. ``--profile-tree DIR`` runs only the host profile (stages on
+               the Python route, the loader, the tool with the full fp32 mel) with
+               the ``cm3p_torch`` of an older checkout in DIR, for the column of a
+               tree from before the native paths.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
@@ -2617,9 +2642,398 @@ def heads_slice(torch, ops, dev, bundled, packed_batch, bundle_dir, samples):
 
 
 
-def corpus_windows(proc):
-    """The bundled map and the 16 corpus maps through the processor with seeded waveforms: (map paths,
-    each window's token ids without padding, the windows' mel features, each map's waveform)."""
+# ---------------------------------------------------------------- phase 12
+
+HOST_COPIES = 8  # the 17 map folders copied 8 times (1,896 windows): the loader's steady state
+HOST_WORKERS = (1, 2, 4, 8)
+HOST_RATE = 44100  # the stage profile also decodes 44.1 kHz stereo 16-bit files (resampled to 16 kHz)
+TOOL_WORKERS = 4  # loader workers of the tool runs (phase 8's count)
+
+
+def write_wav_pcm16(path, stereo, rate):
+    """A stereo 16-bit PCM RIFF/WAVE file from (n, 2) floats in [-1, 1)."""
+    import struct
+
+    import numpy as np
+
+    data = (np.clip(stereo, -1.0, 1.0 - 1e-9) * 32768).astype("<i2").tobytes()
+    fmt = struct.pack("<HHIIHH", 1, 2, rate, rate * 4, 4, 16)
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(data)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<I", len(fmt)) + fmt)
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+
+
+def host_folders(maps, waves, root):
+    """Phase 8's map folders (each .osu beside its seeded 16 kHz float32 WAVE) copied ``HOST_COPIES`` times
+    under new beatmap and set ids, so that each copy is a beatmapset of its own and decodes its own audio
+    (the copies' audio files are hard links of one file per map); and per map a seeded 44.1 kHz stereo
+    16-bit WAVE of the same length for the stage profile. Returns (the copy folders, the 44.1 kHz files)."""
+    import numpy as np
+
+    root = Path(root)
+    rng = np.random.default_rng(1)
+    (root / "audio").mkdir(parents=True)
+    copies = [root / f"copy{c}" for c in range(HOST_COPIES)]
+    stereo = []
+    for i, path in enumerate(maps):
+        wav = root / "audio" / f"{i:02d}.wav"
+        write_wav_f32(wav, waves[path])
+        stereo.append(root / "audio" / f"{i:02d}_44k.wav")
+        n = len(waves[path]) * HOST_RATE // 16000
+        write_wav_pcm16(stereo[-1], 0.1 * rng.standard_normal((n, 2)), HOST_RATE)
+        lines = Path(path).read_text(encoding="utf-8").splitlines(keepends=True)
+        for c, copy in enumerate(copies):
+            folder = copy / f"{i:02d}"
+            folder.mkdir(parents=True)
+            out = []
+            for line in lines:
+                if line.startswith("AudioFilename:"):
+                    line = "AudioFilename: audio.wav\n"
+                elif line.startswith(("BeatmapID:", "BeatmapSetID:")):
+                    key, value = line.split(":", 1)
+                    line = f"{key}:{int(value) + c * 10**7}\n"
+                out.append(line)
+            (folder / Path(path).name).write_text("".join(out), encoding="utf-8")
+            os.link(wav, folder / "audio.wav")
+    return copies, stereo
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Sum the seconds spent in each ``(owner, attribute, key)`` callable while the block runs."""
+    sums = {key: 0.0 for _, _, key in targets}
+    saved = []
+    for owner, attr, key in targets:
+        raw = vars(owner).get(attr, saved)  # ``saved`` marks an attribute the owner's class provides
+        orig = getattr(owner, attr)
+
+        def wrapper(*args, _orig=orig, _key=key, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _orig(*args, **kwargs)
+            finally:
+                sums[_key] += time.perf_counter() - t0
+
+        setattr(owner, attr, wrapper)
+        saved.append((owner, attr, raw))
+    try:
+        yield sums
+    finally:
+        for owner, attr, raw in reversed(saved):
+            if raw is saved:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, raw)
+
+
+def stage_profile(proc, folders, stereo):
+    """ms per map of each host stage over the map folders, in this process, on the processor's route
+    (``proc.native``): WAVE decode (16 kHz float32, the folders' files) and decode + downmix + resample
+    (44.1 kHz stereo 16-bit), parse + event lowering and log-mel inside the processor call, and the rest of
+    that call (window-tokenize, padding). Returns the numbers and each map's token ids and mask. A tree
+    from before the native paths (``--profile-tree``) has no ``proc.native``: its Python route."""
+    from cm3p_torch.audio.loading import load_audio_file
+    from cm3p_torch.processing import processor as processor_module
+
+    sums = {"decode": 0.0, "decode_resample": 0.0, "call": 0.0}
+    ids, counts = [], {}
+    route = {"native": proc.native, "counts": counts} if hasattr(proc, "native") else {}
+    if route.get("native"):
+        from cm3p_torch.native.beatmap import NativeBeatmap
+
+        targets = [(NativeBeatmap, "from_path", "parse"), (NativeBeatmap, "parse_events", "parse")]
+    else:
+        targets = [(processor_module, "load_beatmap", "parse"), (proc.beatmap_parser, "parse_beatmap", "parse")]
+    with timed_calls(targets + [(proc, "_window_audio", "mel")]) as inner:
+        for folder, wav44 in zip(folders, stereo):
+            osu = next(folder.glob("*.osu"))
+            t0 = time.perf_counter()
+            audio = load_audio_file(folder / "audio.wav", 16000, **route)
+            t1 = time.perf_counter()
+            load_audio_file(wav44, 16000, **route)
+            t2 = time.perf_counter()
+            out = proc(beatmap=str(osu), audio=audio, audio_sampling_rate=16000, padding="max_length")
+            t3 = time.perf_counter()
+            sums["decode"] += t1 - t0
+            sums["decode_resample"] += t2 - t1
+            sums["call"] += t3 - t2
+            ids.append((out["input_ids"], out["attention_mask"]))
+    sums["tokenize"] = sums.pop("call") - inner["parse"] - inner["mel"]
+    sums.update(inner)
+    n = len(folders)
+    return {**{f"{k}_ms_per_map": v * 1e3 / n for k, v in sums.items()}, "maps": n,
+            "windows": sum(len(i) for i, _ in ids), "decodes": counts}, ids
+
+
+def loader_sweep(factory, log_dir, workers=HOST_WORKERS):
+    """``SampleLoader`` at each worker count over the factory's folders: seconds to the first sample (spawn,
+    imports, the dataset's build) and steady-state windows/s after it."""
+    from cm3p_torch.data import SampleLoader
+
+    out = {}
+    for w in workers:
+        t0 = time.perf_counter()
+        first, n = None, 0
+        for _ in SampleLoader(factory, num_workers=w, log_dir=log_dir):
+            n += 1
+            if first is None:
+                first = time.perf_counter() - t0
+        total = time.perf_counter() - t0
+        out[w] = {"windows": n, "first_s": first, "total_s": total,
+                  "steady_windows_per_s": (n - 1) / max(total - first, 1e-9)}
+        log(f"  loader, {w} worker(s): {n} windows in {total:.1f} s, first sample after {first:.1f} s, then "
+            f"{out[w]['steady_windows_per_s']:.1f} windows/s")
+    return out
+
+
+HOST_WIRES = ("full", "bf16", "int8", "pcm")  # the full fp32 mel (the parent's only wire), then the compact ones
+TOOL_RUNS = (("full", False), ("bf16", False), ("int8", False), ("int8", True), ("pcm", False))  # (wire, int8 IPC)
+WIRE_COS_MIN = 0.999  # int8 and pcm against the compact bf16 wire, per window
+DEVICE_MEL_TOL = 1e-4  # DeviceLogMel against the host mel (the JAX test's bound), TF32 turned on globally
+
+
+def wire_processor(wire):
+    """The tool's processor for a wire (``configure_mel_wire``), 16 s windows of 4096 tokens."""
+    from cm3p_torch.extract import configure_mel_wire
+    from cm3p_torch.processing import CM3PProcessor
+
+    proc = CM3PProcessor()
+    proc.default_kwargs["beatmap_kwargs"].update(WINDOW_KW)
+    got = configure_mel_wire(proc, True, True, wire != "full", "bf16" if wire == "full" else wire)
+    if got != wire:
+        fail(f"the tool's processor took the {got} wire where {wire} was asked")
+    return proc
+
+
+def check_wires(torch, ops, dev, model, folders):
+    """The wires over the 17 folders' windows in one order (inline loader, so every wire packs alike): the
+    compact bf16 wire's window embeddings bit-equal to the full wire's, int8 and pcm at cosine >=
+    ``WIRE_COS_MIN`` to bf16, exact launches under D; ``DeviceLogMel`` on the card against the host's
+    compact mel of the same windows with TF32 turned on. Returns the launches and pickled bytes a sample."""
+    import pickle
+
+    import numpy as np
+
+    from cm3p_torch.audio.device_mel import DeviceLogMel
+    from cm3p_torch.data import BeatmapFilesDatasetFactory, SampleLoader
+    from cm3p_torch.data.loader import _quantize_features_for_ipc
+    from cm3p_torch.extract import extract_embeddings
+
+    samples = {}
+    for wire in ("full", "bf16", "pcm"):
+        proc = wire_processor(wire)
+        samples[wire] = list(SampleLoader(BeatmapFilesDatasetFactory([str(f) for f in folders], proc, True)))
+    samples["int8"] = samples["bf16"]
+    n = len(samples["full"])
+    pickled = {wire: sum(len(pickle.dumps(s, protocol=pickle.HIGHEST_PROTOCOL)) for s in samples[wire]) / n
+               for wire in ("full", "bf16", "pcm")}
+    pickled["int8 (IPC)"] = sum(len(pickle.dumps(_quantize_features_for_ipc(s), protocol=pickle.HIGHEST_PROTOCOL))
+                                for s in samples["bf16"]) / n
+    log("  pickled bytes a sample: " + ", ".join(f"{k} {v:.0f}" for k, v in pickled.items()))
+
+    per_forward = {**EXTRACT_ATTENTION, **EXTRACT_SETTINGS["D"][1]}
+    total = {name: 0 for name in ops.KERNELS}
+    windows, wire_bytes = {}, {}
+    for wire in HOST_WIRES:
+        stats, win = {}, {}
+        ops.reset_launch_counts()
+        extract_embeddings(model, wire_processor(wire), samples[wire], device=dev, stats=stats, windows_out=win,
+                           mel_wire=wire)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {k: per_forward.get(k, 0) * stats["flushes"] for k in ops.KERNELS}
+        if counts != want:
+            fail(f"{wire} wire: launches {counts} differ from {want}")
+        for k, v in counts.items():
+            total[k] += v
+        windows[wire], wire_bytes[wire] = win, stats["wire_bytes"] / stats["windows"]
+    keys = sorted(windows["full"])
+    same = all(np.array_equal(windows["bf16"][k], windows["full"][k]) for k in keys)
+    log(f"  {n} windows under D: compact bf16 wire bit-equal to the full wire: {same}; mel bytes a window "
+        + ", ".join(f"{k} {v:.0f}" for k, v in wire_bytes.items()))
+    if not same or windows["bf16"].keys() != windows["full"].keys():
+        fail("the compact bf16 wire changed the embeddings")
+    base = torch.cat([torch.as_tensor(windows["bf16"][k]) for k in keys])
+    cos = {}
+    for wire in ("int8", "pcm"):
+        cos[wire] = cosines(torch.cat([torch.as_tensor(windows[wire][k]) for k in keys]), base)
+        log(f"  {wire} wire: per-window cosine to the bf16 wire min {cos[wire].min():.6f} (need >= {WIRE_COS_MIN})")
+        if not bool((cos[wire] >= WIRE_COS_MIN).all()):
+            fail(f"the {wire} wire drifts from the bf16 wire")
+
+    fe = wire_processor("full").audio_feature_extractor
+    pcm = torch.as_tensor(np.stack([s["input_features_pcm"] for s in samples["pcm"]]), device=dev)
+    dense = np.stack([s["input_features"] for s in samples["bf16"]])
+    tail = np.asarray([s["input_features_tail"] for s in samples["bf16"]], np.float32)
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        mel = DeviceLogMel(fe.feature_size, fe.sampling_rate, fe.hop_length, fe.n_fft, device=dev)
+        got_dense, got_tail = mel(pcm)
+        torch.cuda.synchronize()
+        err = max(float(np.abs(got_dense.cpu().numpy() - dense).max()),
+                  float(np.abs(got_tail.cpu().numpy() - tail).max()))
+        mel_ms = cuda_ms(lambda: mel(pcm), 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    log(f"  DeviceLogMel on the card, TF32 on globally: {pcm.shape[0]} windows in {mel_ms:.3f} ms, max abs error "
+        f"to the host mel {err:.2e} (need <= {DEVICE_MEL_TOL})")
+    if not err <= DEVICE_MEL_TOL:
+        fail("DeviceLogMel disagrees with the host mel")
+    return total, {"pickled_bytes_per_sample": pickled, "wire_bytes_per_window": wire_bytes,
+                   "cos_min": {k: float(v.min()) for k, v in cos.items()}, "device_mel_err": err,
+                   "device_mel_ms": mel_ms}
+
+
+def host_front_end(torch, ops, dev, maps, waves, tmp):
+    """Phase 12: the host front end. Stages in one process on the Python and the native route (native window
+    ids equal to the Python ones, every map and WAVE file native), the wires' correctness at full width under
+    D, the loader at 1-8 workers and the tool's wall windows/s over 1,896 windows per wire."""
+    import numpy as np
+
+    from cm3p_torch.configs import CM3PConfig
+    from cm3p_torch.data import BeatmapFilesDatasetFactory
+    from cm3p_torch.inference import load_model
+    from cm3p_torch.interop import init_weights
+    from cm3p_torch.models import EncoderOptions
+
+    result = {"cpus": len(os.sched_getaffinity(0))}
+    log(f"  host: {result['cpus']} usable CPU(s)")
+    t0 = time.perf_counter()
+    copies, stereo = host_folders(maps, waves, Path(tmp) / "host")
+    log(f"  {HOST_COPIES} copies of the 17 map folders in {time.perf_counter() - t0:.1f} s")
+    folders = sorted(copies[0].iterdir())
+    ids = {}
+    for route in ("python", "native"):
+        proc = wire_processor("full")
+        proc.native = route == "native"
+        result[f"stages_{route}"], ids[route] = stage_profile(proc, folders, stereo)
+        log(f"  stages, {route}, one process: "
+            + json.dumps({k: (round(v, 3) if isinstance(v, float) else v)
+                          for k, v in result[f"stages_{route}"].items()}))
+        if route == "native":
+            counts = {**proc.host_counts, **result["stages_native"]["decodes"]}
+            if counts["parse_native"] != len(folders) or counts["parse_python"] or counts.get("decode_python"):
+                fail(f"not every map and WAVE file went the native way: {counts}")
+    same = all(np.array_equal(a, c) and np.array_equal(b, d) for (a, b), (c, d) in zip(ids["native"], ids["python"]))
+    log(f"  native window ids and masks equal to the Python path's on this host: {same}")
+    if not same:
+        fail("native window ids differ from the Python path's on this host")
+
+    cfg = CM3PConfig()
+    tok = wire_processor("full").beatmap_tokenizer
+    cfg.beatmap_config.vocab_size = tok.vocab_size
+    cfg.beatmap_config.audio_token_id = tok.audio_token_id
+    model = load_model(cfg, init_weights(cfg, torch.Generator(device=dev).manual_seed(0)), device=dev,
+                       options=EncoderOptions(**EXTRACT_SETTINGS["D"][0]))
+    launches, result["wires"] = check_wires(torch, ops, dev, model, folders)
+
+    log_dir = str(Path(tmp) / "dataloader")
+    all_folders = [str(c) for c in copies]
+    result["loader"] = loader_sweep(BeatmapFilesDatasetFactory(all_folders, wire_processor("bf16"), True), log_dir)
+    result["tool"], embeddings = {}, {}
+    for wire, ipc in TOOL_RUNS:
+        label = wire + (" + int8 IPC" if ipc else "")
+        result["tool"][label], embeddings[label] = tool_run(torch, dev, model, wire_processor(wire), all_folders,
+                                                            log_dir, label, wire, ipc)
+        host = result["tool"][label]["host"]
+        if host["parse_native"] != len(maps) * HOST_COPIES or host["decode_native"] != len(maps) * HOST_COPIES:
+            fail(f"host front end, {label}: not every map and WAVE file went the native way: {host}")
+    keys = sorted(embeddings["int8"])
+    cos = cosines(torch.as_tensor(np.stack([embeddings["int8 + int8 IPC"][k] for k in keys])),
+                  torch.as_tensor(np.stack([embeddings["int8"][k] for k in keys])))
+    log(f"  int8 wire fed by int8 IPC: per-beatmap cosine to the int8 wire min {cos.min():.6f} "
+        f"(need >= {WIRE_COS_MIN})")
+    if not bool((cos >= WIRE_COS_MIN).all()):
+        fail("the int8 IPC hop changed the int8 wire's embeddings")
+    log("  host front end: " + json.dumps(result, default=str))
+    return launches
+
+
+def tool_run(torch, dev, model, proc, folders, log_dir, label, wire=None, ipc=False):
+    """``extract_embeddings`` fed by ``TOOL_WORKERS`` loader workers over the folders: wall and device
+    windows/s, mel bytes a window, stage seconds and host routes; and the embeddings, one finite vector per
+    beatmap. ``wire`` None: a tree from before the mel wires (``--profile-tree``), the full fp32 mel."""
+    import numpy as np
+
+    from cm3p_torch.data import SampleLoader
+    from cm3p_torch.extract import BeatmapFilesDatasetFactory, extract_embeddings
+
+    extra = {} if wire is None else {"int8_ipc": ipc}
+    loader = SampleLoader(BeatmapFilesDatasetFactory(folders, proc, True), num_workers=TOOL_WORKERS,
+                          log_dir=log_dir, **extra)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = extract_embeddings(model, proc, loader, device=dev, stats=stats,
+                             **({} if wire is None else {"mel_wire": wire}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(emb) != len(glob.glob(os.path.join(glob.escape(folders[0]), "*", "*.osu"))) * len(folders) \
+            or not np.isfinite(np.stack(list(emb.values()))).all():
+        fail(f"host front end, {label}: not one finite embedding per beatmap")
+    row = {"windows": stats["windows"], "wall_s": wall, "wall_windows_per_s": stats["windows"] / wall,
+           "device_windows_per_s": stats["windows"] / max(stats["device_ms"] / 1e3, 1e-9),
+           "bytes_per_window": stats["wire_bytes"] / stats["windows"] if "wire_bytes" in stats else None,
+           "stage_s": stats["stage_seconds"], "host": stats.get("host")}
+    per_window = "not counted" if row["bytes_per_window"] is None else f"{row['bytes_per_window']:.0f}"
+    log(f"  tool, setting D, {label} ({per_window} mel B a window), {TOOL_WORKERS} workers: "
+        f"{row['windows']} windows in {wall:.1f} s = {row['wall_windows_per_s']:.1f} windows/s wall, "
+        f"{row['device_windows_per_s']:.1f} on the card; stages "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in stats["stage_seconds"].items()))
+    return row, emb
+
+
+def profile_tree(torch, dev, tree) -> int:
+    """``--profile-tree DIR``: phase 12's host profile of another checkout of this repository, one from
+    before the native host paths and the mel wires (such as ``git archive 75aea04``), with that tree's
+    ``cm3p_torch`` and this script's folders: the stages on its Python route in one process, the loader at
+    1-8 workers and the tool with the full fp32 mel wire under setting D. Prints one JSON line before the
+    card's line."""
+    tree = Path(tree).resolve()
+    sys.path.insert(0, str(tree))  # spawned loader workers inherit it
+    import cm3p_torch
+
+    if tree not in Path(cm3p_torch.__file__).resolve().parents:
+        fail(f"cm3p_torch was not imported from {tree}")
+    from cm3p_torch.configs import CM3PConfig
+    from cm3p_torch.data import SampleLoader
+    from cm3p_torch.extract import BeatmapFilesDatasetFactory, extract_embeddings
+    from cm3p_torch.inference import load_model
+    from cm3p_torch.interop import init_weights
+    from cm3p_torch.models import EncoderOptions
+    from cm3p_torch.ops import _build
+    from cm3p_torch.processing import CM3PProcessor
+
+    _build.build()
+    maps, waves = corpus_waves()
+    result = {"tree": str(tree), "cpus": len(os.sched_getaffinity(0))}
+    log(f"  host: {result['cpus']} usable CPU(s)")
+    with tempfile.TemporaryDirectory() as tmp:
+        copies, stereo = host_folders(maps, waves, Path(tmp) / "host")
+        proc = CM3PProcessor()
+        proc.default_kwargs["beatmap_kwargs"].update(WINDOW_KW)
+        result["stages_python"], _ = stage_profile(proc, sorted(copies[0].iterdir()), stereo)
+        log("  stages, python, one process: " + json.dumps(result["stages_python"]))
+        folders = [str(c) for c in copies]
+        log_dir = str(Path(tmp) / "dataloader")
+        result["loader"] = loader_sweep(BeatmapFilesDatasetFactory(folders, proc, True), log_dir)
+        cfg = CM3PConfig()
+        cfg.beatmap_config.vocab_size = proc.beatmap_tokenizer.vocab_size
+        cfg.beatmap_config.audio_token_id = proc.beatmap_tokenizer.audio_token_id
+        model = load_model(cfg, init_weights(cfg, torch.Generator(device=dev).manual_seed(0)), device=dev,
+                           options=EncoderOptions(**EXTRACT_SETTINGS["D"][0]))
+        warm = BeatmapFilesDatasetFactory([str(copies[0])], proc, True)
+        extract_embeddings(model, proc, SampleLoader(warm, num_workers=0), device=dev)  # the int8 weights
+        result["tool"] = {"full": tool_run(torch, dev, model, proc, folders, log_dir, "full fp32 mel wire")[0]}
+    log("  host profile: " + json.dumps(result, default=str))
+    return 0
+
+
+def corpus_waves():
+    """The bundled map and the 16 corpus maps, each with a seeded 16 kHz waveform of its song length plus
+    one second: (map paths, {path: waveform})."""
     import numpy as np
 
     from cm3p_torch.beatmap import load_beatmap
@@ -2631,12 +3045,22 @@ def corpus_windows(proc):
     if len(maps) != 17:
         fail(f"expected the bundled map and 16 corpus maps, found {len(maps)}")
     rng = np.random.default_rng(0)
-    seqs, feats, waves = [], [], {}
+    waves = {}
     for path in maps:
         seconds = get_song_length(None, 16000, load_beatmap(path)) + 1.0
-        wav = (0.1 * rng.standard_normal(int(seconds * 16000))).astype(np.float32)
-        waves[path] = wav
-        out = proc(beatmap=path, audio=wav, **WINDOW_KW)
+        waves[path] = (0.1 * rng.standard_normal(int(seconds * 16000))).astype(np.float32)
+    return maps, waves
+
+
+def corpus_windows(proc):
+    """The 17 maps through the processor with their seeded waveforms: (map paths, each window's token ids
+    without padding, the windows' mel features, each map's waveform)."""
+    import numpy as np
+
+    maps, waves = corpus_waves()
+    seqs, feats = [], []
+    for path in maps:
+        out = proc(beatmap=path, audio=waves[path], **WINDOW_KW)
         lengths = np.asarray(out["attention_mask"]).sum(axis=1)
         ids = np.asarray(out["input_ids"])
         seqs.extend(ids[i, : lengths[i]] for i in range(len(ids)))
@@ -2644,7 +3068,14 @@ def corpus_windows(proc):
     return maps, seqs, np.concatenate(feats), waves
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile-tree", metavar="DIR", default=None,
+                        help="only phase 12's host profile, of the cm3p_torch in DIR (a checkout from before "
+                        "the native host paths)")
+    ns = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -2656,6 +3087,11 @@ def main() -> int:
     if not (ROOT / "cm3p_torch" / "csrc").is_dir():
         print(f"chip_smoke: no cm3p_torch package beside {Path(__file__).name}", file=sys.stderr)
         return 2
+    if ns.profile_tree:
+        rc = profile_tree(torch, torch.device("cuda"), ns.profile_tree)
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
+        return rc
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
@@ -2939,6 +3375,15 @@ def main() -> int:
         main_counts[kname] += n
     bundle.cleanup()
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s (budget {HEADS_BUDGET_S} s)")
+
+    # ---- 12. the host front end: native parse and decode, the mel wires, the loader, the tool's wall
+    log("[12] host front end: stages on the Python and native routes, the mel wires under D at full width, "
+        f"the loader at {'/'.join(map(str, HOST_WORKERS))} workers, the tool's wall per wire")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for kname, n in host_front_end(torch, ops, dev, maps, waves, tmp).items():
+            main_counts[kname] += n
+    log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
 
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:

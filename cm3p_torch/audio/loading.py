@@ -39,7 +39,8 @@ def _resample_filter(up: int, down: int) -> np.ndarray:
 
 
 def _resample_plan(orig_rate: int, target_rate: int) -> Fraction:
-    """The (possibly capped) up/down fraction of the resample path."""
+    """The (possibly capped) up/down fraction shared by the scipy and native
+    resample paths."""
     frac = Fraction(target_rate, orig_rate)
     if max(frac.numerator, frac.denominator) > 512:
         # Huge exact rationals (e.g. 7619/8000 for a 1.05x DT draw) need a
@@ -178,19 +179,59 @@ def _load_via_ffmpeg(path: Union[str, PathLike], sampling_rate: int) -> np.ndarr
     return np.frombuffer(out, dtype=np.float32).copy()
 
 
-def load_audio_file(path: Union[str, PathLike], sampling_rate: int, speed: float = 1.0) -> np.ndarray:
+def _native_wav(buf: bytes, target_rate: int) -> Optional[np.ndarray]:
+    """One-call native decode + downmix + resample (``native/audio_fast.cpp``), bit-identical
+    to ``_load_wav_bytes`` + ``to_mono`` + ``resample``; None where the native decoder
+    declines the buffer (the caller takes the Python path)."""
+    from ..native.audio import decode, probe
+
+    info = probe(buf)
+    if info is None:
+        return None
+    rate, frames, _ = info
+    if rate <= 0 or frames <= 0:
+        return None
+    if rate == target_rate:
+        return decode(buf, 1, 1, None, frames)
+    frac = _resample_plan(rate, target_rate)
+    up, down = frac.numerator, frac.denominator
+    # scipy's `h *= up` on the float32 window, replicated elementwise
+    h_scaled = np.multiply(_resample_filter(up, down), np.float32(up), dtype=np.float32)
+    expected = int(math.ceil(frames * target_rate / rate))
+    return decode(buf, up, down, h_scaled, expected)
+
+
+def load_audio_file(
+    path: Union[str, PathLike],
+    sampling_rate: int,
+    speed: float = 1.0,
+    native: bool = True,
+    counts: Optional[dict] = None,
+) -> np.ndarray:
     """Decode an audio file to a mono float32 waveform at ``sampling_rate``.
 
     ``speed`` > 1 implements DT augmentation by decoding at a proportionally
     lower rate and playing it back at the target rate (data_utils.py:12-32).
+    ``native``: WAVE files go through the host library's one-call decoder
+    (the same samples bit for bit); a WAVE it declines, and any other format,
+    takes the Python path. ``counts`` (optional) gets ``decode_native`` or
+    ``decode_python`` raised by one.
     """
     target = int(sampling_rate // speed)
     path = str(path)
     if path.lower().endswith(".wav"):
         buf = Path(path).read_bytes()
-        data, rate = _load_wav_bytes(buf, path)
-        return resample(to_mono(data), rate, target)
-    return _load_via_ffmpeg(path, target)
+        out = _native_wav(buf, target) if native else None
+        if out is not None:
+            route = "decode_native"
+        else:
+            data, rate = _load_wav_bytes(buf, path)
+            out, route = resample(to_mono(data), rate, target), "decode_python"
+    else:
+        out, route = _load_via_ffmpeg(path, target), "decode_python"
+    if counts is not None:
+        counts[route] = counts.get(route, 0) + 1
+    return out
 
 
 def prepare_waveform(

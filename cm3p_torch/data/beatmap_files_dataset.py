@@ -210,6 +210,11 @@ class BeatmapFilesDataset:
         self.num_workers = num_workers
 
     @property
+    def host_counts(self) -> dict:
+        """The processor's counts of beatmaps parsed and audio files decoded by each route."""
+        return self.processor.host_counts
+
+    @property
     def metadata(self):
         """The rows as a DataFrame indexed by (BeatmapSetId, Id) (needs pandas)."""
         return _rows_to_dataframe(self.rows)
@@ -228,6 +233,10 @@ class BeatmapFilesDataset:
             pass
 
     def _iter(self, rows: list[dict]) -> Iterator[dict]:
+        if self.processor.native:
+            from ..native import library
+
+            library()  # a failed build raises here, not in the per-file catches below
         set_ids = list(dict.fromkeys(row["BeatmapSetId"] for row in rows))
         for beatmapset_id in set_ids:
             subset = [row for row in rows if row["BeatmapSetId"] == beatmapset_id]
@@ -249,7 +258,8 @@ class BeatmapFilesDataset:
                         else:
                             from ..audio.loading import load_audio_file
 
-                            audio_samples = load_audio_file(audio_path, self.sampling_rate, 1.0)
+                            audio_samples = load_audio_file(audio_path, self.sampling_rate, 1.0,
+                                                            self.processor.native, self.host_counts)
                             audio_cache[audio_path] = audio_samples
                     except Exception as e:
                         logger.warning("Failed to load audio file %s (%s); continuing without audio", audio_path, e)
@@ -275,3 +285,26 @@ class BeatmapFilesDataset:
                     item = {k: results[k][i] for k in results}
                     item["beatmap_id"] = (row["BeatmapSetId"], row["Id"])
                     yield item
+
+
+class BeatmapFilesDatasetFactory:
+    """Picklable dataset factory for loose .osu/.osz extraction (loader workers are spawned).
+
+    It lives here, among modules that import no torch, so that a spawned worker that
+    unpickles it imports no torch either.
+    """
+
+    def __init__(self, paths, processor, include_audio: bool):
+        if processor.native:
+            from ..native import library
+
+            library()  # built once here, before loader workers start (a failed build raises in this process)
+        self.paths = paths
+        self.processor = processor
+        self.include_audio = include_audio
+
+    def __call__(self, worker_id, num_workers):
+        return BeatmapFilesDataset(
+            self.paths, self.processor, include_audio=self.include_audio, include_metadata=False,
+            worker_id=worker_id, num_workers=num_workers,
+        )

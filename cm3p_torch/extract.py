@@ -23,9 +23,21 @@ out-projection where it applies) and ``--w8a8-wo`` the int8 Wo forms; see
 :func:`extract_embeddings` is the core and needs no pandas; the DataFrame and
 parquet work lives in :func:`write_output`.
 
-Not ported: MMRS dataset roots (``--dataset-path``), the int8 and PCM mel wires,
-the data-parallel mesh, and what only exists for XLA (the AOT executable cache,
-``--prewarm``, shape padding against recompiles).
+The host front end is the JAX tool's: beatmaps parse, lower and tokenize in the
+host library's C++ and WAVE files decode there (``--no-native``: the Python path
+only). On the packed path with audio the mel travels in the compact form, dense
+frames plus one tail value per window, and the full (windows, 80, 3000) mel is
+rebuilt on the device (``--no-compact-mel``: the full fp32 mel). ``--mel-wire``
+picks the compact form: ``bf16`` (the dense block in the towers' dtype, bf16 for
+the default model), ``int8`` (per-window symmetric codes, dequantised on the
+device) or ``pcm`` (the windows' waveforms; the log-mel runs on the device,
+:class:`~cm3p_torch.audio.device_mel.DeviceLogMel`). ``--int8-ipc`` sends the
+mel from the loader workers as int8; with ``--mel-wire int8`` the codes go to
+the device as they are, on the other wires they are dequantised on the host.
+
+Not ported: MMRS dataset roots (``--dataset-path``), the data-parallel mesh, and
+what only exists for XLA (the AOT executable cache, ``--prewarm``, shape padding
+against recompiles).
 """
 from __future__ import annotations
 
@@ -40,8 +52,10 @@ from typing import Any, Iterable, Optional, Union
 import numpy as np
 import torch
 
+from .audio.device_mel import DeviceLogMel
 from .configs import CM3PConfig, tiny_cm3p_config
-from .data import BeatmapFilesDataset, SampleLoader, batched_loader
+from .data import BeatmapFilesDataset, BeatmapFilesDatasetFactory, SampleLoader, batched_loader
+from .data.loader import _IPC_SCALE, _dequantize_features_from_ipc
 from .inference import load_model, load_pretrained, resolve_device
 from .interop import init_weights
 from .models import CM3PBeatmapModel, EncoderOptions
@@ -52,21 +66,38 @@ logger = logging.getLogger(__name__)
 
 DEFAULT_OPTIONS = EncoderOptions(w8a8=True, fused_wo=True)  # the JAX tool's default
 _DROPPED_KEYS = ("metadata_ids", "metadata_attention_mask", "metadata_variation_classes", "labels")
+MEL_WIRES = ("bf16", "int8", "pcm")
 
 
-class BeatmapFilesDatasetFactory:
-    """Picklable dataset factory for loose .osu/.osz extraction (worker processes are spawned)."""
+def configure_mel_wire(processor: CM3PProcessor, pack: bool, include_audio: bool, compact: bool = True,
+                       mel_wire: str = "bf16") -> str:
+    """Set the processor's audio kwargs for the mel wire and return the wire the run uses: ``full``,
+    ``bf16``, ``int8`` or ``pcm``.
 
-    def __init__(self, paths, processor, include_audio: bool):
-        self.paths = paths
-        self.processor = processor
-        self.include_audio = include_audio
-
-    def __call__(self, worker_id, num_workers):
-        return BeatmapFilesDataset(
-            self.paths, self.processor, include_audio=self.include_audio, include_metadata=False,
-            worker_id=worker_id, num_workers=num_workers,
-        )
+    The compact forms need the packed path with audio and windows whose zero tail lies inside one
+    30 s chunk with no dither (the JAX tool's conditions); otherwise the full mel travels.
+    """
+    if mel_wire not in MEL_WIRES:
+        raise ValueError(f"mel_wire must be one of {MEL_WIRES}, got {mel_wire!r}")
+    fe = processor.audio_feature_extractor
+    ak = processor.default_kwargs["audio_kwargs"]
+    wls = processor.default_kwargs["beatmap_kwargs"].get("window_length_sec", 30.0)
+    chunk_samples = fe.chunk_length * fe.sampling_rate
+    if not (
+        pack and include_audio and compact and not fe.dither
+        and ak.get("pad_to_multiple_of", 480000) == chunk_samples
+        and wls * ak.get("sampling_rate", fe.sampling_rate) + fe.n_fft <= chunk_samples
+    ):
+        if include_audio and mel_wire != "bf16":
+            logger.info("--mel-wire %s needs the packed compact path; the full mel travels", mel_wire)
+        return "full"
+    if mel_wire == "pcm":
+        ak.pop("compact_tail", None)
+        ak["pcm_wire"] = True
+    else:
+        ak.pop("pcm_wire", None)
+        ak["compact_tail"] = True
+    return mel_wire
 
 
 def default_batch_size(pack: bool, row_len: int, device: torch.device) -> int:
@@ -91,6 +122,7 @@ def extract_embeddings(
     flush_rows: int = 0,
     stats: Optional[dict] = None,
     windows_out: Optional[dict] = None,
+    mel_wire: str = "bf16",
 ) -> dict[int, np.ndarray]:
     """One unit-norm embedding per beatmap id from a stream of window samples.
 
@@ -103,9 +135,24 @@ def extract_embeddings(
     being assembled. Dense (``pack=False``): ``batch_size`` windows per call.
     Window embeddings are summed per beatmap id, divided by the count and
     re-normalised. ``stats`` receives counts and seconds per stage (and the
-    device milliseconds of the forwards on CUDA); ``windows_out`` receives each
-    beatmap's window embeddings in arrival order.
+    device milliseconds of the forwards on CUDA), the mel bytes sent to the
+    device (``wire_bytes``) and, where ``samples`` has them (``SampleLoader``),
+    its ``host_counts``; ``windows_out`` receives each beatmap's window
+    embeddings in arrival order.
+
+    The mel travels as the samples carry it (``mel_wire`` as
+    :func:`configure_mel_wire` returned it): full ``input_features``, sent in
+    fp32 and cast on the device; compact dense frames plus
+    ``input_features_tail``, sent in the towers' dtype (``bf16``) or as int8
+    codes with a per-window scale (``int8``; codes a loader worker made,
+    ``SampleLoader(int8_ipc=True)``, are taken as they are, and dequantised
+    on the host for the other wires); or ``input_features_pcm`` (``pcm``), turned into the
+    compact form by :class:`DeviceLogMel`. The compact forms are
+    rebuilt into the full (windows, n_mels, max_source_positions) mel on the
+    device.
     """
+    if mel_wire not in ("full",) + MEL_WIRES:
+        raise ValueError(f"mel_wire must be 'full' or one of {MEL_WIRES}, got {mel_wire!r}")
     device = resolve_device(device)
     param = model.beatmap_projection.weight
     if param.device.type != device.type:
@@ -117,7 +164,11 @@ def extract_embeddings(
     pad_id = processor.beatmap_tokenizer.pad_token_id
     accumulator: dict[Any, dict[str, Any]] = {}
     stage = {"loader": 0.0, "pack": 0.0, "dispatch": 0.0, "drain": 0.0}
-    counts = {"windows": 0, "tokens": 0, "flushes": 0, "rows": 0, "device_ms": 0.0}
+    counts = {"windows": 0, "tokens": 0, "flushes": 0, "rows": 0, "device_ms": 0.0, "wire_bytes": 0}
+    msp = processor.default_kwargs["audio_kwargs"].get("max_source_positions", 3000)
+    fe = processor.audio_feature_extractor
+    device_mel = (DeviceLogMel(fe.feature_size, fe.sampling_rate, fe.hop_length, fe.n_fft, device)
+                  if mel_wire == "pcm" else None)
     inflight: list = []
     t0 = time.perf_counter()
 
@@ -135,6 +186,53 @@ def extract_embeddings(
 
     def to_dev(array, dtype):
         return torch.as_tensor(np.asarray(array), device=device).to(dtype)
+
+    def features(batch: list[dict]) -> Optional[torch.Tensor]:
+        """The windows' full mel on the device from the form the samples carry."""
+        if mel_wire != "int8":  # int8 codes from the loader's queue hop go to the device only on the int8 wire
+            batch = [_dequantize_features_from_ipc(dict(b)) if _IPC_SCALE in b else b for b in batch]
+        first = batch[0]
+        if "input_features_pcm" in first:
+            if mel_wire != "pcm":
+                raise ValueError("samples carry PCM windows: pass mel_wire='pcm'")
+            pcm = torch.from_numpy(np.stack([np.asarray(b["input_features_pcm"], np.float32) for b in batch]))
+            counts["wire_bytes"] += pcm.nbytes
+            dense, tail = device_mel(pcm.to(device))
+            dense, tail = dense.to(wire), tail.to(wire)
+        elif "input_features_tail" in first:
+            tail = to_dev(np.asarray([b["input_features_tail"] for b in batch], np.float32), wire)
+            counts["wire_bytes"] += tail.numel() * 4
+            if mel_wire == "int8":
+                codes = np.empty((len(batch),) + np.shape(first["input_features"]), np.int8)
+                scales = np.empty(len(batch), np.float32)
+                for i, b in enumerate(batch):
+                    f = np.asarray(b["input_features"])
+                    if f.dtype == np.int8:  # a loader worker quantised it with the same absmax scale
+                        codes[i], scales[i] = f, b[_IPC_SCALE]
+                        continue
+                    f = np.asarray(f, np.float32)
+                    s = float(np.max(np.abs(f))) / 127.0 or 1.0
+                    scales[i] = s
+                    codes[i] = np.rint(f / s).astype(np.int8)
+                counts["wire_bytes"] += codes.nbytes + scales.nbytes
+                dense = to_dev(codes, wire) * to_dev(scales, wire)[:, None, None]
+            else:
+                # numpy has no bfloat16: the host buffer is a torch tensor in the towers' dtype, each
+                # window rounded as it is copied in (the same rounding as a cast on the device)
+                host = torch.empty((len(batch),) + np.shape(first["input_features"]), dtype=wire)
+                for i, b in enumerate(batch):
+                    host[i] = torch.from_numpy(np.asarray(b["input_features"], np.float32))
+                counts["wire_bytes"] += host.numel() * host.element_size()
+                dense = host.to(device)
+        elif "input_features" in first:
+            full = np.stack([np.asarray(b["input_features"], np.float32) for b in batch])
+            counts["wire_bytes"] += full.nbytes
+            return to_dev(full, wire)
+        else:
+            return None
+        w, n_mels, f_cap = dense.shape
+        # rebuild the exact full mel: the dense frames, then each window's tail value to max_source_positions
+        return torch.cat([dense, tail[:, None, None].expand(w, n_mels, msp - f_cap)], dim=2)
 
     def dispatch(call, n: int, ids: list) -> None:
         t_dispatch = time.perf_counter()
@@ -166,7 +264,7 @@ def extract_embeddings(
         if not pending:
             return
         t_flush = time.perf_counter()
-        seqs = [p[0] for p in pending]
+        seqs = [seq for seq, _ in pending]
         packed = pack_windows(seqs, seq_len, pad_id=pad_id)
         if packed["input_ids"].shape[0] > batch_size and len(pending) > 1:
             # the arrival-order simulation under-estimates rows when first-fit
@@ -176,22 +274,20 @@ def extract_embeddings(
             flush(pending[:mid])
             flush(pending[mid:])
             return
-        features = None
-        if pending[0][2] is not None:
-            features = to_dev(np.stack([np.asarray(p[2], np.float32) for p in pending]), wire)
         args = dict(
             input_ids=to_dev(packed["input_ids"], torch.int64),
             segment_ids=to_dev(packed["segment_ids"], torch.int32),
             window_rows=to_dev(packed["window_to_row"], torch.int64),
             window_segments=to_dev(packed["window_segment"], torch.int64),
-            input_features=features,
+            input_features=features([sample for _, sample in pending]),
         )
         rows = packed["input_ids"].shape[0]
         counts["rows"] += rows
         counts["tokens"] += int(sum(len(s) for s in seqs))
         stage["pack"] += time.perf_counter() - t_flush
         logger.info("flush: rows=%d windows=%d", rows, len(seqs))
-        dispatch(lambda: model.get_packed_beatmap_features(**args, normalize=True), len(seqs), [p[1] for p in pending])
+        dispatch(lambda: model.get_packed_beatmap_features(**args, normalize=True), len(seqs),
+                 [sample.get("beatmap_id") for _, sample in pending])
 
     sample_it = iter(samples)
 
@@ -217,12 +313,15 @@ def extract_embeddings(
                     flush(pending)
                     pending, sim_space = [], []
                 sim_space.append(seq_len - need)
-            pending.append((seq, sample.get("beatmap_id"), sample.get("input_features")))
+            pending.append((seq, sample))
         flush(pending)
     else:
         batch_it = batched_loader(sample_it, batch_size, drop_last=False)
         while (batch := next_item(batch_it)) is not None:
+            if "input_features_tail" in batch or "input_features_pcm" in batch:
+                raise ValueError("the compact and PCM mel wires run on the packed path only")
             ids = batch.pop("beatmap_id")
+            _dequantize_features_from_ipc(batch)
             for key in _DROPPED_KEYS:
                 batch.pop(key, None)
             args = dict(
@@ -230,6 +329,8 @@ def extract_embeddings(
                 attention_mask=to_dev(batch["attention_mask"], torch.int32),
                 input_features=to_dev(batch["input_features"], wire) if "input_features" in batch else None,
             )
+            if "input_features" in batch:
+                counts["wire_bytes"] += np.asarray(batch["input_features"], np.float32).nbytes
             counts["tokens"] += int(np.asarray(batch["attention_mask"]).sum())
             counts["rows"] += len(ids)
             dispatch(lambda: model.get_beatmap_features(**args, normalize=True), len(ids), np.asarray(ids).tolist())
@@ -247,6 +348,9 @@ def extract_embeddings(
     )
     if stats is not None:
         stats.update(counts, seconds=dt, stage_seconds=stage)
+        host_counts = getattr(samples, "host_counts", None)
+        if host_counts is not None:
+            stats["host"] = dict(host_counts)
     if windows_out is not None:
         for key, chunks in windows_out.items():
             windows_out[key] = np.stack(chunks)
@@ -337,6 +441,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "out-projection with its residual where the attention epilogue does not apply")
     parser.add_argument("--w8a8-wo", action="store_true",
                         help="int8 Wo in the MLP and, with --fused-lnmm, in the attention out-projection")
+    parser.add_argument("--mel-wire", default="bf16", choices=MEL_WIRES,
+                        help="host-to-device form of the compact mel: bf16 (the dense frames in the towers' "
+                        "dtype), int8 (per-window symmetric codes, dequantised on the device) or pcm (the "
+                        "windows' waveforms, log-mel on the device)")
+    parser.add_argument("--no-compact-mel", dest="compact_mel", action="store_false",
+                        help="send the full 80 x 3000 fp32 mel of each window")
+    parser.add_argument("--int8-ipc", action="store_true",
+                        help="loader workers send the mel as int8 codes and a per-window scale")
+    parser.add_argument("--no-native", dest="native", action="store_false",
+                        help="parse beatmaps and decode WAVE files on the Python path only")
     return parser
 
 
@@ -381,6 +495,7 @@ def main(argv=None) -> dict[int, np.ndarray]:
         model = _random_model(
             processor, ns.tiny_model, device, dtype or (torch.float32 if ns.tiny_model else torch.bfloat16), options
         )
+    processor.native = ns.native
     bk = processor.default_kwargs["beatmap_kwargs"]
     if ns.max_length:
         bk["max_length"] = ns.max_length
@@ -391,6 +506,8 @@ def main(argv=None) -> dict[int, np.ndarray]:
         bk["window_stride_sec"] = ns.window_stride
 
     include_audio = not ns.no_audio
+    mel_wire = configure_mel_wire(processor, ns.pack, include_audio, ns.compact_mel, ns.mel_wire)
+    logger.info("mel wire: %s; native host paths: %s", mel_wire, ns.native)
     factory = BeatmapFilesDatasetFactory(ns.beatmap_files, processor, include_audio)
     metadata = BeatmapFilesDataset(ns.beatmap_files, processor, include_audio=False).metadata
     try:
@@ -400,10 +517,14 @@ def main(argv=None) -> dict[int, np.ndarray]:
     if ns.num_workers > n_cores:
         logger.info("Capping --num-workers %d to the %d available core(s)", ns.num_workers, n_cores)
         ns.num_workers = n_cores
-    loader = SampleLoader(factory, num_workers=ns.num_workers)
+    loader = SampleLoader(factory, num_workers=ns.num_workers, int8_ipc=ns.int8_ipc)
+    stats: dict = {}
     embeddings = extract_embeddings(
-        model, processor, loader, device=device, pack=ns.pack, batch_size=ns.batch_size, flush_rows=ns.flush_rows
+        model, processor, loader, device=device, pack=ns.pack, batch_size=ns.batch_size, flush_rows=ns.flush_rows,
+        stats=stats, mel_wire=mel_wire,
     )
+    logger.info("host routes: %s; mel bytes to the device: %d (%.0f a window)", stats.get("host"),
+                stats["wire_bytes"], stats["wire_bytes"] / max(stats["windows"], 1))
     write_output(embeddings, metadata, ns.output, ns.merge_with)
     return embeddings
 

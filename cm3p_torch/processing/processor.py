@@ -174,11 +174,55 @@ def get_metadata(
     }
 
 
+class _NativeUnsupported(Exception):
+    """Input/config the native front end doesn't cover; use the python path."""
+
+
+def _metadata_from_summary(summary, song_length, song_position):
+    """get_metadata(beatmap=...) equivalent from a native CtSummary.
+
+    Field-for-field identical to :func:`get_metadata` with ``beatmap_metadata``
+    None (the processor's populate path): the summary carries the same
+    mode/cs/sv scalars and the hold/scroll/hitsounded scans run in C++ with
+    the same arithmetic (beatmap_fast.cpp:ct_beatmap_summary).
+    """
+    import math
+
+    mode = summary.mode
+    no_notes = summary.n_hit_objects == 0
+    return {
+        "difficulty": None,
+        "year": None,
+        "mode": mode,
+        "status": None,
+        "mapper": None,
+        "cs": summary.circle_size if mode in (0, 2) else None,
+        "hitsounded": bool(summary.hitsounded),
+        "song_length": song_length,
+        "song_position": song_position,
+        "global_sv": summary.slider_multiplier if mode in (0, 2) else None,
+        "mania_keycount": int(summary.circle_size) if mode == 3 else None,
+        "hold_note_ratio": (None if no_notes or math.isnan(summary.hold_note_ratio)
+                            else summary.hold_note_ratio) if mode == 3 else None,
+        "scroll_speed_ratio": (None if no_notes or math.isnan(summary.scroll_speed_ratio)
+                               else summary.scroll_speed_ratio) if mode in (1, 3) else None,
+        "tags": None,
+    }
+
+
 # ------------------------------------------------------------------ processor
 
 
 class CM3PProcessor:
-    """Bundle of the four front-end components with HF-style save/load."""
+    """Bundle of the four front-end components with HF-style save/load.
+
+    ``native`` (default True): beatmaps given as paths go through the host
+    library's C++ parse -> lower -> window-tokenize (``native/beatmap_fast.cpp``)
+    and WAVE files through its decoder, both bit-identical to the Python path;
+    an input the C++ side does not cover takes the Python path. False runs the
+    Python path only. ``host_counts`` counts the beatmaps parsed and the audio
+    files decoded by each route.
+    """
 
     attributes = ["audio_feature_extractor", "beatmap_parser", "beatmap_tokenizer", "metadata_tokenizer"]
 
@@ -190,6 +234,7 @@ class CM3PProcessor:
         metadata_tokenizer: Optional[MetadataTokenizer] = None,
         default_kwargs: Optional[dict] = None,
         rng: Optional[np.random.Generator] = None,
+        native: bool = True,
     ):
         self.audio_feature_extractor = audio_feature_extractor or LogMelExtractor()
         self.beatmap_parser = beatmap_parser or BeatmapEventParser()
@@ -198,6 +243,8 @@ class CM3PProcessor:
         self.audio_token = self.beatmap_tokenizer.audio_token
         self.default_kwargs = copy.deepcopy(default_kwargs) if default_kwargs else copy.deepcopy(DEFAULT_KWARGS)
         self.rng = rng or np.random.default_rng()
+        self.native = native
+        self.host_counts = {"parse_native": 0, "parse_python": 0, "decode_native": 0, "decode_python": 0}
 
     # ----------------------------------------------------------------- audio
 
@@ -411,10 +458,10 @@ class CM3PProcessor:
         from ..audio.loading import load_audio_file
 
         if isinstance(audio, (str, Path)):
-            audio = [load_audio_file(audio, sampling_rate, speed)]
+            audio = [load_audio_file(audio, sampling_rate, speed, self.native, self.host_counts)]
             audio_sampling_rate = sampling_rate
         elif isinstance(audio, list) and all(isinstance(a, (str, Path)) for a in audio):
-            audio = [load_audio_file(a, sampling_rate, speed) for a in audio]
+            audio = [load_audio_file(a, sampling_rate, speed, self.native, self.host_counts) for a in audio]
             audio_sampling_rate = sampling_rate
         elif isinstance(audio, np.ndarray) and audio.ndim <= 2:
             audio = [audio]
@@ -475,6 +522,157 @@ class CM3PProcessor:
             encoding["input_features"] = np.concatenate(batch_features).astype(
                 np.float32, copy=False
             )
+
+    def _native_tables(self):
+        if getattr(self, "_native_tables_cache", None) is None:
+            from ..native.beatmap import TokTables
+
+            self._native_tables_cache = TokTables(self.beatmap_tokenizer)
+        return self._native_tables_cache
+
+    def __getstate__(self):
+        """Drop the ctypes token-table handle: ctypes structures with
+        pointers cannot cross a pickle boundary, and a processor that has
+        parsed one beatmap natively would otherwise crash every spawn
+        dataset-worker start (the loader pickles the dataset factory, which
+        carries the processor). The tables rebuild lazily on first use."""
+        state = self.__dict__.copy()
+        state.pop("_native_tables_cache", None)
+        return state
+
+    def _process_beatmaps_native(
+        self, beatmap, matched_metadata, audio, audio_cache_tokens, speed,
+        multiply_metadata, populate_metadata, window_length_sec,
+        window_stride_sec, min_window_length_sec, sampling_rate, audio_kwargs,
+        max_source_positions, beatmap_kwargs, audio_features_cache,
+    ):
+        """C++ parse -> lower -> window-tokenize (beatmap_fast.cpp), one call
+        per beatmap. Mirrors :meth:`_process_beatmaps` exactly; raises
+        :class:`_NativeUnsupported` for anything it does not cover. The host
+        library builds and loads first, outside any fallback: a failed build
+        raises with the compiler's output."""
+        from pathlib import Path as _Path
+
+        from ..native import library
+        from ..native.beatmap import NativeBeatmap, NativeDeclined
+
+        library()
+        max_length = beatmap_kwargs.get("max_length")
+        padding = beatmap_kwargs.get("padding", "longest")
+        truncation = beatmap_kwargs.get("truncation", True)
+        pad_to_multiple_of = beatmap_kwargs.get("pad_to_multiple_of")
+        if not truncation or max_length is None or padding not in ("longest", "max_length"):
+            raise _NativeUnsupported
+        if any(not isinstance(b, (str, _Path)) for b in beatmap):
+            raise _NativeUnsupported
+
+        tables = self._native_tables()
+        pad_id = self.beatmap_tokenizer.pad_token_id
+        new_metadata: list[Optional[Metadata]] = []
+        batch_ids: list[np.ndarray] = []
+        batch_masks: list[np.ndarray] = []
+        batch_lens: list[np.ndarray] = []
+        batch_features: list[np.ndarray] = []
+
+        for b, m, audio_array, (cache_token, cache_pin) in zip(
+            beatmap, matched_metadata, audio, audio_cache_tokens
+        ):
+            try:
+                nb = NativeBeatmap.from_path(b)
+            except (OSError, NativeDeclined):  # the file's read or parse: the python path raises the real error
+                raise _NativeUnsupported
+            summary = nb.summary()
+            if summary.parse_error:
+                raise _NativeUnsupported
+            # get_song_length semantics (parser.py:37-60)
+            if audio_array is not None:
+                song_length = len(audio_array) / sampling_rate
+            elif summary.n_hit_objects > 0:
+                song_length = summary.last_ho_for_length / 1000.0 + 0.000999
+            elif not np.isnan(summary.last_tp_offset):
+                song_length = summary.last_tp_offset / 1000.0 + 0.01
+            else:
+                song_length = 0
+            try:
+                events = nb.parse_events(self.beatmap_parser, speed, song_length)
+            except NativeDeclined:
+                raise _NativeUnsupported
+            last_ms = events.last_time()
+            if audio_array is not None and last_ms is not None:
+                if last_ms > song_length * 1000 + 2000:
+                    logger.warning(
+                        "beatmap extends %.1fs past its %.1fs audio; "
+                        "%d ms of objects will not appear in any window",
+                        last_ms / 1000 - song_length, song_length,
+                        int(last_ms - song_length * 1000),
+                    )
+
+            def add_metadata(song_position: Optional[float] = None):
+                if populate_metadata:
+                    new_metadata.append(
+                        merge_metadata_dicts(
+                            m, _metadata_from_summary(summary, song_length, song_position)
+                        )
+                    )
+                else:
+                    new_metadata.append(m)
+
+            if not multiply_metadata:
+                add_metadata()
+
+            if audio_array is not None:
+                audio_counts, audio_feats = self._window_audio(
+                    audio_array, song_length, window_length_sec,
+                    window_stride_sec, min_window_length_sec,
+                    sampling_rate, audio_kwargs, max_source_positions,
+                    audio_features_cache, cache_token, cache_pin,
+                )
+                batch_features.append(audio_feats)
+            else:
+                audio_counts = None
+
+            starts = np.arange(0, song_length - min_window_length_sec, window_stride_sec)
+            if len(starts) == 0:
+                continue
+            start_ms = starts * 1000.0
+            end_ms = (starts + window_length_sec) * 1000.0
+            next_ms = (starts + window_stride_sec) * 1000.0
+            nats = (np.asarray(audio_counts[: len(starts)], np.int32)
+                    if audio_counts is not None else np.zeros(len(starts), np.int32))
+            res = events.tokenize_windows(
+                tables, start_ms, end_ms, next_ms, nats, max_length, max_length, pad_id
+            )
+            if res is None:
+                raise _NativeUnsupported
+            ids, mask, lens = res
+            batch_ids.append(ids)
+            batch_masks.append(mask)
+            batch_lens.append(lens)
+            if multiply_metadata:
+                for start_sec in starts:
+                    add_metadata(start_sec / song_length)
+
+        if not batch_ids:
+            raise _NativeUnsupported  # zero-window edge; python path builds it
+
+        ids = np.concatenate(batch_ids)
+        mask = np.concatenate(batch_masks)
+        lens = np.concatenate(batch_lens)
+        # pack_sequences target arithmetic (beatmap_tokenizer.py:442-467)
+        target = max_length if padding == "max_length" else int(lens.max())
+        if pad_to_multiple_of:
+            target = -(-target // pad_to_multiple_of) * pad_to_multiple_of
+        if target <= max_length:
+            ids = np.ascontiguousarray(ids[:, :target])
+            mask = np.ascontiguousarray(mask[:, :target])
+        else:
+            extra = target - max_length
+            ids = np.pad(ids, ((0, 0), (0, extra)), constant_values=pad_id)
+            mask = np.pad(mask, ((0, 0), (0, extra)))
+        beatmap_encoding = BatchTokens(input_ids=ids, attention_mask=mask)
+        if all(a is not None for a in audio):
+            self._set_input_features(beatmap_encoding, batch_features)
+        return beatmap_encoding, new_metadata
 
     def __call__(
         self,
@@ -559,6 +757,28 @@ class CM3PProcessor:
                     )
             else:
                 matched_metadata = [{} for _ in beatmap] if populate_metadata else [None] * len(beatmap)
+
+            if self.native:
+                try:
+                    beatmap_encoding, new_metadata = self._process_beatmaps_native(
+                        beatmap, matched_metadata, audio, audio_cache_tokens,
+                        speed, multiply_metadata, populate_metadata,
+                        window_length_sec, window_stride_sec,
+                        min_window_length_sec, sampling_rate, audio_kwargs,
+                        max_source_positions, beatmap_kwargs,
+                        audio_features_cache,
+                    )
+                except _NativeUnsupported:
+                    beatmap_encoding = None
+            if beatmap_encoding is not None:
+                self.host_counts["parse_native"] += len(beatmap)
+                if populate_metadata or multiply_metadata:
+                    metadata = new_metadata
+                return self._finish_call(
+                    beatmap_encoding, metadata, metadata_dropout_prob,
+                    metadata_variations, metadata_kwargs, metadata_max_length,
+                )
+            self.host_counts["parse_python"] += len(beatmap)
 
             new_metadata: list[Optional[Metadata]] = []
             batch_start_ms: list[float] = []
@@ -686,8 +906,8 @@ class CM3PProcessor:
         self, beatmap_encoding, metadata, metadata_dropout_prob,
         metadata_variations, metadata_kwargs, metadata_max_length,
     ):
-        """Metadata encoding + output assembly (the tail of the reference
-        __call__)."""
+        """Metadata encoding + output assembly, shared by the python and
+        native beatmap paths (the tail of the reference __call__)."""
         metadata_encoding = None
         metadata_variation_classes = None
         if metadata is not None and not (isinstance(metadata, list) and any(m is None for m in metadata)):

@@ -177,7 +177,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 _PORT_FILES = sorted(
-    p for p in (REPO / "cm3p_torch").rglob("*") if p.suffix in (".py", ".cu", ".cuh") and "_build" not in p.parts
+    p for p in (REPO / "cm3p_torch").rglob("*")
+    if p.suffix in (".py", ".cu", ".cuh", ".cpp") and "_build" not in p.parts
 )
 _PORT_SCRIPTS = [REPO / "chip_smoke.py", REPO / "compare_kernels.py"]
 
@@ -234,7 +235,10 @@ def test_port_covers_the_new_modules():
     for rel in ("cm3p_torch/extract.py", "cm3p_torch/ops/quant.py", "cm3p_torch/ops/fused_ln_matmul.py",
                 "cm3p_torch/csrc/fused_ln_matmul.cu", "cm3p_torch/interop/safetensors_io.py",
                 "cm3p_torch/interop/hf_config.py", "cm3p_torch/data/loader.py",
-                "cm3p_torch/data/beatmap_files_dataset.py", "cm3p_torch/data/data_utils.py"):
+                "cm3p_torch/data/beatmap_files_dataset.py", "cm3p_torch/data/data_utils.py",
+                "cm3p_torch/native/__init__.py", "cm3p_torch/native/beatmap.py", "cm3p_torch/native/audio.py",
+                "cm3p_torch/native/beatmap_fast.cpp", "cm3p_torch/native/audio_fast.cpp",
+                "cm3p_torch/native/analytics.cpp", "cm3p_torch/audio/device_mel.py"):
         assert rel in names, rel
 
 
