@@ -195,6 +195,32 @@ Phases (any failure exits non-zero; nothing is skipped):
                the Python route, the loader, the tool with the full fp32 mel) with
                the ``cm3p_torch`` of an older checkout in DIR, for the column of a
                tree from before the native paths.
+ 13. training from an MMRS root - (a) the 17 maps as 17 beatmapsets of an
+               MMRS root (each with a seeded 44.1 kHz stereo 16-bit WAVE, a
+               ``metadata.parquet`` with ranked and graveyard sets, years,
+               mappers and tags); (b) ``python -m cm3p_torch.train``'s ``main``
+               with ``v8_packed`` and audio from the root at full width (4 loader
+               workers, one stream per set, 3 optimizer steps, 1 eval batch):
+               exact launches per micro-step (the audio tower's 4 window and 2
+               segment layers beside phase 6's), finite losses and gradient
+               norms, the checkpoint reloaded, the loader wait per step; (c) on
+               the stream's first batch and the trained weights, ``remat`` True
+               and ``"dots"`` against False: the forward kernels launched twice,
+               loss within 1e-6 relative, every gradient at cosine >= 0.9999, a
+               lower peak; step ms, windows/s and peak of each; (d)
+               ``freeze_beatmap_model`` with ``unfreeze_beatmap_model_at_step``
+               1: the beatmap tower bit-equal to its start after the first step,
+               moved after the second, the rest moved after the first; (e)
+               ``v7`` (masked-LM labels, the decoder head) and ``v7_classifier``
+               (ranked-classification labels, ``from_pretrained`` the ``v7``
+               bundle) one step each with their remat, exact launches, the
+               labels' accuracy in the evaluation record, ranked and unranked
+               labels in the classifier's batches; (f) ``python -m
+               cm3p_torch.extract --dataset-path`` in setting D on the ``v8_packed``
+               bundle against ``--beatmap-files`` over the same folders: exact
+               launches, per-beatmap cosine >= 0.9999, wall and device windows/s;
+               (g) ``python -m cm3p_torch.validate_dataset``: its sample count is
+               the folders' window count. Prints its numbers as one JSON line.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
@@ -2345,7 +2371,8 @@ def cuda_timed(torch, fn):
 
 def head_trainer(torch, ops, dev, name, out_dir, per_micro_step, per_eval, extra=()):
     """``python -m cm3p_torch.train -cn <name>`` on synthetic 8 x 2,000 batches with audio for
-    ``TRAIN_STEPS`` optimizer steps of one micro-step and one eval batch, exact launches, finite
+    ``TRAIN_STEPS`` optimizer steps of one micro-step and one eval batch, without remat (phase 13 runs
+    these recipes with their remat from the MMRS root), exact launches, finite
     losses; then two more steps timed with CUDA events (step ms, windows/s, peak memory). Returns
     (trainer, launches of the trainer run)."""
     from cm3p_torch.train.__main__ import main
@@ -2354,7 +2381,7 @@ def head_trainer(torch, ops, dev, name, out_dir, per_micro_step, per_eval, extra
             "dataset.synthetic=true", f"training.max_steps={TRAIN_STEPS}", "training.gradient_accumulation_steps=1",
             "training.logging_steps=1", "training.eval_steps=0", "training.max_eval_batches=1",
             f"training.save_steps={TRAIN_STEPS}", "training.load_best_model_at_end=false",
-            "dataset.test_metadata_variations=8", *extra]
+            "dataset.test_metadata_variations=8", "remat=false", *extra]
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2985,6 +3012,392 @@ def tool_run(torch, dev, model, proc, folders, log_dir, label, wire=None, ipc=Fa
     return row, emb
 
 
+# ---------------------------------------------------------------- phase 13
+
+MMRS_BUDGET_S = 150
+MMRS_STEPS = 3  # optimizer steps of one micro-step each in the trainer runs
+MMRS_WORKERS = 4  # loader workers of the trainer and tool runs
+MMRS_RATE = 44100  # each set's audio: 44.1 kHz stereo 16-bit, resampled to 16 kHz (a DT speed resamples further)
+REMAT_LOSS_REL = 1e-6
+REMAT_COS_MIN = 0.9999
+ROOT_COS_MIN = 0.9999  # --dataset-path against --beatmap-files, per beatmap (other packing, same windows)
+MODE_NAMES = {0: "osu", 1: "taiko", 2: "fruits", 3: "mania"}
+# v8_packed with audio launches per micro-step what v7 does: the beatmap tower's 14 window and 8 segment layers and
+# the audio tower's 4 and 2 (rope inside the kernels), the metadata tower's 6 segment layers (rope outside)
+MMRS_MICRO_STEP = V7_MICRO_STEP
+MMRS_EVAL = V7_EVAL
+FORWARD_FORMS = ("window_attention", "segment_attention")
+
+
+def rematerialised(per_micro_step):
+    """The launches of a micro-step with every layer checkpointed: each forward kernel runs again in the backward."""
+    return {k: 2 * v if k in FORWARD_FORMS else v for k, v in per_micro_step.items()}
+
+
+def mmrs_root(maps, waves, root):
+    """Phase 13's MMRS root: the 17 maps as 17 beatmapsets (``data/<nn>/`` with the .osu, its ``AudioFilename``
+    set to ``audio.wav``, and a seeded 44.1 kHz stereo 16-bit WAVE of the map's song length plus one second) and a
+    ``metadata.parquet`` with every column the loader, ``get_metadata`` and the vocabulary fill read. Years run
+    2014 ... 2023, every third set is graveyard (the rest ranked), four mappers, tags from ``resources/tags.json``."""
+    import datetime
+
+    import numpy as np
+    import pandas as pd
+
+    from cm3p_torch.beatmap import load_beatmap
+
+    root = Path(root)
+    tag_ids = [int(t["id"]) for t in json.loads((ROOT / "resources" / "tags.json").read_text(encoding="utf-8"))["tags"]]
+    rng = np.random.default_rng(13)
+    rows = []
+    for i, path in enumerate(maps):
+        folder = f"{i + 1:02d}"
+        set_dir = root / "data" / folder
+        set_dir.mkdir(parents=True)
+        lines = Path(path).read_text(encoding="utf-8").splitlines(keepends=True)
+        text = "".join("AudioFilename: audio.wav\n" if line.startswith("AudioFilename:") else line for line in lines)
+        (set_dir / Path(path).name).write_text(text, encoding="utf-8")
+        n = len(waves[path]) * MMRS_RATE // 16000
+        write_wav_pcm16(set_dir / "audio.wav", 0.1 * rng.standard_normal((n, 2)), MMRS_RATE)
+        bm = load_beatmap(path)
+        if bm.beatmap_id is None:
+            fail(f"{path}: no BeatmapID")
+        stars = 2.0 + 0.8 * (i % 7)
+        ranked = i % 3 != 2
+        rows.append({
+            "BeatmapSetId": i + 1, "Id": int(bm.beatmap_id), "BeatmapSetFolder": folder,
+            "BeatmapFile": Path(path).name, "AudioFile": "audio.wav", "ModeInt": int(bm.mode),
+            "Mode": MODE_NAMES[int(bm.mode)], "Cs": float(bm.circle_size),
+            "Status": "ranked" if ranked else "graveyard", "Ranked": 1 if ranked else -2,
+            "UserId": 100 + i % 4, "Creator": f"mapper_{i % 4}",
+            "SubmittedDate": datetime.datetime(2014 + i % 10, 1 + i % 12, 1), "DifficultyRating": stars,
+            "StarRating": stars * np.array([0.7, 0.85, 1.0, 1.15, 1.3, 1.45, 1.6]),
+            "TopTagIds": np.array([tag_ids[(7 * i) % len(tag_ids)], tag_ids[(13 * i + 3) % len(tag_ids)]]),
+        })
+    if len({r["Id"] for r in rows}) != len(rows):
+        fail("phase 13: two maps share a beatmap id")
+    pd.DataFrame(rows).to_parquet(root / "metadata.parquet")
+    return root
+
+
+def mmrs_overrides(root, out, steps=MMRS_STEPS):
+    """The trainer's overrides for a run from ``root``: every set in its own stream (``cycle_length`` 1: with 17
+    sets a worker's shard is 4 or 5 sets, and 8-way interleaving with ``drop_last`` would end its epoch after a few
+    windows), ``MMRS_WORKERS`` loader workers, ``steps`` optimizer steps of one micro-step, one eval batch."""
+    return [f"training.output_dir={out}", f"dataset.train_dataset_paths=[{root}]",
+            f"dataset.test_dataset_paths=[{root}]", "dataset.cycle_length=1", f"training.num_workers={MMRS_WORKERS}",
+            f"training.max_steps={steps}", "training.gradient_accumulation_steps=1", "training.logging_steps=1",
+            "training.eval_steps=0", "training.max_eval_batches=1", f"training.save_steps={steps}",
+            "training.load_best_model_at_end=false", "dataset.test_metadata_variations=8"]
+
+
+def mmrs_trainer(torch, ops, name, overrides, per_micro_step, per_eval, steps=MMRS_STEPS):
+    """``python -m cm3p_torch.train -cn <name>`` (its ``main``) from the MMRS root: exact launches, finite losses and
+    gradient norms, an evaluation record; the seconds each step waited on its loader. Returns (trainer, launches,
+    evaluation record, loader waits)."""
+    from cm3p_torch.train.__main__ import main
+    from cm3p_torch.train.trainer import Trainer
+
+    waits = []
+    advance = Trainer._advance
+
+    def timed_advance(self, data_iter):
+        t0 = time.perf_counter()
+        try:
+            return advance(self, data_iter)
+        finally:
+            waits.append(time.perf_counter() - t0)
+
+    Trainer._advance = timed_advance
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = main(["--config-name", name, "--device", "cuda", *overrides])
+    finally:
+        Trainer._advance = advance
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {k: steps * per_micro_step.get(k, 0) + per_eval.get(k, 0) for k in ops.KERNELS}
+    label = f"{name} trainer from the MMRS root ({steps} steps, 1 eval batch, save_pretrained)"
+    log(f"  {label} in {wall:.1f} s: launches {counts} (want {want})")
+    if counts != want:
+        fail(f"{label}: the trainer did not launch each kernel as expected")
+    records = [json.loads(line) for line in (trainer.output_dir / "train_log.jsonl").read_text().splitlines()]
+    train_records = [r for r in records if "loss" in r]
+    final = [r for r in records if "final_eval_loss" in r]
+    log(f"  train_log: {[(r['step'], round(r['loss'], 5), round(r['grad_norm'], 4)) for r in train_records]}; "
+        f"eval {final}")
+    if [r["step"] for r in train_records] != list(range(1, steps + 1)) or not final:
+        fail(f"{label}: the log lacks its steps or its evaluation")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in train_records) \
+            or not math.isfinite(final[0]["final_eval_loss"]):
+        fail(f"{label}: non-finite loss or gradient norm")
+    log(f"  loader wait per step: first {waits[0]:.2f} s (workers start), then "
+        f"{[round(w, 3) for w in waits[1:]]} s")
+    return trainer, counts, final[0], waits
+
+
+def remat_check(torch, ops, step, batch, windows, main_counts):
+    """(c): the same micro-step's loss and gradients with ``remat`` False, True and ``"dots"`` on one batch and the
+    same weights: exact launches (the forward kernels twice with remat), loss within ``REMAT_LOSS_REL``, every
+    gradient at cosine >= ``REMAT_COS_MIN``, a lower peak; then step ms (CUDA events) of each mode."""
+    model = step.model
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    base, rows = None, {}
+    for mode in (False, True, "dots"):
+        model.set_remat(mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        loss, grads, _ = step.grads(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = ops.launch_counts()
+        want = {k: (rematerialised(MMRS_MICRO_STEP) if mode else MMRS_MICRO_STEP).get(k, 0) for k in ops.KERNELS}
+        if counts != want:
+            fail(f"remat={mode!r}: one micro-step launched {counts}, want {want}")
+        for k, v in counts.items():
+            main_counts[k] += v
+        if base is None:  # on the host, so that the remat runs' peaks do not carry them
+            base = (float(loss), [None if g is None else g.detach().float().cpu() for g in grads], peak)
+            rows[mode] = {"loss": float(loss), "peak_gib": peak / 2**30}
+            continue
+        rel = abs(float(loss) - base[0]) / abs(base[0])
+        worst, at = 1.0, None
+        for name, g0, g in zip(names, base[1], grads):
+            if (g0 is None) != (g is None):
+                fail(f"remat={mode!r}: {name} has a gradient on one route only")
+            if g0 is None:
+                continue
+            g = g.detach().float().cpu()
+            n0, n1 = g0.norm().item(), g.norm().item()
+            if n0 == 0.0 and n1 == 0.0:
+                continue
+            c = (g0 * g).sum().item() / max(n0 * n1, 1e-30)
+            if c < worst:
+                worst, at = c, name
+        rows[mode] = {"loss": float(loss), "loss_rel": rel, "grad_cos_min": worst, "peak_gib": peak / 2**30}
+        log(f"  remat={mode!r}: loss {float(loss):.7f} vs {base[0]:.7f} (relative {rel:.2e}, tol {REMAT_LOSS_REL}), "
+            f"gradient cosine min {worst:.7f} at {at} (need >= {REMAT_COS_MIN}); forward + backward peak "
+            f"{peak / 2**30:.2f} GiB vs {base[2] / 2**30:.2f} GiB without remat; launches {counts}")
+        if not rel <= REMAT_LOSS_REL:
+            fail(f"remat={mode!r} changed the loss")
+        if not worst >= REMAT_COS_MIN:
+            fail(f"remat={mode!r} changed the gradient of {at}")
+        if not peak < base[2]:
+            fail(f"remat={mode!r} did not lower the peak memory")
+        del grads
+    del base
+    for mode in (False, True, "dots"):  # full optimizer steps, timed (they move the weights: after the checks)
+        model.set_remat(mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = [cuda_timed(torch, lambda: step(batch))[1] for _ in range(2)]
+        rows[mode].update(step_ms=min(times), windows_per_s=1e3 * windows / min(times),
+                          step_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"  training step, remat={mode!r} (forward, backward, Muon; CUDA events, best of "
+            f"{[round(t, 1) for t in times]}): {min(times):.1f} ms, {rows[mode]['windows_per_s']:.2f} windows/s "
+            f"({windows} windows), peak {rows[mode]['step_peak_gib']:.2f} GiB")
+    model.set_remat(False)
+    return rows
+
+
+def freeze_check(torch, dev, args, cfg, batch):
+    """(d): ``freeze_beatmap_model`` with ``unfreeze_beatmap_model_at_step`` 1: the beatmap tower (its audio
+    encoder included) bit-equal to its start after the first optimizer step, moved after the second; the metadata
+    tower and the projections moved after the first."""
+    from cm3p_torch.train import TrainStep
+    from cm3p_torch.train.__main__ import build_model, build_optimizer
+
+    args = {**args, "freeze_beatmap_model": True, "unfreeze_beatmap_model_at_step": 1}
+    model = build_model(args, cfg, dev, seed=0)
+    step = TrainStep(model, build_optimizer(args, model), packed=True)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    moved = []
+    for _ in range(2):
+        metrics = step(batch)
+        if not math.isfinite(float(metrics["loss"])):
+            fail("freezing: non-finite loss")
+        moved.append({n for n, p in model.named_parameters() if not torch.equal(p.detach(), start[n])})
+    tower = {n for n in start if n.startswith("beatmap_model.")}
+    rest = set(start) - tower
+    log(f"  freezing: after step 1 {len(moved[0] & tower)} of {len(tower)} beatmap_model tensors moved (want 0), "
+        f"{len(moved[0] & rest)} of {len(rest)} others; after step 2 {len(moved[1] & tower)} of {len(tower)}")
+    if moved[0] & tower:
+        fail(f"freezing: a frozen tensor moved in the first step ({sorted(moved[0] & tower)[0]})")
+    if rest - moved[0]:
+        fail(f"freezing: a tensor outside the frozen tower did not move ({sorted(rest - moved[0])[0]})")
+    if tower - moved[1]:
+        fail(f"freezing: a tensor of the tower did not move once the gate opened ({sorted(tower - moved[1])[0]})")
+    del step, model, start
+    torch.cuda.empty_cache()
+
+
+def root_extraction(torch, ops, bundle, root, tmp):
+    """(f): ``python -m cm3p_torch.extract --dataset-path ROOT`` (its ``main``, setting D, audio, the tool's
+    default wire, ``MMRS_WORKERS`` workers) against ``--beatmap-files`` over the same 17 folders, on the bundle the
+    trainer wrote: one embedding per beatmap at cosine >= ``ROOT_COS_MIN``, exact launches per flush; wall and
+    device windows/s. Returns (launches, windows of the --beatmap-files run)."""
+    import importlib
+
+    import numpy as np
+
+    extract_mod = importlib.import_module("cm3p_torch.extract")
+    captured = []
+    extract_embeddings = extract_mod.extract_embeddings
+
+    def capture(*args, stats=None, **kwargs):
+        out = extract_embeddings(*args, stats=stats, **kwargs)
+        captured.append(stats)
+        return out
+
+    folders = sorted(str(p) for p in (Path(root) / "data").iterdir())
+    runs = {"--dataset-path": ["--dataset-path", str(root)],
+            "--beatmap-files": [a for f in folders for a in ("--beatmap-files", f)]}
+    embeddings, rows = {}, {}
+    ops.reset_launch_counts()
+    extract_mod.extract_embeddings = capture
+    try:
+        for label, source in runs.items():
+            t0 = time.perf_counter()
+            embeddings[label] = extract_mod.main(["--model-dir", str(bundle), "--device", "cuda",
+                                                  "--num-workers", str(MMRS_WORKERS),
+                                                  "--output", str(Path(tmp) / f"emb{len(rows)}.parquet"), *source])
+            torch.cuda.synchronize()
+            stats = captured[-1]
+            rows[label] = {"windows": stats["windows"], "flushes": stats["flushes"],
+                           "wall_windows_per_s": stats["windows"] / (time.perf_counter() - t0),
+                           "device_windows_per_s": stats["windows"] / max(stats["device_ms"] / 1e3, 1e-9)}
+            log(f"  extract {label}: {stats['windows']} windows, {len(embeddings[label])} beatmaps, "
+                f"{rows[label]['wall_windows_per_s']:.1f} windows/s wall (load included), "
+                f"{rows[label]['device_windows_per_s']:.1f} on the card, {stats['flushes']} flushes")
+    finally:
+        extract_mod.extract_embeddings = extract_embeddings
+    counts = ops.launch_counts()
+    per_forward = {**EXTRACT_ATTENTION, **EXTRACT_SETTINGS["D"][1]}
+    flushes = sum(r["flushes"] for r in rows.values())
+    want = {k: flushes * per_forward.get(k, 0) for k in ops.KERNELS}
+    log(f"  extraction launches {counts} (want {want})")
+    if counts != want:
+        fail("extract --dataset-path: the tool did not launch each kernel as expected")
+    a, b = embeddings["--dataset-path"], embeddings["--beatmap-files"]
+    if sorted(a) != sorted(b) or len(a) != 17:
+        fail(f"extract --dataset-path: beatmaps {sorted(a)} against {sorted(b)}")
+    ids = sorted(a)
+    cos = cosines(torch.as_tensor(np.stack([a[i] for i in ids])), torch.as_tensor(np.stack([b[i] for i in ids])))
+    log(f"  --dataset-path vs --beatmap-files, per beatmap: cosine min {float(cos.min()):.7f} "
+        f"(need >= {ROOT_COS_MIN})")
+    if not bool((cos >= ROOT_COS_MIN).all()):
+        fail("extract --dataset-path and --beatmap-files disagree")
+    return counts, rows
+
+
+def mmrs_slice(torch, ops, dev, maps, waves, tmp):
+    """Phase 13: training from an MMRS root as ``train.py`` runs it; returns the launches of its main paths and
+    its numbers (printed as one JSON line)."""
+    from cm3p_torch.train import to_device
+    from cm3p_torch.train.__main__ import CONFIG_DIR, build_model, build_optimizer, build_processor, mmrs_batches
+    from cm3p_torch.train.__main__ import model_config
+    from cm3p_torch.utils.config import load_config
+    from cm3p_torch.validate_dataset import main as validate_main
+
+    t_phase = time.perf_counter()
+    tmp = Path(tmp)
+    main_counts = {k: 0 for k in ops.KERNELS}
+    report = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            main_counts[k] += v
+
+    # (a) the root
+    root = mmrs_root(maps, waves, tmp / "mmrs")
+    log(f"  (a) MMRS root: 17 sets, 44.1 kHz stereo WAVE files ({time.perf_counter() - t_phase:.1f} s)")
+
+    # (b) v8_packed with audio from the root through the trainer's entry point
+    overrides = mmrs_overrides(root, tmp / "v8") + ["dataset.include_audio=true"]
+    torch.cuda.reset_peak_memory_stats()
+    trainer, counts, final, waits = mmrs_trainer(torch, ops, "v8_packed", overrides, MMRS_MICRO_STEP, MMRS_EVAL)
+    add(counts)
+    report["trainer_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    report["loader_wait_s"] = waits
+    args = load_config(CONFIG_DIR, "v8_packed", overrides)
+    proc = build_processor(args)
+    cfg = model_config(args, proc)
+    reloaded = build_model(args, cfg, dev, seed=1)
+    opt = build_optimizer(args, reloaded)
+    info = trainer.ckpt.restore(reloaded, opt)
+    same = all(torch.equal(x, y) for x, y in zip(trainer.model.state_dict().values(), reloaded.state_dict().values()))
+    log(f"  checkpoint {trainer.ckpt.steps()} reloaded: step {info and info['step']}, parameters equal {same}")
+    if not (info and info["step"] == MMRS_STEPS and same):
+        fail("phase 13: the checkpoint did not reload the trained state")
+    del reloaded, opt
+    torch.cuda.empty_cache()
+    inline = load_config(CONFIG_DIR, "v8_packed", overrides + ["training.num_workers=0"])
+    batch = next(iter(mmrs_batches(inline, proc, test=False)()))
+    windows = int(batch["window_valid"].sum())
+    log(f"  first batch of the seeded stream: {tuple(batch['input_ids'].shape)} rows, {windows} windows, mel "
+        f"{tuple(batch['input_features'].shape)}, metadata {tuple(batch['metadata_ids'].shape)}")
+    dev_batch = to_device(batch, dev, packed=True)
+
+    # (c) remat on the same batch and weights
+    report["remat"] = remat_check(torch, ops, trainer.step_fn, dev_batch, windows, main_counts)
+    bundle = trainer.output_dir / "model"
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    log(f"  ({time.perf_counter() - t_phase:.1f} s into phase 13)")
+
+    # (d) freezing
+    freeze_check(torch, dev, args, cfg, dev_batch)
+    del dev_batch
+
+    # (e) labels from the data: v7 (masked_lm, the decoder head) and v7_classifier (ranked_classification)
+    v7 = mmrs_overrides(root, tmp / "v7", steps=1) + ["training.per_device_eval_batch_size=4"]
+    trainer, counts, final, _ = mmrs_trainer(torch, ops, "v7", v7, rematerialised(V7_MICRO_STEP), V7_EVAL, steps=1)
+    add(counts)
+    if final.get("final_eval_accuracy_masked_lm") is None:
+        fail("v7 from the MMRS root: no masked-LM accuracy in the evaluation record")
+    v7_bundle = trainer.output_dir / "model"
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    cls = mmrs_overrides(root, tmp / "cls", steps=1) + [f"from_pretrained={v7_bundle}"]
+    trainer, counts, final, _ = mmrs_trainer(torch, ops, "v7_classifier", cls, rematerialised(HEAD_MICRO_STEP),
+                                             HEAD_EVAL, steps=1)
+    add(counts)
+    if final.get("final_eval_accuracy_classification") is None:
+        fail("v7_classifier from the MMRS root: no classification accuracy in the evaluation record")
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    cls_args = load_config(CONFIG_DIR, "v7_classifier", cls + ["training.num_workers=0"])
+    labels = [int(x) for b in mmrs_batches(cls_args, build_processor(cls_args), test=False)() for x in b["labels"]]
+    log(f"  v7_classifier's training epoch: {len(labels)} windows, ranked {sum(labels)}, unranked "
+        f"{len(labels) - sum(labels)}")
+    if set(labels) != {0, 1}:
+        fail("v7_classifier from the MMRS root: its batches lack ranked or unranked labels")
+    log(f"  ({time.perf_counter() - t_phase:.1f} s into phase 13)")
+
+    # (f) extraction from the root, on the bundle the v8_packed run wrote
+    counts, report["extract"] = root_extraction(torch, ops, bundle, root, tmp)
+    add(counts)
+
+    # (g) validate_dataset over the root: every window of the 17 maps at speed 1
+    stats = validate_main(["--config-name", "v8_packed", "--output-dir", str(tmp / "validation"),
+                           f"dataset.train_dataset_paths=[{root}]", "dataset.cycle_length=1",
+                           "dataset.dt_augment_prob=0", "dataset.include_audio=true"])
+    want = report["extract"]["--beatmap-files"]["windows"]
+    log(f"  validate_dataset: {stats['num_samples']} samples (the --beatmap-files run's windows: {want}), "
+        f"token length {stats['token_length']}")
+    if stats["num_samples"] != want or not (tmp / "validation" / "stats.json").exists():
+        fail("validate_dataset: its sample count is not the dataset's window count")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"phase13": report}))
+    return main_counts
+
+
 def profile_tree(torch, dev, tree) -> int:
     """``--profile-tree DIR``: phase 12's host profile of another checkout of this repository, one from
     before the native host paths and the mel wires (such as ``git archive 75aea04``), with that tree's
@@ -3384,6 +3797,15 @@ def main(argv=None) -> int:
         for kname, n in host_front_end(torch, ops, dev, maps, waves, tmp).items():
             main_counts[kname] += n
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. training from an MMRS root as train.py runs it
+    log("[13] training from an MMRS root: v8_packed with audio, remat, freezing, labels from the data, "
+        "extract --dataset-path, validate_dataset")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for kname, n in mmrs_slice(torch, ops, dev, maps, waves, tmp).items():
+            main_counts[kname] += n
+    log(f"  phase 13: {time.perf_counter() - t0:.1f} s (budget {MMRS_BUDGET_S} s)")
 
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:

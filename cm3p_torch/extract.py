@@ -1,9 +1,12 @@
 """Batch embedding extraction to parquet: the port's ``extract_beatmap_embeddings.py``.
 
     python -m cm3p_torch.extract --model-dir out/model --beatmap-files path/to/maps --output embeddings.parquet
+    python -m cm3p_torch.extract --model-dir out/model --dataset-path ROOT --output embeddings.parquet
 
-Iterates loose ``.osu`` / ``.osz`` files through the processor (optionally in
-worker processes), packs the windows into fixed rows with segment ids, runs
+Iterates loose ``.osu`` / ``.osz`` files (``--beatmap-files``) or MMRS dataset
+roots (``--dataset-path``: ``metadata.parquet`` beside ``data/<set folder>/``,
+every beatmap of the filtered metadata, no augmentation) through the processor
+(optionally in worker processes), packs the windows into fixed rows with segment ids, runs
 the packed forward on each flush of ``--flush-rows`` rows, mean-pools the
 per-window embeddings per beatmap id, re-normalises, joins the metadata
 columns and writes a parquet file, optionally merged into an existing one
@@ -35,8 +38,7 @@ device) or ``pcm`` (the windows' waveforms; the log-mel runs on the device,
 mel from the loader workers as int8; with ``--mel-wire int8`` the codes go to
 the device as they are, on the other wires they are dequantised on the host.
 
-Not ported: MMRS dataset roots (``--dataset-path``), the data-parallel mesh, and
-what only exists for XLA (the AOT executable cache, ``--prewarm``, shape padding
+Not ported: the data-parallel mesh, and what only exists for XLA (the AOT executable cache, ``--prewarm``, shape padding
 against recompiles).
 """
 from __future__ import annotations
@@ -54,7 +56,15 @@ import torch
 
 from .audio.device_mel import DeviceLogMel
 from .configs import CM3PConfig, tiny_cm3p_config
-from .data import BeatmapFilesDataset, BeatmapFilesDatasetFactory, SampleLoader, batched_loader
+from .data import (
+    BeatmapFilesDataset,
+    BeatmapFilesDatasetFactory,
+    DatasetConfig,
+    MmrsDataset,
+    MmrsDatasetFactory,
+    SampleLoader,
+    batched_loader,
+)
 from .data.loader import _IPC_SCALE, _dequantize_features_from_ipc
 from .inference import load_model, load_pretrained, resolve_device
 from .interop import init_weights
@@ -407,7 +417,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="python -m cm3p_torch.extract", description=__doc__.split("\n\n")[0])
     parser.add_argument("--model-dir", default=None, help="HF-layout model dir (config.json + model.safetensors)")
     parser.add_argument("--processor-dir", default=None, help="saved processor dir")
-    parser.add_argument("--beatmap-files", action="append", default=None, required=True,
+    parser.add_argument("--dataset-path", action="append", default=None, help="MMRS dataset root (repeatable)")
+    parser.add_argument("--beatmap-files", action="append", default=None,
                         help=".osu/.osz files or dirs (repeatable)")
     parser.add_argument("--output", required=True, help="output parquet")
     parser.add_argument("--merge-with", default=None, help="existing embeddings parquet to merge into")
@@ -477,7 +488,10 @@ def _random_model(processor: CM3PProcessor, tiny: bool, device, dtype, options) 
 
 
 def main(argv=None) -> dict[int, np.ndarray]:
-    ns = build_parser().parse_args(argv)
+    parser = build_parser()
+    ns = parser.parse_args(argv)
+    if not (ns.beatmap_files or ns.dataset_path):
+        parser.error("Provide --dataset-path or --beatmap-files")
     logging.basicConfig(level=logging.INFO, stream=sys.stdout)
     device = resolve_device(ns.device)
     options = options_from_args(ns)
@@ -508,8 +522,16 @@ def main(argv=None) -> dict[int, np.ndarray]:
     include_audio = not ns.no_audio
     mel_wire = configure_mel_wire(processor, ns.pack, include_audio, ns.compact_mel, ns.mel_wire)
     logger.info("mel wire: %s; native host paths: %s", mel_wire, ns.native)
-    factory = BeatmapFilesDatasetFactory(ns.beatmap_files, processor, include_audio)
-    metadata = BeatmapFilesDataset(ns.beatmap_files, processor, include_audio=False).metadata
+    if ns.beatmap_files:
+        factory = BeatmapFilesDatasetFactory(ns.beatmap_files, processor, include_audio)
+        metadata = BeatmapFilesDataset(ns.beatmap_files, processor, include_audio=False).metadata
+    else:
+        ds_cfg = DatasetConfig(
+            train_dataset_paths=ns.dataset_path, include_audio=include_audio, include_metadata=False,
+            include_source_metadata=True, dt_augment_prob=0.0, cycle_length=1,
+        )
+        factory = MmrsDatasetFactory(ds_cfg, processor, test=False)
+        metadata = MmrsDataset(ds_cfg, processor).get_filtered_metadata()
     try:
         n_cores = len(os.sched_getaffinity(0))
     except AttributeError:  # pragma: no cover - non-linux

@@ -26,14 +26,14 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..configs import AudioConfig, BeatmapConfig, CM3PConfig, MetadataConfig
-from .modernbert import EncoderOptions, LayerNormF32, ModernBertEncoder, linear, pool_hidden
+from .modernbert import REMAT_MODES, EncoderOptions, LayerNormF32, ModernBertEncoder, linear, pool_hidden
 
 # the projector's activations, as the JAX package's ``ACTIVATIONS``
 ACTIVATIONS = {
@@ -230,6 +230,13 @@ class TowerModel(nn.Module):
         for enc in self.encoders():
             enc.compute_dtype = dtype
 
+    def set_remat(self, remat: Union[bool, str]) -> None:
+        """Per-layer rematerialisation under grad (``False``, ``True`` or ``"dots"``) of every tower."""
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be one of {REMAT_MODES}, not {remat!r}")
+        for enc in self.encoders():
+            enc.remat = remat
+
 
 class CM3PBeatmapModel(TowerModel):
     """The beatmap tower of CM3P with its projection: beatmap embeddings.
@@ -404,6 +411,12 @@ class CM3PModel(CM3PBeatmapModel):
 
     def encoders(self) -> list[ModernBertEncoder]:
         return super().encoders() + [self.metadata_model.encoder]
+
+    def set_remat(self, remat: Union[bool, str]) -> None:
+        """The beatmap and audio towers take ``remat``; the metadata tower, small layers over many rows,
+        takes full remat whenever any is on (as in the JAX package)."""
+        super().set_remat(remat)
+        self.metadata_model.encoder.remat = bool(remat)
 
     def get_metadata_features(self, metadata_ids, metadata_attention_mask=None, normalize: bool = False):
         is_3d = metadata_ids.dim() == 3

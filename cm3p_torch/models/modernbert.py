@@ -65,6 +65,12 @@ the final hidden states, so every rank returns the full (B, L, H). Forward
 only; packed ``segment_ids`` raise, and the attention kernels' Wo epilogue is
 declined (the FFN and LN-matmul options still apply).
 
+Rematerialisation (the JAX package's ``remat``): an encoder's ``remat`` is
+False, True (each layer runs under ``torch.utils.checkpoint`` and its forward
+runs again in the backward) or ``"dots"`` (the same, but the outputs of the
+layer's ``mm`` / ``addmm`` products are kept and not recomputed; the kernels,
+which are no such op, run again). It acts only where grad is on.
+
 Dropout is not ported: a nonzero ``attention_dropout``, ``embedding_dropout``
 or ``mlp_dropout`` raises where it would apply (training mode under grad);
 inference, where the JAX package applies none, runs.
@@ -72,7 +78,8 @@ inference, where the JAX package applies none, runs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -310,6 +317,29 @@ class Embeddings(nn.Module):
         self.norm = LayerNormF32(config.hidden_size, config.norm_eps, config.norm_bias)
 
 
+REMAT_MODES = (False, True, "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat="dots"``: keep the weight products' outputs."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpointed(layer: nn.Module, remat: Union[bool, str], *args, **kwargs):
+    """``layer(*args, **kwargs)`` under ``torch.utils.checkpoint`` in ``remat``'s mode."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    extra = {}
+    if remat == "dots":
+        extra["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(layer, *args, use_reentrant=False, **extra, **kwargs)
+
+
 class ModernBertEncoder(nn.Module):
     """Token/feature encoder with alternating local-global attention.
 
@@ -331,6 +361,7 @@ class ModernBertEncoder(nn.Module):
         self.plain = False
         self.compute_dtype: Optional[torch.dtype] = None
         self.options = EXACT
+        self.remat: Union[bool, str] = False
 
     def set_options(self, options: EncoderOptions) -> None:
         """Set the extraction options of every layer (int8 weights are remade at next use)."""
@@ -366,8 +397,12 @@ class ModernBertEncoder(nn.Module):
         x = self.embeddings.norm(inputs_embeds.to(self.compute_dtype or inputs_embeds.dtype))
         if sp_group is not None:
             return self._forward_sharded(x, attention_mask, segment_ids, position_ids, sp_group)
+        remat = self.remat if torch.is_grad_enabled() else False
         for layer in self.layers:
-            x = layer(x, attention_mask, segment_ids, plain=self.plain, positions=position_ids)
+            if remat:
+                x = checkpointed(layer, remat, x, attention_mask, segment_ids, plain=self.plain, positions=position_ids)
+            else:
+                x = layer(x, attention_mask, segment_ids, plain=self.plain, positions=position_ids)
         return self.final_norm(x)
 
     def _forward_sharded(self, x, attention_mask, segment_ids, position_ids, group) -> torch.Tensor:

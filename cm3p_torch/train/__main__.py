@@ -1,39 +1,48 @@
 """Training from the composed YAML config: the port's ``train.py``.
 
-    python -m cm3p_torch.train --config-name v8_packed --beatmap-files resources --beatmap-files resources/perf_corpus
+    python -m cm3p_torch.train --config-name v8_packed 'dataset.train_dataset_paths=[ROOT]' 'dataset.test_dataset_paths=[ROOT]'
+    python -m cm3p_torch.train --config-name smoke_mmrs --device cpu 'dataset.train_dataset_paths=[ROOT]' 'dataset.test_dataset_paths=[ROOT]'
+    python -m cm3p_torch.train --config-name v8_packed --beatmap-files resources --beatmap-files resources/perf_corpus dataset.include_audio=false
     python -m cm3p_torch.train --config-name smoke --device cpu      # synthetic data, tiny model
-    python -m cm3p_torch.train --config-name v6_mask dataset.synthetic=true    # masked LM, synthetic labels
 
-Builds the processor, the model (seeded fp32 master weights; bf16 compute on
-the GPU, fp32 on the CPU), the optimizer (Muon + AdamW, or AdamW) and the
-batch source from ``configs/train/<name>.yaml`` with ``a.b=c`` overrides,
-then runs :class:`~cm3p_torch.train.trainer.Trainer` and a final evaluation.
+Builds the processor (metadata vocabularies filled from the dataset's
+``metadata.parquet`` where the config leaves them unset), the model (seeded
+fp32 master weights; bf16 compute on the GPU, fp32 on the CPU), the optimizer
+(Muon + AdamW, or AdamW; ``freeze_beatmap_model`` / ``freeze_metadata_model``
+hold a tower until ``unfreeze_beatmap_model_at_step``) and the batch source
+from ``configs/train/<name>.yaml`` with ``a.b=c`` overrides, then runs
+:class:`~cm3p_torch.train.trainer.Trainer` and a final evaluation.
 ``model_cls`` keeps the JAX names: ``CM3PModule`` (:class:`CM3PModel`, with
 the decoder head under ``model.has_decoder_head``), ``MaskedLMModule``
 (:class:`MaskedLMModel`) and ``ClassifierModule`` (:class:`ClassifierModel`),
-the last two on ``model.beatmap_config``. ``from_pretrained`` (a local
-HF-layout directory, such as an earlier run's ``<output_dir>/model``)
+the last two on ``model.beatmap_config``. ``remat`` (False, True or
+``"dots"``) rematerialises every encoder layer in the backward
+(:meth:`~cm3p_torch.models.cm3p.TowerModel.set_remat`). ``from_pretrained`` (a
+local HF-layout directory, such as an earlier run's ``<output_dir>/model``)
 initialises the parameters it holds (:func:`~cm3p_torch.train.trainer.from_pretrained`;
 ``from_pretrained_allow_missing`` lets the rest keep their seeded values).
 The final model goes to ``<output_dir>/model`` in the layout
 :func:`~cm3p_torch.inference.load_pretrained` reads (``model.safetensors``,
 the HF ``config.json`` and the processor's files); periodic checkpoints stay
 ``torch.save`` files under ``checkpoints/``.
-Batches are synthetic (``dataset.synthetic``; with ``labels`` for
-``dataset.labels`` ``masked_lm`` and ``ranked_classification``) or come from
-local ``.osu`` files (``--beatmap-files``: files or directories of them),
-processed with generated metadata and packed when ``training.packed`` is set
-(``CM3PModule`` only). Runs on ``cuda`` unless ``--device cpu``; without a
-GPU it raises unless asked for the CPU.
 
-Not ported yet: the MMRS dataset loader (and with it labels for batches from
-``.osu`` files), audio from beatmap folders, freezing, multi-device training
-and rematerialisation (``remat`` is ignored with a warning).
+Batches come, as in ``train.py``, from the MMRS dataset roots of
+``dataset.train_dataset_paths`` / ``test_dataset_paths``
+(:func:`mmrs_batches`: audio, augmentations and ``dataset.labels`` from the
+data, ``training.num_workers`` loader processes, packed when
+``training.packed``, a resume seeks its batch through ``start_step``); or
+they are synthetic (``dataset.synthetic``); or they come from local ``.osu``
+files (``--beatmap-files``: files or directories of them, no audio and no
+labels), processed with generated metadata. Runs on ``cuda`` unless
+``--device cpu``; without a GPU it raises unless asked for the CPU.
+
+Not ported yet: multi-device training (one process, shard (0, 1) of the data).
 """
 from __future__ import annotations
 
 import argparse
 import glob
+import json
 import logging
 import os
 import sys
@@ -46,7 +55,8 @@ import torch
 from ..audio import LogMelExtractor
 from ..beatmap import BeatmapEventParser
 from ..configs import BeatmapConfig, CM3PConfig, MetadataConfig
-from ..data import packed_batches
+from ..data import DatasetConfig, MmrsDatasetFactory, SampleLoader, batched_loader, packed_batches
+from ..data.data_utils import filter_mmrs_metadata, load_mmrs_metadata
 from ..inference import resolve_device, save_pretrained
 from ..interop import init_weights
 from ..models import ClassifierModel, CM3PModel, MaskedLMModel, TowerModel
@@ -59,7 +69,8 @@ from .trainer import Trainer, from_pretrained
 
 logger = logging.getLogger(__name__)
 
-CONFIG_DIR = Path(__file__).resolve().parents[2] / "configs" / "train"
+REPO_ROOT = Path(__file__).resolve().parents[2]
+CONFIG_DIR = REPO_ROOT / "configs" / "train"
 SYNTHETIC_VOCAB = {
     "modes": {0: "osu", 1: "taiko", 2: "fruits", 3: "mania"},
     "statuses": {1: "ranked", -2: "graveyard"},
@@ -68,13 +79,56 @@ SYNTHETIC_VOCAB = {
 }
 
 
+def dataset_config(args: dict) -> DatasetConfig:
+    return DatasetConfig(**{k: v for k, v in args["dataset"].items() if k != "synthetic"})
+
+
+def dataset_vocabularies(ds_cfg: DatasetConfig, metadata_tok_cfg: dict) -> None:
+    """Fill ``modes``, ``statuses``, ``mappers`` and ``tags`` that ``metadata_tok_cfg`` lacks from the
+    filtered training metadata (tags: the ``TopTagIds`` found there, described by ``resources/tags.json``)."""
+    train_meta = filter_mmrs_metadata(
+        load_mmrs_metadata(ds_cfg.train_dataset_paths),
+        start=ds_cfg.train_dataset_start,
+        end=ds_cfg.train_dataset_end,
+        gamemodes=ds_cfg.gamemodes,
+        min_year=ds_cfg.min_year,
+        max_year=ds_cfg.max_year,
+        min_difficulty=ds_cfg.min_difficulty,
+        max_difficulty=ds_cfg.max_difficulty,
+    )
+    reset = train_meta.reset_index()
+    metadata_tok_cfg.setdefault("modes", reset.set_index("ModeInt")["Mode"].to_dict())
+    metadata_tok_cfg.setdefault("statuses", reset.set_index("Ranked")["Status"].to_dict())
+    metadata_tok_cfg.setdefault("mappers", reset.set_index("UserId")["Creator"].to_dict())
+    if not metadata_tok_cfg.get("tags"):
+        all_tag_ids = set(train_meta["TopTagIds"].explode().dropna().unique().tolist())
+        with open(REPO_ROOT / "resources" / "tags.json", encoding="utf-8") as f:
+            tags_info = json.load(f)["tags"]
+        metadata_tok_cfg["tags"] = {
+            int(t["id"]): {"name": t["name"], "ruleset_id": t["ruleset_id"], "description": t["description"]}
+            for t in tags_info
+            if int(t["id"]) in all_tag_ids
+        }
+
+
 def build_processor(args: dict) -> CM3PProcessor:
     proc_cfg = args["processor"]
     metadata_tok_cfg = dict(proc_cfg["metadata_tokenizer"])
-    if args["dataset"].get("synthetic"):
+    needs_vocab = not all(metadata_tok_cfg.get(k) for k in SYNTHETIC_VOCAB)
+    if needs_vocab and args["dataset"].get("synthetic"):
         # deterministic small vocabularies for synthetic runs
         for key, value in SYNTHETIC_VOCAB.items():
             metadata_tok_cfg.setdefault(key, value)
+    elif needs_vocab:
+        ds_cfg = dataset_config(args)
+        found = bool(ds_cfg.train_dataset_paths)
+        try:
+            if found:
+                dataset_vocabularies(ds_cfg, metadata_tok_cfg)
+        except FileNotFoundError:
+            found = False
+        if not found:
+            logger.warning("Dataset metadata not found; metadata vocabularies stay minimal")
     metadata_tok_cfg = {k: v for k, v in metadata_tok_cfg.items() if v is not None}
     return CM3PProcessor(
         audio_feature_extractor=LogMelExtractor(**proc_cfg["audio_feature_extractor"]),
@@ -115,8 +169,6 @@ def build_model(args: dict, cfg: CM3PConfig, device: torch.device, seed: int) ->
     model_cls = args.get("model_cls", "CM3PModule")
     if model_cls not in MODEL_CLASSES:
         raise ValueError(f"model_cls must be one of {MODEL_CLASSES}, not {model_cls!r}")
-    if args.get("remat"):
-        logger.warning("remat=%s: the port has no rematerialisation; training without it", args["remat"])
     gen = torch.Generator(device=device).manual_seed(seed)
     bc = cfg.beatmap_config
     if model_cls == "MaskedLMModule":
@@ -129,6 +181,7 @@ def build_model(args: dict, cfg: CM3PConfig, device: torch.device, seed: int) ->
     model.load_state_dict(weights)
     model.to(device)
     model.set_compute_dtype(torch.bfloat16 if device.type != "cpu" else torch.float32)
+    model.set_remat(args.get("remat", True))
     if args.get("attn_impl", "pallas") == "xla":  # the JAX package's route without its kernels
         logger.info("attn_impl=xla: every op runs its plain PyTorch version on %s", device)
         model.set_plain(True)
@@ -137,13 +190,14 @@ def build_model(args: dict, cfg: CM3PConfig, device: torch.device, seed: int) ->
 
 def build_optimizer(args: dict, model: torch.nn.Module) -> MuonAdamW:
     training = args["training"]
-    if args.get("freeze_beatmap_model") or args.get("freeze_metadata_model"):
-        raise NotImplementedError("freezing a tower is not ported yet")
     schedule = lr_schedule(training["learning_rate"], training["max_steps"], training.get("warmup_steps", 0))
     betas = (training.get("adam_beta1", 0.9), training.get("adam_beta2", 0.999))
+    frozen = [name for name, key in (("beatmap_model", "freeze_beatmap_model"),
+                                     ("metadata_model", "freeze_metadata_model")) if args.get(key)]
     common = dict(
         adamw_betas=betas, adamw_eps=training.get("adam_epsilon", 1e-8),
         adamw_weight_decay=training.get("weight_decay", 0.0),
+        frozen=frozen, unfreeze_at=args.get("unfreeze_beatmap_model_at_step") if frozen else None,
     )
     named, layouts = list(model.named_parameters()), flax_layouts(model)
     if training.get("optim") == "muon":
@@ -214,11 +268,12 @@ def beatmap_file_batches(args: dict, processor: CM3PProcessor, paths: list[str],
     the files reseeds the processor from (seed, test, pass)."""
     training, dataset = args["training"], args["dataset"]
     if dataset.get("include_audio"):
-        raise NotImplementedError("batches from .osu files carry no audio: set dataset.include_audio=false")
+        raise NotImplementedError("batches from .osu files carry no audio: set dataset.include_audio=false, or "
+                                  "train from MMRS roots (dataset.train_dataset_paths) for audio")
     if dataset.get("labels", "none") != "none":
         raise NotImplementedError(
             f"dataset.labels={dataset['labels']!r}: batches from .osu files carry no labels; masked-LM masking and "
-            "ranked-classification labels come with the MMRS dataset loader (ROADMAP.md Queue 1 item 3)"
+            "ranked-classification labels come from MMRS roots (dataset.train_dataset_paths)"
         )
     bsz = training["per_device_eval_batch_size" if test else "per_device_train_batch_size"]
     variations = dataset["test_metadata_variations" if test else "train_metadata_variations"]
@@ -244,6 +299,69 @@ def beatmap_file_batches(args: dict, processor: CM3PProcessor, paths: list[str],
                 max_windows=training.get("packed_max_windows", bsz * 8),
             )
         return _stacked(samples(), bsz)
+
+    return factory
+
+
+def mmrs_batches(args: dict, processor: CM3PProcessor, test: bool):
+    """``train.py``'s ``mmrs_batches``: a factory of batch streams over the MMRS roots of the config.
+
+    Each call of the factory is one epoch of ``SampleLoader`` over :class:`MmrsDatasetFactory`
+    (``training.num_workers`` processes for training, inline for evaluation) through ``packed_batches``
+    or ``batched_loader``; the epoch counter advances the seeded shuffle. ``start_step`` (a resume) seeks
+    the stream an uninterrupted run would be at: whole epochs through ``training.batches_per_epoch``,
+    then a replay of the rest; without it a replay of a seeded stream, a fresh epoch of an unseeded one.
+    """
+    ds_cfg = dataset_config(args)
+    training = args["training"]
+    bsz = training["per_device_eval_batch_size" if test else "per_device_train_batch_size"]
+    num_workers = 0 if test else training.get("num_workers", 0)
+    packed = training.get("packed", False)
+    data_seed = training.get("seed")
+    epoch_state = {"next": 0}
+    log_dir = str(Path(training["output_dir"]) / "dataloader")
+
+    def build_iter(epoch: int):
+        dataset_factory = MmrsDatasetFactory(ds_cfg, processor, test, 0, 1, seed=data_seed, epoch=epoch)
+        loader = SampleLoader(dataset_factory, num_workers=num_workers, log_dir=log_dir)
+        if packed:
+            return packed_batches(
+                iter(loader), rows=bsz,
+                seq_len=args["processor"]["default_kwargs"]["beatmap_kwargs"].get("max_length", 4000),
+                pad_id=processor.beatmap_tokenizer.pad_token_id,
+                max_windows=training.get("packed_max_windows", bsz * 8),
+            )
+        return batched_loader(iter(loader), bsz, drop_last=True)
+
+    def factory(start_step: int = 0):
+        epoch = 0 if test else epoch_state["next"]
+        skip = 0
+        bpe = training.get("batches_per_epoch")
+        if start_step and not test:
+            if bpe:
+                epoch, skip = divmod(start_step, int(bpe))
+                logger.info("resume seek: epoch %d + %d-batch replay (training.batches_per_epoch=%d)",
+                            epoch, skip, int(bpe))
+            elif data_seed is not None:
+                skip = start_step
+                logger.info("resume seek: replaying %d batches through the host pipeline (set "
+                            "training.batches_per_epoch to make deep resumes cheap)", skip)
+            else:
+                logger.info("resume seek: unseeded data stream - starting a fresh epoch instead of replaying "
+                            "%d batches", start_step)
+        if not test:
+            epoch_state["next"] = epoch + 1
+        it = build_iter(epoch)
+        for done in range(skip):
+            try:
+                next(it)
+            except StopIteration:
+                logger.warning("resume seek: epoch %d ended after %d batches (< the configured replay of %d); "
+                               "continuing at epoch %d", epoch, done, skip, epoch + 1)
+                epoch_state["next"] = epoch + 2
+                it = build_iter(epoch + 1)
+                break
+        return it
 
     return factory
 
@@ -296,8 +414,8 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
         train_factory = beatmap_file_batches(args, processor, paths, test=False, seed=seed)
         eval_factory = beatmap_file_batches(args, processor, paths, test=True, seed=seed)
     else:
-        raise NotImplementedError("the MMRS dataset loader is not ported yet: pass --beatmap-files "
-                                  "or set dataset.synthetic=true")
+        train_factory = mmrs_batches(args, processor, test=False)
+        eval_factory = mmrs_batches(args, processor, test=True)
 
     output_dir = Path(training["output_dir"])
     trainer = Trainer(

@@ -21,6 +21,12 @@ package has 1.
 Parameters whose ``grad`` is None take no update and keep no state (the audio
 tower of a run without audio). The step counter is shared, as optax's counts
 are: the learning rate of update ``t`` (0-based) is ``lr_schedule(t)``.
+
+Freezing (``train.py``'s ``optax.masked`` gate after the whole optimizer):
+parameters whose top-level name is in ``frozen`` (``beatmap_model``,
+``metadata_model``) keep their values while their moments advance as usual;
+with ``unfreeze_at`` every frozen tower moves from update ``t >= unfreeze_at``
+on (the gate's own 0-based count of updates), without it never.
 """
 from __future__ import annotations
 
@@ -110,6 +116,8 @@ class MuonAdamW(torch.optim.Optimizer):
         adamw_weight_decay: float = 0.0,
         label_fn: Optional[Callable[[str, tuple], str]] = None,
         compat_adamw_lr: bool = False,
+        frozen: Iterable[str] = (),
+        unfreeze_at: Optional[int] = None,
     ):
         label_fn = label_fn or default_muon_label_fn
         groups = {"muon": {"params": [], "names": [], "layouts": []}, "adamw": {"params": [], "names": [], "layouts": []}}
@@ -129,6 +137,8 @@ class MuonAdamW(torch.optim.Optimizer):
         )
         super().__init__(param_groups, defaults)
         self.lr_schedule = lr_schedule
+        self.frozen = frozenset(frozen)
+        self.unfreeze_at = unfreeze_at
 
     def labels(self) -> dict[str, str]:
         return {n: g["label"] for g in self.param_groups for n in g["names"]}
@@ -139,15 +149,20 @@ class MuonAdamW(torch.optim.Optimizer):
             raise ValueError("MuonAdamW takes no closure")
         for group in self.param_groups:
             lr = float(self.lr_schedule(group["step"]))
+            held = self.held(group["step"])
             if group["label"] == "muon":
-                self._muon(group, lr)
+                self._muon(group, lr, held)
             else:
-                self._adamw(group, lr * group["adamw_lr_ratio"])
+                self._adamw(group, lr * group["adamw_lr_ratio"], held)
             group["step"] += 1
 
-    def _muon(self, group, lr):
+    def held(self, t: int) -> frozenset:
+        """The top-level names whose parameters update ``t`` (0-based) leaves as they are."""
+        return frozenset() if self.unfreeze_at and t >= self.unfreeze_at else self.frozen
+
+    def _muon(self, group, lr, held=frozenset()):
         mom = group["momentum"]
-        for p, layout in zip(group["params"], group["layouts"]):
+        for p, layout, name in zip(group["params"], group["layouts"], group["names"]):
             if p.grad is None:
                 continue
             g = p.grad
@@ -162,12 +177,13 @@ class MuonAdamW(torch.optim.Optimizer):
             ortho = zeropower_via_newtonschulz5(k2, steps=group["ns_steps"])
             ortho = ortho * max(1.0, k2.shape[0] / k2.shape[1]) ** 0.5
             update = to_flax(ortho.reshape(k.shape), layout).to(p.dtype)
-            p.add_(update * -lr)
+            if name.split(".", 1)[0] not in held:
+                p.add_(update * -lr)
 
-    def _adamw(self, group, lr):
+    def _adamw(self, group, lr, held=frozenset()):
         b1, b2 = group["betas"]
         count = group["step"] + 1
-        for p in group["params"]:
+        for p, name in zip(group["params"], group["names"]):
             if p.grad is None:
                 continue
             g = p.grad
@@ -181,4 +197,5 @@ class MuonAdamW(torch.optim.Optimizer):
             update = (mu / (1.0 - b1**count)) / (torch.sqrt(nu / (1.0 - b2**count)) + group["eps"])
             if group["weight_decay"]:
                 update = update + group["weight_decay"] * p
-            p.add_(update * -lr)
+            if name.split(".", 1)[0] not in held:
+                p.add_(update * -lr)

@@ -8,12 +8,15 @@ steps, evaluation every ``eval_steps`` (zero-shot variation ranking and loss,
 ``MetricAccumulator``; masked-LM or classification accuracy by the
 batches' ``labels_kind``), checkpoints every ``save_steps`` with
 ``save_total_limit`` retention and resume of the latest, and
-``train_results.json`` / ``eval_results.json`` at the end. Losses stay on the
+``train_results.json`` / ``eval_results.json`` at the end. A resume seeks the
+batch stream through ``train_iter_factory(start_step=...)`` where the factory
+takes it, else replays it. Losses stay on the
 device until a log record needs them. :func:`from_pretrained` initialises a
 model from a local HF-layout directory (the JAX trainer's ``from_pretrained``).
 """
 from __future__ import annotations
 
+import inspect
 import json
 import logging
 import time
@@ -94,11 +97,14 @@ class Trainer:
         self.micro_step = start["micro_step"] if start else 0
         if start:
             logger.info("Resuming from checkpoint step %d", start["step"])
-        data_iter = iter(self.train_iter_factory())
-        # replay the stream so micro-step k + 1 trains on batch k, as an
-        # uninterrupted run would
-        for _ in range(self.micro_step):
-            data_iter = self._advance(data_iter)[1]
+        # micro-step k + 1 trains on batch k, as in an uninterrupted run: a factory that takes
+        # ``start_step`` seeks there itself, any other stream is replayed
+        if self.micro_step and "start_step" in inspect.signature(self.train_iter_factory).parameters:
+            data_iter = iter(self.train_iter_factory(start_step=self.micro_step))
+        else:
+            data_iter = iter(self.train_iter_factory())
+            for _ in range(self.micro_step):
+                data_iter = self._advance(data_iter)[1]
 
         window_t0 = time.perf_counter()
         window_count = 0

@@ -320,7 +320,7 @@ def test_from_pretrained_rules(processors, tmp_path):
 
 
 def test_beatmap_files_with_labels_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match=r"labels come from MMRS roots \(dataset.train_dataset_paths\)"):
         main(["-cn", "v6_mask", "--device", "cpu", "--beatmap-files", str(ROOT / "resources"),
               f"training.output_dir={tmp_path}", "dataset.include_audio=false"]
              + [o for o in TINY_RUN if o != "dataset.synthetic=true"])
