@@ -221,6 +221,27 @@ Phases (any failure exits non-zero; nothing is skipped):
                launches, per-beatmap cosine >= 0.9999, wall and device windows/s;
                (g) ``python -m cm3p_torch.validate_dataset``: its sample count is
                the folders' window count. Prints its numbers as one JSON line.
+ 14. data parallelism - (a) ``python -m cm3p_torch.train``'s ``main`` with
+               ``v8_packed`` at full width under a one-rank process group
+               (``training.multihost``, ``file://`` store): the data group
+               forms on NCCL, exact launches per micro-step, 2 steps and an
+               eval batch; (b) the ``v8_packed`` batch of 2 rows split into 2
+               ranks' packed batches of one row, the one-process run on their
+               joined global batch first (kernel gradients and the plain fp32
+               oracle's), then 2 spawned ranks sharing the card over gloo: 2
+               steps each, losses and gradient norms equal across ranks,
+               replicas bit-equal (sha256 of the parameters) after each step,
+               losses within 1e-2 of one process, the first step's reduced
+               gradients by phase 6's rule against the one-process gradients;
+               per-rank step ms, peak and the gradient all-reduce alone; (c)
+               the ranks' ``Trainer.evaluate`` over 2 and 1 batches: both stop
+               after one with the same metrics; (d) ``torchrun
+               --nproc-per-node 2 -m cm3p_torch.extract`` (setting D, audio, 2
+               workers a rank) against the one-process tool over phase 8's 17
+               folders on a saved seeded bundle: the same ids in the same
+               order, per-beatmap cosine >= 0.9999, wall windows/s of both.
+               Two ranks on one card test correctness, not scaling. Prints
+               its numbers as one JSON line.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
@@ -3398,6 +3419,430 @@ def mmrs_slice(torch, ops, dev, maps, waves, tmp):
     return main_counts
 
 
+# ---------------------------------------------------------------- phase 14
+
+DP_BUDGET_S = 150
+DP_RANKS = 2  # ranks of the gloo group in (b)-(d), sharing the one card
+DP_STEPS = 2  # optimizer steps of (a) and (b)
+DP_TIMEOUT_S = 300  # limit on the ranks' run in (b) and (c)
+DP_WORKERS = 2  # loader workers a rank in (d)
+DP_LOSS_REL = 1e-2  # two ranks against one process, per step
+DP_COS_MIN = 0.9999  # (d): per beatmap, two ranks against the one-process tool
+WINDOW_KEYS = ("window_rows", "window_segments", "window_valid", "input_features", "metadata_ids",
+               "metadata_attention_mask", "metadata_variation_classes")
+
+
+def split_packed(batch, world):
+    """Each rank's packed batch from a global one: its block of rows, and the windows that lie there (rows
+    re-indexed) in a window table of one size for every rank, the dummy slots as the collator makes them."""
+    import numpy as np
+
+    rows = batch["input_ids"].shape[0]
+    per = rows // world
+    if per * world != rows:
+        fail(f"a packed batch of {rows} rows does not split over {world} ranks")
+    valid = np.asarray(batch["window_valid"]) > 0
+    owner = np.asarray(batch["window_rows"]) // per
+    picks = [np.flatnonzero(valid & (owner == r)) for r in range(world)]
+    slots = max(len(p) for p in picks) + 1
+    out = []
+    for r, pick in enumerate(picks):
+        part = {k: np.asarray(v)[r * per:(r + 1) * per] for k, v in batch.items() if k not in WINDOW_KEYS}
+        for key in WINDOW_KEYS:
+            if key not in batch:
+                continue
+            src = np.asarray(batch[key])
+            table = np.zeros((slots,) + src.shape[1:], src.dtype)
+            table[: len(pick)] = src[pick]
+            if key == "window_rows":
+                table[: len(pick)] -= r * per
+            elif key == "window_segments":
+                table[len(pick):] = -1
+            elif key == "metadata_variation_classes":
+                table[len(pick):] = -1
+                table[len(pick):, 0] = 0
+            part[key] = table
+        out.append(part)
+    return out
+
+
+def join_packed(batches):
+    """The global batch the ranks' losses see: their batches in rank order, window rows offset to the global rows."""
+    import numpy as np
+
+    rows = batches[0]["input_ids"].shape[0]
+    return {k: np.concatenate([np.asarray(b[k]) + (r * rows if k == "window_rows" else 0)
+                               for r, b in enumerate(batches)]) for k in batches[0]}
+
+
+def params_digest(model):
+    """sha256 of every parameter's bytes, in order: equal digests are bit-equal replicas."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def nccl_trainer(torch, ops, dev, map_dirs, tmp, overrides=()):
+    """(a): ``python -m cm3p_torch.train``'s ``main`` with ``v8_packed`` at full width under a one-rank process
+    group (``training.multihost``): the backend the rule picks on one card, exact launches per micro-step."""
+    from cm3p_torch.parallel import distributed
+    from cm3p_torch.train.__main__ import main
+
+    formed = {}
+    initialize = distributed.initialize_distributed
+
+    def recorded(*args, **kwargs):
+        formed["backend"] = initialize(*args, **kwargs)
+        formed["world"] = torch.distributed.get_world_size()
+        return formed["backend"]
+
+    argv = ["--config-name", "v8_packed", "--device", dev.type, f"training.output_dir={tmp / 'a'}",
+            f"training.max_steps={DP_STEPS}", "training.gradient_accumulation_steps=1", "training.logging_steps=1",
+            "training.eval_steps=0", "training.max_eval_batches=1", f"training.save_steps={DP_STEPS}",
+            "training.load_best_model_at_end=false", "dataset.test_metadata_variations=8",
+            "training.multihost=true", f"training.coordinator_address=file://{tmp / 'store_a'}",
+            "training.num_processes=1", "training.process_id=0", *overrides]
+    for d in map_dirs:
+        argv += ["--beatmap-files", str(d)]
+    distributed.initialize_distributed = recorded
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer = main(argv)
+    finally:
+        distributed.initialize_distributed = initialize
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {k: DP_STEPS * PER_MICRO_STEP.get(k, 0) + PER_EVAL.get(k, 0) for k in ops.KERNELS}
+    records = [json.loads(line) for line in (trainer.output_dir / "train_log.jsonl").read_text().splitlines()]
+    steps = [(r["step"], r["loss"], r["grad_norm"]) for r in records if "loss" in r]
+    step_ms = [1e3 / r["steps_per_sec"] for r in records if "loss" in r]  # host clock, the batch's fetch included
+    log(f"  (a) one-rank group: backend {formed.get('backend')} (world {formed.get('world')}), {DP_STEPS} steps + 1 "
+        f"eval batch in {wall:.1f} s, launches { {k: v for k, v in counts.items() if v} } "
+        f"(want { {k: v for k, v in want.items() if v} }); log {steps}; step ms (host clock) "
+        f"{[round(t, 1) for t in step_ms]}")
+    if formed.get("backend") != "nccl" or formed.get("world") != 1:
+        fail(f"(a): the one-rank group on one card formed {formed}, not NCCL")
+    if counts != want:
+        fail("(a): the trainer under a process group did not launch each kernel as expected")
+    if [s for s, _, _ in steps] != list(range(1, DP_STEPS + 1)) or not all(math.isfinite(x) for _, a, b in steps
+                                                                          for x in (a, b)):
+        fail("(a): the log lacks its steps or holds a non-finite loss")
+    if torch.distributed.is_initialized():
+        fail("(a): main left its process group formed")
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return counts, {"backend": formed["backend"], "seconds": wall, "steps": steps, "step_ms": step_ms}
+
+
+def dp_rank(rank, world, store, out_dir, batches_path, device="cuda:0", overrides=()):
+    """One rank of phase 14 (b) and (c) (a spawned process): ``v8_packed`` at full width over a gloo group that
+    shares the card, on its half of the global packed batch."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from cm3p_torch.parallel import distributed
+    from cm3p_torch.train import TrainStep, to_device
+    from cm3p_torch.train.__main__ import CONFIG_DIR, build_model, build_optimizer, build_processor, model_config
+    from cm3p_torch.train.trainer import Trainer
+    from cm3p_torch.utils.config import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    backend = distributed.initialize_distributed(f"file://{store}", world, rank, device=dev)
+    try:
+        batches = torch.load(batches_path, weights_only=False)
+        args = load_config(CONFIG_DIR, "v8_packed", list(overrides))
+        cfg = model_config(args, build_processor(args))
+        model = build_model(args, cfg, dev, seed=0)
+        model.set_data_group(torch.distributed.group.WORLD)
+        distributed.broadcast_parameters(model)
+        opt = build_optimizer(args, model)
+        step = TrainStep(model, opt, packed=True)
+        batch = to_device(batches[rank], dev, packed=True)
+        grads_of = step.grads
+        first = []
+
+        def capture(b):
+            out = grads_of(b)
+            if not first:
+                first.append([None if g is None else g.float().cpu() for g in out[1]])
+            return out
+
+        step.grads = capture
+        torch.cuda.reset_peak_memory_stats()
+        records = []
+        for _ in range(DP_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.distributed.barrier()
+            start.record()
+            metrics = step(batch)
+            end.record()
+            torch.cuda.synchronize()
+            records.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                            "ms": start.elapsed_time(end), "digest": params_digest(model)})
+        peak = torch.cuda.max_memory_allocated()
+        if rank == 0:
+            torch.save(first[0], Path(out_dir) / "grads.pt")
+        # the step's gradient all-reduce alone (host clock: gloo blocks until every rank has its sum)
+        zeros = [torch.zeros_like(p) for p in step.params]
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        distributed.all_reduce_gradients(zeros, torch.distributed.group.WORLD)
+        torch.cuda.synchronize()
+        allreduce_ms = (time.perf_counter() - t0) * 1e3
+        grad_mb = sum(z.numel() * z.element_size() for z in zeros) / 1e6
+        del zeros
+
+        # (c) eval shards of unequal length: rank 0 has two batches, rank 1 one
+        consumed = [0]
+
+        def shard():
+            for _ in range(2 if rank == 0 else 1):
+                consumed[0] += 1
+                yield batches[rank]
+
+        trainer = Trainer(model, opt, lambda: iter(()), shard, device=dev, packed=True,
+                          output_dir=str(Path(out_dir) / f"trainer{rank}"), max_eval_batches=5)
+        t0 = time.perf_counter()
+        result = trainer.evaluate()
+        eval_s = time.perf_counter() - t0
+        trainer.close()
+        torch.distributed.barrier()
+        torch.save({"backend": backend, "records": records, "peak": peak, "eval": result, "consumed": consumed[0],
+                    "eval_s": eval_s, "allreduce_ms": allreduce_ms, "grad_mb": grad_mb},
+                   Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+def dp_reference(torch, dev, batch, overrides=()):
+    """(b), the one-process run on the whole global batch: the kernel path's gradients and the plain fp32 oracle's
+    for the first step, then ``DP_STEPS`` steps' losses and gradient norms."""
+    from cm3p_torch.train import TrainStep, to_device
+    from cm3p_torch.train.__main__ import CONFIG_DIR, build_model, build_optimizer, build_processor, model_config
+    from cm3p_torch.utils.config import load_config
+
+    args = load_config(CONFIG_DIR, "v8_packed", list(overrides))
+    cfg = model_config(args, build_processor(args))
+    model = build_model(args, cfg, dev, seed=0)
+    step = TrainStep(model, build_optimizer(args, model), packed=True)
+    dev_batch = to_device(batch, dev, packed=True)
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    _, grads_k = path_grads(torch, step, dev_batch)
+    _, grads_f = path_grads(torch, step, dev_batch, plain=True, fp32=True)
+    grads_k = [None if g is None else g.float().cpu() for g in grads_k]
+    grads_f = [None if g is None else g.float().cpu() for g in grads_f]
+    torch.cuda.reset_peak_memory_stats()
+    records = []
+    for _ in range(DP_STEPS):
+        metrics, ms = cuda_timed(torch, lambda: step(dev_batch))
+        records.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "ms": ms})
+    peak = torch.cuda.max_memory_allocated()
+    del step, model, dev_batch
+    torch.cuda.empty_cache()
+    return names, grads_k, grads_f, records, peak
+
+
+def compare_dp_gradients(torch, names, grads_r, grads_k, grads_f):
+    """Phase 6's rule with the two ranks' reduced gradient in the kernel path's place and the one-process kernel
+    gradient in the plain path's: cosine >= ``GRAD_COS_MIN`` outside the metadata side; a tensor below it must be
+    no further from the fp32 plain oracle than the one-process gradient is, within ``NOISY_COS_MARGIN``."""
+
+    def cos(x, y):
+        nx, ny = x.norm().item(), y.norm().item()
+        return (x * y).sum().item() / max(nx * ny, 1e-30)
+
+    rows = []
+    for name, gr, gk, gf in zip(names, grads_r, grads_k, grads_f):
+        if (gr is None) != (gk is None):
+            fail(f"(b) {name}: a gradient on one side only")
+        if gr is None or (gr.norm().item() == 0.0 and gk.norm().item() == 0.0):
+            continue
+        if not bool(torch.isfinite(gr).all()):
+            fail(f"(b) {name}: non-finite gradient on the two ranks")
+        rows.append((cos(gr, gk), cos(gr, gf), cos(gk, gf), name))
+    rows.sort()
+    strict = [r for r in rows if not r[3].startswith("metadata")]
+    low = [r for r in rows if r[3].startswith("metadata") and r[0] < GRAD_COS_MIN]
+    worse = [r for r in low if r[1] < r[2] - NOISY_COS_MARGIN]
+    log(f"  (b) gradients of the first step, two ranks (reduced) vs one process: {len(strict)} outside the metadata "
+        f"side, cosine min {strict[0][0]:.6f} at {strict[0][3]} (need >= {GRAD_COS_MIN}); metadata side: {len(low)} "
+        f"below {GRAD_COS_MIN}, {len(worse)} further from the fp32 oracle than the one-process gradient")
+    for cr, crf, ckf, name in (strict[:2] + low[:4]):
+        log(f"    cos(ranks, one process) {cr:.6f}  cos(ranks, fp32) {crf:.6f}  cos(one process, fp32) {ckf:.6f}  {name}")
+    if strict[0][0] < GRAD_COS_MIN or worse:
+        fail("(b): the two ranks' gradient disagrees with the one-process gradient")
+    return strict[0][0]
+
+
+def dp_extraction(torch, dev, maps, waves, tmp, model_args=()):
+    """(d): ``torchrun --nproc-per-node 2 -m cm3p_torch.extract`` (setting D, the tool's default; audio;
+    ``DP_WORKERS`` loader workers a rank) against the one-process tool over phase 8's 17 map folders, on a saved
+    seeded full-width bundle: the same beatmap ids in the same order, per-beatmap cosine >= ``DP_COS_MIN``, wall
+    windows/s of both."""
+    import numpy as np
+    import pandas as pd
+
+    from cm3p_torch.configs import CM3PConfig
+    from cm3p_torch.inference import load_model, save_pretrained
+    from cm3p_torch.interop import init_weights
+    from cm3p_torch.processing import CM3PProcessor
+
+    if not model_args:  # a seeded full-width bundle
+        proc = CM3PProcessor()
+        tok = proc.beatmap_tokenizer
+        cfg = CM3PConfig()
+        cfg.beatmap_config.vocab_size = tok.vocab_size
+        cfg.beatmap_config.audio_token_id = tok.audio_token_id
+        model = load_model(cfg, init_weights(cfg, torch.Generator(device=dev).manual_seed(0)), device=dev)
+        save_pretrained(model, tmp / "bundle", processor=proc)
+        del model
+        torch.cuda.empty_cache()
+        model_args = ("--model-dir", str(tmp / "bundle"))
+    for i, path in enumerate(maps):
+        folder = tmp / "maps" / f"{i:02d}"
+        folder.mkdir(parents=True)
+        text = "".join(
+            "AudioFilename: audio.wav\n" if line.startswith("AudioFilename:") else line
+            for line in Path(path).read_text(encoding="utf-8").splitlines(keepends=True)
+        )
+        (folder / Path(path).name).write_text(text, encoding="utf-8")
+        write_wav_f32(folder / "audio.wav", waves[path])
+    tool = ["-m", "cm3p_torch.extract", *model_args, "--device", dev.type, "--beatmap-files", str(tmp / "maps"),
+            "--num-workers", str(DP_WORKERS)]
+    runs = {"one process": [sys.executable, *tool, "--output", str(tmp / "one.parquet")],
+            f"{DP_RANKS} ranks": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                  f"--nproc-per-node={DP_RANKS}", *tool, "--output", str(tmp / "ranks.parquet")]}
+    report, tables = {}, {}
+    for label, cmd in runs.items():
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=tmp, capture_output=True, text=True, timeout=600,
+                             env=dict(os.environ, PYTHONPATH=str(ROOT)))
+        wall = time.perf_counter() - t0
+        text = run.stdout + run.stderr
+        if run.returncode != 0:
+            log(text[-3000:])
+            fail(f"(d) extraction, {label}: exit {run.returncode}")
+        windows = [int(m) for m in re.findall(r"Packed-extracted (\d+) window embeddings", text)]
+        rates = [float(m) for m in re.findall(r"window embeddings in [\d.]+s \(([\d.]+) windows/s\)", text)]
+        backends = re.findall(r"backend (\w+) \(([^)]*)\)", text)
+        table = pd.read_parquet(tmp / ("one.parquet" if label == "one process" else "ranks.parquet"))
+        tables[label] = table
+        report[label] = {"wall_s": wall, "windows": sum(windows), "wall_windows_per_s": sum(windows) / wall,
+                         "per_rank_windows": windows, "per_rank_windows_per_s": rates,
+                         "backend": sorted(set(backends))}
+        log(f"  (d) extract, {label}: exit 0 in {wall:.1f} s (model load and loader start included), "
+            f"{sum(windows)} windows ({windows} a process), {sum(windows) / wall:.2f} windows/s wall; the tool's own "
+            f"windows/s a process {rates}; backend {sorted(set(backends)) or '-'}")
+    one, two = tables["one process"], tables[f"{DP_RANKS} ranks"]
+    same_order = list(one["beatmap_id"]) == list(two["beatmap_id"])
+    a, b = np.stack(one["embedding"].to_numpy()), np.stack(two["embedding"].to_numpy())
+    cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1) if same_order else np.zeros(1)
+    log(f"  (d) {len(two)} beatmaps, the same ids in the same order: {same_order}; per-beatmap cosine min "
+        f"{cos.min():.7f} (need >= {DP_COS_MIN})")
+    if not same_order or len(one) != 17:
+        fail("(d): the ranks' parquet lists other beatmaps, or in another order, than the one-process tool's")
+    if report[f"{DP_RANKS} ranks"]["per_rank_windows"] == [] or len(report[f"{DP_RANKS} ranks"]["per_rank_windows"]) != DP_RANKS:
+        fail("(d): the ranks did not each extract their share")
+    if not bool((cos >= DP_COS_MIN).all()):
+        fail("(d): two ranks and one process disagree on the embeddings")
+    report["cosine_min"] = float(cos.min())
+    return report
+
+
+def dp_slice(torch, ops, dev, batch, map_dirs, maps, waves, tmp, overrides=(), extract_args=()):
+    """Phase 14: data parallelism; returns the launches of (a) (the ranks' launches are theirs, not this
+    process's) and prints its numbers as one JSON line. ``overrides`` (config overrides of every trainer) and
+    ``extract_args`` (the tool's model arguments) are empty on the card; a dry run on the CPU shrinks the model
+    with them."""
+    import multiprocessing as mp
+
+    t_phase = time.perf_counter()
+    tmp = Path(tmp)
+    report = {}
+    counts, report["a"] = nccl_trainer(torch, ops, dev, map_dirs, tmp, overrides)
+
+    # (b) the one-process run first, then the two ranks on its halves
+    batches = split_packed(batch, DP_RANKS)
+    glob_batch = join_packed(batches)
+    log(f"  (b) global packed batch {tuple(glob_batch['input_ids'].shape)} rows, "
+        f"{int(glob_batch['window_valid'].sum())} windows in {glob_batch['window_valid'].shape[0]} slots; per rank "
+        f"{[(tuple(b['input_ids'].shape), int(b['window_valid'].sum())) for b in batches]}")
+    names, grads_k, grads_f, ref, ref_peak = dp_reference(torch, dev, glob_batch, overrides)
+    torch.save(batches, tmp / "batches.pt")
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dp_rank, args=(r, DP_RANKS, str(tmp / "store_b"), str(tmp), str(tmp / "batches.pt"),
+                                               str(torch.device(dev.type, 0)), tuple(overrides)))
+             for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    codes = [p.exitcode for p in procs]
+    log(f"  (b, c) {DP_RANKS} ranks (file:// store) joined in {time.perf_counter() - t0:.1f} s, exit codes {codes}")
+    if codes != [0] * DP_RANKS:
+        fail(f"(b, c): a rank failed or hung (exit codes {codes})")
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(DP_RANKS)]
+    for r, res in enumerate(ranks):
+        log(f"  (b) rank {r}: backend {res['backend']}; per step loss, grad norm, ms "
+            f"{[(round(x['loss'], 6), round(x['grad_norm'], 5), round(x['ms'], 1)) for x in res['records']]}; peak "
+            f"memory {res['peak'] / 2**30:.2f} GiB; the gradient all-reduce alone ({res['grad_mb']:.0f} MB over gloo) "
+            f"{res['allreduce_ms']:.1f} ms (two ranks share one card: not scaling)")
+    log(f"  (b) one process, whole batch: per step loss, grad norm, ms "
+        f"{[(round(x['loss'], 6), round(x['grad_norm'], 5), round(x['ms'], 1)) for x in ref]}; peak memory "
+        f"{ref_peak / 2**30:.2f} GiB")
+    if any(res["backend"] != "gloo" for res in ranks):
+        fail("(b): ranks that share a card must form a gloo group")
+    for i in range(DP_STEPS):
+        steps = [res["records"][i] for res in ranks]
+        if len({(s["loss"], s["grad_norm"], s["digest"]) for s in steps}) != 1:
+            fail(f"(b) step {i + 1}: the ranks' losses, gradient norms or parameters differ: {steps}")
+        rel = abs(steps[0]["loss"] - ref[i]["loss"]) / abs(ref[i]["loss"])
+        log(f"  (b) step {i + 1}: replicas bit-equal (sha256 {steps[0]['digest'][:16]}), loss {steps[0]['loss']:.6f} "
+            f"vs one process {ref[i]['loss']:.6f} (relative {rel:.2e}, tol {DP_LOSS_REL}), grad norm "
+            f"{steps[0]['grad_norm']:.5f} vs {ref[i]['grad_norm']:.5f}")
+        if not rel <= DP_LOSS_REL:
+            fail(f"(b) step {i + 1}: the two ranks' loss is not the one-process loss")
+    grads_r = torch.load(tmp / "grads.pt", weights_only=False)
+    cos_min = compare_dp_gradients(torch, names, grads_r, grads_k, grads_f)
+    del grads_r, grads_k, grads_f
+    report["b"] = {"ranks": [{"backend": r["backend"], "steps": [{k: x[k] for k in ("loss", "grad_norm", "ms")}
+                                                                 for x in r["records"]],
+                              "peak_gib": r["peak"] / 2**30, "allreduce_ms": r["allreduce_ms"],
+                              "grad_mb": r["grad_mb"]} for r in ranks],
+                   "one_process": {"steps": ref, "peak_gib": ref_peak / 2**30}, "grad_cos_min": cos_min,
+                   "note": "two ranks share one card: correctness, not scaling"}
+
+    # (c) eval shards of unequal length
+    evals = [res["eval"] for res in ranks]
+    log(f"  (c) eval, rank 0 with 2 batches and rank 1 with 1: batches taken {[r['consumed'] for r in ranks]}, eval "
+        f"loss {[e.get('loss') for e in evals]}, {[round(r['eval_s'], 2) for r in ranks]} s")
+    if evals[0].get("loss") is None or evals[0] != evals[1] or not math.isfinite(evals[0]["loss"]):
+        fail("(c): the ranks' evaluations differ or have no loss")
+    report["c"] = {"consumed": [r["consumed"] for r in ranks], "eval_loss": evals[0]["loss"]}
+
+    # (d) rank-sharded extraction
+    report["d"] = dp_extraction(torch, dev, maps, waves, tmp, tuple(extract_args))
+    report["seconds"] = time.perf_counter() - t_phase
+    log(json.dumps({"phase14": report}))
+    return counts
+
+
 def profile_tree(torch, dev, tree) -> int:
     """``--profile-tree DIR``: phase 12's host profile of another checkout of this repository, one from
     before the native host paths and the mel wires (such as ``git archive 75aea04``), with that tree's
@@ -3806,6 +4251,15 @@ def main(argv=None) -> int:
         for kname, n in mmrs_slice(torch, ops, dev, maps, waves, tmp).items():
             main_counts[kname] += n
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s (budget {MMRS_BUDGET_S} s)")
+
+    # ---- 14. data parallelism: a one-rank NCCL group, two ranks sharing the card over gloo, rank-sharded extraction
+    log(f"[14] data parallelism: v8_packed under a one-rank NCCL group, {DP_RANKS} ranks on the one card over gloo "
+        "(training, unequal eval shards), torchrun extraction")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for kname, n in dp_slice(torch, ops, dev, train_batch2, map_dirs, maps, waves, tmp).items():
+            main_counts[kname] += n
+    log(f"  phase 14: {time.perf_counter() - t0:.1f} s (budget {DP_BUDGET_S} s)")
 
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:

@@ -184,6 +184,7 @@ class BeatmapFilesDataset:
     Yields one dict per window (the processor's keys, one window each) with
     ``beatmap_id`` = (BeatmapSetId, Id). Audio is read from the file each
     ``.osu`` names (``AudioFilename``) in its own folder, once per beatmapset.
+    Each (rank, loader worker) takes a strided share of whole beatmaps (:attr:`shard`).
     """
 
     def __init__(
@@ -196,6 +197,8 @@ class BeatmapFilesDataset:
         include_metadata: bool = True,
         worker_id: int = 0,
         num_workers: int = 1,
+        process_id: int = 0,
+        process_count: int = 1,
     ):
         self.beatmap_paths = beatmap_paths
         self._tmpdir = tempfile.TemporaryDirectory(prefix="cm3p_osz_")
@@ -208,6 +211,13 @@ class BeatmapFilesDataset:
         self.include_metadata = include_metadata
         self.worker_id = worker_id
         self.num_workers = num_workers
+        self.process_id = process_id
+        self.process_count = process_count
+
+    @property
+    def shard(self) -> tuple[int, int]:
+        """(this shard, shard count): (rank, loader worker) flattened into one stride over the beatmaps."""
+        return self.process_id * self.num_workers + self.worker_id, self.process_count * self.num_workers
 
     @property
     def host_counts(self) -> dict:
@@ -221,8 +231,9 @@ class BeatmapFilesDataset:
 
     def __iter__(self) -> Iterator[dict]:
         rows = self.rows
-        if self.num_workers > 1:
-            rows = rows[self.worker_id :: self.num_workers]
+        shard, num_shards = self.shard
+        if num_shards > 1:
+            rows = rows[shard::num_shards]
         return self._iter(rows)
 
     def __del__(self):
@@ -294,7 +305,7 @@ class BeatmapFilesDatasetFactory:
     unpickles it imports no torch either.
     """
 
-    def __init__(self, paths, processor, include_audio: bool):
+    def __init__(self, paths, processor, include_audio: bool, process_id: int = 0, process_count: int = 1):
         if processor.native:
             from ..native import library
 
@@ -302,9 +313,12 @@ class BeatmapFilesDatasetFactory:
         self.paths = paths
         self.processor = processor
         self.include_audio = include_audio
+        self.process_id = process_id
+        self.process_count = process_count
 
     def __call__(self, worker_id, num_workers):
         return BeatmapFilesDataset(
             self.paths, self.processor, include_audio=self.include_audio, include_metadata=False,
-            worker_id=worker_id, num_workers=num_workers,
+            worker_id=worker_id, num_workers=num_workers, process_id=self.process_id,
+            process_count=self.process_count,
         )

@@ -10,7 +10,9 @@ every beatmap of the filtered metadata, no augmentation) through the processor
 the packed forward on each flush of ``--flush-rows`` rows, mean-pools the
 per-window embeddings per beatmap id, re-normalises, joins the metadata
 columns and writes a parquet file, optionally merged into an existing one
-(new rows win). Runs on ``cuda`` unless ``--device cpu``; without a GPU it
+(new rows win). The rows follow the dataset's order (beatmapsets in order of
+first appearance, their beatmaps in order), whatever order the loader workers
+deliver them in. Runs on ``cuda`` unless ``--device cpu``; without a GPU it
 raises unless asked for the CPU.
 
 The model computes with the JAX tool's default options unless ``--precise``:
@@ -38,8 +40,16 @@ device) or ``pcm`` (the windows' waveforms; the log-mel runs on the device,
 mel from the loader workers as int8; with ``--mel-wire int8`` the codes go to
 the device as they are, on the other wires they are dequantised on the host.
 
-Not ported: the data-parallel mesh, and what only exists for XLA (the AOT executable cache, ``--prewarm``, shape padding
-against recompiles).
+Data parallel, one rank per GPU (the JAX tool's mesh over the local devices):
+``torchrun --nproc-per-node N -m cm3p_torch.extract ...``. Each rank takes a
+strided share of whole beatmaps (a beatmap's windows and its mean-pool stay on
+one rank) through its own loader workers; rank 0 gathers the per-beatmap
+embeddings and alone writes the parquet (``--merge-with`` included).
+``--batch-size`` is then the rows of one step across all ranks, rounded up to
+a multiple of the world size; ``--no-mesh`` under the launcher leaves the
+whole job to rank 0 on one device.
+
+Not ported: what only exists for XLA (the AOT executable cache, ``--prewarm``, shape padding against recompiles).
 """
 from __future__ import annotations
 
@@ -69,6 +79,7 @@ from .data.loader import _IPC_SCALE, _dequantize_features_from_ipc
 from .inference import load_model, load_pretrained, resolve_device
 from .interop import init_weights
 from .models import CM3PBeatmapModel, EncoderOptions
+from .parallel import distributed
 from .processing.packing import pack_windows
 from .processing.processor import CM3PProcessor
 
@@ -462,6 +473,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="loader workers send the mel as int8 codes and a per-window scale")
     parser.add_argument("--no-native", dest="native", action="store_false",
                         help="parse beatmaps and decode WAVE files on the Python path only")
+    parser.add_argument("--no-mesh", action="store_true",
+                        help="no data parallelism: under torchrun rank 0 alone runs the whole job on one device")
     return parser
 
 
@@ -487,6 +500,32 @@ def _random_model(processor: CM3PProcessor, tiny: bool, device, dtype, options) 
     return model
 
 
+def dataset_order(metadata) -> dict[int, int]:
+    """Each beatmap id's place in the dataset's order: beatmapsets in order of first appearance in the metadata,
+    their beatmaps in order (a run without loader workers over beatmap files visits them so)."""
+    meta = metadata.reset_index()
+    sets = {s: i for i, s in enumerate(dict.fromkeys(meta["BeatmapSetId"].tolist()))}
+    keys = sorted(range(len(meta)), key=lambda i: (sets[meta["BeatmapSetId"].iat[i]], i))
+    return {int(meta["Id"].iat[i]): n for n, i in enumerate(keys)}
+
+
+def in_dataset_order(embeddings: dict[int, np.ndarray], metadata) -> dict[int, np.ndarray]:
+    """``embeddings`` in :func:`dataset_order`, ids the metadata lacks last in their own order: the same rows in
+    the same order whatever the loader workers' or the ranks' interleaving."""
+    order = dataset_order(metadata)
+    return {k: embeddings[k] for k in sorted(embeddings, key=lambda k: (0, order[k]) if k in order else (1, 0))}
+
+
+def gather_embeddings(embeddings: dict[int, np.ndarray]) -> dict[int, np.ndarray]:
+    """Every rank's per-beatmap embeddings on rank 0, in rank order; the other ranks get an empty dict."""
+    parts = [None] * distributed.process_count() if distributed.is_primary() else None
+    torch.distributed.gather_object(embeddings, parts, dst=0)
+    merged: dict[int, np.ndarray] = {}
+    for part in parts or ():
+        merged.update(part)
+    return merged
+
+
 def main(argv=None) -> dict[int, np.ndarray]:
     parser = build_parser()
     ns = parser.parse_args(argv)
@@ -494,6 +533,24 @@ def main(argv=None) -> dict[int, np.ndarray]:
         parser.error("Provide --dataset-path or --beatmap-files")
     logging.basicConfig(level=logging.INFO, stream=sys.stdout)
     device = resolve_device(ns.device)
+    if distributed.launched_by_torchrun():
+        distributed.initialize_distributed(device=device)
+        device = distributed.local_device(device)
+        if ns.no_mesh:  # the group only told each rank its index: rank 0 runs the whole job alone
+            rank = distributed.process_index()
+            distributed.shutdown()
+            if rank != 0:
+                logger.info("--no-mesh: rank %d leaves the job to rank 0", rank)
+                return {}
+            logger.info("--no-mesh: rank 0 runs the whole job on %s", device)
+    else:
+        distributed.log_single_process("cm3p_torch.extract")
+    rank, world = distributed.process_index(), distributed.process_count()
+    if world > 1 and ns.batch_size:
+        total = -(-ns.batch_size // world) * world
+        if total != ns.batch_size:
+            logger.info("Rounded --batch-size up to %d for %d ranks", total, world)
+        ns.batch_size = total // world
     options = options_from_args(ns)
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32, None: None}[ns.dtype]
 
@@ -523,14 +580,14 @@ def main(argv=None) -> dict[int, np.ndarray]:
     mel_wire = configure_mel_wire(processor, ns.pack, include_audio, ns.compact_mel, ns.mel_wire)
     logger.info("mel wire: %s; native host paths: %s", mel_wire, ns.native)
     if ns.beatmap_files:
-        factory = BeatmapFilesDatasetFactory(ns.beatmap_files, processor, include_audio)
+        factory = BeatmapFilesDatasetFactory(ns.beatmap_files, processor, include_audio, rank, world)
         metadata = BeatmapFilesDataset(ns.beatmap_files, processor, include_audio=False).metadata
     else:
         ds_cfg = DatasetConfig(
             train_dataset_paths=ns.dataset_path, include_audio=include_audio, include_metadata=False,
             include_source_metadata=True, dt_augment_prob=0.0, cycle_length=1,
         )
-        factory = MmrsDatasetFactory(ds_cfg, processor, test=False)
+        factory = MmrsDatasetFactory(ds_cfg, processor, test=False, process_id=rank, process_count=world)
         metadata = MmrsDataset(ds_cfg, processor).get_filtered_metadata()
     try:
         n_cores = len(os.sched_getaffinity(0))
@@ -539,7 +596,8 @@ def main(argv=None) -> dict[int, np.ndarray]:
     if ns.num_workers > n_cores:
         logger.info("Capping --num-workers %d to the %d available core(s)", ns.num_workers, n_cores)
         ns.num_workers = n_cores
-    loader = SampleLoader(factory, num_workers=ns.num_workers, int8_ipc=ns.int8_ipc)
+    loader = SampleLoader(factory, num_workers=ns.num_workers, int8_ipc=ns.int8_ipc,
+                          log_dir="dataloader" if world == 1 else f"dataloader/rank{rank}")
     stats: dict = {}
     embeddings = extract_embeddings(
         model, processor, loader, device=device, pack=ns.pack, batch_size=ns.batch_size, flush_rows=ns.flush_rows,
@@ -547,7 +605,14 @@ def main(argv=None) -> dict[int, np.ndarray]:
     )
     logger.info("host routes: %s; mel bytes to the device: %d (%.0f a window)", stats.get("host"),
                 stats["wire_bytes"], stats["wire_bytes"] / max(stats["windows"], 1))
-    write_output(embeddings, metadata, ns.output, ns.merge_with)
+    if world > 1:
+        logger.info("rank %d of %d: %d beatmaps", rank, world, len(embeddings))
+        embeddings = gather_embeddings(embeddings)
+    if distributed.is_primary():
+        embeddings = in_dataset_order(embeddings, metadata)
+        write_output(embeddings, metadata, ns.output, ns.merge_with)
+    distributed.barrier()
+    distributed.shutdown()
     return embeddings
 
 

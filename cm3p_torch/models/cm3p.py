@@ -33,6 +33,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import AudioConfig, BeatmapConfig, CM3PConfig, MetadataConfig
+from ..parallel.distributed import active as _dist_active
+from ..parallel.distributed import all_gather_ints, all_reduce_sum, gather_rows
 from .modernbert import REMAT_MODES, EncoderOptions, LayerNormF32, ModernBertEncoder, linear, pool_hidden
 
 # the projector's activations, as the JAX package's ``ACTIVATIONS``
@@ -76,14 +78,14 @@ class _CrossEntropyIgnoreIndex(torch.autograd.Function):
     it keeps the logits as given and each row's fp32 log-sum-exp, and remakes the softmax from them."""
 
     @staticmethod
-    def forward(ctx, logits, labels, ignore_index):
+    def forward(ctx, logits, labels, ignore_index, count=None):
         flat = logits.reshape(-1, logits.shape[-1])
         labels = labels.reshape(-1)
         valid = labels != ignore_index
         safe = torch.where(valid, labels, torch.zeros_like(labels))
         lse = torch.logsumexp(flat.float(), dim=-1)
         nll = torch.where(valid, lse - flat.gather(1, safe[:, None])[:, 0].float(), torch.zeros_like(lse))
-        count = valid.sum().clamp_min(1)
+        count = valid.sum().clamp_min(1) if count is None else count
         ctx.save_for_backward(logits, safe, valid, lse, count)
         return nll.sum() / count
 
@@ -94,13 +96,28 @@ class _CrossEntropyIgnoreIndex(torch.autograd.Function):
         g = torch.exp(flat.float() - lse[:, None])
         g.scatter_add_(1, safe[:, None], -torch.ones_like(lse)[:, None])
         g.mul_((valid.float() * (grad / count))[:, None])
-        return g.to(logits.dtype).reshape(logits.shape), None, None
+        return g.to(logits.dtype).reshape(logits.shape), None, None, None
 
 
-def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
+def data_group_of(module) -> Optional[object]:
+    """The module's data-parallel process group (``TowerModel.dp_group``) when it spans more than one rank, else
+    None: the losses then run over the global batch (every rank's rows, in rank order)."""
+    group = getattr(module, "dp_group", None)
+    if group is None or not _dist_active() or torch.distributed.get_world_size(group) == 1:
+        return None
+    return group
+
+
+def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100,
+                               group=None) -> torch.Tensor:
     """Token-level cross entropy in fp32, the mean over labels that are not ``ignore_index``
-    (divided by max(count, 1): all ignored gives 0)."""
-    return _CrossEntropyIgnoreIndex.apply(logits, labels.to(torch.int64), int(ignore_index))
+    (divided by max(count, 1): all ignored gives 0). With a data ``group`` of more than one rank, the mean
+    over every rank's labels: each rank's sum over the global count, summed over the ranks."""
+    labels = labels.to(torch.int64)
+    if group is None:
+        return _CrossEntropyIgnoreIndex.apply(logits, labels, int(ignore_index))
+    count = all_reduce_sum((labels != ignore_index).sum(), group).clamp_min(1)
+    return all_reduce_sum(_CrossEntropyIgnoreIndex.apply(logits, labels, int(ignore_index), count), group)
 
 
 class PredictionHead(nn.Module):
@@ -210,7 +227,18 @@ class BeatmapTransformer(nn.Module):
 
 
 class TowerModel(nn.Module):
-    """What every model of the family sets on all of its encoders (:meth:`encoders`)."""
+    """What every model of the family sets on all of its encoders (:meth:`encoders`), and its data group.
+
+    ``dp_group`` (a ``torch.distributed`` process group, :meth:`set_data_group`) makes the losses those of the
+    global batch, the rank-ordered concatenation of every rank's batch, as the JAX package's loss under a data
+    mesh: contrastive negatives from every rank, means over global counts. None (the default) or a group of
+    one rank is the one-process loss.
+    """
+
+    dp_group = None
+
+    def set_data_group(self, group) -> None:
+        self.dp_group = group
 
     def encoders(self) -> list[ModernBertEncoder]:
         raise NotImplementedError
@@ -457,13 +485,19 @@ class CM3PModel(CM3PBeatmapModel):
         if metadata_ids is None:
             return CM3POutput(loss=loss, beatmap_embeds=beatmap_embeds)
         metadata_embeds = self.get_metadata_features(metadata_ids, metadata_attention_mask, normalize=True)
+        local = (metadata_embeds, beatmap_embeds)
+        group = data_group_of(self)
+        if group is not None:  # the global batch: every rank's embeddings, window table and classes
+            metadata_embeds, beatmap_embeds = gather_rows(metadata_embeds, group), gather_rows(beatmap_embeds, group)
+            classes = None if classes is None else gather_rows(classes, group)
+            valid = None if valid is None else gather_rows(valid, group)
         logits_per_metadata = similarity_logits(metadata_embeds, beatmap_embeds, self.logit_scale)
         logits_per_beatmap = (
             logits_per_metadata.permute(2, 0, 1) if logits_per_metadata.dim() == 3 else logits_per_metadata.t()
         )
         if return_loss:
             loss = cm3p_loss(logits_per_metadata, classes, valid=valid)
-        return CM3POutput(loss, logits_per_beatmap, logits_per_metadata, metadata_embeds, beatmap_embeds)
+        return CM3POutput(loss, logits_per_beatmap, logits_per_metadata, *local)
 
     def _decode(self, out: CM3POutput, hidden, labels, return_loss) -> CM3POutput:
         """The decoder head's logits, and 0.5 x their cross entropy added to the loss."""
@@ -472,7 +506,7 @@ class CM3PModel(CM3PBeatmapModel):
         logits = dense(self.head(hidden), self.decoder)
         loss = out.loss
         if labels is not None and return_loss:
-            loss = loss + 0.5 * cross_entropy_ignore_index(logits, labels)
+            loss = loss + 0.5 * cross_entropy_ignore_index(logits, labels, group=data_group_of(self))
         return out._replace(loss=loss, logits=logits)
 
     def forward_packed(
@@ -624,18 +658,37 @@ class MaskedLMModel(_BeatmapTowerModel):
     def forward(self, input_ids, input_features=None, attention_mask=None, labels=None) -> MaskedLMOutput:
         hidden = self.beatmap_model(input_ids, input_features=input_features, attention_mask=attention_mask)
         ignore = self.config.sparse_pred_ignore_index
+        group = data_group_of(self)
         if self.config.sparse_prediction and labels is not None:
             flat_h = hidden.reshape(-1, hidden.shape[-1])
             flat_labels = labels.reshape(-1)
             is_masked = flat_labels != ignore
-            budget = max(1, int(flat_labels.shape[0] * 0.3))
-            idx = torch.sort(is_masked.to(torch.int32), descending=True, stable=True).indices[:budget]
+            order = torch.sort(is_masked.to(torch.int32), descending=True, stable=True).indices
+            if group is None:
+                idx = order[: max(1, int(flat_labels.shape[0] * 0.3))]
+            else:
+                idx = order[_global_budget_rows(int(is_masked.sum()), flat_labels.shape[0], group).to(order.device)]
             sel_labels = torch.where(is_masked[idx], flat_labels[idx], torch.full_like(flat_labels[idx], ignore))
             logits = self.decode(self.head(flat_h[idx]))
-            return MaskedLMOutput(cross_entropy_ignore_index(logits, sel_labels, ignore), logits)
+            return MaskedLMOutput(cross_entropy_ignore_index(logits, sel_labels, ignore, group), logits)
         logits = self.decode(self.head(hidden))
-        loss = None if labels is None else cross_entropy_ignore_index(logits, labels, ignore)
+        loss = None if labels is None else cross_entropy_ignore_index(logits, labels, ignore, group)
         return MaskedLMOutput(loss, logits)
+
+
+def _global_budget_rows(masked: int, n: int, group) -> torch.Tensor:
+    """The positions of this rank's stably sorted mask flags (its masked positions in index order, then its
+    unmasked ones) that the global sparse-prediction budget takes: ``max(1, int(0.3 x global N))`` positions of
+    the global batch, its masked ones in global index order first, then unmasked ones in global index order
+    (``jax.lax.top_k`` over the global flags). Learns every rank's masked and total counts in one gather."""
+    ms, ns = zip(*all_gather_ints((masked, n), group))
+    rank = torch.distributed.get_rank(group)
+    budget = max(1, int(sum(ns) * 0.3))
+    take_masked = min(max(budget - sum(ms[:rank]), 0), masked)
+    spare = max(budget - sum(ms), 0)  # what the global budget leaves for unmasked positions
+    unmasked_before = sum(ns[:rank]) - sum(ms[:rank])
+    take_unmasked = min(max(spare - unmasked_before, 0), n - masked)
+    return torch.cat([torch.arange(take_masked), torch.arange(masked, masked + take_unmasked)])
 
 
 class ClassifierOutput(NamedTuple):
@@ -673,5 +726,12 @@ class ClassifierModel(_BeatmapTowerModel):
         cfg = self.config
         hidden = self.beatmap_model(input_ids, input_features=input_features, attention_mask=attention_mask)
         logits = dense(pool_hidden(hidden, attention_mask, cfg.cls_embed), self.classifier)
-        loss = None if labels is None else classification_loss(logits, labels, cfg.num_labels, cfg.problem_type)
+        loss = None
+        if labels is not None:
+            group = data_group_of(self)
+            if group is None:
+                loss = classification_loss(logits, labels, cfg.num_labels, cfg.problem_type)
+            else:  # the means of the global batch
+                loss = classification_loss(gather_rows(logits, group), gather_rows(labels, group), cfg.num_labels,
+                                           cfg.problem_type)
         return ClassifierOutput(loss, logits)

@@ -36,7 +36,21 @@ files (``--beatmap-files``: files or directories of them, no audio and no
 labels), processed with generated metadata. Runs on ``cuda`` unless
 ``--device cpu``; without a GPU it raises unless asked for the CPU.
 
-Not ported yet: multi-device training (one process, shard (0, 1) of the data).
+Data parallelism, one rank per GPU (:mod:`cm3p_torch.parallel.distributed`):
+
+    torchrun --nproc-per-node 2 -m cm3p_torch.train --config-name v8_packed ...
+    python -m cm3p_torch.train ... training.multihost=true training.coordinator_address=HOST:PORT \
+        training.num_processes=2 training.process_id=0     # and process_id=1 on the other
+
+The r-th rank of a host computes on ``cuda:r`` (every rank on the CPU with
+``--device cpu``); the data group's backend is NCCL when each rank of the
+host has a GPU of its own, else gloo; ``training.heartbeat_timeout_seconds``
+bounds every collective's wait. Each data group reads its own shard of the data
+(:func:`~cm3p_torch.parallel.distributed.data_shard_group`: MMRS roots by
+beatmap, the synthetic and ``.osu`` routes their rows of one seeded global
+stream), ``per_device_train_batch_size`` is per rank, and the losses and
+gradients are the global batch's. ``training.model_axis`` above 1 (tensor
+parallelism) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -60,6 +74,8 @@ from ..data.data_utils import filter_mmrs_metadata, load_mmrs_metadata
 from ..inference import resolve_device, save_pretrained
 from ..interop import init_weights
 from ..models import ClassifierModel, CM3PModel, MaskedLMModel, TowerModel
+from ..parallel import distributed
+from ..parallel.mesh import make_mesh
 from ..processing import CM3PProcessor
 from ..tokenize import BeatmapTokenizer, MetadataTokenizer
 from ..utils.config import load_config
@@ -207,12 +223,14 @@ def build_optimizer(args: dict, model: torch.nn.Module) -> MuonAdamW:
     return MuonAdamW(named, layouts, schedule, adamw_lr_ratio=1.0, label_fn=lambda *_: "adamw", **common)
 
 
-def synthetic_batches(args: dict, cfg: CM3PConfig, test: bool, seed: int = 0):
+def synthetic_batches(args: dict, cfg: CM3PConfig, test: bool, seed: int = 0, shard: tuple[int, int] = (0, 1)):
     """Random fixed-shape unpacked batches of the processor's contract (``train.py``'s): metadata for
     ``CM3PModule`` only, ``labels`` for ``dataset.labels`` ``masked_lm`` (15 % of the ids, else -100)
-    and ``ranked_classification`` (0 or 1 per row)."""
+    and ``ranked_classification`` (0 or 1 per row). ``shard`` (group, groups): each batch is this data
+    group's rows of a seeded global batch of ``groups`` x the per-device size."""
     training, dataset = args["training"], args["dataset"]
-    bsz = training["per_device_eval_batch_size" if test else "per_device_train_batch_size"]
+    group, groups = shard
+    bsz = training["per_device_eval_batch_size" if test else "per_device_train_batch_size"] * groups
     kwargs = args["processor"]["default_kwargs"]
     seq = kwargs["beatmap_kwargs"]["max_length"]
     mel_frames = kwargs["audio_kwargs"]["pad_to_multiple_of"] // kwargs["audio_kwargs"]["hop_length"]
@@ -243,7 +261,8 @@ def synthetic_batches(args: dict, cfg: CM3PConfig, test: bool, seed: int = 0):
                 batch["labels"] = np.where(rng.random((bsz, seq)) < 0.15, ids, -100).astype(np.int32)
             elif dataset.get("labels") == "ranked_classification":
                 batch["labels"] = rng.integers(0, 2, (bsz,)).astype(np.int32)
-            yield batch
+            rows = slice(group * bsz // groups, (group + 1) * bsz // groups)
+            yield {k: v[rows] for k, v in batch.items()} if groups > 1 else batch
 
     return gen
 
@@ -261,11 +280,14 @@ def beatmap_paths(specs: list[str]) -> list[str]:
     return paths
 
 
-def beatmap_file_batches(args: dict, processor: CM3PProcessor, paths: list[str], test: bool, seed: int = 0):
+def beatmap_file_batches(args: dict, processor: CM3PProcessor, paths: list[str], test: bool, seed: int = 0,
+                         shard: tuple[int, int] = (0, 1)):
     """Batches from local ``.osu`` files: every window with metadata generated from
     its beatmap and ``*_metadata_variations`` variations; packed rows when
     ``training.packed`` (``packed_batches``), else stacked windows. Each pass over
-    the files reseeds the processor from (seed, test, pass)."""
+    the files reseeds the processor from (seed, test, pass). ``shard`` (group,
+    groups): every data group processes the same seeded window stream and keeps
+    its windows i with i mod groups = group."""
     training, dataset = args["training"], args["dataset"]
     if dataset.get("include_audio"):
         raise NotImplementedError("batches from .osu files carry no audio: set dataset.include_audio=false, or "
@@ -281,14 +303,19 @@ def beatmap_file_batches(args: dict, processor: CM3PProcessor, paths: list[str],
     seq_len = args["processor"]["default_kwargs"]["beatmap_kwargs"]["max_length"]
     passes = {"n": 0}
 
+    group, groups = shard
+
     def samples():
+        n = 0
         for path in paths:
             out = dict(processor(
                 beatmap=path, populate_metadata=True, multiply_metadata=True, metadata_variations=variations,
                 metadata_dropout_prob=dropout, padding="max_length",
             ))
             for i in range(len(out["input_ids"])):
-                yield {k: v[i] for k, v in out.items()}
+                if n % groups == group:
+                    yield {k: v[i] for k, v in out.items()}
+                n += 1
 
     def factory():
         processor.rng = np.random.default_rng([seed, int(test), passes["n"]])
@@ -303,8 +330,9 @@ def beatmap_file_batches(args: dict, processor: CM3PProcessor, paths: list[str],
     return factory
 
 
-def mmrs_batches(args: dict, processor: CM3PProcessor, test: bool):
-    """``train.py``'s ``mmrs_batches``: a factory of batch streams over the MMRS roots of the config.
+def mmrs_batches(args: dict, processor: CM3PProcessor, test: bool, shard: tuple[int, int] = (0, 1)):
+    """``train.py``'s ``mmrs_batches``: a factory of batch streams over the MMRS roots of the config, of the
+    data shard ``shard`` (group, groups: :func:`~cm3p_torch.parallel.distributed.data_shard_group`).
 
     Each call of the factory is one epoch of ``SampleLoader`` over :class:`MmrsDatasetFactory`
     (``training.num_workers`` processes for training, inline for evaluation) through ``packed_batches``
@@ -319,10 +347,11 @@ def mmrs_batches(args: dict, processor: CM3PProcessor, test: bool):
     packed = training.get("packed", False)
     data_seed = training.get("seed")
     epoch_state = {"next": 0}
-    log_dir = str(Path(training["output_dir"]) / "dataloader")
+    log_dir = Path(training["output_dir"]) / "dataloader"
+    log_dir = str(log_dir if shard[1] == 1 else log_dir / f"shard{shard[0]}")
 
     def build_iter(epoch: int):
-        dataset_factory = MmrsDatasetFactory(ds_cfg, processor, test, 0, 1, seed=data_seed, epoch=epoch)
+        dataset_factory = MmrsDatasetFactory(ds_cfg, processor, test, *shard, seed=data_seed, epoch=epoch)
         loader = SampleLoader(dataset_factory, num_workers=num_workers, log_dir=log_dir)
         if packed:
             return packed_batches(
@@ -389,9 +418,11 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
         handlers=[logging.StreamHandler(sys.stdout)], level=logging.INFO,
     )
 
-    device = resolve_device(cli.device)
     args = load_config(cli.config_dir, cli.config_name, cli.overrides)
     training = args["training"]
+    device = launch(training, resolve_device(cli.device))
+    mesh = make_mesh(model=int(training.get("model_axis", 1)))
+    shard = distributed.data_shard_group(mesh)
     seed = int(training["seed"])
     np.random.seed(seed)
     torch.manual_seed(seed)
@@ -401,21 +432,26 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
     model = build_model(args, cfg, device, seed)
     if args.get("from_pretrained"):
         from_pretrained(model, args["from_pretrained"], bool(args.get("from_pretrained_allow_missing", False)))
+    if distributed.active():
+        model.set_data_group(mesh.data_group)
+        distributed.broadcast_parameters(model)
+        logger.info("data shard %d of %d, %d rows a rank per micro-step", *shard,
+                    training["per_device_train_batch_size"])
     packed = bool(training.get("packed", False))
     if packed and args.get("model_cls", "CM3PModule") != "CM3PModule":
         raise ValueError("training.packed currently supports model_cls=CM3PModule")
     if args["dataset"].get("synthetic"):
         if packed:
             raise NotImplementedError("synthetic batches are unpacked; set training.packed=false")
-        train_factory = synthetic_batches(args, cfg, test=False, seed=seed)
-        eval_factory = synthetic_batches(args, cfg, test=True, seed=seed)
+        train_factory = synthetic_batches(args, cfg, test=False, seed=seed, shard=shard)
+        eval_factory = synthetic_batches(args, cfg, test=True, seed=seed, shard=shard)
     elif cli.beatmap_files:
         paths = beatmap_paths(cli.beatmap_files)
-        train_factory = beatmap_file_batches(args, processor, paths, test=False, seed=seed)
-        eval_factory = beatmap_file_batches(args, processor, paths, test=True, seed=seed)
+        train_factory = beatmap_file_batches(args, processor, paths, test=False, seed=seed, shard=shard)
+        eval_factory = beatmap_file_batches(args, processor, paths, test=True, seed=seed, shard=shard)
     else:
-        train_factory = mmrs_batches(args, processor, test=False)
-        eval_factory = mmrs_batches(args, processor, test=True)
+        train_factory = mmrs_batches(args, processor, test=False, shard=shard)
+        eval_factory = mmrs_batches(args, processor, test=True, shard=shard)
 
     output_dir = Path(training["output_dir"])
     trainer = Trainer(
@@ -439,13 +475,39 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
         final = trainer.evaluate()
         trainer._log({"step": results["final_step"],
                       **{f"final_eval_{k}": v for k, v in final.items() if v is not None}})
-        # the layout load_pretrained reads (python -m cm3p_torch.extract --model-dir <output_dir>/model)
-        save_pretrained(model, output_dir / "model", processor=processor)
-        processor.save_pretrained(str(output_dir / "processor"))
+        if distributed.is_primary():
+            # the layout load_pretrained reads (python -m cm3p_torch.extract --model-dir <output_dir>/model)
+            save_pretrained(model, output_dir / "model", processor=processor)
+            processor.save_pretrained(str(output_dir / "processor"))
+        distributed.barrier()
     finally:
         trainer.close()
     logger.info("Training complete; artifacts in %s", output_dir)
+    distributed.shutdown()
     return trainer
+
+
+def launch(training: dict, device: torch.device) -> torch.device:
+    """Form the process group when ``torchrun`` started this process or ``training.multihost`` is set, and
+    return the device this rank computes on; ``training.model_axis`` above 1 raises."""
+    model_axis = int(training.get("model_axis", 1))
+    if model_axis > 1:
+        raise NotImplementedError(
+            f"training.model_axis={model_axis}: tensor parallelism is not ported (ROADMAP Queue 1, item 7's "
+            "tensor-parallel half); the port trains data-parallel, one rank per GPU"
+        )
+    multihost = bool(training.get("multihost", False))
+    if not (multihost or distributed.launched_by_torchrun()):
+        distributed.log_single_process("cm3p_torch.train")
+        return device
+    distributed.initialize_distributed(
+        coordinator_address=training.get("coordinator_address") if multihost else None,
+        num_processes=training.get("num_processes") if multihost else None,
+        process_id=training.get("process_id") if multihost else None,
+        heartbeat_timeout_seconds=training.get("heartbeat_timeout_seconds"),
+        device=device,
+    )
+    return distributed.local_device(device)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,11 @@ optimizer step ``n`` and the micro-step counter. A save writes a temporary
 file and renames it, so a reader never sees half a checkpoint. At most
 ``max_to_keep`` checkpoints stay, oldest removed first, except the one
 :meth:`CheckpointManager.protect` pins (the best evaluation).
+
+Under a process group the parameters are replicated: rank 0 alone writes and
+prunes, between two barriers, so every rank decides whether to save from the
+same directory listing and sees the file before any rank reads it on a
+resume; every rank restores.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from ..parallel.distributed import barrier, is_primary
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -46,17 +53,21 @@ class CheckpointManager:
         return self.save_interval_steps > 0 and step % self.save_interval_steps == 0 and step not in self.steps()
 
     def save(self, step: int, model: torch.nn.Module, optimizer: torch.optim.Optimizer, micro_step: int) -> Path:
+        """Write checkpoint ``step`` (every rank calls it; rank 0 writes)."""
         target = self.path(step)
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        state = {
-            "step": step,
-            "micro_step": micro_step,
-            "model": model.state_dict(),
-            "optimizer": optimizer.state_dict(),
-        }
-        torch.save(state, tmp)
-        os.replace(tmp, target)
-        self._prune()
+        barrier()  # every rank has looked at the directory before it changes
+        if is_primary():
+            tmp = target.with_suffix(f".{os.getpid()}.tmp")
+            state = {
+                "step": step,
+                "micro_step": micro_step,
+                "model": model.state_dict(),
+                "optimizer": optimizer.state_dict(),
+            }
+            torch.save(state, tmp)
+            os.replace(tmp, target)
+            self._prune()
+        barrier()  # the file is there for every rank
         return target
 
     def _prune(self) -> None:

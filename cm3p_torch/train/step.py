@@ -5,7 +5,12 @@
 otherwise: any model of the family, with its ``labels``), the
 loss, the gradients of every trainable parameter, their global norm, and, on
 the last micro-step of an accumulation window, the optimizer step on the mean
-gradient (``optax.MultiSteps``). :func:`eval_step` is the no-grad forward.
+gradient (``optax.MultiSteps``). Under a data group (``model.dp_group``, set
+when a process group is active) each micro-step's gradients are reduced to
+their mean over the group before the norm, so the norm, the accumulated sum
+and the optimizer step are those of the global batch (the JAX step under a
+``data`` mesh) and every replica steps on the same gradient.
+:func:`eval_step` is the no-grad forward.
 :func:`lr_schedule` is ``train.py``'s schedule: an optional linear warmup from
 0, then a linear decay from ``lr`` to 0 over ``max_steps - warmup`` updates.
 """
@@ -16,6 +21,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.distributed import all_reduce_gradients
 
 PACKED_KEYS = (
     "input_ids", "segment_ids", "window_rows", "window_segments", "window_valid", "input_features",
@@ -82,9 +89,13 @@ class TrainStep:
         self._count = 0
 
     def grads(self, batch: dict):
-        """(loss, gradients aligned with ``self.params`` (None where unused), norm)."""
+        """(loss, gradients aligned with ``self.params`` (None where unused), norm); under a data group the
+        global batch's loss and the gradients' mean over the group."""
         out = forward(self.model, batch, self.packed)
         grads = torch.autograd.grad(out.loss, self.params, allow_unused=True)
+        group = getattr(self.model, "dp_group", None)
+        if group is not None:
+            grads = all_reduce_gradients(grads, group)
         return out.loss.detach(), grads, global_norm(grads)
 
     def __call__(self, batch: dict) -> dict:

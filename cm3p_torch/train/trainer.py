@@ -13,12 +13,21 @@ batch stream through ``train_iter_factory(start_step=...)`` where the factory
 takes it, else replays it. Losses stay on the
 device until a log record needs them. :func:`from_pretrained` initialises a
 model from a local HF-layout directory (the JAX trainer's ``from_pretrained``).
+
+Under a process group (one rank per GPU, the model's ``dp_group``) every rank
+runs the same loop on its own shard of the data: the logs and the result files
+are written by rank 0 alone (the others write to ``os.devnull``, as the JAX
+trainer's non-primary hosts), ``samples_per_sec`` counts the global batch,
+checkpoints are written by rank 0 and restored by every rank, and
+:meth:`Trainer.evaluate` asks every rank whether it has a batch before each
+one, so ranks with unequal eval shards stop together at the shortest.
 """
 from __future__ import annotations
 
 import inspect
 import json
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Callable, Iterator, Optional
@@ -26,6 +35,8 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..models.cm3p import data_group_of
+from ..parallel.distributed import all_processes_have, gather_rows, is_primary
 from .checkpoint import CheckpointManager
 from .metrics import MetricAccumulator
 from .step import TrainStep, eval_step, to_device
@@ -75,7 +86,10 @@ class Trainer:
         self.ckpt = CheckpointManager(
             str(self.output_dir / "checkpoints"), save_interval_steps=save_steps, max_to_keep=save_total_limit
         )
-        self._log_file = open(self.output_dir / "train_log.jsonl", "a")
+        self._primary = is_primary()
+        self._log_file = open(self.output_dir / "train_log.jsonl" if self._primary else os.devnull, "a")
+        group = data_group_of(model)
+        self.data_groups = 1 if group is None else torch.distributed.get_world_size(group)
         self._best_eval_loss: Optional[float] = None
         self._best_eval_step: Optional[int] = None
         self._last_eval: dict = {}
@@ -86,7 +100,8 @@ class Trainer:
         record = {k: (float(v) if hasattr(v, "item") else v) for k, v in record.items()}
         self._log_file.write(json.dumps(record) + "\n")
         self._log_file.flush()
-        logger.info(" ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}" for k, v in record.items()))
+        if self._primary:
+            logger.info(" ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}" for k, v in record.items()))
 
     def _save(self, opt_step: int) -> None:
         self.ckpt.save(opt_step, self.model, self.optimizer, self.micro_step)
@@ -118,7 +133,7 @@ class Trainer:
             self.micro_step += 1
             pending.append(metrics["loss"])
             window_count += 1
-            window_samples += int(dev_batch["input_ids"].shape[0])
+            window_samples += int(dev_batch["input_ids"].shape[0]) * self.data_groups
             if not metrics["applied"]:
                 continue
             opt_step = self.micro_step // self.grad_accum
@@ -158,17 +173,21 @@ class Trainer:
             "best_eval_loss": self._best_eval_loss,
             "best_eval_step": self._best_eval_step,
         }
-        (self.output_dir / "train_results.json").write_text(json.dumps(results, indent=2))
-        if self._last_eval:
-            (self.output_dir / "eval_results.json").write_text(
-                json.dumps({k: v for k, v in self._last_eval.items() if v is not None}, indent=2)
-            )
+        if self._primary:
+            self._write_results(results)
         if self.load_best_model_at_end and self._best_eval_step not in (None, final_step):
             if self.ckpt.restore(self.model, step=self._best_eval_step) is not None:
                 logger.info("restored the best checkpoint (step %d, eval_loss %.5g)",
                             self._best_eval_step, self._best_eval_loss)
         self.results = results
         return results
+
+    def _write_results(self, results: dict) -> None:
+        (self.output_dir / "train_results.json").write_text(json.dumps(results, indent=2))
+        if self._last_eval:
+            (self.output_dir / "eval_results.json").write_text(
+                json.dumps({k: v for k, v in self._last_eval.items() if v is not None}, indent=2)
+            )
 
     def _advance(self, data_iter):
         try:
@@ -178,24 +197,42 @@ class Trainer:
             return next(data_iter), data_iter
 
     def evaluate(self) -> dict:
-        """Loss, zero-shot ranking and the labels' accuracy over at most ``max_eval_batches`` eval batches."""
+        """Loss, zero-shot ranking and the labels' accuracy over at most ``max_eval_batches`` eval batches.
+
+        Under a data group every number is that of the global batches: the loss is the global batch's, the
+        zero-shot ranking reads the global similarity with every rank's classes, and the logits and labels of
+        the masked-LM and classification metrics are gathered. Before each batch every rank says whether it
+        has one; the first rank without one stops all of them.
+        """
+        group = data_group_of(self.model)
         acc = MetricAccumulator()
         losses = []
-        for i, batch in enumerate(self.eval_iter_factory()):
-            if i >= self.max_eval_batches:
+        eval_iter = iter(self.eval_iter_factory())
+        for i in range(self.max_eval_batches):
+            batch = next(eval_iter, None)
+            if not all_processes_have(batch is not None, group):
+                if batch is not None:
+                    logger.warning("evaluate: stopping at batch %d, where another rank's eval shard ended; this "
+                                   "rank's remaining batches are dropped", i)
                 break
-            out = eval_step(self.model, to_device(batch, self.device, self.packed), self.packed)
+            dev_batch = to_device(batch, self.device, self.packed)
+            out = eval_step(self.model, dev_batch, self.packed)
             if out.loss is not None:
                 losses.append(float(out.loss))
+
+            def fetch(x):
+                return (x if group is None else gather_rows(x, group)).float().cpu().numpy()
+
             if getattr(out, "logits_per_beatmap", None) is not None and "metadata_variation_classes" in batch:
-                acc.update_zero_shot(
-                    out.logits_per_beatmap.float().cpu().numpy(), np.asarray(batch["metadata_variation_classes"])
-                )
+                # the model's similarity is already the global batch's
+                acc.update_zero_shot(out.logits_per_beatmap.float().cpu().numpy(),
+                                     fetch(dev_batch["metadata_variation_classes"]).astype(np.int64))
             if "labels" in batch and out.logits is not None:
                 if self.labels_kind == "masked_lm":
-                    acc.update_masked_lm(out.logits.float().cpu().numpy(), np.asarray(batch["labels"]))
+                    acc.update_masked_lm(fetch(out.logits), fetch(dev_batch["labels"]).astype(np.int64))
                 elif self.labels_kind == "ranked_classification":
-                    acc.update_classification(out.logits.float().cpu().numpy(), np.asarray(batch["labels"]))
+                    labels = fetch(dev_batch["labels"])
+                    acc.update_classification(fetch(out.logits), labels.astype(np.asarray(batch["labels"]).dtype))
         result = acc.result()
         if losses:
             result["loss"] = float(np.mean(losses))
