@@ -242,6 +242,25 @@ Phases (any failure exits non-zero; nothing is skipped):
                order, per-beatmap cosine >= 0.9999, wall windows/s of both.
                Two ranks on one card test correctness, not scaling. Prints
                its numbers as one JSON line.
+ 15. tensor parallelism - ``v8_packed`` at full width, ``model_axis=2``: two
+               spawned ranks share the card over gloo and hold one model in
+               Megatron shards (6 of 12 beatmap heads and 2 of 4 metadata
+               heads a rank, matched halves of every MLP), both on phase 14's
+               global batch of 2 rows: (b) 2 steps with Muon on whole
+               matrices, exact launches per rank per micro-step (the rope
+               forms on the beatmap tower), losses and gradient norms equal
+               across the row, whole parameters bit-equal (sha256) after each
+               step, losses within 1e-2 of phase 14's one-process run, step
+               1's gathered gradients by phase 6's rule (the fp32 oracle's
+               everywhere) and its gathered parameters as Muon's step on the
+               whole matrices of that gradient (within 1e-3 of the largest
+               update entry; the cosine to one process's update reported);
+               per-rank step ms, peak and the model group's collectives
+               alone (ms, MB); (c) the whole checkpoint restored in one
+               process at ``model_axis=1`` bit-equal to the gathered
+               parameters, the saved bundle loaded by ``load_pretrained``,
+               and ``Trainer.evaluate`` under the model group within 1e-3 of
+               phase 14's. Prints its numbers as one JSON line.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
@@ -3639,21 +3658,27 @@ def dp_reference(torch, dev, batch, overrides=()):
     _, grads_f = path_grads(torch, step, dev_batch, plain=True, fp32=True)
     grads_k = [None if g is None else g.float().cpu() for g in grads_k]
     grads_f = [None if g is None else g.float().cpu() for g in grads_f]
+    start = {n: p.detach().to("cpu", torch.float32, copy=True) for n, p in model.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
     records = []
-    for _ in range(DP_STEPS):
+    for i in range(DP_STEPS):
         metrics, ms = cuda_timed(torch, lambda: step(dev_batch))
         records.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "ms": ms})
+        if i == 0:  # phase 15 holds the tensor-parallel step to it
+            step1 = {n: p.detach().to("cpu", torch.float32, copy=True) for n, p in model.named_parameters()}
     peak = torch.cuda.max_memory_allocated()
+    labels = step.optimizer.labels()
     del step, model, dev_batch
     torch.cuda.empty_cache()
-    return names, grads_k, grads_f, records, peak
+    return names, grads_k, grads_f, records, peak, {"start": start, "step1": step1, "labels": labels}
 
 
-def compare_dp_gradients(torch, names, grads_r, grads_k, grads_f):
+def compare_dp_gradients(torch, names, grads_r, grads_k, grads_f, oracle_everywhere=False):
     """Phase 6's rule with the two ranks' reduced gradient in the kernel path's place and the one-process kernel
     gradient in the plain path's: cosine >= ``GRAD_COS_MIN`` outside the metadata side; a tensor below it must be
-    no further from the fp32 plain oracle than the one-process gradient is, within ``NOISY_COS_MARGIN``."""
+    no further from the fp32 plain oracle than the one-process gradient is, within ``NOISY_COS_MARGIN``. With
+    ``oracle_everywhere`` (phase 15: the ranks' bf16 sums run in another order than one process's, as the kernel
+    and plain paths' do) the oracle rule holds outside the metadata side too."""
 
     def cos(x, y):
         nx, ny = x.norm().item(), y.norm().item()
@@ -3670,14 +3695,17 @@ def compare_dp_gradients(torch, names, grads_r, grads_k, grads_f):
         rows.append((cos(gr, gk), cos(gr, gf), cos(gk, gf), name))
     rows.sort()
     strict = [r for r in rows if not r[3].startswith("metadata")]
-    low = [r for r in rows if r[3].startswith("metadata") and r[0] < GRAD_COS_MIN]
+    low = [r for r in rows if (oracle_everywhere or r[3].startswith("metadata")) and r[0] < GRAD_COS_MIN]
     worse = [r for r in low if r[1] < r[2] - NOISY_COS_MARGIN]
+    rule = " or the oracle rule" if oracle_everywhere else ""
     log(f"  (b) gradients of the first step, two ranks (reduced) vs one process: {len(strict)} outside the metadata "
-        f"side, cosine min {strict[0][0]:.6f} at {strict[0][3]} (need >= {GRAD_COS_MIN}); metadata side: {len(low)} "
-        f"below {GRAD_COS_MIN}, {len(worse)} further from the fp32 oracle than the one-process gradient")
-    for cr, crf, ckf, name in (strict[:2] + low[:4]):
+        f"side, cosine min {strict[0][0]:.6f} at {strict[0][3]} (need >= {GRAD_COS_MIN}{rule}); {len(low)} held to "
+        f"the fp32 oracle (below {GRAD_COS_MIN}), {len(worse)} further from it than the one-process gradient")
+    for cr, crf, ckf, name in (strict[:2] + [r for r in low if r not in strict[:2]][:6]):
         log(f"    cos(ranks, one process) {cr:.6f}  cos(ranks, fp32) {crf:.6f}  cos(one process, fp32) {ckf:.6f}  {name}")
-    if strict[0][0] < GRAD_COS_MIN or worse:
+    for cr, crf, ckf, name in worse:
+        log(f"    further: cos(ranks, fp32) {crf:.6f} < cos(one process, fp32) {ckf:.6f} - {NOISY_COS_MARGIN}  {name}")
+    if (strict[0][0] < GRAD_COS_MIN and not oracle_everywhere) or worse:
         fail("(b): the two ranks' gradient disagrees with the one-process gradient")
     return strict[0][0]
 
@@ -3759,9 +3787,9 @@ def dp_extraction(torch, dev, maps, waves, tmp, model_args=()):
 
 def dp_slice(torch, ops, dev, batch, map_dirs, maps, waves, tmp, overrides=(), extract_args=()):
     """Phase 14: data parallelism; returns the launches of (a) (the ranks' launches are theirs, not this
-    process's) and prints its numbers as one JSON line. ``overrides`` (config overrides of every trainer) and
-    ``extract_args`` (the tool's model arguments) are empty on the card; a dry run on the CPU shrinks the model
-    with them."""
+    process's) and the one-process reference of (b) with (c)'s eval loss, which phase 15 reads, and prints its
+    numbers as one JSON line. ``overrides`` (config overrides of every trainer) and ``extract_args`` (the tool's
+    model arguments) are empty on the card; a dry run on the CPU shrinks the model with them."""
     import multiprocessing as mp
 
     t_phase = time.perf_counter()
@@ -3775,25 +3803,13 @@ def dp_slice(torch, ops, dev, batch, map_dirs, maps, waves, tmp, overrides=(), e
     log(f"  (b) global packed batch {tuple(glob_batch['input_ids'].shape)} rows, "
         f"{int(glob_batch['window_valid'].sum())} windows in {glob_batch['window_valid'].shape[0]} slots; per rank "
         f"{[(tuple(b['input_ids'].shape), int(b['window_valid'].sum())) for b in batches]}")
-    names, grads_k, grads_f, ref, ref_peak = dp_reference(torch, dev, glob_batch, overrides)
+    names, grads_k, grads_f, ref, ref_peak, params = dp_reference(torch, dev, glob_batch, overrides)
     torch.save(batches, tmp / "batches.pt")
     ctx = mp.get_context("spawn")
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=dp_rank, args=(r, DP_RANKS, str(tmp / "store_b"), str(tmp), str(tmp / "batches.pt"),
-                                               str(torch.device(dev.type, 0)), tuple(overrides)))
-             for r in range(DP_RANKS)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + DP_TIMEOUT_S
-    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
-        if any(p.exitcode not in (None, 0) for p in procs):
-            break
-        time.sleep(0.5)
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-        p.join()
-    codes = [p.exitcode for p in procs]
+    codes = run_spawned(ctx, dp_rank, [(r, DP_RANKS, str(tmp / "store_b"), str(tmp), str(tmp / "batches.pt"),
+                                        str(torch.device(dev.type, 0)), tuple(overrides)) for r in range(DP_RANKS)],
+                        DP_TIMEOUT_S)
     log(f"  (b, c) {DP_RANKS} ranks (file:// store) joined in {time.perf_counter() - t0:.1f} s, exit codes {codes}")
     if codes != [0] * DP_RANKS:
         fail(f"(b, c): a rank failed or hung (exit codes {codes})")
@@ -3820,7 +3836,7 @@ def dp_slice(torch, ops, dev, batch, map_dirs, maps, waves, tmp, overrides=(), e
             fail(f"(b) step {i + 1}: the two ranks' loss is not the one-process loss")
     grads_r = torch.load(tmp / "grads.pt", weights_only=False)
     cos_min = compare_dp_gradients(torch, names, grads_r, grads_k, grads_f)
-    del grads_r, grads_k, grads_f
+    del grads_r
     report["b"] = {"ranks": [{"backend": r["backend"], "steps": [{k: x[k] for k in ("loss", "grad_norm", "ms")}
                                                                  for x in r["records"]],
                               "peak_gib": r["peak"] / 2**30, "allreduce_ms": r["allreduce_ms"],
@@ -3840,7 +3856,342 @@ def dp_slice(torch, ops, dev, batch, map_dirs, maps, waves, tmp, overrides=(), e
     report["d"] = dp_extraction(torch, dev, maps, waves, tmp, tuple(extract_args))
     report["seconds"] = time.perf_counter() - t_phase
     log(json.dumps({"phase14": report}))
-    return counts
+    reference = dict(params, batch=glob_batch, names=names, grads_k=grads_k, grads_f=grads_f, steps=ref,
+                     peak=ref_peak, eval_loss=evals[0]["loss"])
+    return counts, reference
+
+
+def run_spawned(ctx, target, arg_tuples, timeout):
+    """``target(*args)`` in one spawned process per tuple; returns their exit codes. A process that fails or
+    outlives ``timeout`` stops all of them (a rank left in a collective would wait for ever)."""
+    procs = [ctx.Process(target=target, args=args) for args in arg_tuples]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    return [p.exitcode for p in procs]
+
+
+# ---------------------------------------------------------------- phase 15
+
+TP_BUDGET_S = 150
+TP_RANKS = 2  # (b): one row of the grid, model_axis=2, two ranks sharing the card over gloo
+TP_STEPS = 2
+TP_TIMEOUT_S = 420  # limit on the ranks' run
+TP_EVAL_REL = 1e-3  # (c): the evaluation under TP against phase 14's
+TP_MUON_TOL = 1e-3  # (b): step 1's parameters against Muon on the gathered gradient, of the largest update entry
+# a rank's launches per micro-step at model_axis=2 are those of one process: every layer's attention runs once, at
+# the local heads (the beatmap tower's 6 of 12 keep rope inside the kernels: the rope forms; the metadata tower's 2
+# of 4 the plain forms); the no-grad evaluation runs no FFN kernel (the sharded MLP composition)
+TP_PER_MICRO_STEP = PER_MICRO_STEP
+TP_PER_EVAL = {"window_attention": 14, "segment_attention": 8 + 6}
+TP_LOCAL_HEADS = {"beatmap": 6, "metadata": 2}
+
+
+def whole_digest(model, skip):
+    """sha256 of the parameters outside ``skip`` (the split ones), in order: equal digests are bit-equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n, p in model.named_parameters():
+        if n not in skip:
+            h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_digest(state):
+    """sha256 of a state dict's tensors in order, as fp32."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in state.values():
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_rank(rank, world, store, out_dir, batch_path, device="cuda:0", overrides=()):
+    """One rank of phase 15 (b) and (c) (a spawned process): ``v8_packed`` at full width over a gloo group that
+    shares the card, ``model_axis=world``: its shards of every tower, the whole packed batch."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from cm3p_torch import ops
+    from cm3p_torch.inference import save_pretrained
+    from cm3p_torch.parallel import distributed
+    from cm3p_torch.parallel.mesh import make_mesh
+    from cm3p_torch.parallel.tensor import gather_module_state, gather_named, shard_module, sharded_names
+    from cm3p_torch.train import TrainStep, to_device
+    from cm3p_torch.train.__main__ import CONFIG_DIR, build_model, build_optimizer, build_processor, model_config
+    from cm3p_torch.train.checkpoint import CheckpointManager
+    from cm3p_torch.train.trainer import Trainer
+    from cm3p_torch.utils.config import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    out = Path(out_dir)
+    backend = distributed.initialize_distributed(f"file://{store}", world, rank, device=dev)
+    try:
+        batch_np = torch.load(batch_path, weights_only=False)
+        args = load_config(CONFIG_DIR, "v8_packed", list(overrides))
+        proc = build_processor(args)
+        model = build_model(args, model_config(args, proc), dev, seed=0)
+        mesh = make_mesh(model=world)
+        model.set_data_group(mesh.data_group)
+        distributed.broadcast_parameters(model)
+        shard_module(model, mesh)
+        group = model.model_group
+        heads = {name: enc.layers[0].attn.Wqkv.weight.shape[0] // (3 * enc.config.head_dim)
+                 for name, enc in (("beatmap", model.beatmap_model.encoder), ("metadata", model.metadata_model.encoder))}
+        split = sharded_names(model)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        step = TrainStep(model, build_optimizer(args, model), packed=True)
+        batch = to_device(batch_np, dev, packed=True)
+        grads_of, first = step.grads, []
+
+        def capture(b):
+            loss, grads, norm = grads_of(b)
+            if not first:  # step 1's gradients, the split ones made whole over the row
+                named = {n: g for n, g in zip(names, grads) if g is not None}
+                whole = gather_named(named, {n: split[n] for n in named if n in split}, group)
+                first.append([None if n not in whole else whole[n].to("cpu", torch.float32, copy=True) for n in names])
+            return loss, grads, norm
+
+        step.grads = capture
+        # the model group's collectives of a step, by kind and size, for the replay below
+        sent, real = [], {k: getattr(torch.distributed, k) for k in ("all_reduce", "all_gather")}
+
+        def recording(kind):
+            def call(*a, **k):
+                if k.get("group") is group:
+                    t = a[0] if kind == "all_reduce" else a[1]
+                    sent.append((kind, t.numel(), t.dtype))
+                return real[kind](*a, **k)
+            return call
+
+        torch.cuda.reset_peak_memory_stats()
+        records = []
+        for i in range(TP_STEPS):
+            if i == TP_STEPS - 1:
+                for kind in real:
+                    setattr(torch.distributed, kind, recording(kind))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.distributed.barrier()
+            ops.reset_launch_counts()
+            start.record()
+            metrics = step(batch)
+            end.record()
+            torch.cuda.synchronize()
+            for kind, fn in real.items():
+                setattr(torch.distributed, kind, fn)
+            launches = {k: v for k, v in ops.launch_counts().items() if v}
+            records.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                            "ms": start.elapsed_time(end), "digest": whole_digest(model, split),
+                            "launches": launches})
+            if i == 0:
+                gathered = gather_module_state(model)
+                if rank == 0:
+                    torch.save({n: t.float().cpu() for n, t in gathered.items()}, out / "tp_step1.pt")
+                    torch.save(first[0], out / "tp_grads.pt")
+                del gathered
+        peak = torch.cuda.max_memory_allocated()
+        # the model group's collectives of the last step alone, replayed on zeros (host clock: gloo blocks)
+        bufs = [(kind, torch.zeros(n, dtype=dt, device=dev)) for kind, n, dt in sent]
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for kind, t in bufs:
+            if kind == "all_reduce":
+                torch.distributed.all_reduce(t, group=group)
+            else:
+                torch.distributed.all_gather([torch.empty_like(t) for _ in range(world)], t, group=group)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        volume = {kind: sum(t.numel() * t.element_size() for k, t in bufs if k == kind) / 1e6 for kind in real}
+        counts = {kind: sum(1 for k, _ in bufs if k == kind) for kind in real}
+        del bufs
+
+        # (c) a whole checkpoint and bundle, and the evaluation under the model group
+        CheckpointManager(str(out / "tp_ckpt")).save(TP_STEPS, model, step.optimizer, micro_step=TP_STEPS)
+        state = gather_module_state(model)
+        digest = state_digest(state)
+        if rank == 0:
+            save_pretrained(model, out / "tp_bundle", processor=proc, state=state)
+        del state
+        trainer = Trainer(model, step.optimizer, lambda: iter(()), lambda: iter([batch_np]), device=dev, packed=True,
+                          output_dir=str(out / f"tp_trainer{rank}"), max_eval_batches=1)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = trainer.evaluate()
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_launches = {k: v for k, v in ops.launch_counts().items() if v}
+        trainer.close()
+        torch.distributed.barrier()
+        torch.save({"backend": backend, "heads": heads, "records": records, "peak": peak, "replay_ms": replay_ms,
+                    "volume_mb": volume, "collectives": counts, "digest": digest, "eval": result,
+                    "eval_s": eval_s, "eval_launches": eval_launches}, out / f"tp_rank{rank}.pt")
+    finally:
+        distributed.shutdown()
+
+
+def check_tp_muon(torch, dev, reference, step1, grads_tp, layouts, lr):
+    """(b): step 1's gathered parameters are Muon's step on the whole matrices. For every tensor Muon steps, the
+    update ``- lr * scale * NS5(g + 0.95 g)`` of the ranks' gathered step-1 gradient (the first step's Nesterov
+    momentum), made here on the whole matrix and scaled by its whole flax shape, must give the ranks' gathered
+    parameters within ``TP_MUON_TOL`` of the update's largest entry. Against the one-process step the updates
+    are reported, not held: the bf16 gradient of this model at random init is mostly rounding noise (cosine ~0.8
+    to the fp32 oracle on many tensors), and the polar factor NS5 approaches weighs every singular direction
+    alike, so two valid roundings of one gradient give updates far apart; NS5 in fp32 on the same two gradients
+    is reported beside it."""
+    from cm3p_torch.train.muon import NS_COEFFS, to_flax, zeropower_via_newtonschulz5
+
+    def ns5_f32(g, steps=6, eps=1e-7):
+        a, b, c = NS_COEFFS
+        x = g / (torch.linalg.vector_norm(g) + eps)
+        x = x.t() if g.shape[0] > g.shape[1] else x
+        for _ in range(steps):
+            xxt = x @ x.t()
+            x = a * x + (b * xxt + c * (xxt @ xxt)) @ x
+        return x.t() if g.shape[0] > g.shape[1] else x
+
+    def cos(x, y):
+        return (x * y).sum().item() / max(x.norm().item() * y.norm().item(), 1e-30)
+
+    grads_one = dict(zip(reference["names"], reference["grads_k"]))
+    rows = []
+    for name, g in zip(reference["names"], grads_tp):
+        if g is None or reference["labels"].get(name) != "muon":
+            continue
+        layout = layouts.get(name, "same")
+        g = g.to(dev)
+        k = to_flax(g + 0.95 * g, layout)
+        k2 = k.reshape(k.shape[0], -1)
+        ortho = zeropower_via_newtonschulz5(k2) * max(1.0, k2.shape[0] / k2.shape[1]) ** 0.5
+        update = to_flax(ortho.reshape(k.shape), layout).float()
+        want = reference["start"][name].to(dev, copy=True)
+        want.add_(update * -lr)
+        err = (want - step1[name].to(dev)).abs().max().item() / max(lr * update.abs().max().item(), 1e-30)
+        d_tp = (step1[name] - reference["start"][name]).to(dev)
+        d_one = (reference["step1"][name] - reference["start"][name]).to(dev)
+        f32 = cos(ns5_f32(to_flax(g, layout).reshape(k2.shape)),
+                  ns5_f32(to_flax(grads_one[name].to(dev), layout).reshape(k2.shape)))
+        rows.append((err, cos(d_tp, d_one), f32, name))
+    worst = max(rows)
+    by_cos = sorted(rows, key=lambda r: r[1])
+    log(f"  (b) step 1's gathered parameters against Muon on the whole matrices of the gathered gradient: "
+        f"{len(rows)} tensors, error max {worst[0]:.2e} of the largest update entry at {worst[3]} (tol "
+        f"{TP_MUON_TOL}); against the one-process update (reported): cosine min {by_cos[0][1]:.4f} at "
+        f"{by_cos[0][3]}, median {by_cos[len(rows) // 2][1]:.4f}; NS5 in fp32 of the two gradients: cosine min "
+        f"{min(r[2] for r in rows):.4f}, median {sorted(r[2] for r in rows)[len(rows) // 2]:.4f}")
+    if worst[0] > TP_MUON_TOL:
+        fail("(b): the tensor-parallel step is not Muon's step on the whole matrices")
+    return {"muon_err_max": worst[0], "update_cos_min": by_cos[0][1], "update_cos_median": by_cos[len(rows) // 2][1],
+            "ns5_f32_cos_min": min(r[2] for r in rows)}
+
+
+def tp_slice(torch, ops, dev, reference, tmp, overrides=()):
+    """Phase 15: tensor parallelism, ``model_axis=2``, two ranks sharing the card over gloo, on phase 14's
+    global batch (both rows on each rank) against phase 14's one-process reference; prints one JSON line."""
+    import multiprocessing as mp
+
+    from cm3p_torch.inference import load_pretrained
+    from cm3p_torch.train import flax_layouts
+    from cm3p_torch.train.__main__ import CONFIG_DIR, build_model, build_optimizer, build_processor, model_config
+    from cm3p_torch.train.checkpoint import CheckpointManager
+    from cm3p_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    tmp = Path(tmp)
+    torch.save(reference["batch"], tmp / "tp_batch.pt")
+    t0 = time.perf_counter()
+    codes = run_spawned(mp.get_context("spawn"), tp_rank,
+                        [(r, TP_RANKS, str(tmp / "store_tp"), str(tmp), str(tmp / "tp_batch.pt"),
+                          str(torch.device(dev.type, 0)), tuple(overrides)) for r in range(TP_RANKS)], TP_TIMEOUT_S)
+    log(f"  (b, c) {TP_RANKS} ranks at model_axis={TP_RANKS} joined in {time.perf_counter() - t0:.1f} s, exit codes "
+        f"{codes}")
+    if codes != [0] * TP_RANKS:
+        fail(f"(b, c): a tensor-parallel rank failed or hung (exit codes {codes})")
+    ranks = [torch.load(tmp / f"tp_rank{r}.pt", weights_only=False) for r in range(TP_RANKS)]
+    ref = reference["steps"]
+    for r, res in enumerate(ranks):
+        log(f"  (b) rank {r}: backend {res['backend']}, local heads {res['heads']}; per step loss, grad norm, ms "
+            f"{[(round(x['loss'], 6), round(x['grad_norm'], 5), round(x['ms'], 1)) for x in res['records']]}; peak "
+            f"{res['peak'] / 2**30:.2f} GiB; the model group's collectives of a step alone: "
+            f"{res['collectives']['all_reduce']} all-reduces ({res['volume_mb']['all_reduce']:.0f} MB) and "
+            f"{res['collectives']['all_gather']} all-gathers ({res['volume_mb']['all_gather']:.0f} MB) over gloo in "
+            f"{res['replay_ms']:.1f} ms (two ranks share one card: not scaling)")
+        if res["backend"] != "gloo" or res["heads"] != TP_LOCAL_HEADS:
+            fail(f"(b) rank {r}: backend {res['backend']}, local heads {res['heads']} (want gloo, {TP_LOCAL_HEADS})")
+        for i, rec in enumerate(res["records"]):
+            want = {k: v for k, v in TP_PER_MICRO_STEP.items() if v}
+            if rec["launches"] != want:
+                fail(f"(b) rank {r} step {i + 1}: launches {rec['launches']}, want {want}")
+        want = {k: v for k, v in TP_PER_EVAL.items() if v}
+        if res["eval_launches"] != want:
+            fail(f"(c) rank {r}: evaluation launches {res['eval_launches']}, want {want}")
+    log(f"  (b) launches per rank per micro-step: {ranks[0]['records'][0]['launches']} (as one process); evaluation "
+        f"{ranks[0]['eval_launches']}")
+    for i in range(TP_STEPS):
+        steps = [res["records"][i] for res in ranks]
+        if len({(s["loss"], s["grad_norm"], s["digest"]) for s in steps}) != 1:
+            fail(f"(b) step {i + 1}: the row's losses, gradient norms or whole parameters differ: "
+                 f"{[(s['loss'], s['grad_norm'], s['digest'][:16]) for s in steps]}")
+        rel = abs(steps[0]["loss"] - ref[i]["loss"]) / abs(ref[i]["loss"])
+        log(f"  (b) step {i + 1}: whole parameters bit-equal across the row (sha256 {steps[0]['digest'][:16]}), loss "
+            f"{steps[0]['loss']:.6f} vs one process {ref[i]['loss']:.6f} (relative {rel:.2e}, tol {DP_LOSS_REL}), "
+            f"grad norm {steps[0]['grad_norm']:.5f} vs {ref[i]['grad_norm']:.5f}")
+        if not rel <= DP_LOSS_REL:
+            fail(f"(b) step {i + 1}: the tensor-parallel loss is not the one-process loss")
+    grads_tp = torch.load(tmp / "tp_grads.pt", weights_only=False)
+    grad_cos = compare_dp_gradients(torch, reference["names"], grads_tp, reference["grads_k"], reference["grads_f"],
+                                    oracle_everywhere=True)
+    args = load_config(CONFIG_DIR, "v8_packed", list(overrides))
+    model = build_model(args, model_config(args, build_processor(args)), dev, seed=0)
+    muon = check_tp_muon(torch, dev, reference, torch.load(tmp / "tp_step1.pt", weights_only=False), grads_tp,
+                         flax_layouts(model), build_optimizer(args, model).lr_schedule(0))
+    del grads_tp
+
+    # (c) the checkpoint at model_axis=1, the bundle, the evaluation
+    restored = CheckpointManager(str(tmp / "tp_ckpt")).restore(model)
+    digest = state_digest(model.state_dict())
+    _, bundle = load_pretrained(tmp / "tp_bundle", device=dev, dtype=torch.float32)
+    loaded = bundle.state_dict()
+    own = model.state_dict()
+    same = [k for k in own if k in loaded and torch.equal(own[k], loaded[k])]
+    log(f"  (c) checkpoint {restored} restored in one process at model_axis=1: sha256 {digest[:16]} vs the ranks' "
+        f"gathered {ranks[0]['digest'][:16]}; the bundle: {len(same)} of {len(own)} tensors bit-equal")
+    if digest != ranks[0]["digest"] or digest != ranks[1]["digest"]:
+        fail("(c): the tensor-parallel checkpoint does not restore to the gathered parameters at model_axis=1")
+    if len(same) != len(own):
+        fail("(c): the tensor-parallel bundle does not load the gathered parameters")
+    del model, bundle, own, loaded
+    torch.cuda.empty_cache()
+    evals = [res["eval"] for res in ranks]
+    rel = abs(evals[0]["loss"] - reference["eval_loss"]) / abs(reference["eval_loss"])
+    log(f"  (c) Trainer.evaluate under the model group: loss {evals[0]['loss']:.6f} on both ranks: "
+        f"{evals[0] == evals[1]}; phase 14's {reference['eval_loss']:.6f} (relative {rel:.2e}, tol {TP_EVAL_REL}); "
+        f"{[round(r['eval_s'], 2) for r in ranks]} s")
+    if evals[0] != evals[1] or not rel <= TP_EVAL_REL:
+        fail("(c): the evaluation under the model group differs across the row or from phase 14's")
+    report = {
+        "b": {"ranks": [{"steps": [{k: x[k] for k in ("loss", "grad_norm", "ms")} for x in r["records"]],
+                         "peak_gib": r["peak"] / 2**30, "collectives_ms": r["replay_ms"],
+                         "collectives_mb": r["volume_mb"], "collectives": r["collectives"]} for r in ranks],
+              "one_process": {"steps": ref, "peak_gib": reference["peak"] / 2**30}, "grad_cos_min": grad_cos,
+              **muon,
+              "launches_per_micro_step": ranks[0]["records"][0]["launches"],
+              "note": "two ranks share one card: correctness, not scaling"},
+        "c": {"eval_loss": evals[0]["loss"], "phase14_eval_loss": reference["eval_loss"], "checkpoint": restored},
+        "seconds": time.perf_counter() - t_phase,
+    }
+    log(json.dumps({"phase15": report}))
 
 
 def profile_tree(torch, dev, tree) -> int:
@@ -4257,9 +4608,19 @@ def main(argv=None) -> int:
         "(training, unequal eval shards), torchrun extraction")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        for kname, n in dp_slice(torch, ops, dev, train_batch2, map_dirs, maps, waves, tmp).items():
+        counts14, reference = dp_slice(torch, ops, dev, train_batch2, map_dirs, maps, waves, tmp)
+        for kname, n in counts14.items():
             main_counts[kname] += n
     log(f"  phase 14: {time.perf_counter() - t0:.1f} s (budget {DP_BUDGET_S} s)")
+
+    # ---- 15. tensor parallelism: two ranks hold one model in Megatron shards, sharing the card over gloo
+    log(f"[15] tensor parallelism: v8_packed at model_axis={TP_RANKS}, {TP_RANKS} ranks on the one card over gloo "
+        "(training against phase 14's one-process step, a whole checkpoint and bundle, evaluation)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_slice(torch, ops, dev, reference, tmp)
+    del reference
+    log(f"  phase 15: {time.perf_counter() - t0:.1f} s (budget {TP_BUDGET_S} s)")
 
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:

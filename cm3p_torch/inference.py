@@ -160,6 +160,7 @@ def save_pretrained(
     out_dir: Union[str, os.PathLike],
     processor: Optional[CM3PProcessor] = None,
     bf16: bool = False,
+    state: Optional[dict] = None,
 ) -> Path:
     """Write ``config.json`` + ``model.safetensors`` in the HF layout.
 
@@ -170,7 +171,8 @@ def save_pretrained(
     reference's; the audio tower's unused (1, hidden) token table is written as
     zeros, as the reference model expects it, and a tied decoder's weight as the
     token table (the JAX export's ``flax_to_hf_state_dict``). With ``processor``
-    its files go into the same directory.
+    its files go into the same directory. ``state`` is the state dict to write (default: the model's; a model
+    sharded over a model group passes its gathered whole state, ``parallel.tensor.gather_module_state``).
     """
     config = model.config
     bc = getattr(config, "beatmap_config", config)
@@ -180,7 +182,8 @@ def save_pretrained(
                          "(the bundle's config decides the class): set config.problem_type")
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    state = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in model.state_dict().items()}
+    state = model.state_dict() if state is None else state
+    state = {k: v.detach().to("cpu", torch.float32).numpy() for k, v in state.items()}
     state[_AUDIO_TOKEN_TABLE] = np.zeros((1, bc.audio_config.hidden_size), np.float32)
     if isinstance(model, MaskedLMModel) and bc.tie_word_embeddings:
         state["decoder.weight"] = state[_TOKEN_TABLE]

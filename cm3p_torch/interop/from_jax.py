@@ -20,6 +20,10 @@ of the HF export mapping:
 
 :func:`init_weights` makes the same state dict from a ``torch.Generator``
 with the JAX package's trunc-normal init scales (no JAX needed).
+
+Both give whole tensors. A JAX tree trained on a ``(data, model)`` mesh is
+logically whole (``np.asarray`` of its leaves); a tensor-parallel rank takes
+its part with :func:`~cm3p_torch.parallel.mesh.shard_state_dict`.
 """
 from __future__ import annotations
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import logging
 from typing import NamedTuple, Optional, Union
 
 import torch
@@ -35,7 +36,10 @@ from torch import nn
 from ..configs import AudioConfig, BeatmapConfig, CM3PConfig, MetadataConfig
 from ..parallel.distributed import active as _dist_active
 from ..parallel.distributed import all_gather_ints, all_reduce_sum, gather_rows
+from ..parallel.tensor import column_parallel_linear, group_size, row_parallel_linear
 from .modernbert import REMAT_MODES, EncoderOptions, LayerNormF32, ModernBertEncoder, linear, pool_hidden
+
+logger = logging.getLogger(__name__)
 
 # the projector's activations, as the JAX package's ``ACTIVATIONS``
 ACTIVATIONS = {
@@ -150,7 +154,12 @@ def _pool_packed(hidden, segment_ids, window_rows, window_segments, cls_embed: b
 
 
 class MultiModalProjector(nn.Module):
-    """Two-layer MLP projecting grouped audio frames to beatmap width."""
+    """Two-layer MLP projecting grouped audio frames to beatmap width.
+
+    Under a model group (``model_group``) ``linear_1`` holds this rank's rows and ``linear_2`` the same
+    columns: a column / row pair around the activation, the partial of ``linear_2`` summed over the group."""
+
+    model_group = None
 
     def __init__(self, config: AudioConfig):
         super().__init__()
@@ -162,7 +171,11 @@ class MultiModalProjector(nn.Module):
         self.linear_2 = nn.Linear(config.projector_dim, config.projector_dim, bias=False)
 
     def forward(self, x):
-        return linear(self.act(linear(x, self.linear_1.weight)), self.linear_2.weight)
+        group = self.model_group
+        if group is None:
+            return linear(self.act(linear(x, self.linear_1.weight)), self.linear_2.weight)
+        h = self.act(column_parallel_linear(x, self.linear_1.weight, group))
+        return row_parallel_linear(h, self.linear_2.weight, group)
 
 
 class AudioEncoder(nn.Module):
@@ -233,12 +246,31 @@ class TowerModel(nn.Module):
     global batch, the rank-ordered concatenation of every rank's batch, as the JAX package's loss under a data
     mesh: contrastive negatives from every rank, means over global counts. None (the default) or a group of
     one rank is the one-process loss.
+
+    ``model_group`` (:meth:`set_model_group`, which ``parallel.tensor.shard_module`` calls) is the group the
+    towers' layers and the audio projector were sharded over (tensor parallelism); every other part of the
+    model runs whole on every rank of it, and the losses stay those of the data group.
     """
 
     dp_group = None
+    model_group = None
 
     def set_data_group(self, group) -> None:
         self.dp_group = group
+
+    def set_model_group(self, group) -> None:
+        """The model group of every tower and of the audio projector (None: whole layers)."""
+        group = None if group_size(group) == 1 else group
+        if group is not None:
+            logger.info("under a model group of %d ranks the no-grad MLP runs the sharded composition in place of "
+                        "the fused FFN kernel (whose epilogue adds the residual), and no Wo epilogue, LN-matmul or "
+                        "W8A8 route runs", group_size(group))
+        self.model_group = group
+        for enc in self.encoders():
+            enc.set_model_group(group)
+        for module in self.modules():
+            if isinstance(module, MultiModalProjector):
+                module.model_group = group
 
     def encoders(self) -> list[ModernBertEncoder]:
         raise NotImplementedError

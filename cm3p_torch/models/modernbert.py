@@ -71,6 +71,22 @@ runs again in the backward) or ``"dots"`` (the same, but the outputs of the
 layer's ``mm`` / ``addmm`` products are kept and not recomputed; the kernels,
 which are no such op, run again). It acts only where grad is on.
 
+Tensor parallelism (the JAX package's ``model`` mesh axis): with a model
+group (:meth:`ModernBertEncoder.set_model_group`, after
+:func:`~cm3p_torch.parallel.tensor.shard_module` cut the layers' products
+into Megatron shards) each layer runs ``Wqkv`` on its heads' rows
+(:func:`~cm3p_torch.parallel.tensor.column_parallel_linear`), the same
+attention kernels on its local heads (rope inside them where
+:func:`~cm3p_torch.ops.attention.rope_in_kernels` admits the local head
+count), multiplies by its columns of ``Wo`` and sums the fp32 partial over the
+group (:func:`~cm3p_torch.parallel.tensor.row_parallel_linear`) before the
+residual; the MLP is :class:`~cm3p_torch.ops.fused_ffn.LnFfnFunction`'s
+model-group form. The same composition runs without grad: the fused FFN
+kernel adds the residual inside its epilogue and so declines (logged), and
+:class:`EncoderOptions` other than :data:`EXACT` raise, as the JAX package
+runs no extraction option on a model axis. A model group and ``sp_group``
+together raise.
+
 Dropout is not ported: a nonzero ``attention_dropout``, ``embedding_dropout``
 or ``mlp_dropout`` raises where it would apply (training mode under grad);
 inference, where the JAX package applies none, runs.
@@ -104,6 +120,7 @@ from ..ops import (
 from ..ops.attention import apply_rope
 from ..ops.fused_ffn import LnFfnFunction, ffn_fusable
 from ..parallel.sequence import all_gather_seq, sequence_sharded_attention
+from ..parallel.tensor import column_parallel_linear, group_size, row_parallel_linear
 
 DROPOUT_FIELDS = ("attention_dropout", "embedding_dropout", "mlp_dropout")
 
@@ -196,7 +213,7 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, key_mask, segment_ids, window, rope_theta, plain: bool = False, positions=None,
                 pre_norm: Optional[LayerNormF32] = None, residual: Optional[torch.Tensor] = None,
-                options: EncoderOptions = EXACT, quantised=None, sp_group=None):
+                options: EncoderOptions = EXACT, quantised=None, sp_group=None, model_group=None):
         """``pre_norm``: ``x`` is raw and the norm is fused into the QKV projection.
         ``residual``: the out-projection adds it (the caller must not add it
         again), by the route of the JAX package's order: the attention
@@ -205,7 +222,9 @@ class SelfAttention(nn.Module):
         ``quantised(name, weight)`` returns the cached int8 form of a weight.
         ``sp_group``: ``x`` is this rank's shard of the sequence and
         ``positions`` its absolute positions; attention all-gathers K/V (no
-        epilogue)."""
+        epilogue). ``model_group``: ``Wqkv`` and ``Wo`` hold this rank's heads;
+        the out-projection's partial sums over the group (no residual, no
+        fused route)."""
         b, length, hidden = x.shape
         dt = x.dtype
         if pre_norm is not None:
@@ -216,9 +235,12 @@ class SelfAttention(nn.Module):
             else:
                 lnmm = fused_ln_matmul_plain if plain else fused_ln_matmul
                 qkv = lnmm(x, self.Wqkv.weight.to(dt), **norm)
+        elif model_group is not None:
+            qkv = column_parallel_linear(x, self.Wqkv.weight, model_group)
         else:
             qkv = linear(x, self.Wqkv.weight)
-        q, k, v = qkv.view(b, length, 3, self.heads, self.head_dim).unbind(dim=2)  # head-minor views, no copies
+        heads = qkv.shape[-1] // (3 * self.head_dim)  # this rank's heads under a model group
+        q, k, v = qkv.view(b, length, 3, heads, self.head_dim).unbind(dim=2)  # head-minor views, no copies
         form = wo_epilogue(options, window, hidden, length) if residual is not None and sp_group is None else None
         if sp_group is not None:
             q, k = apply_rope(q, rope_theta, positions), apply_rope(k, rope_theta, positions)
@@ -231,7 +253,9 @@ class SelfAttention(nn.Module):
             )
         else:
             out = attention(q, k, v, key_mask, segment_ids, window, rope_theta, plain=plain, positions=positions)
-        out = out.reshape(b, length, hidden)
+        out = out.reshape(b, length, -1)
+        if model_group is not None:
+            return row_parallel_linear(out, self.Wo.weight, model_group)
         if residual is None:
             return linear(out, self.Wo.weight)
         if not options.fused_lnmm_wo:
@@ -265,6 +289,7 @@ class EncoderLayer(nn.Module):
         self.mlp_norm = LayerNormF32(config.hidden_size, config.norm_eps, config.norm_bias)
         self.mlp = GeGLU(config)
         self.options = EXACT
+        self.model_group = None
         self._quantised: dict = {}
 
     def quantised(self, name: str, weight: torch.Tensor):
@@ -283,11 +308,12 @@ class EncoderLayer(nn.Module):
         window = None if self.is_global else cfg.local_attention // 2
         theta = cfg.global_rope_theta if self.is_global else cfg.local_rope_theta
         norm, mlp = self.mlp_norm, self.mlp
-        if torch.is_grad_enabled():
+        group = self.model_group
+        if torch.is_grad_enabled() or group is not None:  # the training composition; without grad, the sharded one
             attn_in = x if self.attn_norm is None else self.attn_norm(x)
             x = x + self.attn(attn_in, key_mask, segment_ids, window, theta, plain=plain, positions=positions,
-                              sp_group=sp_group)
-            return LnFfnFunction.apply(x, norm.weight, norm.bias, mlp.Wi.weight, mlp.Wo.weight, cfg.norm_eps)
+                              sp_group=sp_group, model_group=group)
+            return LnFfnFunction.apply(x, norm.weight, norm.bias, mlp.Wi.weight, mlp.Wo.weight, cfg.norm_eps, group)
         opts = self.options
         fuse_qkv = opts.fused_lnmm_qkv and self.attn_norm is not None and lnmm_fusable(hidden, 3 * hidden)
         fuse_wo = (opts.fused_lnmm_wo or opts.fused_wo) and lnmm_fusable(hidden, hidden)
@@ -362,13 +388,24 @@ class ModernBertEncoder(nn.Module):
         self.compute_dtype: Optional[torch.dtype] = None
         self.options = EXACT
         self.remat: Union[bool, str] = False
+        self.model_group = None
 
     def set_options(self, options: EncoderOptions) -> None:
         """Set the extraction options of every layer (int8 weights are remade at next use)."""
+        _exact_under_model_group(options, self.model_group)
         self.options = options
         for layer in self.layers:
             layer.options = options
             layer._quantised.clear()
+
+    def set_model_group(self, group) -> None:
+        """The model group the layers' products were sharded over (``parallel.tensor.shard_module``); None:
+        whole layers."""
+        group = None if group_size(group) == 1 else group
+        _exact_under_model_group(self.options, group)
+        self.model_group = group
+        for layer in self.layers:
+            layer.model_group = group
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Raw token embeddings (pre-norm) in the activation dtype, for the
@@ -396,6 +433,8 @@ class ModernBertEncoder(nn.Module):
             inputs_embeds = self.embed(input_ids)
         x = self.embeddings.norm(inputs_embeds.to(self.compute_dtype or inputs_embeds.dtype))
         if sp_group is not None:
+            if self.model_group is not None:
+                raise ValueError("sequence parallelism and a model group together are not supported")
             return self._forward_sharded(x, attention_mask, segment_ids, position_ids, sp_group)
         remat = self.remat if torch.is_grad_enabled() else False
         for layer in self.layers:
@@ -422,6 +461,12 @@ class ModernBertEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, key_mask, None, plain=self.plain, positions=positions[..., rows], sp_group=group)
         return all_gather_seq(self.final_norm(x), group)
+
+
+def _exact_under_model_group(options: EncoderOptions, group) -> None:
+    if group is not None and options != EXACT:
+        raise ValueError(f"extraction options {options} under a model group: tensor parallelism runs the exact "
+                         "composition only (the JAX package has no extraction option on a model axis)")
 
 
 def pool_hidden(hidden: torch.Tensor, attention_mask: Optional[torch.Tensor], cls_embed: bool) -> torch.Tensor:

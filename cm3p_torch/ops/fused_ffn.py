@@ -268,13 +268,14 @@ fused_ln_ffn_wo_f32 = FormLaunches()
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` accumulated and returned in fp32 (a weight gradient for an fp32 master).
+    """``a @ b`` accumulated and returned in fp32 (a weight gradient for an fp32 master); fp64 operands stay
+    fp64.
 
     bf16 operands on CUDA go through ``torch.mm(..., out_dtype=float32)`` where
     this PyTorch has it (no upcast copies); otherwise the operands are upcast,
     which gives the same sums (a bf16 x bf16 product is exact in fp32).
     """
-    if a.dtype == torch.float32:
+    if a.dtype in (torch.float32, torch.float64):
         return a @ b
     if a.is_cuda and hasattr(torch.ops.aten.mm, "dtype"):
         return torch.mm(a, b, out_dtype=torch.float32)
@@ -291,18 +292,29 @@ def _gelu_grad(u: torch.Tensor) -> torch.Tensor:
 
 class LnFfnFunction(torch.autograd.Function):
     """``x + Wo(gelu(a) * b)``, ``[a | b] = Wi(LN(x))`` with the JAX package's
-    training forward and analytic backward (nn.Linear weight layout)."""
+    training forward and analytic backward (nn.Linear weight layout).
+
+    With a model ``group`` (tensor parallelism) ``wi`` holds this rank's
+    matched gate and up rows and ``wo`` the same columns: the partial
+    ``g @ wo^T`` is summed over the group in fp32 and rounded once before
+    ``x +``, and in the backward the partial ``dh @ wi`` is summed over the
+    group in fp32 and rounded once before the LayerNorm's backward, so every
+    rank gets the same ``dx``, ``dscale`` and ``dbias``."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, wi, wo, eps):
+    def forward(ctx, x, scale, bias, wi, wo, eps, group=None):
         dt = x.dtype
         y = layer_norm_f32(x, scale, bias, eps).to(dt)
         h = y @ wi.to(dt).t()
         f = wo.shape[1]
         g = (F.gelu(h[..., :f].float()) * h[..., f:].float()).to(dt)
         ctx.save_for_backward(x, scale, bias, wi, wo, h)
-        ctx.eps = eps
-        return x + g @ wo.to(dt).t()
+        ctx.eps, ctx.group = eps, group
+        if group is None:
+            return x + g @ wo.to(dt).t()
+        partial = _mm_f32(g.reshape(-1, f), wo.to(dt).t())
+        torch.distributed.all_reduce(partial, group=group)
+        return x + partial.to(dt).view_as(x)
 
     @staticmethod
     def backward(ctx, go):
@@ -325,11 +337,16 @@ class LnFfnFunction(torch.autograd.Function):
         dgb = (go @ wo.to(dt)).float()
         dh = torch.cat([dgb * gate * _gelu_grad(inp), dgb * a], dim=-1).to(dt)
         dwi = _mm_f32(dh.reshape(-1, 2 * f).t(), yb.reshape(-1, d))
-        dy = (dh @ wi.to(dt)).float()
+        if ctx.group is None:
+            dy = (dh @ wi.to(dt)).float()
+        else:
+            dy = _mm_f32(dh.reshape(-1, 2 * f), wi.to(dt)).view_as(go)
+            torch.distributed.all_reduce(dy, group=ctx.group)
+            dy = dy.to(dt).float()  # rounded where the unsharded product rounds
         rows = tuple(range(dy.dim() - 1))
         dscale = (dy * xhat).sum(dim=rows)
         dbias = dy.sum(dim=rows) if bias is not None else None
         dxhat = dy * scale
         dxf = r * (dxhat - dxhat.mean(dim=-1, keepdim=True) - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
         dx = dxf.to(dt) + go
-        return dx, dscale, dbias, dwi.to(wi.dtype), dwo.to(wo.dtype), None
+        return dx, dscale, dbias, dwi.to(wi.dtype), dwo.to(wo.dtype), None, None

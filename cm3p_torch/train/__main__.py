@@ -49,8 +49,21 @@ bounds every collective's wait. Each data group reads its own shard of the data
 (:func:`~cm3p_torch.parallel.distributed.data_shard_group`: MMRS roots by
 beatmap, the synthetic and ``.osu`` routes their rows of one seeded global
 stream), ``per_device_train_batch_size`` is per rank, and the losses and
-gradients are the global batch's. ``training.model_axis`` above 1 (tensor
-parallelism) is not ported and raises.
+gradients are the global batch's.
+
+Tensor parallelism, ``training.model_axis=N`` (:mod:`cm3p_torch.parallel.tensor`):
+
+    torchrun --nproc-per-node 4 -m cm3p_torch.train --config-name v8_packed ... training.model_axis=2
+
+lays the ranks out as a (data, model) grid (``parallel/mesh.py``): each row
+of N ranks holds one copy of the model in Megatron shards (every tower's
+layers by heads and matched intermediate columns, the audio projector's pair)
+and takes the same batch; each column is a data group. The whole model is
+built (and ``from_pretrained`` read) on every rank, broadcast, then sharded;
+Muon runs NS5 on whole matrices; checkpoints and ``<output_dir>/model`` hold
+whole tensors, so ``extract --model-dir`` and a resume at another model axis
+read them unchanged. A model axis that does not divide every tower's heads
+and intermediate width raises, naming the tower.
 """
 from __future__ import annotations
 
@@ -75,7 +88,8 @@ from ..inference import resolve_device, save_pretrained
 from ..interop import init_weights
 from ..models import ClassifierModel, CM3PModel, MaskedLMModel, TowerModel
 from ..parallel import distributed
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import check_model_axis, make_mesh
+from ..parallel.tensor import gather_module_state, shard_module
 from ..processing import CM3PProcessor
 from ..tokenize import BeatmapTokenizer, MetadataTokenizer
 from ..utils.config import load_config
@@ -214,6 +228,7 @@ def build_optimizer(args: dict, model: torch.nn.Module) -> MuonAdamW:
         adamw_betas=betas, adamw_eps=training.get("adam_epsilon", 1e-8),
         adamw_weight_decay=training.get("weight_decay", 0.0),
         frozen=frozen, unfreeze_at=args.get("unfreeze_beatmap_model_at_step") if frozen else None,
+        model_group=getattr(model, "model_group", None),
     )
     named, layouts = list(model.named_parameters()), flax_layouts(model)
     if training.get("optim") == "muon":
@@ -420,23 +435,24 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
 
     args = load_config(cli.config_dir, cli.config_name, cli.overrides)
     training = args["training"]
-    device = launch(training, resolve_device(cli.device))
+    processor = build_processor(args)
+    cfg = model_config(args, processor)
+    device = launch(training, resolve_device(cli.device), model_towers(args, cfg))
     mesh = make_mesh(model=int(training.get("model_axis", 1)))
     shard = distributed.data_shard_group(mesh)
     seed = int(training["seed"])
     np.random.seed(seed)
     torch.manual_seed(seed)
 
-    processor = build_processor(args)
-    cfg = model_config(args, processor)
     model = build_model(args, cfg, device, seed)
     if args.get("from_pretrained"):
         from_pretrained(model, args["from_pretrained"], bool(args.get("from_pretrained_allow_missing", False)))
     if distributed.active():
         model.set_data_group(mesh.data_group)
-        distributed.broadcast_parameters(model)
-        logger.info("data shard %d of %d, %d rows a rank per micro-step", *shard,
-                    training["per_device_train_batch_size"])
+        distributed.broadcast_parameters(model)  # over every rank: the whole model, before the rows shard it
+        shard_module(model, mesh)
+        logger.info("data shard %d of %d, %d rows a rank per micro-step; model shard %d of %d", *shard,
+                    training["per_device_train_batch_size"], mesh.coords()[1], mesh.shape["model"])
     packed = bool(training.get("packed", False))
     if packed and args.get("model_cls", "CM3PModule") != "CM3PModule":
         raise ValueError("training.packed currently supports model_cls=CM3PModule")
@@ -475,9 +491,10 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
         final = trainer.evaluate()
         trainer._log({"step": results["final_step"],
                       **{f"final_eval_{k}": v for k, v in final.items() if v is not None}})
+        state = gather_module_state(model)  # whole tensors (every rank of a model group takes part)
         if distributed.is_primary():
             # the layout load_pretrained reads (python -m cm3p_torch.extract --model-dir <output_dir>/model)
-            save_pretrained(model, output_dir / "model", processor=processor)
+            save_pretrained(model, output_dir / "model", processor=processor, state=state)
             processor.save_pretrained(str(output_dir / "processor"))
         distributed.barrier()
     finally:
@@ -487,15 +504,23 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
     return trainer
 
 
-def launch(training: dict, device: torch.device) -> torch.device:
+def model_towers(args: dict, cfg: CM3PConfig) -> dict:
+    """Tower name -> encoder config of the towers ``model_cls``'s model holds."""
+    bc = cfg.beatmap_config
+    towers = {"beatmap": bc, "audio": bc.audio_config}
+    if args.get("model_cls", "CM3PModule") == "CM3PModule":
+        towers["metadata"] = cfg.metadata_config
+    return towers
+
+
+def launch(training: dict, device: torch.device, towers: Optional[dict] = None) -> torch.device:
     """Form the process group when ``torchrun`` started this process or ``training.multihost`` is set, and
-    return the device this rank computes on; ``training.model_axis`` above 1 raises."""
+    return the device this rank computes on. ``training.model_axis`` must divide every tower's heads and
+    intermediate width (``towers``: :func:`model_towers`), else it raises naming the tower; a model axis above
+    1 also needs a process group of a multiple of it."""
     model_axis = int(training.get("model_axis", 1))
-    if model_axis > 1:
-        raise NotImplementedError(
-            f"training.model_axis={model_axis}: tensor parallelism is not ported (ROADMAP Queue 1, item 7's "
-            "tensor-parallel half); the port trains data-parallel, one rank per GPU"
-        )
+    if towers is not None:
+        check_model_axis(model_axis, towers)
     multihost = bool(training.get("multihost", False))
     if not (multihost or distributed.launched_by_torchrun()):
         distributed.log_single_process("cm3p_torch.train")

@@ -11,6 +11,12 @@ Under a process group the parameters are replicated: rank 0 alone writes and
 prunes, between two barriers, so every rank decides whether to save from the
 same directory listing and sees the file before any rank reads it on a
 resume; every rank restores.
+
+Under a model group (tensor parallelism) a checkpoint is still whole: every
+rank gathers its row's shards of the model and of the optimizer state
+(momentum, AdamW moments) before rank 0 writes, and a restore loads whole
+tensors and keeps this rank's part. A checkpoint written at one model axis so
+resumes at any other that divides the towers.
 """
 from __future__ import annotations
 
@@ -22,6 +28,14 @@ from typing import Optional
 import torch
 
 from ..parallel.distributed import barrier, is_primary
+from ..parallel.mesh import shard_state_dict
+from ..parallel.tensor import (
+    gather_module_state,
+    gather_optimizer_state,
+    group_size,
+    model_group_of,
+    shard_optimizer_state,
+)
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -56,13 +70,18 @@ class CheckpointManager:
         """Write checkpoint ``step`` (every rank calls it; rank 0 writes)."""
         target = self.path(step)
         barrier()  # every rank has looked at the directory before it changes
+        group = model_group_of(model)
+        model_state = gather_module_state(model)  # whole tensors (every rank of a model group takes part)
+        optimizer_state = optimizer.state_dict()
+        if group is not None:
+            optimizer_state = gather_optimizer_state(optimizer_state, group)
         if is_primary():
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
             state = {
                 "step": step,
                 "micro_step": micro_step,
-                "model": model.state_dict(),
-                "optimizer": optimizer.state_dict(),
+                "model": model_state,
+                "optimizer": optimizer_state,
             }
             torch.save(state, tmp)
             os.replace(tmp, target)
@@ -87,7 +106,9 @@ class CheckpointManager:
             return None
         device = next(model.parameters()).device
         state = torch.load(self.path(step), map_location=device, weights_only=True)
-        model.load_state_dict(state["model"])
+        group = model_group_of(model)
+        n, r = group_size(group), (0 if group is None else torch.distributed.get_rank(group))
+        model.load_state_dict(shard_state_dict(state["model"], n, r) if n > 1 else state["model"])
         if optimizer is not None:
-            optimizer.load_state_dict(state["optimizer"])
+            optimizer.load_state_dict(shard_optimizer_state(state["optimizer"], n, r))
         return {"step": state["step"], "micro_step": state["micro_step"]}

@@ -18,6 +18,16 @@ routing, the NS5 input and its scale are taken on the flax view of each tensor
 (:func:`flax_layouts`); otherwise Wqkv would be scaled by sqrt(3) where the JAX
 package has 1.
 
+Tensor parallelism (``model_group``: the group
+``parallel.tensor.shard_module`` sharded the model over): NS5 runs on the
+whole matrix, as the JAX package's Muon does on its logical arrays. The
+momentum-applied update of every split parameter is all-gathered over the
+group (one all-gather) and put back in the whole matrix's row order (undoing
+the per-head and gate / up splits), every rank of the group runs NS5 on it and
+keeps its own part. The routing and the ``max(1, rows / cols) ** 0.5`` scale
+are read on the whole flax shape. Momentum and the AdamW moments stay sharded:
+they are elementwise.
+
 Parameters whose ``grad`` is None take no update and keep no state (the audio
 tower of a run without audio). The step counter is shared, as optax's counts
 are: the learning rate of update ``t`` (0-based) is ``lr_schedule(t)``.
@@ -34,6 +44,9 @@ from typing import Callable, Iterable, Optional
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import shard_tensor, tp_split_for
+from ..parallel.tensor import gather_named, group_size
 
 NS_COEFFS = (3.4445, -4.7750, 2.0315)
 
@@ -98,7 +111,8 @@ class MuonAdamW(torch.optim.Optimizer):
 
     ``named_params`` are (name, parameter) pairs, ``layouts`` the
     :func:`flax_layouts` of their model, ``lr_schedule`` maps the 0-based
-    update count to the Muon learning rate.
+    update count to the Muon learning rate; ``model_group`` is the model group
+    the parameters were sharded over (None: whole parameters).
     """
 
     def __init__(
@@ -118,17 +132,28 @@ class MuonAdamW(torch.optim.Optimizer):
         compat_adamw_lr: bool = False,
         frozen: Iterable[str] = (),
         unfreeze_at: Optional[int] = None,
+        model_group=None,
     ):
         label_fn = label_fn or default_muon_label_fn
-        groups = {"muon": {"params": [], "names": [], "layouts": []}, "adamw": {"params": [], "names": [], "layouts": []}}
+        n = group_size(model_group)
+        groups = {label: {"params": [], "names": [], "layouts": []} for label in ("muon", "adamw")}
+        # the split of each parameter, per group: kept out of the param groups, which a checkpoint written at
+        # another model axis restores
+        self.splits: dict[str, list] = {label: [] for label in groups}
         for name, p in named_params:
             if not p.requires_grad:
                 continue
             layout = layouts.get(name, "same")
-            g = groups[label_fn(name, flax_shape(p, layout))]
+            split = tp_split_for(name, p.shape) if n > 1 else None
+            shape = list(p.shape)
+            if split is not None:
+                shape[split[0]] *= n
+            label = label_fn(name, flax_shape(torch.empty(shape, device="meta"), layout))
+            g = groups[label]
             g["params"].append(p)
             g["names"].append(name)
             g["layouts"].append(layout)
+            self.splits[label].append(split)
         param_groups = [dict(label=label, step=0, **g) for label, g in groups.items() if g["params"]]
         defaults = dict(
             momentum=momentum, nesterov=nesterov, ns_steps=ns_steps,
@@ -139,6 +164,7 @@ class MuonAdamW(torch.optim.Optimizer):
         self.lr_schedule = lr_schedule
         self.frozen = frozenset(frozen)
         self.unfreeze_at = unfreeze_at
+        self.model_group = model_group if n > 1 else None
 
     def labels(self) -> dict[str, str]:
         return {n: g["label"] for g in self.param_groups for n in g["names"]}
@@ -162,7 +188,8 @@ class MuonAdamW(torch.optim.Optimizer):
 
     def _muon(self, group, lr, held=frozenset()):
         mom = group["momentum"]
-        for p, layout, name in zip(group["params"], group["layouts"], group["names"]):
+        live, effs, splits = [], {}, {}
+        for i, (p, split) in enumerate(zip(group["params"], self.splits[group["label"]])):
             if p.grad is None:
                 continue
             g = p.grad
@@ -171,12 +198,22 @@ class MuonAdamW(torch.optim.Optimizer):
                 state["momentum"] = torch.zeros_like(p)
             buf = state["momentum"]
             buf.mul_(mom).add_(g)
-            eff = g + mom * buf if group["nesterov"] else buf
-            k = to_flax(eff, layout)
+            effs[i] = g + mom * buf if group["nesterov"] else buf
+            if split is not None:
+                splits[i] = split
+            live.append(i)
+        if self.model_group is not None:  # the whole matrices of the split parameters, on every rank
+            effs = gather_named(effs, splits, self.model_group)
+        for i in live:
+            p, layout, name = group["params"][i], group["layouts"][i], group["names"][i]
+            k = to_flax(effs[i], layout)
             k2 = k.reshape(k.shape[0], -1)
             ortho = zeropower_via_newtonschulz5(k2, steps=group["ns_steps"])
             ortho = ortho * max(1.0, k2.shape[0] / k2.shape[1]) ** 0.5
             update = to_flax(ortho.reshape(k.shape), layout).to(p.dtype)
+            if i in splits:
+                update = shard_tensor(update, splits[i], group_size(self.model_group),
+                                      torch.distributed.get_rank(self.model_group))
             if name.split(".", 1)[0] not in held:
                 p.add_(update * -lr)
 

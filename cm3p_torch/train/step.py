@@ -9,7 +9,14 @@ gradient (``optax.MultiSteps``). Under a data group (``model.dp_group``, set
 when a process group is active) each micro-step's gradients are reduced to
 their mean over the group before the norm, so the norm, the accumulated sum
 and the optimizer step are those of the global batch (the JAX step under a
-``data`` mesh) and every replica steps on the same gradient.
+``data`` mesh) and every replica steps on the same gradient. Under a model group (tensor
+parallelism, ``model.model_group``) the gradients of the parameters that stay
+whole are first averaged over that group (one flat all-reduce; the ranks
+computed them alike, and the mean keeps the whole parameters bit-equal across
+the group even where a backward sums in a nondeterministic order, as cuDNN's
+convolution weight gradient and the scatter of a gather's backward may), and
+the norm sums the squares of the split gradients over the group: it is the
+norm of the logical gradients.
 :func:`eval_step` is the no-grad forward.
 :func:`lr_schedule` is ``train.py``'s schedule: an optional linear warmup from
 0, then a linear decay from ``lr`` to 0 over ``max_steps - warmup`` updates.
@@ -23,6 +30,7 @@ import torch
 from torch import nn
 
 from ..parallel.distributed import all_reduce_gradients
+from ..parallel.tensor import model_group_of, sharded_names
 
 PACKED_KEYS = (
     "input_ids", "segment_ids", "window_rows", "window_segments", "window_valid", "input_features",
@@ -65,10 +73,20 @@ def forward(model: nn.Module, batch: dict, packed: bool):
     return model.forward_packed(**batch) if packed else model(**batch)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """fp32 L2 norm over every gradient that is not None (``optax.global_norm``)."""
-    sq = [g.float().square().sum() for g in grads if g is not None]
-    return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
+def global_norm(grads, sharded=None, group=None) -> torch.Tensor:
+    """fp32 L2 norm over every gradient that is not None (``optax.global_norm``). With a model ``group``,
+    ``sharded`` flags the gradients that are this rank's part of a split parameter: their squares are summed
+    over the group, the others counted once."""
+    if group is None:
+        sq = [g.float().square().sum() for g in grads if g is not None]
+        return torch.sqrt(torch.stack(sq).sum()) if sq else torch.zeros(())
+    device = next(g.device for g in grads if g is not None)
+    sums = [torch.zeros((), device=device), torch.zeros((), device=device)]  # split, whole
+    for g, s in zip(grads, sharded):
+        if g is not None:
+            sums[0 if s else 1] += g.float().square().sum()
+    torch.distributed.all_reduce(sums[0], group=group)
+    return torch.sqrt(sums[0] + sums[1])
 
 
 class TrainStep:
@@ -84,7 +102,10 @@ class TrainStep:
         self.optimizer = optimizer
         self.packed = packed
         self.accumulation_steps = max(int(accumulation_steps), 1)
-        self.params = [p for p in model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+        self.params = [p for _, p in named]
+        split = sharded_names(model)
+        self.sharded = [n in split for n, _ in named]
         self._sum: Optional[list] = None
         self._count = 0
 
@@ -93,10 +114,14 @@ class TrainStep:
         global batch's loss and the gradients' mean over the group."""
         out = forward(self.model, batch, self.packed)
         grads = torch.autograd.grad(out.loss, self.params, allow_unused=True)
+        model_group = model_group_of(self.model)
+        if model_group is not None:  # the whole parameters' gradients, the same on every rank of the row
+            whole = all_reduce_gradients([None if s else g for g, s in zip(grads, self.sharded)], model_group)
+            grads = [g if s else w for g, w, s in zip(grads, whole, self.sharded)]
         group = getattr(self.model, "dp_group", None)
         if group is not None:
             grads = all_reduce_gradients(grads, group)
-        return out.loss.detach(), grads, global_norm(grads)
+        return out.loss.detach(), grads, global_norm(grads, self.sharded, model_group)
 
     def __call__(self, batch: dict) -> dict:
         self.model.train()

@@ -21,6 +21,10 @@ trainer's non-primary hosts), ``samples_per_sec`` counts the global batch,
 checkpoints are written by rank 0 and restored by every rank, and
 :meth:`Trainer.evaluate` asks every rank whether it has a batch before each
 one, so ranks with unequal eval shards stop together at the shortest.
+Under a model group as well (tensor parallelism, ``model.model_group``) the
+data group is the grid's column: the samples count is that of the data
+groups, the checkpoints are whole (``checkpoint.py``), and the evaluation runs
+the sharded forward on every rank of a row.
 """
 from __future__ import annotations
 
@@ -250,7 +254,8 @@ def from_pretrained(model: torch.nn.Module, model_dir, allow_missing: bool = Fal
     missing ones are logged and keep their values (the staged lineage: an MLM or contrastive run
     into a classifier), but a checkpoint with no parameter of the model at all raises. Parameters
     found only in the checkpoint are logged and ignored; a shape mismatch raises. Returns
-    ``{"loaded", "missing", "ignored"}``, lists of names.
+    ``{"loaded", "missing", "ignored"}``, lists of names. The model is whole: a tensor-parallel run loads, then
+    shards (``parallel.tensor.shard_module``).
     """
     from ..inference import read_bundle
 

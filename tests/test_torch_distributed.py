@@ -14,8 +14,9 @@
   ``all_gather_ints``, ``broadcast_parameters``, ``make_mesh`` and
   ``data_shard_group`` on the live group, and ``initialize_distributed``
   called twice.
-* The backend rule, the grid's batch placement, and ``training.model_axis=2``
-  raising in ``python -m cm3p_torch.train``.
+* The backend rule, the grid's batch placement, and ``training.model_axis=3``
+  raising in ``python -m cm3p_torch.train``, naming the tower whose heads it
+  does not divide.
 
 :func:`run_ranks` is the spawn helper of the other data-parallel tests. JAX is
 imported inside the test functions only, so the spawned ranks start without it.
@@ -151,11 +152,13 @@ def test_no_process_group_is_a_no_op():
 
 
 def test_model_axis_above_one_raises(tmp_path):
+    """A model axis that does not divide a tower's heads raises, naming the tower (3 against the 4 heads of
+    every tower of the ``smoke`` model: the metadata tower is named with the others)."""
     from cm3p_torch.train.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="the metadata tower's 4 heads"):
         main(["--config-name", "smoke", "--device", "cpu", f"training.output_dir={tmp_path}",
-              "training.model_axis=2"])
+              "training.model_axis=3"])
 
 
 # ---------------------------------------------------------------- the collectives on three ranks
