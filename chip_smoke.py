@@ -262,6 +262,30 @@ Phases (any failure exits non-zero; nothing is skipped):
                and ``Trainer.evaluate`` under the model group within 1e-3 of
                phase 14's. Prints its numbers as one JSON line.
 
+ 16. the last modules - (a) ``int8_dot`` (``torch._int_mm``, the JAX
+               package's XLA-path W8A8 product, no hand-written kernel) against
+               ``int8_dot_plain`` at the beatmap tower's 323,584 x 768 -> 2304
+               and -> 768, the audio tower's 355,500 x 512 -> 1536, and 17 and 5
+               rows (padded to 17): the card's codes equal to the CPU
+               quantiser's, the int32 sums exact, the output bit-equal; ms beside
+               ``F.linear`` in bf16 and the bound (on its own line, not in the
+               ``kernels`` list); (b) ``extract_embeddings`` over phase 8's
+               windows in --precise, D and D + ``xla_int8``: D's exact launches
+               in both, per-beatmap cosine >= 0.9995 to --precise, device and
+               wall windows/s; (c) ``python -m cm3p_torch.extract``'s ``main`` on
+               phase 8's bundle and the bundled map's folder: --precise, then
+               ``--attn-impl xla`` (no kernel launched, per-beatmap cosine >=
+               0.999 to --precise) and with ``--xla-int8`` (no kernel, >= 0.9995),
+               then (b)'s measure on the bundled map's windows for D and the
+               ``xla`` route with and without ``xla_int8`` (the no-kernel rate);
+               (d) ``utils.profiling.trace`` around one full-width packed forward
+               under D: the written trace names every kernel the forward launched
+               and the ``annotate`` span; ``device_memory_stats`` and
+               ``probe_link``; (e) phase 8's bundle as two safetensors shards, as
+               ``pytorch_model.bin`` and as a Hub id in a cache tree:
+               ``load_pretrained`` of each bit-equal to the single file. Prints
+               its numbers as one JSON line.
+
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
 """
@@ -4194,6 +4218,236 @@ def tp_slice(torch, ops, dev, reference, tmp, overrides=()):
     log(json.dumps({"phase15": report}))
 
 
+# ---------------------------------------------------------------- phase 16
+
+XLA_BUDGET_S = 90
+XLA_DRIFT_COS_MIN = DRIFT_COS_MIN  # D + xla_int8 and xla + xla_int8 against exact bf16, per beatmap
+XLA_ROUTE_COS_MIN = 0.999  # the xla route (plain versions, exact) against the kernel route's --precise, per beatmap
+XLA_PROBE_ROWS = (17, 5)  # row counts around torch._int_mm's 17-row floor on CUDA (5 is padded to 17)
+TRACE_SPAN = "chip_smoke_traced_forward"
+
+
+def int8_dot_bound_ms(rows, k, n):
+    """x (bf16) read, the int8 weight and its scales read, the bf16 output written, once; 2 R K N int8
+    operations."""
+    return _bound(rows * k * 2 + n * k + n * 4 + rows * n * 2, 2 * rows * k * n / INT8_OPS_PER_S)
+
+
+def check_int8_dot(torch, gen, dev, packed_rows, audio_rows):
+    """(a): ``int8_dot`` against ``int8_dot_plain`` at the towers' shapes: the card's codes equal the CPU
+    quantiser's, the ``torch._int_mm`` sums equal the exact float64 sums, the output bit-equal; ms beside
+    ``F.linear`` in bf16 and the bound. Returns the rows it printed."""
+    import torch.nn.functional as F
+
+    from cm3p_torch.ops.xla_int8 import int8_dot, int8_dot_plain, int_mm, quant_rows_int8, quant_weight_int8
+
+    shapes = [("beatmap QKV", packed_rows, 768, 2304), ("beatmap Wo", packed_rows, 768, 768),
+              ("audio QKV", audio_rows, 512, 1536)] + [(f"{r} rows QKV", r, 768, 2304) for r in XLA_PROBE_ROWS]
+    rows = []
+    for label, m, k, n in shapes:
+        x = (0.5 * torch.randn(m, k, generator=gen, device=dev)).to(torch.bfloat16)
+        w = (0.02 * torch.randn(n, k, generator=gen, device=dev)).to(torch.bfloat16)  # the model's bf16 weight
+        w_q = quant_weight_int8(w)
+        q, sa = quant_rows_int8(x)
+        q_cpu, sa_cpu = quant_rows_int8(x.cpu())
+        wq_cpu, sw_cpu = quant_weight_int8(w.cpu())
+        codes_equal = (torch.equal(q.cpu(), q_cpu) and torch.equal(sa.cpu(), sa_cpu)
+                       and torch.equal(w_q[0].cpu(), wq_cpu) and torch.equal(w_q[1].cpu(), sw_cpu))
+        sums_equal = torch.equal(int_mm(q, w_q[0]).double(), q.double() @ w_q[0].double().t())
+        got, want = int8_dot(x, w, w_q), int8_dot_plain(x, w, w_q)
+        bit_equal = got.dtype == torch.bfloat16 and torch.equal(got, want)
+        del q, sa, q_cpu, sa_cpu, want
+        ms = cuda_ms(lambda: int8_dot(x, w, w_q), 10)
+        lib_ms = cuda_ms(lambda: F.linear(x, w), 10)
+        bound, bound_by = int8_dot_bound_ms(m, k, n)
+        row = {"shape": label, "rows": m, "k": k, "n": n, "ms": ms, "library_ms": lib_ms, "bound_ms": bound,
+               "bound_by": bound_by, "codes_equal": codes_equal, "sums_equal": sums_equal, "bit_equal": bit_equal}
+        log(f"  int8_dot {label} {m} x {k} -> {n}: {ms:.3f} ms, F.linear bf16 {lib_ms:.3f} ms, bound {bound:.3f} ms "
+            f"({bound_by}); codes equal {codes_equal}, int32 sums exact {sums_equal}, output bit-equal {bit_equal}")
+        if not (codes_equal and sums_equal and bit_equal):
+            fail(f"int8_dot at {label}: differs from int8_dot_plain")
+        rows.append(row)
+        del x, w, w_q, got
+    return rows
+
+
+def beatmap_cosines(a: dict, b: dict):
+    import numpy as np
+
+    if a.keys() != b.keys():
+        fail(f"the runs gave different beatmaps: {sorted(a)} / {sorted(b)}")
+    return np.array([float(a[k] @ b[k] / (np.linalg.norm(a[k]) * np.linalg.norm(b[k]))) for k in sorted(a)])
+
+
+def xla_slice(torch, ops, dev, gen, model, batch, packed_rows, audio_rows, bundle_dir, samples, tmp):
+    """Phase 16: (a) ``int8_dot``; (b) the tool in D and D + ``xla_int8``; (c) ``--attn-impl xla``; (d)
+    ``utils.profiling``; (e) shards, ``.bin`` and a Hub id in a local cache. Returns the launches of the main
+    path's runs."""
+    import numpy as np
+
+    from cm3p_torch import extract
+    from cm3p_torch.extract import extract_embeddings
+    from cm3p_torch.inference import load_pretrained
+    from cm3p_torch.interop.safetensors_io import load_file, save_file
+    from cm3p_torch.models import EncoderOptions
+    from cm3p_torch.utils.profiling import annotate, device_memory_stats, probe_link, trace
+
+    tmp = Path(tmp)
+    total = {name: 0 for name in ops.KERNELS}
+    result = {"int8_dot": check_int8_dot(torch, gen, dev, packed_rows, audio_rows)}
+
+    # (b) the tool's core over phase 8's loaded windows, D against D + xla_int8
+    proc, tool = load_pretrained(bundle_dir, device=dev)
+    proc.default_kwargs["beatmap_kwargs"].update(WINDOW_KW)
+    d_fields, d_forward = EXTRACT_SETTINGS["D"]
+    runs = {}
+
+    def tool_pass(label, fields, windows, attn_impl="pallas"):
+        """``extract_embeddings`` in a setting after a warm-up (int8 weights are made at first use); checks one
+        finite unit-norm embedding per beatmap and, beside --precise, the drift; returns the launches."""
+        tool.set_attn_impl(attn_impl)
+        tool.set_options(EncoderOptions(**fields))
+        extract_embeddings(tool, proc, windows, device=dev)
+        stats = {}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        emb = extract_embeddings(tool, proc, windows, device=dev, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        vecs = np.stack([emb[k] for k in sorted(emb)])
+        if not np.isfinite(vecs).all() or np.abs(np.linalg.norm(vecs, axis=1) - 1).max() > 1e-3:
+            fail(f"phase 16 {label}: not one finite unit-norm embedding per beatmap")
+        runs[label] = emb
+        rates = {"device_windows_per_s": stats["windows"] / max(stats["device_ms"] / 1e3, 1e-9),
+                 "wall_windows_per_s": stats["windows"] / wall, "windows": stats["windows"],
+                 "forwards": stats["flushes"], "launches": sum(counts.values())}
+        if not label.startswith("precise"):
+            precise = runs["precise"]
+            cos = beatmap_cosines(emb, {k: precise[k] for k in emb})
+            rates["cos_to_precise_min"] = float(cos.min())
+            limit = XLA_ROUTE_COS_MIN if fields == {} else XLA_DRIFT_COS_MIN
+            if not bool((cos >= limit).all()):
+                fail(f"phase 16 {label}: per-beatmap cosine to --precise {cos.min():.6f} < {limit}")
+        result[label] = rates
+        log(f"  tool, {label}: {len(emb)} beatmaps; " + json.dumps(rates))
+        return counts, stats
+
+    for label, fields in (("precise", {}), ("D", d_fields), ("D + xla_int8", {**d_fields, "xla_int8": True})):
+        counts, stats = tool_pass(label, fields, samples)
+        for k, v in counts.items():
+            total[k] += v
+        want = {k: ({**EXTRACT_ATTENTION, **d_forward}).get(k, 0) * stats["flushes"] for k in ops.KERNELS}
+        if label != "precise" and counts != want:
+            fail(f"phase 16 setting {label}: launches {counts} differ from D's {want}")
+
+    # (c) python -m cm3p_torch.extract --attn-impl xla at full width on the bundled map, against --precise
+    maps0 = str(Path(bundle_dir).parent / "maps" / "00")  # phase 8's folder of the bundled map
+    tool_args = ["--model-dir", str(bundle_dir), "--beatmap-files", maps0, "--window-length", "16", "--max-length",
+                 str(ROW_LEN), "--num-workers", "0"]
+    cli = {}
+    for label, extra in (("precise", ["--precise"]), ("xla", ["--attn-impl", "xla"]),
+                         ("xla + xla_int8", ["--attn-impl", "xla", "--xla-int8"])):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cli[label] = extract.main(tool_args + ["--output", str(tmp / f"cli_{len(cli)}.parquet")] + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        launched = {k: v for k, v in counts.items() if v}
+        if label == "precise":
+            for k, v in counts.items():
+                total[k] += v
+        elif launched:
+            fail(f"--attn-impl xla launched kernels: {launched}")
+        cos = beatmap_cosines(cli[label], cli["precise"])
+        limit = XLA_ROUTE_COS_MIN if label == "xla" else XLA_DRIFT_COS_MIN
+        result[f"cli {label}"] = {"seconds": seconds, "launches": sum(counts.values()),
+                                  "cos_to_precise_min": float(cos.min())}
+        log(f"  extract {' '.join(extra)}: {seconds:.1f} s wall, {sum(counts.values())} launches, per-beatmap cosine to "
+            f"--precise {cos.min():.8f}" + ("" if label == "precise" else f" (need >= {limit})"))
+        if label != "precise" and not bool((cos >= limit).all()):
+            fail(f"--attn-impl {label}: per-beatmap cosine to --precise below {limit}")
+    # the no-kernel reference's rate beside D's, on the bundled map's windows of (b)
+    (bundled_id,) = cli["precise"]
+    windows = [w for w in samples if extract._beatmap_key(w["beatmap_id"]) == bundled_id]
+    tool_pass("D, bundled map", d_fields, windows)
+    for label, fields in (("xla, bundled map", {}), ("xla + xla_int8, bundled map", {"xla_int8": True})):
+        counts, _ = tool_pass(label, fields, windows, attn_impl="xla")
+        if any(counts.values()):
+            fail(f"phase 16 {label}: the xla route launched kernels")
+    tool.set_attn_impl("pallas")
+    del tool
+
+    # (d) one traced full-width packed forward under D
+    model.set_options(EncoderOptions(**d_fields))
+    with torch.no_grad():
+        model.get_packed_beatmap_features(**batch, normalize=True)  # int8 weights made outside the trace
+        ops.reset_launch_counts()
+        with trace(tmp / "trace"):
+            with annotate(TRACE_SPAN):
+                model.get_packed_beatmap_features(**batch, normalize=True)
+            torch.cuda.synchronize()
+    model.set_options(EncoderOptions())
+    counts = ops.launch_counts()
+    for k, v in counts.items():
+        total[k] += v
+    events = json.loads((tmp / "trace" / "trace.json").read_text())["traceEvents"]
+    names = {str(e.get("name")) for e in events}
+    kernel_names = [str(e.get("name")) for e in events if e.get("cat") == "kernel"]
+    seen = {next((c for pattern, c in _CATEGORIES if re.search(pattern, n)), None) for n in kernel_names}
+    launched = {k for k, v in counts.items() if v}
+    unnamed = sorted(k for k in launched if f"{k} (ours)" not in seen)
+    log(f"  trace: {len(events)} events, {len(kernel_names)} kernels; launched {sorted(launched)}, span "
+        f"{TRACE_SPAN in names}, launched kernels the trace does not name: {unnamed}")
+    if not launched or unnamed or TRACE_SPAN not in names:
+        fail("the written trace does not name every launched kernel and the annotate span")
+    result["device_memory_stats"] = device_memory_stats()
+    result["probe_link"] = probe_link()
+    log(f"  device_memory_stats {json.dumps(result['device_memory_stats'])}; probe_link {json.dumps(result['probe_link'])}")
+
+    # (e) the bundle as two shards, as pytorch_model.bin, and as a Hub id in a cache tree
+    _, ref = load_pretrained(bundle_dir, device=dev)
+    want = ref.state_dict()
+    del ref
+    state = load_file(Path(bundle_dir) / "model.safetensors")
+    names_sorted = sorted(state)
+    forms = {name: tmp / name for name in ("shards", "bin", "cache")}
+    for directory in (forms["shards"], forms["bin"]):
+        directory.mkdir()
+        shutil.copy(Path(bundle_dir) / "config.json", directory / "config.json")
+    half = len(names_sorted) // 2
+    for i, part in enumerate((names_sorted[:half], names_sorted[half:]), 1):
+        save_file({k: state[k] for k in part}, forms["shards"] / f"model-0000{i}-of-00002.safetensors")
+    torch.save({k: torch.from_numpy(v) for k, v in state.items()}, forms["bin"] / "pytorch_model.bin")
+    del state
+    commit = "0" * 40
+    repo = forms["cache"] / "models--cm3p--smoke"
+    snapshot = repo / "snapshots" / commit
+    snapshot.mkdir(parents=True)
+    for entry in Path(bundle_dir).iterdir():  # the Hub's snapshots link to its blobs; these link to the bundle
+        (snapshot / entry.name).symlink_to(entry.resolve())
+    (repo / "refs").mkdir()
+    (repo / "refs" / "main").write_text(commit)
+    loading = {}
+    for label, source, kw in (("shards", forms["shards"], {}), ("pytorch_model.bin", forms["bin"], {}),
+                              ("hub id", "cm3p/smoke", {"cache_dir": forms["cache"]})):
+        t0 = time.perf_counter()
+        _, got = load_pretrained(source, device=dev, **kw)
+        torch.cuda.synchronize()
+        sd = got.state_dict()
+        same = sd.keys() == want.keys() and all(sd[k].dtype == want[k].dtype and torch.equal(sd[k], want[k])
+                                                for k in want)
+        loading[label] = {"seconds": time.perf_counter() - t0, "bit_equal": same}
+        del got, sd
+        if not same:
+            fail(f"load_pretrained of the bundle as {label} differs from the single file")
+    result["loading"] = loading
+    log(f"  loading: {json.dumps(loading)}")
+    log("  phase 16: " + json.dumps(result, default=str))
+    return total
+
+
 def profile_tree(torch, dev, tree) -> int:
     """``--profile-tree DIR``: phase 12's host profile of another checkout of this repository, one from
     before the native host paths and the mel wires (such as ``git archive 75aea04``), with that tree's
@@ -4582,7 +4836,6 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     for kname, n in heads_slice(torch, ops, dev, bundled, train_batch, Path(bundle.name), samples8).items():
         main_counts[kname] += n
-    bundle.cleanup()
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s (budget {HEADS_BUDGET_S} s)")
 
     # ---- 12. the host front end: native parse and decode, the mel wires, the loader, the tool's wall
@@ -4621,6 +4874,17 @@ def main(argv=None) -> int:
         tp_slice(torch, ops, dev, reference, tmp)
     del reference
     log(f"  phase 15: {time.perf_counter() - t0:.1f} s (budget {TP_BUDGET_S} s)")
+
+    # ---- 16. the last modules: int8_dot, xla_int8, --attn-impl xla, utils.profiling, every checkpoint form
+    log("[16] int8_dot against its plain version, the tool in D and D + xla_int8, --attn-impl xla, trace(), "
+        "shards / pytorch_model.bin / a Hub id in a local cache")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for kname, n in xla_slice(torch, ops, dev, gen, model, batch, n_rows * ROW_LEN, audio_b * audio_l,
+                                  Path(bundle.name) / "model", samples8, tmp).items():
+            main_counts[kname] += n
+    bundle.cleanup()
+    log(f"  phase 16: {time.perf_counter() - t0:.1f} s (budget {XLA_BUDGET_S} s)")
 
     report = []
     for kname, ms, plain_ms, bound, bound_by, lib_ms in kernels:

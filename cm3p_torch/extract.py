@@ -22,8 +22,13 @@ changes no number). ``--precise`` turns both off (exact bf16). ``--no-fused-wo``
 turns the epilogue off (the JAX tool's ``CM3P_FUSED_WO=0``), ``--fused-wo-q``
 runs it in int8, ``--fused-lnmm`` adds the fused LN-matmul routes of the QKV
 and out-projections (int8 QKV under ``w8a8``; the epilogue keeps the
-out-projection where it applies) and ``--w8a8-wo`` the int8 Wo forms; see
-:class:`~cm3p_torch.models.EncoderOptions`.
+out-projection where it applies), ``--w8a8-wo`` the int8 Wo forms and
+``--xla-int8`` the W8A8 product outside any kernel (``int8_dot``) on every
+projection that no fused route takes; see
+:class:`~cm3p_torch.models.EncoderOptions`. ``--attn-impl xla`` is the JAX
+tool's route without its kernels: the full model with the plain version of
+every op and no fused route (its options reduce to ``--xla-int8``), a
+no-kernel reference run of the model.
 
 :func:`extract_embeddings` is the core and needs no pandas; the DataFrame and
 parquet work lives in :func:`write_output`.
@@ -442,6 +447,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="weight and activation dtype (default bfloat16; float32 with --tiny-model)")
     parser.add_argument("--no-audio", action="store_true")
     parser.add_argument("--device", default=None, help="cuda (default) or cpu")
+    parser.add_argument("--cpu", action="store_true", help="the same as --device cpu")
+    parser.add_argument("--attn-impl", default="pallas", choices=["pallas", "xla"],
+                        help="pallas (default): the kernels; xla: the plain version of every op and no fused "
+                        "route, options but --xla-int8 dropped (not with --tiny-model, whose route is plain)")
     parser.add_argument("--max-length", type=int, default=None, help="override beatmap token max_length")
     parser.add_argument("--window-length", type=float, default=None,
                         help="override window_length_sec; the stride follows unless --window-stride is given")
@@ -463,6 +472,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "out-projection with its residual where the attention epilogue does not apply")
     parser.add_argument("--w8a8-wo", action="store_true",
                         help="int8 Wo in the MLP and, with --fused-lnmm, in the attention out-projection")
+    parser.add_argument("--xla-int8", action="store_true",
+                        help="W8A8 outside the kernels (int8_dot) on every projection no fused route takes: QKV "
+                        "and the out-projection there, and the MLP on the xla route")
     parser.add_argument("--mel-wire", default="bf16", choices=MEL_WIRES,
                         help="host-to-device form of the compact mel: bf16 (the dense frames in the towers' "
                         "dtype), int8 (per-window symmetric codes, dequantised on the device) or pcm (the "
@@ -483,11 +495,11 @@ def options_from_args(ns: argparse.Namespace) -> EncoderOptions:
     fused_wo = ns.fused_wo and not ns.precise
     return EncoderOptions(
         w8a8=not ns.precise, w8a8_wo=ns.w8a8_wo, fused_lnmm_qkv=ns.fused_lnmm, fused_lnmm_wo=ns.fused_lnmm,
-        fused_wo=fused_wo, fused_wo_q=ns.fused_wo_q and fused_wo,
+        fused_wo=fused_wo, fused_wo_q=ns.fused_wo_q and fused_wo, xla_int8=ns.xla_int8,
     )
 
 
-def _random_model(processor: CM3PProcessor, tiny: bool, device, dtype, options) -> CM3PBeatmapModel:
+def _random_model(processor: CM3PProcessor, tiny: bool, device, dtype, options, attn_impl="pallas"):
     cfg = tiny_cm3p_config() if tiny else CM3PConfig()
     bt = processor.beatmap_tokenizer
     cfg.beatmap_config.vocab_size = bt.vocab_size
@@ -497,6 +509,8 @@ def _random_model(processor: CM3PProcessor, tiny: bool, device, dtype, options) 
     if tiny:  # head dims and widths no kernel takes: the JAX tool runs this model on XLA
         logger.info("--tiny-model: every op runs its plain PyTorch version on %s", device)
         model.set_plain(True)
+    else:
+        model.set_attn_impl(attn_impl)
     return model
 
 
@@ -532,6 +546,8 @@ def main(argv=None) -> dict[int, np.ndarray]:
     if not (ns.beatmap_files or ns.dataset_path):
         parser.error("Provide --dataset-path or --beatmap-files")
     logging.basicConfig(level=logging.INFO, stream=sys.stdout)
+    if ns.cpu:
+        ns.device = "cpu"
     device = resolve_device(ns.device)
     if distributed.launched_by_torchrun():
         distributed.initialize_distributed(device=device)
@@ -557,15 +573,20 @@ def main(argv=None) -> dict[int, np.ndarray]:
     processor = None
     if ns.model_dir and not ns.tiny_model:
         processor, model = load_pretrained(
-            ns.model_dir, processor_dir=ns.processor_dir, device=device, dtype=dtype, options=options
+            ns.model_dir, processor_dir=ns.processor_dir, device=device, dtype=dtype, options=options,
+            attn_impl=ns.attn_impl,
         )
     if processor is None:
         processor = CM3PProcessor.from_pretrained(ns.processor_dir) if ns.processor_dir else CM3PProcessor()
         if not ns.tiny_model:
             logger.warning("No --model-dir given: using a randomly initialized full-width model")
         model = _random_model(
-            processor, ns.tiny_model, device, dtype or (torch.float32 if ns.tiny_model else torch.bfloat16), options
+            processor, ns.tiny_model, device, dtype or (torch.float32 if ns.tiny_model else torch.bfloat16), options,
+            ns.attn_impl,
         )
+    if ns.attn_impl == "xla" and not ns.tiny_model:
+        logger.info("--attn-impl xla: every op runs its plain PyTorch version on %s, options %s", device,
+                    model.encoders()[0].options)
     processor.native = ns.native
     bk = processor.default_kwargs["beatmap_kwargs"]
     if ns.max_length:

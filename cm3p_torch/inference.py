@@ -4,9 +4,11 @@ Counterpart of the JAX package's ``inference.py`` (``load_pretrained``,
 ``embed_beatmap``, ``zero_shot_classify``, ``masked_predict``) and of its HF
 export (``save_pretrained``). Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for the default device on a machine without a GPU
-raises. Checkpoints are local HF-layout directories (``config.json`` +
-``model.safetensors``), read and written with the port's own safetensors code;
-the port's state-dict names are the HF names.
+raises. Checkpoints are HF-layout directories (``config.json`` beside
+``model.safetensors``, the shards of a sharded checkpoint, or
+``pytorch_model*.bin`` files), local or a Hub id in a local cache
+(:mod:`.interop.hub`; nothing is downloaded), read and written with the port's
+own safetensors code; the port's state-dict names are the HF names.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from torch import nn
 
 from .configs import CM3PConfig
 from .interop.hf_config import default_architecture, hf_config_dict, hf_config_to_cm3p
+from .interop.hub import resolve_artifact
 from .interop.safetensors_io import load_file, save_file
 from .models import ClassifierModel, CM3PBeatmapModel, CM3PModel, EncoderOptions, MaskedLMModel, TowerModel
 from .processing.processor import CM3PProcessor
@@ -79,12 +82,17 @@ def load_pretrained(
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
     options: Optional[EncoderOptions] = None,
+    cache_dir: Optional[Union[str, os.PathLike]] = None,
+    attn_impl: str = "pallas",
 ):
-    """(processor, model) from a local HF-layout directory.
+    """(processor, model) from an HF-layout directory or a Hub id in a local cache.
 
-    ``model_dir`` holds ``config.json`` (the HF layout, nested or flat) and
-    ``model.safetensors``: a published reference checkpoint, a bundle of the JAX
+    ``model_dir`` holds ``config.json`` (the HF layout, nested or flat) and the
+    weights :func:`read_bundle` reads: a published reference checkpoint, a bundle of the JAX
     package's ``export_hf_checkpoint``, or one written by :func:`save_pretrained`.
+    ``model_dir`` and ``processor_dir`` may be Hub ids (``org/name``), resolved in
+    the local cache ``cache_dir`` (:func:`~cm3p_torch.interop.hub.resolve_artifact`;
+    nothing is downloaded).
     The model's class follows the JAX package's dispatch: a nested config gives
     :class:`CM3PModel` (:class:`CM3PBeatmapModel` where the file has no metadata
     tower; its decoder head, if any, is dropped), a flat one
@@ -92,15 +100,19 @@ def load_pretrained(
     ``problem_type``, else :class:`MaskedLMModel`. A tied MLM bundle's
     ``decoder.weight`` (the token table again) is dropped. Weights take
     ``dtype`` (default bf16) as in :func:`load_model`. The processor comes from ``processor_dir``, or from
-    ``model_dir`` when that holds a ``processor_config.json``, else it is the
+    ``model_dir`` (a Hub snapshot included) when that holds a ``processor_config.json``, else it is the
     default one. A tokenizer whose vocabulary exceeds the checkpoint's raises
     on CUDA, where an out-of-range id faults the device, and warns on the CPU.
-    Hub ids and the Orbax layout are not supported.
+    ``attn_impl="xla"`` is the JAX package's route without its kernels
+    (:meth:`~cm3p_torch.models.TowerModel.set_attn_impl`: the plain version of every op, ``options`` reduced to
+    ``xla_int8``). The Orbax layout is not supported.
     """
     device = resolve_device(device)
-    model_dir = Path(model_dir)
+    model_dir = Path(resolve_artifact(model_dir, cache_dir=cache_dir))
     if processor_dir is None and (model_dir / "processor_config.json").exists():
         processor_dir = model_dir
+    elif processor_dir is not None:
+        processor_dir = resolve_artifact(processor_dir, cache_dir=cache_dir)
     processor = CM3PProcessor.from_pretrained(processor_dir) if processor_dir else CM3PProcessor()
     config, state = read_bundle(model_dir)
     bc = getattr(config, "beatmap_config", config)
@@ -129,28 +141,36 @@ def load_pretrained(
     model.load_state_dict(state, strict=True)
     if options is not None:
         model.set_options(options)
+    model.set_attn_impl(attn_impl)
     return processor, place_model(model, device, dtype or torch.bfloat16)
 
 
 def read_bundle(model_dir: Union[str, os.PathLike]) -> tuple:
-    """(config, fp32 state dict on the CPU) of a local HF-layout directory, without the audio
-    tower's token table (the port's audio tower consumes embeddings only) and ``position_ids``."""
+    """(config, state dict on the CPU, floating tensors in fp32) of a local HF-layout directory, read as the
+    JAX package's ``load_torch_state`` reads it: every ``*.safetensors`` file (the shards of a sharded
+    checkpoint, in name order; an index file is not needed), else every ``pytorch_model*.bin`` file
+    (``torch.load`` with ``weights_only``). The audio tower's token table (the port's audio tower consumes
+    embeddings only) and ``position_ids`` are left out."""
     model_dir = Path(model_dir)
     if not model_dir.is_dir():
-        raise NotImplementedError(
-            f"{str(model_dir)!r} is not a local directory: loading a Hub repository id is not ported; "
-            "download the repository and pass its path"
-        )
-    if not (model_dir / "model.safetensors").exists():
+        raise FileNotFoundError(f"{str(model_dir)!r} is not a local directory (load_pretrained resolves Hub ids)")
+    files = sorted(model_dir.glob("*.safetensors")) or sorted(model_dir.glob("pytorch_model*.bin"))
+    if not files:
         if (model_dir / "params").exists():
             raise NotImplementedError(
                 f"{model_dir} holds an Orbax checkpoint (params/); the port reads only the HF layout: "
                 "export it with the JAX package's export_hf_checkpoint first"
             )
-        raise FileNotFoundError(f"{model_dir} holds no model.safetensors")
+        raise FileNotFoundError(f"{model_dir} holds no *.safetensors and no pytorch_model*.bin")
     with open(model_dir / "config.json") as f:
         config = hf_config_to_cm3p(json.load(f))
-    state = {k: torch.from_numpy(v) for k, v in load_file(model_dir / "model.safetensors").items()}
+    state: dict = {}
+    for path in files:
+        if path.suffix == ".safetensors":
+            part = {k: torch.from_numpy(v) for k, v in load_file(path).items()}
+        else:
+            part = torch.load(path, map_location="cpu", weights_only=True)
+        state.update({k: v.float() if v.is_floating_point() else v for k, v in part.items()})
     state.pop(_AUDIO_TOKEN_TABLE, None)
     return config, {k: v for k, v in state.items() if not k.endswith("position_ids")}
 

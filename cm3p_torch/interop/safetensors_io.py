@@ -4,9 +4,10 @@ The layout: 8 bytes holding the header's length N as a little-endian unsigned
 integer, N bytes of JSON mapping each tensor name to ``{"dtype", "shape",
 "data_offsets": [begin, end]}`` (plus an optional ``"__metadata__"`` map of
 strings), then the tensors' raw little-endian C-contiguous buffers, offsets
-relative to the end of the header. This module handles F32, BF16 and I64, the
-types a checkpoint bundle holds; numpy has no bfloat16, so BF16 tensors are
-read as float32 (exact) and written from float32 with round-to-nearest-even.
+relative to the end of the header. This module handles F32, F16, BF16 and I64,
+the types a checkpoint bundle holds (the shards of a published checkpoint are
+often F16); numpy has no bfloat16, so BF16 tensors are read as float32 (exact)
+and written from float32 with round-to-nearest-even.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Optional, Union
 
 import numpy as np
 
-_DTYPES = {"F32": np.float32, "I64": np.int64}
+_DTYPES = {"F32": np.float32, "F16": np.float16, "I64": np.int64}
 _NAMES = {np.dtype(v): k for k, v in _DTYPES.items()}
 
 
@@ -33,7 +34,7 @@ def _f32_to_bf16_bits(x: np.ndarray) -> np.ndarray:
 
 
 def load_file(path: Union[str, Path]) -> dict[str, np.ndarray]:
-    """All tensors of a safetensors file as numpy arrays (BF16 as float32)."""
+    """All tensors of a safetensors file as numpy arrays (BF16 as float32, F16 as float16)."""
     buf = Path(path).read_bytes()
     if len(buf) < 8:
         raise ValueError(f"{path}: not a safetensors file (shorter than its length field)")

@@ -285,6 +285,18 @@ class TowerModel(nn.Module):
         for enc in self.encoders():
             enc.set_options(options)
 
+    def set_attn_impl(self, attn_impl: str) -> None:
+        """The route of every tower: ``"pallas"`` (the kernels) or ``"xla"`` (the JAX package's
+        ``attn_impl="xla"``: no kernel, the plain version of every op, options reduced to ``xla_int8``,
+        logged where that drops any)."""
+        before = {enc.options for enc in self.encoders()}
+        for enc in self.encoders():
+            enc.set_attn_impl(attn_impl)
+        after = {enc.options for enc in self.encoders()}
+        if before != after:
+            logger.info("attn_impl=%s: no kernel and no fused route runs; the options %s reduce to %s",
+                        attn_impl, sorted(map(str, before)), sorted(map(str, after)))
+
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
         """Activation dtype of every tower (flax ``dtype``); parameters keep theirs."""
         for enc in self.encoders():

@@ -51,9 +51,18 @@ out-projection with its residual goes to the attention kernel's epilogue
 (``fused_wo``, int8 with ``fused_wo_q``) where :func:`wo_epilogue` admits it,
 else to the LN-matmul kernel (``fused_lnmm_wo``, its W8A8 form when
 ``w8a8_wo``), else to ``residual + x @ Wo^T``; the MLP half-block gets
-``w8a8`` / ``w8a8_wo``. int8 weights are made from the parameters at first use
-and again whenever a parameter changes (reload, cast, move), never per
-forward.
+``w8a8`` / ``w8a8_wo``; ``xla_int8`` sends every product that no fused route
+takes through :func:`~cm3p_torch.ops.xla_int8.int8_dot` (the QKV projection,
+the out-projection, and the MLP's ``Wi`` and ``Wo`` where the JAX package runs
+its MLP unfused: the ``xla`` route and widths ``ffn_fusable`` rejects). int8
+weights are made from the parameters at first use and again whenever a
+parameter changes (reload, cast, move), never per forward.
+
+The ``xla`` route (:meth:`ModernBertEncoder.set_attn_impl`, the JAX package's
+``attn_impl="xla"``) is the full model with no kernel: the plain versions of
+every op and no fused route, so its options reduce to ``xla_int8``; with it the
+no-grad MLP is the JAX ``GeGLU``: LN, ``int8_dot`` to 2F, ``gelu(a) * b`` in the
+activation dtype, ``int8_dot`` back and the residual.
 
 Sequence parallelism (the JAX package's ``sp_mesh``): with ``sp_group`` (a
 ``torch.distributed`` process group) the encoder takes the full (B, L) input
@@ -119,6 +128,7 @@ from ..ops import (
 )
 from ..ops.attention import apply_rope
 from ..ops.fused_ffn import LnFfnFunction, ffn_fusable
+from ..ops.xla_int8 import int8_dot, quant_weight_int8
 from ..parallel.sequence import all_gather_seq, sequence_sharded_attention
 from ..parallel.tensor import column_parallel_linear, group_size, row_parallel_linear
 
@@ -145,7 +155,14 @@ class EncoderOptions:
       :func:`wo_epilogue` admits;
     * ``fused_wo_q`` - ``CM3P_FUSED_WO_Q``: that epilogue in int8 (o quantised
       per row, int8 Wo per output channel); acts only with ``fused_wo``.
-      ``w8a8_wo`` does not reach the epilogue, as in the JAX package.
+      ``w8a8_wo`` does not reach the epilogue, as in the JAX package;
+    * ``xla_int8`` - ``CM3P_XLA_INT8``: W8A8 through
+      :func:`~cm3p_torch.ops.xla_int8.int8_dot` (its own quantisers, an exact
+      int32 product) on every bias-free product that runs unfused: QKV where
+      ``fused_lnmm_qkv`` does not take it, the out-projection where neither
+      the epilogue nor ``fused_lnmm_wo`` takes it, and the MLP's two products
+      where the JAX package runs its MLP unfused (the ``xla`` route, widths
+      ``ffn_fusable`` rejects).
 
     The port reads no environment variable: callers pass this object.
     """
@@ -156,9 +173,11 @@ class EncoderOptions:
     fused_lnmm_wo: bool = False
     fused_wo: bool = False
     fused_wo_q: bool = False
+    xla_int8: bool = False
 
 
 EXACT = EncoderOptions()
+ATTN_IMPLS = ("pallas", "xla")
 
 
 def wo_epilogue(options: EncoderOptions, window: Optional[int], hidden: int, length: int) -> Optional[str]:
@@ -219,7 +238,7 @@ class SelfAttention(nn.Module):
         again), by the route of the JAX package's order: the attention
         kernel's epilogue where :func:`wo_epilogue` gives a form, else the
         LN-matmul kernel under ``fused_lnmm_wo``, else ``residual + out @ Wo^T``.
-        ``quantised(name, weight)`` returns the cached int8 form of a weight.
+        ``quantised(name, weight, quantiser)`` returns the cached int8 form of a weight.
         ``sp_group``: ``x`` is this rank's shard of the sequence and
         ``positions`` its absolute positions; attention all-gathers K/V (no
         epilogue). ``model_group``: ``Wqkv`` and ``Wo`` hold this rank's heads;
@@ -237,6 +256,8 @@ class SelfAttention(nn.Module):
                 qkv = lnmm(x, self.Wqkv.weight.to(dt), **norm)
         elif model_group is not None:
             qkv = column_parallel_linear(x, self.Wqkv.weight, model_group)
+        elif options.xla_int8:
+            qkv = int8_dot(x, self.Wqkv.weight, quantised("xla_Wqkv", self.Wqkv.weight, quant_weight_int8))
         else:
             qkv = linear(x, self.Wqkv.weight)
         heads = qkv.shape[-1] // (3 * self.head_dim)  # this rank's heads under a model group
@@ -256,10 +277,12 @@ class SelfAttention(nn.Module):
         out = out.reshape(b, length, -1)
         if model_group is not None:
             return row_parallel_linear(out, self.Wo.weight, model_group)
-        if residual is None:
-            return linear(out, self.Wo.weight)
-        if not options.fused_lnmm_wo:
-            return residual + linear(out, self.Wo.weight)
+        if not (residual is not None and options.fused_lnmm_wo):
+            if options.xla_int8:
+                out = int8_dot(out, self.Wo.weight, quantised("xla_Wo", self.Wo.weight, quant_weight_int8))
+            else:
+                out = linear(out, self.Wo.weight)
+            return out if residual is None else residual + out
         if options.w8a8_wo:
             lnmm_q = fused_ln_matmul_q_plain if plain else fused_ln_matmul_q
             return lnmm_q(out, self.Wo.weight, residual=residual, w_q=quantised("Wo", self.Wo.weight))
@@ -289,16 +312,17 @@ class EncoderLayer(nn.Module):
         self.mlp_norm = LayerNormF32(config.hidden_size, config.norm_eps, config.norm_bias)
         self.mlp = GeGLU(config)
         self.options = EXACT
+        self.attn_impl = "pallas"
         self.model_group = None
         self._quantised: dict = {}
 
-    def quantised(self, name: str, weight: torch.Tensor):
-        """(int8 codes, fp32 scales) of ``weight``, made once and again only
+    def quantised(self, name: str, weight: torch.Tensor, quantiser=quantize_weight_int8):
+        """(int8 codes, fp32 scales) of ``weight`` by ``quantiser``, made once and again only
         when the parameter has changed (reloaded, cast or moved)."""
         key = (weight.data_ptr(), weight._version, weight.dtype, weight.device)
         hit = self._quantised.get(name)
         if hit is None or hit[0] != key:
-            hit = (key, quantize_weight_int8(weight.detach()))
+            hit = (key, quantiser(weight.detach()))
             self._quantised[name] = hit
         return hit[1]
 
@@ -324,16 +348,26 @@ class EncoderLayer(nn.Module):
             options=opts, quantised=self.quantised, sp_group=sp_group,
         )
         x = attn_out if fuse_wo else x + attn_out
+        quant_ok = ffn_fusable(hidden, cfg.intermediate_size)  # as the JAX package: else the exact MLP
+        if opts.xla_int8 and (self.attn_impl == "xla" or not quant_ok):  # where the JAX package runs it unfused
+            return x + self.geglu_int8(norm(x))
         ffn = fused_ln_ffn_plain if plain else fused_ln_ffn
         dt = x.dtype
-        quant_ok = ffn_fusable(hidden, cfg.intermediate_size)  # as the JAX package: else the exact MLP
         w8a8, w8a8_wo = opts.w8a8 and quant_ok, opts.w8a8_wo and quant_ok
         return ffn(
             x, norm.weight, norm.bias, mlp.Wi.weight.to(dt), mlp.Wo.weight.to(dt), cfg.norm_eps,
             w8a8=w8a8, w8a8_wo=w8a8_wo,
             wi_q=self.quantised("Wi", mlp.Wi.weight) if w8a8 else None,
-            wo_q=self.quantised("Wo", mlp.Wo.weight) if w8a8_wo else None,
+            wo_q=self.quantised("mlp_Wo", mlp.Wo.weight) if w8a8_wo else None,
         )
+
+    def geglu_int8(self, x: torch.Tensor) -> torch.Tensor:
+        """The JAX package's unfused ``GeGLU`` under ``xla_int8``: ``int8_dot`` to 2F, ``gelu(a) * b`` in the
+        activation dtype, ``int8_dot`` back (the caller adds the residual)."""
+        wi, wo, f = self.mlp.Wi.weight, self.mlp.Wo.weight, self.config.intermediate_size
+        h = int8_dot(x, wi, self.quantised("xla_Wi", wi, quant_weight_int8))
+        h = F.gelu(h[..., :f]) * h[..., f:]
+        return int8_dot(h, wo, self.quantised("xla_mlp_Wo", wo, quant_weight_int8))
 
 
 class Embeddings(nn.Module):
@@ -387,16 +421,31 @@ class ModernBertEncoder(nn.Module):
         self.plain = False
         self.compute_dtype: Optional[torch.dtype] = None
         self.options = EXACT
+        self.attn_impl = "pallas"
         self.remat: Union[bool, str] = False
         self.model_group = None
 
     def set_options(self, options: EncoderOptions) -> None:
-        """Set the extraction options of every layer (int8 weights are remade at next use)."""
+        """Set the extraction options of every layer (int8 weights are remade at next use); on the ``xla``
+        route they reduce to ``xla_int8``."""
+        if self.attn_impl == "xla":
+            options = EncoderOptions(xla_int8=options.xla_int8)
         _exact_under_model_group(options, self.model_group)
         self.options = options
         for layer in self.layers:
             layer.options = options
             layer._quantised.clear()
+
+    def set_attn_impl(self, attn_impl: str) -> None:
+        """``"pallas"`` (default): the kernels. ``"xla"``: the JAX package's route without its kernels, the
+        plain version of every op, the options reduced to ``xla_int8`` and, with it, the unfused MLP."""
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, not {attn_impl!r}")
+        self.attn_impl = attn_impl
+        self.plain = attn_impl == "xla"
+        for layer in self.layers:
+            layer.attn_impl = attn_impl
+        self.set_options(self.options)
 
     def set_model_group(self, group) -> None:
         """The model group the layers' products were sharded over (``parallel.tensor.shard_module``); None:

@@ -485,6 +485,10 @@ def main(argv: Optional[list[str]] = None) -> Trainer:
         resume=not training.get("overwrite_output_dir", False),
         load_best_model_at_end=training.get("load_best_model_at_end", False),
         labels_kind=args["dataset"].get("labels", "none"),
+        wandb_project=args.get("wandb_project"),
+        wandb_entity=args.get("wandb_entity"),
+        wandb_mode=args.get("wandb_mode"),
+        run_config=args,
     )
     try:
         results = trainer.train()

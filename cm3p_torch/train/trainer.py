@@ -8,7 +8,9 @@ steps, evaluation every ``eval_steps`` (zero-shot variation ranking and loss,
 ``MetricAccumulator``; masked-LM or classification accuracy by the
 batches' ``labels_kind``), checkpoints every ``save_steps`` with
 ``save_total_limit`` retention and resume of the latest, and
-``train_results.json`` / ``eval_results.json`` at the end. A resume seeks the
+``train_results.json`` / ``eval_results.json`` at the end; with ``wandb_project`` every log record also goes
+to Weights & Biases (the JAX trainer's optional hook: ``wandb`` is imported when the run starts, and where the
+import or ``wandb.init`` fails a warning is logged and the JSONL log stays the only one). A resume seeks the
 batch stream through ``train_iter_factory(start_step=...)`` where the factory
 takes it, else replays it. Losses stay on the
 device until a log record needs them. :func:`from_pretrained` initialises a
@@ -69,6 +71,10 @@ class Trainer:
         resume: bool = True,
         load_best_model_at_end: bool = False,
         labels_kind: str = "none",
+        wandb_project: Optional[str] = None,
+        wandb_entity: Optional[str] = None,
+        wandb_mode: Optional[str] = None,
+        run_config: Optional[dict] = None,
     ):
         self.model = model
         self.optimizer = optimizer
@@ -99,11 +105,16 @@ class Trainer:
         self._last_eval: dict = {}
         self.micro_step = 0
         self.results: dict = {}
+        self._wandb = None
+        if wandb_project and self._primary:
+            self._wandb = _wandb_run(wandb_project, wandb_entity, wandb_mode, run_config, self.output_dir)
 
     def _log(self, record: dict) -> None:
         record = {k: (float(v) if hasattr(v, "item") else v) for k, v in record.items()}
         self._log_file.write(json.dumps(record) + "\n")
         self._log_file.flush()
+        if self._wandb is not None:
+            self._wandb.log({k: v for k, v in record.items() if k != "step"}, step=record.get("step"))
         if self._primary:
             logger.info(" ".join(f"{k}={v:.5g}" if isinstance(v, float) else f"{k}={v}" for k, v in record.items()))
 
@@ -244,6 +255,19 @@ class Trainer:
 
     def close(self) -> None:
         self._log_file.close()
+        if self._wandb is not None:
+            self._wandb.finish()
+
+
+def _wandb_run(project: str, entity: Optional[str], mode: Optional[str], config: Optional[dict], output_dir: Path):
+    """A ``wandb`` run, or None (logged) where the package is missing or ``wandb.init`` fails."""
+    try:
+        import wandb
+
+        return wandb.init(project=project, entity=entity, mode=mode or "online", config=config, dir=str(output_dir))
+    except Exception as e:  # a missing package, no network, a bad key: the run goes on with the JSONL log
+        logger.warning("wandb init failed (%s); JSONL logging only", e)
+        return None
 
 
 def from_pretrained(model: torch.nn.Module, model_dir, allow_missing: bool = False) -> dict:

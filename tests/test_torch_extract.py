@@ -121,6 +121,18 @@ def test_safetensors_io_agrees_with_the_safetensors_package(tmp_path):
     assert np.array_equal(load_file(tmp_path / "bf16.safetensors")["w"], want.float().numpy())
 
 
+def test_safetensors_io_round_trips_f16_with_the_safetensors_package(tmp_path):
+    """F16, the type of many sharded Hub checkpoints, in both directions."""
+    from safetensors.numpy import load_file as ref_load
+    from safetensors.numpy import save_file as ref_save
+
+    half = {"h": np.random.default_rng(1).standard_normal((3, 4)).astype(np.float16)}
+    save_file(half, tmp_path / "ours.safetensors")
+    ref_save(half, str(tmp_path / "theirs.safetensors"))
+    for got in (ref_load(str(tmp_path / "ours.safetensors")), load_file(tmp_path / "theirs.safetensors")):
+        assert got["h"].dtype == np.float16 and np.array_equal(got["h"], half["h"])
+
+
 def test_load_pretrained_reads_a_jax_export_and_embeds_like_the_jax_package(tmp_path):
     """(a) ``export_hf_checkpoint`` (real safetensors) -> ``load_pretrained`` -> ``embed_beatmap``."""
     proc = CM3PProcessor()
@@ -190,8 +202,9 @@ def test_save_then_load_is_bit_equal_and_takes_options(bundle, tmp_path):
 
 
 def test_load_pretrained_refuses_what_is_not_ported(bundle, tmp_path):
-    with pytest.raises(NotImplementedError, match="Hub"):
-        load_pretrained("OliBomby/CM3P", device="cpu")
+    # a Hub id resolves from a local cache only: one the cache lacks is refused, and nothing is downloaded
+    with pytest.raises(FileNotFoundError, match="downloads nothing"):
+        load_pretrained("OliBomby/CM3P", device="cpu", cache_dir=tmp_path / "hub")
     (tmp_path / "orbax" / "params").mkdir(parents=True)
     with pytest.raises(NotImplementedError, match="Orbax"):
         load_pretrained(tmp_path / "orbax", device="cpu")
@@ -316,6 +329,7 @@ def test_cli_default_is_the_tools_quantised_setting(bundle, map_folders, tmp_pat
     (["--no-fused-wo"], EncoderOptions(w8a8=True)),
     (["--no-fused-wo", "--fused-wo-q"], EncoderOptions(w8a8=True)),  # fused_wo_q acts only with fused_wo
     (["--precise", "--fused-wo-q"], EncoderOptions()),
+    (["--xla-int8"], EncoderOptions(w8a8=True, fused_wo=True, xla_int8=True)),  # D + CM3P_XLA_INT8=1
 ])
 def test_cli_flags_map_to_encoder_options(argv, want):
     ns = build_parser().parse_args(["--beatmap-files", "x", "--output", "y", *argv])
