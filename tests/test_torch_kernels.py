@@ -284,6 +284,47 @@ def test_lse_and_backward_kernels_match_plain(cuda, kind, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", [1, 3], ids=["1-head", "3-heads"])
+@pytest.mark.parametrize("kind, window", [("packed", 64), ("packed", None), ("metadata", None)],
+                         ids=["window", "segment", "metadata"])
+def test_lse_and_backward_kernels_match_plain_at_a_tensor_parallel_ranks_head_count(cuda, heads, kind, window):
+    """The head counts of a rank at ``model_axis=4`` (3 beatmap heads, 1 metadata head; rope outside the
+    kernels, so the forward without rope and the backward kernels' plain forms), at the packed rows'
+    length (4096) and at meta_pack rows."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    if kind == "packed":
+        seg = _packed_segments(2, 4096, cuda)
+    else:
+        seg = _metadata_segments(4, 16, 128, cuda)
+    b, length = seg.shape
+    q, k, v = _qkv(b, length, heads, gen, cuda)
+    dout = torch.randn(b, length, heads, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    if window is None:
+        out, lse = segment_attention(q, k, v, seg, seg, return_lse=True)
+        want_out, want_lse = segment_attention_plain(q, k, v, seg, seg, return_lse=True)
+    else:
+        out, lse = window_attention(q, k, v, seg, seg, window, return_lse=True)
+        want_out, want_lse = window_attention_plain(q, k, v, seg, seg, window, return_lse=True)
+    live = (seg > 0)[:, None, :].expand_as(lse)
+    assert (out.float() - want_out.float()).abs().max().item() <= ATOL
+    assert (lse - want_lse)[live].abs().max().item() <= 1e-3
+    delta = attention_delta(want_out, dout)
+    if window is None:
+        dq = segment_attention_dq(q, k, v, dout, want_lse, delta, seg, seg)
+        dk, dv = segment_attention_dkv(q, k, v, dout, want_lse, delta, seg, seg)
+    else:
+        dq = window_attention_dq(q, k, v, dout, want_lse, delta, seg, seg, window)
+        dk, dv = window_attention_dkv(q, k, v, dout, want_lse, delta, seg, seg, window)
+    want = _attention_bwd_plain(q, k, v, dout, want_lse, delta, seg, seg, window)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert (got.float() - ref.float()).abs().max().item() <= 1e-2 * ref.float().abs().max().item()
+    dead = seg == 0
+    assert dq[dead].abs().max().item() == 0.0
+    assert dk[dead].abs().max().item() == 0.0 and dv[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("window", [64, 192, None], ids=["window", "wide_window", "segment"])
 def test_rope_forms_of_the_backward_kernels_match_the_plain_rope_backward(cuda, window):
     gen = torch.Generator(device=cuda).manual_seed(10)

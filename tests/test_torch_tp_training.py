@@ -10,7 +10,10 @@ projector's column / row pair run; and the same with ``remat=True`` (the
 layers' collectives run again in the recompute; the JAX step is the same
 math). Then four ranks on a 2x2 grid against the JAX ``(2, 2)`` mesh, each
 data group on its own packed batch without audio (the data axis and the model
-axis compose). The JAX parameters are the port's seeded init in the flax
+axis compose); and four ranks at ``model_axis=4`` against the JAX ``(1, 4)``
+mesh on the audio batch, at a config with the shipped head counts (12 / 4 / 8
+at head dim 8), so that a rank holds 3 / 1 / 2 local heads as on the card: an
+odd local head count keeps rope outside the attention kernels. The JAX parameters are the port's seeded init in the flax
 layout (no JAX init to compile).
 Tolerances are those of ``tests/test_torch_dp_training.py``: the loss within
 1e-5 relative, the gradient norm within 1e-4 relative, the gathered
@@ -53,13 +56,22 @@ from tests.test_torch_tensor_parallel import hf_to_flax
 
 AUDIO_ID, N_TOK = 500, 8
 CASES = ("packed-audio", "packed-audio-remat")
+TP4 = "model-axis-4"
+TP4_LOCAL_HEADS = {"beatmap": 3, "metadata": 1, "audio": 2}
+TP4_TIMEOUT_S = 240  # limit on the four ranks' run
 muon_module = importlib.import_module("cm3p_torch.train.muon")
 
 
-def _config():
-    cfg = tiny_cm3p_config()
+def _config(make=tiny_cm3p_config, shipped_heads=False):
+    cfg = make()
     cfg.beatmap_config.cls_embed = False  # mean pooling: dummy windows pool to 0
     cfg.beatmap_config.audio_token_id = AUDIO_ID
+    if shipped_heads:  # the shipped head counts at head dim 8; every width divides by 4
+        bc, ac, mc = cfg.beatmap_config, cfg.beatmap_config.audio_config, cfg.metadata_config
+        bc.hidden_size, bc.intermediate_size, bc.num_attention_heads = 96, 128, 12
+        ac.hidden_size, ac.intermediate_size, ac.num_attention_heads = 64, 128, 8
+        ac.projector_intermediate_size, ac.projector_dim = 128, 96
+        mc.hidden_size, mc.intermediate_size, mc.num_attention_heads = 32, 64, 4
     return cfg
 
 
@@ -106,8 +118,8 @@ def _optimizer(model):
                      adamw_betas=(0.9, 0.999), model_group=getattr(model, "model_group", None))
 
 
-def _sharded_model(start, mesh, remat=False):
-    model = CM3PModel(_config(), meta_pack=4)
+def _sharded_model(start, mesh, remat=False, shipped_heads=False):
+    model = CM3PModel(_config(shipped_heads=shipped_heads), meta_pack=4)
     model.load_state_dict(start)
     model.set_remat(remat)
     model.set_data_group(mesh.data_group)
@@ -123,7 +135,7 @@ def _rank_steps(rank, world, specs, data_axis, ckpt_dir):
     data_index = mesh.coords()[0]
     out = {}
     for spec in specs:
-        model = _sharded_model(spec["start"], mesh, spec["remat"])
+        model = _sharded_model(spec["start"], mesh, spec["remat"], spec.get("shipped_heads", False))
         batch = to_device(spec["batches"][data_index], "cpu", packed=True)
         if spec["name"] == CASES[0]:
             with torch.no_grad():
@@ -138,6 +150,10 @@ def _rank_steps(rank, world, specs, data_axis, ckpt_dir):
             "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]), "applied": metrics["applied"],
             "whole": {n: t.clone() for n, t in gather_module_state(model).items()},
             "shards": {n: p.detach().clone() for n, p in model.named_parameters()},
+            "local_heads": {name: enc.layers[0].attn.Wqkv.weight.shape[0] // (3 * enc.config.head_dim)
+                            for name, enc in (("beatmap", model.beatmap_model.encoder),
+                                              ("metadata", model.metadata_model.encoder),
+                                              ("audio", model.beatmap_model.audio_encoder.encoder))},
         }
         if spec["name"] == CASES[0]:  # a whole checkpoint, and back into a sharded model
             manager = CheckpointManager(ckpt_dir)
@@ -189,13 +205,13 @@ def steps(tmp_path_factory):
 
     from tests.test_torch_train_ops import _ns5_f32_jax
 
-    jcfg = jax_tiny_config()
-    jcfg.beatmap_config.cls_embed = False
-    jcfg.beatmap_config.audio_token_id = AUDIO_ID
-    jmodel = CM3PModule(jcfg, dtype=jnp.float32, attn_impl="xla", meta_pack=4)
+    jmodel = CM3PModule(_config(jax_tiny_config), dtype=jnp.float32, attn_impl="xla", meta_pack=4)
     start = init_weights(_config(), torch.Generator().manual_seed(0), with_metadata=True)
     params = flax_params(start)
     assert all(torch.equal(t, start[k]) for k, t in state_dict_from_jax(params).items())
+    jmodel4 = CM3PModule(_config(jax_tiny_config, shipped_heads=True), dtype=jnp.float32, attn_impl="xla",
+                         meta_pack=4)
+    start4 = init_weights(_config(shipped_heads=True), torch.Generator().manual_seed(0), with_metadata=True)
     audio = _audio_batch()
     grid = _rank_batches("packed-2d-metadata", seed=40)  # one packed batch per data group
     specs = [{"name": name, "start": start, "remat": name.endswith("remat"), "batches": [audio]} for name in CASES]
@@ -203,15 +219,19 @@ def steps(tmp_path_factory):
     want = {}
     jax_muon_module = importlib.import_module("cm3p_tpu.train.muon")
     # the ranks run while the JAX steps compile
-    with ThreadPoolExecutor(2) as pool, pytest.MonkeyPatch.context() as mp_:
+    with ThreadPoolExecutor(3) as pool, pytest.MonkeyPatch.context() as mp_:
         two = pool.submit(run_ranks, _rank_steps, 2, tmp / "two", specs, 1, str(tmp / "ckpt"))
         four = pool.submit(run_ranks, _rank_steps, 4, tmp / "four", [{"name": "2x2", "start": start, "remat": False,
                                                                        "batches": grid}], 2, str(tmp / "unused"))
+        axis4 = pool.submit(run_ranks, _rank_steps, 4, tmp / "axis4",
+                            [{"name": TP4, "start": start4, "remat": False, "batches": [audio],
+                              "shipped_heads": True}], 1, str(tmp / "unused4"), timeout=TP4_TIMEOUT_S)
         mp_.setattr(jax_muon_module, "zeropower_via_newtonschulz5", _ns5_f32_jax)
         want[CASES[0]] = want[CASES[1]] = _jax_step(jmodel, params, audio, 1, 2)
         want["2x2"] = _jax_step(jmodel, params, global_batch(grid, True), 2, 2)
-        two, four = two.result(), four.result()
-    return start, want, two, four, audio, tmp / "ckpt"
+        want[TP4] = _jax_step(jmodel4, flax_params(start4), audio, 1, 4)
+        two, four, axis4 = two.result(), four.result(), axis4.result()
+    return start, want, two, four, audio, tmp / "ckpt", (start4, axis4)
 
 
 def _check_row(got, start, want):
@@ -229,7 +249,7 @@ def _check_row(got, start, want):
 
 @pytest.mark.parametrize("case", CASES)
 def test_a_two_rank_tensor_parallel_step_equals_the_jax_step_on_a_model_mesh(steps, case):
-    start, want, two, _, _, _ = steps
+    start, want, two, *_ = steps
     _check_row([r[case] for r in two], start, want[case])
     sharded = [n for n, p in two[0][case]["shards"].items() if p.shape != start[n].shape]
     assert sharded and all(two[0][case]["shards"][n].numel() * 2 == start[n].numel() for n in sharded)
@@ -239,15 +259,26 @@ def test_a_two_rank_tensor_parallel_step_equals_the_jax_step_on_a_model_mesh(ste
 
 
 def test_a_two_by_two_grid_step_equals_the_jax_step_on_a_two_by_two_mesh(steps):
-    start, want, _, four, _, _ = steps
+    start, want, _, four, *_ = steps
     for row in (four[:2], four[2:]):  # ranks (0, 1) and (2, 3): the grid's rows
         _check_row([r["2x2"] for r in row], start, want["2x2"])
     for name, p in four[0]["2x2"]["whole"].items():  # the data groups step on the same global gradient
         assert torch.equal(p, four[2]["2x2"]["whole"][name]), name
 
 
+def test_a_four_rank_model_axis_step_equals_the_jax_step_on_a_one_by_four_mesh(steps):
+    _, want, *_, (start, axis4) = steps
+    got = [r[TP4] for r in axis4]
+    assert all(g["local_heads"] == TP4_LOCAL_HEADS for g in got), [g["local_heads"] for g in got]
+    _check_row(got, start, want[TP4])
+    sharded = [n for n, p in got[0]["shards"].items() if p.shape != start[n].shape]
+    assert sharded and all(got[0]["shards"][n].numel() * 4 == start[n].numel() for n in sharded)
+    for tower in ("beatmap_model.encoder.", "metadata_model.", "audio_encoder.encoder."):
+        assert any(tower in n and "Wqkv" in n for n in sharded), tower
+
+
 def test_the_sharded_no_grad_forward_is_the_one_process_forward(steps):
-    start, _, two, _, packed, _ = steps
+    start, _, two, _, packed, *_ = steps
     model = CM3PModel(_config(), meta_pack=4)
     model.load_state_dict(start)
     with torch.no_grad():
@@ -258,7 +289,7 @@ def test_the_sharded_no_grad_forward_is_the_one_process_forward(steps):
 
 
 def test_a_tensor_parallel_checkpoint_is_whole_and_restores_at_either_model_axis(steps):
-    start, _, two, _, _, ckpt = steps
+    start, _, two, _, _, ckpt, _ = steps
     assert two[0]["restored_equal"] and two[1]["restored_equal"]
     assert two[0]["restored_momentum_equal"] and two[1]["restored_momentum_equal"]
     model = CM3PModel(_config(), meta_pack=4)
