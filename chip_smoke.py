@@ -18,7 +18,10 @@ Phases (any failure exits non-zero; nothing is skipped):
                UTMALDG (TMA load), LDGSTS (cp.async) and BAR.SYNC instructions
                in ``cuobjdump -sass``; fails if one of them has no wgmma or no
                UTMALDG, or has an LDGSTS, or if ptxas notes that it serialises
-               its wgmma (C7514 / C7520).
+               its wgmma (C7514 / C7520). Beside them, the bounds-checked
+               builds of ``csrc/attention.cu`` and ``csrc/attention_bwd.cu``
+               (``ops._build.CHECKED_FLAGS``, for phase 6b; their notes are
+               printed, not held to those rules).
   2. kernels - each forward kernel against its plain PyTorch version at the
                shapes the main path gives it (packed 4096-token beatmap rows with
                several segments and a padding tail, unpacked rows with a key
@@ -75,7 +78,25 @@ Phases (any failure exits non-zero; nothing is skipped):
                x 2 micro-steps with one eval batch (window 14, segment 14, FFN
                22 + 6), a checkpoint and its reload. Prints each backward
                kernel's (and rope form's) ms, plain ms, bound and library
-               (SDPA backward) ms.
+               (SDPA backward) ms, and a digest of the training batch
+               (``batch_digest``), so that two runs show whether they trained
+               on the same data.
+ 6b. checked - the bounds-checked build of the attention kernels
+               (``ops.attention.checked_kernels``: every output poisoned with
+               0xFF bytes before a launch, every global access, tile range,
+               TMA coordinate and ring stage checked, the fault record read
+               after each launch): one training forward and backward with the
+               main path's exact launches, held to the default build's (loss
+               within 1e-2, gradient cosine >= 0.99, or no further than a
+               second default-build call is, within 0.05); then the stress layouts
+               (``stress_segments``: padding-only rows, a first tile of
+               padding, segments ending on 64- and 128-token tile edges,
+               one-token segments, query tiles that meet no key tile; L 4096 /
+               4032 / 4000 / 2048 at H 12 / 4 / 3 / 1, with and without rope,
+               and the metadata pack's layout at H 4): the forward with lse,
+               the rope pass and both backward kernels, window and segment
+               forms, against their plain versions at phase 5's tolerances.
+               Fails on any record or unwritten output.
   7. quant kernels - the fused LN-matmul kernels (bf16 and W8A8: LN -> QKV at
                768 -> 2304 and 512 -> 1536, Wo + residual at 768 -> 768 and
                512 -> 512), the bf16 FFN kernel (D 768 / 512 / 256) and the
@@ -321,11 +342,17 @@ Phases (any failure exits non-zero; nothing is skipped):
                2w 10, 3q 28 a forward). Prints its numbers as one JSON line.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network.
+last, ``{"ok": true, "device": {...}}``. Needs one GPU and no network. An
+exception in any phase (a CUDA error among them; in phase 6b the checked
+build's record, which names the kernel) ends the script at once with
+``chip_smoke: FAILED: phase N: ...`` and exit code 1, not by a signal at the
+interpreter's exit.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import faulthandler
 import glob
 import itertools
 import json
@@ -337,6 +364,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -417,6 +445,9 @@ KERNEL_SOURCES = {
     "fused_ln_matmul_q_f32": ("cm3p_torch/csrc/fused_ln_matmul_f32.cu", "cm3p_tpu/ops/fused_ln_matmul.py:276"),
     "fused_ln_matmul_q_wo_f32": ("cm3p_torch/csrc/fused_ln_matmul_f32.cu", "cm3p_tpu/ops/fused_ln_matmul.py:276"),
 }
+
+
+PHASE = ["start"]  # the phase main() is in, named by the failure line
 
 
 def log(*args):
@@ -1266,10 +1297,154 @@ def train_slice(torch, ops, dev, batch, batch2, map_dirs):
     # the same comparison further from the seeded weights: on one repeated batch some small tensors' bf16
     # gradients drift apart on both bf16 routes, so there the fp32 oracle decides every tensor below the limit
     check_gradients(torch, step, dev_batch2, f"after {GRAD_DRIFT_STEPS} steps on one batch", oracle_everywhere=True)
+    checked_step(torch, ops, step, dev_batch)
     del step, model, dev_batch, dev_batch2
     torch.cuda.empty_cache()
 
     return run_trainer(torch, ops, dev, args, cfg, map_dirs, steps=3, accum=2)
+
+
+def batch_digest(batch, meta_seg) -> str:
+    """sha256 prefixes of the training batch's ``input_ids``, ``segment_ids`` and ``metadata_ids`` and of the
+    metadata pack's segments (shape, dtype and bytes each), then of the four together: one line that tells whether
+    two runs trained on the same data."""
+    import hashlib
+
+    import numpy as np
+
+    whole, parts = hashlib.sha256(), []
+    for name, arr in (("input_ids", batch["input_ids"]), ("segment_ids", batch["segment_ids"]),
+                      ("metadata_ids", batch["metadata_ids"]), ("meta_seg", meta_seg.cpu().numpy())):
+        a = np.ascontiguousarray(np.asarray(arr))
+        digest = hashlib.sha256(f"{a.shape} {a.dtype} ".encode() + a.tobytes()).hexdigest()[:16]
+        whole.update(digest.encode())
+        parts.append(f"{name} {digest}")
+    return f"{whole.hexdigest()[:16]} ({', '.join(parts)})"
+
+
+# phase 6b: the stress layouts' (length, heads, rope); rope runs the training route's forms (theta per window)
+STRESS_CASES = ((4096, 12, True), (4032, 4, False), (4000, 3, True), (2048, 1, False))
+
+
+def stress_segments(torch, length, dev):
+    """(4, length) int32 segment ids at the edges of the tile ranges: (0) padding only; (1) a first tile of
+    padding, then segments of 100, 37, 1, 1, 1, 250, 64 and 3 tokens in turn, and 50 tokens of padding at the end;
+    (2) segments of 64, 64, 128, 128, 192 and 256 tokens in turn, so that they end on 64- and 128-token tile edges
+    (the last one cut at the end); (3) 300 one-token segments, padding to token 447 (query tiles 5 and 6 all padding,
+    so they meet no key tile: count 0), then one segment to the end."""
+    rows = [[0] * length for _ in range(4)]
+
+    def lay(row, pos, sizes, stop, seg=0):
+        stop = min(stop, length)
+        for size in itertools.cycle(sizes):
+            if pos >= stop:
+                return seg
+            seg += 1
+            for j in range(pos, min(pos + size, stop)):
+                row[j] = seg
+            pos += size
+
+    lay(rows[1], 64, (100, 37, 1, 1, 1, 250, 64, 3), length - 50)
+    lay(rows[2], 0, (64, 64, 128, 128, 192, 256), length)
+    lay(rows[3], 448, (length,), length, lay(rows[3], 0, (1,), 300))
+    return torch.tensor(rows, dtype=torch.int32, device=dev)
+
+
+def checked_step(torch, ops, step, batch):
+    """Phase 6b: one forward and backward of the training step on the bounds-checked build of the attention
+    kernels (outputs filled with the poison, every access checked, each launch's record read: any record or
+    unwritten output raises), with the main path's exact launches, held to the same call on the default build:
+    loss within 1e-2, each gradient at cosine >= 0.99 to the default build's, or, where two default-build calls
+    differ more (atomic sums in another order on gradients that are mostly rounding noise at random init), no
+    further from it than the second default call is, within 0.05."""
+    from cm3p_torch.ops.attention import checked_kernels
+
+    loss_ref, grads_ref, _ = step.grads(batch)
+    _, grads_again, _ = step.grads(batch)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with checked_kernels():
+        loss, grads, _ = step.grads(batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    expect_counts(ops, "checked forward + backward", 1, PER_MICRO_STEP)
+
+    def cos(x, y):
+        x, y = x.float(), y.float()
+        return float((x * y).sum() / (x.norm() * y.norm())) if float(x.norm() * y.norm()) > 0 else 1.0
+
+    rows = [(cos(g, r), cos(a, r), bool(torch.equal(g, r))) for g, r, a in zip(grads, grads_ref, grads_again)
+            if r is not None]
+    if not all(bool(torch.isfinite(g).all()) for g in grads if g is not None):
+        fail("the checked build's training step gave a non-finite gradient")
+    low = [(c, again) for c, again, _ in rows if c < min(GRAD_COS_MIN, again - NOISY_COS_MARGIN)]
+    rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    log(f"  checked build, one training forward + backward: {seconds:.1f} s, no bounds record, every output "
+        f"written; loss {float(loss):.6f} against {float(loss_ref):.6f} on the default build (relative {rel:.1e}, "
+        f"tol {LOSS_REL_TOL}); {sum(eq for _, _, eq in rows)} of {len(rows)} gradients bit-equal, cosine min "
+        f"{min(c for c, _, _ in rows):.6f} (two default calls: {min(a for _, a, _ in rows):.6f}); below the rule: {low}")
+    if not (rel <= LOSS_REL_TOL and not low):
+        fail("the checked build's training step disagrees with the default build's")
+
+
+def checked_stress(torch, ops, dev, gen, meta_seg):
+    """Phase 6b: the bounds-checked build at shapes the main path does not reach (``stress_segments`` at
+    ``STRESS_CASES``, and the metadata pack's layout at H 4): per layout and form (window 64, segment) the forward
+    with lse, then the rope pass where rope is on and both backward kernels, every launch on poisoned outputs with
+    its record read, held to the plain versions at phase 5's tolerances (dead queries and unseen keys exactly 0,
+    their lse exactly log2(1e-30))."""
+    import importlib
+
+    attn = importlib.import_module("cm3p_torch.ops.attention")
+    cases = [(f"edges {length} H{heads}{' rope' if rope else ''}", stress_segments(torch, length, dev), heads, rope)
+             for length, heads, rope in STRESS_CASES]
+    cases.append((f"metadata pack {tuple(meta_seg.shape)} H4", meta_seg, 4, False))
+    launches = 0
+    for label, seg, heads, rope in cases:
+        b, length = seg.shape
+        q, k, v = torch.randn(b, length, 3, heads, 64, generator=gen, device=dev).to(torch.bfloat16).unbind(2)
+        dout = torch.randn(b, length, heads, 64, generator=gen, device=dev).to(torch.bfloat16)
+        dead = seg == 0
+        live = (~dead)[:, None, :].expand(b, heads, length)
+        for window in (64, None):
+            theta = THETA[window] if rope else None
+            pre = "window_attention" if window else "segment_attention"
+            plain = attn.window_attention_plain if window else attn.segment_attention_plain
+            args = (window,) if window else ()
+            with attn.checked_kernels():
+                fwd = ops.window_attention if window else ops.segment_attention
+                out, lse = fwd(q, k, v, seg, seg, *args, theta, return_lse=True)
+            want, want_lse = plain(q, k, v, seg, seg, *args, theta, return_lse=True)
+            delta = attn.attention_delta(want, dout)
+            with attn.checked_kernels():
+                rot = attn.backward_rope_pass(q, k, theta) if rope and q.is_cuda else None
+                dq_fn = ops.window_attention_dq if window else ops.segment_attention_dq
+                dkv_fn = ops.window_attention_dkv if window else ops.segment_attention_dkv
+                dq = dq_fn(q, k, v, dout, want_lse, delta, seg, seg, *args, theta, rot)
+                dk, dv = dkv_fn(q, k, v, dout, want_lse, delta, seg, seg, *args, theta, rot)
+            launches += 4 + int(rope)
+            if rope:
+                ref = attn.attention_bwd_rope_plain(q, k, v, dout, want_lse, delta, seg, seg, window, theta)
+            else:
+                ref = attn._attention_bwd_plain(q, k, v, dout, want_lse, delta, seg, seg, window)
+            torch.cuda.synchronize()
+            out_err = (out.float() - want.float()).abs().max().item()
+            lse_err = (lse - want_lse)[live].abs().max().item() if bool(live.any()) else 0.0
+            dead_lse = bool((lse[~live] == want_lse[~live]).all())
+            dead_out = out[dead].abs().max().item() if bool(dead.any()) else 0.0
+            grad = {}
+            for gname, got, r in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
+                err = (got.float() - r.float()).abs().max().item()
+                grad[gname] = (err, r.float().abs().max().item())
+            dead_grad = max(g[dead].abs().max().item() for g in (dq, dk, dv)) if bool(dead.any()) else 0.0
+            log(f"  checked {pre:17s} {label:34s} out {out_err:.2e}, lse {lse_err:.2e}, "
+                + ", ".join(f"{n} {e:.2e} of {m:.2e}" for n, (e, m) in grad.items())
+                + f"; dead rows: out {dead_out}, lse exact {dead_lse}, grads {dead_grad}")
+            if not (out_err <= TOL and lse_err <= LSE_TOL and dead_out == 0.0 and dead_lse and dead_grad == 0.0
+                    and all(e <= BWD_REL_TOL * m for e, m in grad.values())):
+                fail(f"checked {pre} disagrees with its plain version on {label}")
+            del out, lse, want, want_lse, delta, rot, dq, dk, dv, ref
+    return launches
 
 
 # ---------------------------------------------------------------- phases 7 and 8
@@ -4956,9 +5131,13 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     log(f"device: {name} x {torch.cuda.device_count()}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
-    # ---- 1. build
+    # ---- 1. build (the default libraries and the bounds-checked builds of the attention sources, all at once)
+    PHASE[0] = "1"
     t0 = time.perf_counter()
-    built = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        checked_build = pool.submit(_build.build, _build.CHECKED_SOURCES, True)
+        built = _build.build()
+        built.update({f"{k} (checked)": v for k, v in checked_build.result().items()})
     log(f"[1] build: {time.perf_counter() - t0:.1f} s wall, per source {json.dumps({k: round(v, 1) for k, v in built.items()})}")
     for src, text in _build.BUILD_LOG.items():
         for kernel, used, spills in ptxas_report(text):
@@ -5021,6 +5200,7 @@ def main(argv=None) -> int:
         f"{int(train_batch2['window_valid'].sum())} windows")
 
     # ---- 2. kernels against their plain versions at the main path's shapes
+    PHASE[0] = "2"
     log("[2] kernels vs plain versions (bf16, seeded inputs)")
     t_ph = time.perf_counter()
     cases = [
@@ -5036,6 +5216,7 @@ def main(argv=None) -> int:
     # ---- 3. the slice end to end
     log(f"  phase 2: {time.perf_counter() - t_ph:.1f} s")
     t_ph = time.perf_counter()
+    PHASE[0] = "3"
     log("[3] slice: full-width CM3PConfig, seeded random bf16 weights")
     cfg = CM3PConfig()
     cfg.beatmap_config.vocab_size = tok.vocab_size
@@ -5087,6 +5268,7 @@ def main(argv=None) -> int:
     # ---- 4. times
     log(f"  phase 3: {time.perf_counter() - t_ph:.1f} s")
     t_ph = time.perf_counter()
+    PHASE[0] = "4"
     log("[4] times (CUDA events; packed beatmap shape unless named)")
     with torch.no_grad():
         t_fwd = cuda_ms(lambda: model.get_packed_beatmap_features(**batch, normalize=True), 3) / 1e3
@@ -5137,6 +5319,7 @@ def main(argv=None) -> int:
     # ---- 5. backward kernels against the plain backward
     log(f"  phase 4: {time.perf_counter() - t_ph:.1f} s")
     t_ph = time.perf_counter()
+    PHASE[0] = "5"
     log("[5] backward kernels and lse vs plain versions (bf16, seeded inputs)")
     seg10 = torch.as_tensor(train_batch["segment_ids"], device=dev)
     check_tile_ranges(torch, f"training {tuple(seg10.shape)}", seg10, seg10)
@@ -5154,9 +5337,17 @@ def main(argv=None) -> int:
     # ---- 6. the training slice
     log(f"  phase 5: {time.perf_counter() - t_ph:.1f} s")
     t_ph = time.perf_counter()
+    PHASE[0] = "6"
     log("[6] training: v8_packed at full width (bf16 compute, fp32 masters, Muon)")
+    log(f"  training batch digest {batch_digest(train_batch, meta_seg)}")
     for kname, n in train_slice(torch, ops, dev, train_batch, train_batch2, map_dirs).items():
         main_counts[kname] += n
+    PHASE[0] = "6b"
+    t0 = time.perf_counter()
+    n_checked = checked_stress(torch, ops, dev, gen, meta_seg)
+    log(f"  phase 6b: the checked build over {len(STRESS_CASES) + 1} stress layouts, {n_checked} launches with no "
+        f"record and every output written, in {time.perf_counter() - t0:.1f} s")
+    PHASE[0] = "6"
     log("  times (CUDA events; packed v8 batch shape unless named)")
     bwd = time_backward(torch, ops, seg10, packed_inputs, 12, f"packed {tuple(seg10.shape)} H12", (64, None))
     time_backward(torch, ops, meta_seg, meta_inputs, 4, f"metadata {tuple(meta_seg.shape)} H4", (None,))
@@ -5181,6 +5372,7 @@ def main(argv=None) -> int:
     # ---- 7. the LN-matmul kernels and the int8 FFN forms against their plain versions
     log(f"  phase 6: {time.perf_counter() - t_ph:.1f} s")
     t_ph = time.perf_counter()
+    PHASE[0] = "7"
     log("[7] fused LN-matmul and int8 FFN kernels vs plain versions (bf16 inputs, seeded)")
     e7, rows7 = check_quant_kernels(torch, ops, gen, dev, n_rows * ROW_LEN, meta_seg.numel(), audio_b * audio_l)
     for kname, err in e7.items():
@@ -5195,6 +5387,7 @@ def main(argv=None) -> int:
     # ---- 8. the extraction entry point at full width
     log(f"  phase 7: {time.perf_counter() - t_ph:.1f} s")
     t_ph = time.perf_counter()
+    PHASE[0] = "8"
     log("[8] extraction: save_pretrained -> load_pretrained -> extract_embeddings, full-width CM3PConfig")
     bundle = tempfile.TemporaryDirectory()  # the saved model and the map folders, read again by phase 10
     tmp = bundle.name
@@ -5205,6 +5398,7 @@ def main(argv=None) -> int:
     log(f"  phase 8: {time.perf_counter() - t_ph:.1f} s")
 
     # ---- 9. sequence parallelism: the rectangular segment kernel and the sharded beatmap tower
+    PHASE[0] = "9"
     log(f"[9] sequence parallelism: {SP_RANKS} ranks on the one card over gloo, full-width CM3PConfig, "
         f"{SP_BATCH} x {SP_LEN} tokens")
     t0 = time.perf_counter()
@@ -5218,6 +5412,7 @@ def main(argv=None) -> int:
     log(f"  phase 9: {time.perf_counter() - t0:.1f} s")
 
     # ---- 10. fp32: the fp32 forms against their plain versions, and the extraction entry point at fp32
+    PHASE[0] = "10"
     log("[10] fp32: the fp32 kernels vs their plain versions (TF32 off), full-width extraction in fp32")
     t0 = time.perf_counter()
     # the plain fp32 versions at "highest" precision: main() turned TF32 off in cuBLAS and cuDNN for the whole run
@@ -5232,6 +5427,7 @@ def main(argv=None) -> int:
     log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
 
     # ---- 11. the heads: masked-LM and classifier models, the decoder head, the inference API
+    PHASE[0] = "11"
     log("[11] heads: masked_predict, v6_mask / v7 / v7_classifier training, flat bundles, zero-shot, "
         "extraction of a checkpoint with a decoder head")
     t0 = time.perf_counter()
@@ -5240,6 +5436,7 @@ def main(argv=None) -> int:
     log(f"  phase 11: {time.perf_counter() - t0:.1f} s (budget {HEADS_BUDGET_S} s)")
 
     # ---- 12. the host front end: native parse and decode, the mel wires, the loader, the tool's wall
+    PHASE[0] = "12"
     log("[12] host front end: stages on the Python and native routes, the mel wires under D at full width, "
         f"the loader at {'/'.join(map(str, HOST_WORKERS))} workers, the tool's wall per wire")
     t0 = time.perf_counter()
@@ -5249,6 +5446,7 @@ def main(argv=None) -> int:
     log(f"  phase 12: {time.perf_counter() - t0:.1f} s")
 
     # ---- 13. training from an MMRS root as train.py runs it
+    PHASE[0] = "13"
     log("[13] training from an MMRS root: v8_packed with audio, remat, freezing, labels from the data, "
         "extract --dataset-path, validate_dataset")
     t0 = time.perf_counter()
@@ -5258,6 +5456,7 @@ def main(argv=None) -> int:
     log(f"  phase 13: {time.perf_counter() - t0:.1f} s (budget {MMRS_BUDGET_S} s)")
 
     # ---- 14. data parallelism: a one-rank NCCL group, two ranks sharing the card over gloo, rank-sharded extraction
+    PHASE[0] = "14"
     log(f"[14] data parallelism: v8_packed under a one-rank NCCL group, {DP_RANKS} ranks on the one card over gloo "
         "(training, unequal eval shards), torchrun extraction")
     t0 = time.perf_counter()
@@ -5268,6 +5467,7 @@ def main(argv=None) -> int:
     log(f"  phase 14: {time.perf_counter() - t0:.1f} s (budget {DP_BUDGET_S} s)")
 
     # ---- 15. tensor parallelism: ranks hold one model in Megatron shards, sharing the card over gloo
+    PHASE[0] = "15"
     log(f"[15] tensor parallelism: v8_packed at model_axis={TP_RANKS}, then at model_axis=4 and on the 2x2 grid, ranks "
         "on the one card over gloo (training against a one-process step, a whole checkpoint and bundle, evaluation)")
     t0 = time.perf_counter()
@@ -5278,6 +5478,7 @@ def main(argv=None) -> int:
     log(f"  phase 15: {time.perf_counter() - t0:.1f} s (budget {TP_BUDGET_S} s)")
 
     # ---- 16. the last modules: int8_dot, xla_int8, --attn-impl xla, utils.profiling, every checkpoint form
+    PHASE[0] = "16"
     log("[16] int8_dot against its plain version, the tool in D and D + xla_int8, --attn-impl xla, trace(), "
         "shards / pytorch_model.bin / a Hub id in a local cache")
     t0 = time.perf_counter()
@@ -5288,6 +5489,7 @@ def main(argv=None) -> int:
     log(f"  phase 16: {time.perf_counter() - t0:.1f} s (budget {XLA_BUDGET_S} s)")
 
     # ---- 17. the release path: python -m cm3p_torch.publish --hf on phase 8's bundle, the hf/ bundle reloaded
+    PHASE[0] = "17"
     log("[17] release: python -m cm3p_torch.publish --hf on phase 8's full-width bundle, hf/ reloaded through "
         "load_pretrained with its reference-layout processor, tokens of the 17 maps and D's embeddings")
     t0 = time.perf_counter()
@@ -5324,4 +5526,13 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    faulthandler.enable()  # a crash by signal still prints where it happened
+    try:
+        code = main()
+    except Exception as exc:  # reported, then the process ends: nothing goes on after it
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: phase {PHASE[0]}: {type(exc).__name__}: {exc}", flush=True)
+        sys.stderr.flush()
+        # a CUDA context that met an illegal access can crash the interpreter's exit by SIGSEGV (rc 139, no word)
+        os._exit(1)
+    sys.exit(code)

@@ -116,11 +116,13 @@ using namespace cm3p::attn;
 constexpr int RANGE_THREADS = 256;
 constexpr int NO_SEGMENT = 1 << 30;  // the low end of a tile with no positive segment
 
-__device__ __forceinline__ void tile_interval(const int* seg, int L, int pos0, int lane, int& lo, int& hi) {
+// seg: the row's segments, element row0 of tensor t (QSEG or KSEG)
+__device__ __forceinline__ void tile_interval(const int* seg, long long row0, int t, int L, int pos0, int lane, int& lo,
+                                              int& hi) {
   lo = NO_SEGMENT;
   hi = 0;
   for (int j = lane; j < BQ; j += 32) {
-    const int v = pos0 + j < L ? seg[pos0 + j] : 0;
+    const int v = pos0 + j < L && BOUNDS_OK(bounds::RANGES, t, row0 + pos0 + j, 1) ? seg[pos0 + j] : 0;
     if (v > 0) lo = min(lo, v), hi = max(hi, v);
   }
 #pragma unroll
@@ -133,27 +135,38 @@ __device__ __forceinline__ void tile_interval(const int* seg, int L, int pos0, i
 __global__ void __launch_bounds__(RANGE_THREADS)
     key_tile_ranges_kernel(const int* qseg, const int* kseg, int Lq, int Lk, int* start, int* count, int* bounds) {
   const int b = blockIdx.x, nq = (Lq + BQ - 1) / BQ, nk = (Lk + BK - 1) / BK;
-  // low and high ends of the query tiles, then of the key tiles, of this row
-  int *qlo = bounds + 2LL * b * (nq + nk), *qhi = qlo + nq, *klo = qhi + nq, *khi = klo + nk;
+  // low and high ends of the query tiles, then of the key tiles, of this row (element row0 of the scratch)
+  const long long row0 = 2LL * b * (nq + nk);
+  int *qlo = bounds + row0, *qhi = qlo + nq, *klo = qhi + nq, *khi = klo + nk;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int t = warp; t < nq + nk; t += RANGE_THREADS / 32) {
     const bool is_q = t < nq;
     int lo, hi;
-    tile_interval(is_q ? qseg + (long long)b * Lq : kseg + (long long)b * Lk, is_q ? Lq : Lk,
-                  (is_q ? t : t - nq) * BQ, lane, lo, hi);
-    if (lane == 0) (is_q ? qlo : klo)[is_q ? t : t - nq] = lo, (is_q ? qhi : khi)[is_q ? t : t - nq] = hi;
+    tile_interval(is_q ? qseg + (long long)b * Lq : kseg + (long long)b * Lk, (long long)b * (is_q ? Lq : Lk),
+                  is_q ? bounds::QSEG : bounds::KSEG, is_q ? Lq : Lk, (is_q ? t : t - nq) * BQ, lane, lo, hi);
+    // lo of tile t at row0 + t (query tiles) or row0 + 2 nq + t - nq (key tiles), hi nq or nk further
+    const long long at = is_q ? row0 + t : row0 + nq + t;
+    if (lane == 0 && BOUNDS_OK(bounds::RANGES, bounds::RANGE_SCRATCH, at, 1) &&
+        BOUNDS_OK(bounds::RANGES, bounds::RANGE_SCRATCH, at + (is_q ? nq : nk), 1))
+      (is_q ? qlo : klo)[is_q ? t : t - nq] = lo, (is_q ? qhi : khi)[is_q ? t : t - nq] = hi;
   }
   __syncthreads();
+  // reads of the scratch, checked (a refused read gives 0: an empty tile)
+  auto scratch = [&](const int* base, int j) {
+    const long long at = base - bounds + j;
+    return BOUNDS_OK(bounds::RANGES, bounds::RANGE_SCRATCH, at, 1) ? base[j] : 0;
+  };
   for (int t = threadIdx.x; t < nq; t += RANGE_THREADS) {
     int first = -1, last = -1;
-    if (qhi[t] > 0)
+    if (scratch(qhi, t) > 0)
       for (int j = 0; j < nk; ++j)
-        if (qlo[t] <= khi[j] && klo[j] <= qhi[t] && khi[j] > 0) {
+        if (scratch(qlo, t) <= scratch(khi, j) && scratch(klo, j) <= scratch(qhi, t) && scratch(khi, j) > 0) {
           if (first < 0) first = j;
           last = j;
         }
-    start[(long long)b * nq + t] = first < 0 ? 0 : first;
-    count[(long long)b * nq + t] = first < 0 ? 0 : last - first + 1;
+    const long long at = (long long)b * nq + t;
+    if (BOUNDS_OK(bounds::RANGES, bounds::START, at, 1)) start[at] = first < 0 ? 0 : first;
+    if (BOUNDS_OK(bounds::RANGES, bounds::COUNT, at, 1)) count[at] = first < 0 ? 0 : last - first + 1;
   }
 }
 
@@ -161,7 +174,8 @@ __global__ void __launch_bounds__(RANGE_THREADS)
 // The rope pass: k (a strided (B, L, H, 64) view) rotated into out, contiguous (B, L, H, 64).
 __global__ void __launch_bounds__(ROPE_BLOCK) rope_k_kernel(AttnArgs a, __nv_bfloat16* out, int B) {
   const long long i = (long long)blockIdx.x * ROPE_BLOCK + threadIdx.x;
-  if (i < (long long)B * a.L * a.H * 4) rope_item(a.k, a.k_bstride, a.k_pstride, a.cos_t, a.sin_t, out, a.L, a.H, i);
+  if (i < (long long)B * a.L * a.H * 4)
+    rope_item(a.k, a.k_bstride, a.k_pstride, a.cos_t, a.sin_t, out, a.L, a.H, i, bounds::ROPE_K, bounds::K, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -217,17 +231,25 @@ __global__ void __launch_bounds__(THREADS, 1)
   // when it waits for round r of a stage, round r - 1 was its own and has landed: each parity wait tells its
   // phase (in a ring the two shared, another warpgroup's stage could still be landing there).
 
+  constexpr int KID = WINDOW ? bounds::ATTN_WINDOW : bounds::ATTN_SEGMENT;
   const int qt = blockIdx.x, b = blockIdx.y;
   const int L = p.L, Lk = p.Lk, H = p.H, q0 = qt * BQ;
+  const int nk = (Lk + BK - 1) / BK;  // key tiles
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int kt_begin, kt_end;
   if (WINDOW) {
     kt_begin = max(0, q0 - p.window) / BK;
     kt_end = min(Lk - 1, q0 + BQ - 1 + p.window) / BK + 1;
   } else {
-    kt_begin = p.tile_start[b * gridDim.x + qt];
-    kt_end = kt_begin + p.tile_count[b * gridDim.x + qt];
+    const int at = b * gridDim.x + qt;
+    kt_begin = BOUNDS_OK(KID, bounds::START, at, 1) ? p.tile_start[at] : 0;
+    kt_end = kt_begin + (BOUNDS_OK(KID, bounds::COUNT, at, 1) ? p.tile_count[at] : 0);
   }
+  // a range read from the tensors must lie in [0, nk]; the checked build records one that does not and visits
+  // nothing
+  if (!(IN_RANGE(KID, bounds::TILE, kt_begin, nk + 1) && IN_RANGE(KID, bounds::TILE, kt_end, nk + 1) &&
+        IN_RANGE(KID, bounds::TILE, kt_end - kt_begin, nk + 1)))
+    kt_begin = kt_end = 0;
   const int nkt = kt_end - kt_begin;
   // The order of the loads: for each head pair hp, the Q stages of heads 2 hp and 2 hp + 1, then for each
   // key tile their K/V stages; consumer warpgroup w takes head 2 hp + w from its ring, 1 + nkt stages per
@@ -252,7 +274,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       prefetch_map(&map_v);
       int idx[2] = {0, 0};
       auto acquire = [&](int w, uint32_t bytes) {
-        const int s = w * RING + idx[w] % RING;
+        int s = w * RING + idx[w] % RING;
+        if (!IN_RANGE(KID, bounds::STAGE, s, STAGES)) s = 0;
         mbar_wait(&empty[s], ((idx[w] / RING) & 1) ^ 1);
         mbar_expect_tx(&full[s], bytes);
         ++idx[w];
@@ -262,11 +285,17 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int nh = min(2, H - 2 * hp);
         for (int w = 0; w < nh; ++w) {
           const int s = acquire(w, TILE_BYTES);
+          IN_RANGE(KID, bounds::TILE, qt, (L + BQ - 1) / BQ);
+          IN_RANGE(KID, bounds::HEAD, 2 * hp + w, H);
+          IN_RANGE(KID, bounds::ROW, b, gridDim.y);
           tma_load_4d(ring + s * STAGE_BYTES, &map_q, &full[s], 0, q0, 2 * hp + w, b);
         }
         for (int kt = kt_begin; kt < kt_end; ++kt)
           for (int w = 0; w < nh; ++w) {
             const int s = acquire(w, STAGE_BYTES);
+            IN_RANGE(KID, bounds::TILE, kt, nk);
+            IN_RANGE(KID, bounds::HEAD, 2 * hp + w, H);
+            IN_RANGE(KID, bounds::ROW, b, gridDim.y);
             unsigned char* st = ring + s * STAGE_BYTES;
             tma_load_4d(st, &map_k, &full[s], 0, kt * BK, 2 * hp + w, b);
             tma_load_4d(st + TILE_BYTES, &map_v, &full[s], 0, kt * BK, 2 * hp + w, b);
@@ -284,17 +313,20 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     qi[hr] = q0 + rw + g + 8 * hr;
-    qs[hr] = qi[hr] < L ? p.qseg[(long long)b * L + qi[hr]] : -1;
+    qs[hr] = qi[hr] < L && BOUNDS_OK(KID, bounds::QSEG, (long long)b * L + qi[hr], 1) ? p.qseg[(long long)b * L + qi[hr]]
+                                                                                        : -1;
   }
   if (nkt == 0) {  // no query of the tile sees a key: out = 0, lse the dead value
     for (int h = wg; h < H; h += 2)
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         if (qi[hr] >= L) continue;
-        __nv_bfloat16* op = p.out + (((long long)b * L + qi[hr]) * H + h) * D + 2 * t4;
+        const long long o = (((long long)b * L + qi[hr]) * H + h) * D + 2 * t4, li = ((long long)b * H + h) * L + qi[hr];
+        __nv_bfloat16* op = p.out + o;
 #pragma unroll
-        for (int dt = 0; dt < 8; ++dt) *reinterpret_cast<uint32_t*>(op + 8 * dt) = 0u;
-        if (p.lse != nullptr && t4 == 0) p.lse[((long long)b * H + h) * L + qi[hr]] = EMPTY_LSE;
+        for (int dt = 0; dt < 8; ++dt)
+          if (BOUNDS_OK(KID, bounds::OUT, o + 8 * dt, 2)) *reinterpret_cast<uint32_t*>(op + 8 * dt) = 0u;
+        if (p.lse != nullptr && t4 == 0 && BOUNDS_OK(KID, bounds::LSE, li, 1)) p.lse[li] = EMPTY_LSE;
       }
     return;
   }
@@ -312,7 +344,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float cs[2][8], sn[2][8];
   if (rope_q)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) load_tables(p.cos_t, p.sin_t, q0 + qt_row, 8 * (qt_c + i), cs[i], sn[i]);
+    for (int i = 0; i < 2; ++i) load_tables(p.cos_t, p.sin_t, q0 + qt_row, 8 * (qt_c + i), cs[i], sn[i], KID);
 
   for (int hp = 0; hp < npairs; ++hp) {
     const int nh = min(2, H - 2 * hp);
@@ -321,7 +353,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     // the head's Q tile, rotated when rope is on, into this warpgroup's own (the previous head's products that
     // read it are done), then its stage goes back
     {
-      const int s = wg * RING + base % RING;
+      int s = wg * RING + base % RING;
+      if (!IN_RANGE(KID, bounds::STAGE, s, STAGES)) s = 0;
       mbar_wait_wg(&full[s], (base / RING) & 1);
       const unsigned char* src = ring + s * STAGE_BYTES;
 #pragma unroll
@@ -340,11 +373,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     // wgmma of the kernel (C7514, "non wgmma instructions reading accumulator registers")
     float o[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     for (int kt = kt_begin; kt < kt_end; ++kt) {
-      const int idx = base + 1 + kt - kt_begin;
-      const int s = wg * RING + idx % RING, k0 = kt * BK;
+      const int idx = base + 1 + kt - kt_begin, k0 = kt * BK;
+      int s = wg * RING + idx % RING;
+      if (!IN_RANGE(KID, bounds::STAGE, s, STAGES)) s = 0;
       // lane l holds the segments of keys k0 + 2 l and k0 + 2 l + 1 (0 past Lk), loaded while the stage lands
       const int j0 = k0 + 2 * lane;
-      const int kx = j0 < Lk ? __ldg(kseg + j0) : 0, ky = j0 + 1 < Lk ? __ldg(kseg + j0 + 1) : 0;
+      const long long kat = (long long)b * Lk + j0;
+      const int kx = j0 < Lk && BOUNDS_OK(KID, bounds::KSEG, kat, 1) ? __ldg(kseg + j0) : 0;
+      const int ky = j0 + 1 < Lk && BOUNDS_OK(KID, bounds::KSEG, kat + 1, 1) ? __ldg(kseg + j0 + 1) : 0;
       mbar_wait_wg(&full[s], (idx / RING) & 1);
       unsigned char* st = ring + s * STAGE_BYTES;
       float sa[32];
@@ -426,12 +462,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
       if (qi[hr] >= L) continue;
       const float inv = l[hr] > 0.f ? 1.f / l[hr] : 0.f;
-      __nv_bfloat16* op = p.out + (((long long)b * L + qi[hr]) * H + h) * D + 2 * t4;
+      const long long oo = (((long long)b * L + qi[hr]) * H + h) * D + 2 * t4, li = ((long long)b * H + h) * L + qi[hr];
+      __nv_bfloat16* op = p.out + oo;
 #pragma unroll
       for (int dt = 0; dt < 8; ++dt)
-        *reinterpret_cast<uint32_t*>(op + 8 * dt) = pack_bf16(o[4 * dt + 2 * hr] * inv, o[4 * dt + 2 * hr + 1] * inv);
-      if (p.lse != nullptr && t4 == 0)
-        p.lse[((long long)b * H + h) * L + qi[hr]] = l[hr] > 0.f ? m[hr] + log2f(l[hr]) : EMPTY_LSE;
+        if (BOUNDS_OK(KID, bounds::OUT, oo + 8 * dt, 2))
+          *reinterpret_cast<uint32_t*>(op + 8 * dt) = pack_bf16(o[4 * dt + 2 * hr] * inv, o[4 * dt + 2 * hr + 1] * inv);
+      if (p.lse != nullptr && t4 == 0 && BOUNDS_OK(KID, bounds::LSE, li, 1))
+        p.lse[li] = l[hr] > 0.f ? m[hr] + log2f(l[hr]) : EMPTY_LSE;
     }
   }
 }

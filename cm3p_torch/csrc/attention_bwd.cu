@@ -166,16 +166,22 @@ __device__ __forceinline__ float ex2_ftz(float x) {
 // The tiles [begin, end) of the streamed role that resident 64-row tile t meets: window [t0 - w, t0 + 63 + w],
 // segment the wrapper's ranges; empty past the last tile.
 template <bool WINDOW>
-__device__ __forceinline__ void tile_range(const Params& p, int b, int t, int nt, int& begin, int& end) {
+__device__ __forceinline__ void tile_range(const Params& p, int b, int t, int nt, int& begin, int& end, int kid) {
   begin = end = 0;
   if (t >= nt) return;
   if (WINDOW) {
     begin = max(0, t * BT - p.window) / BT;
     end = min(p.L - 1, t * BT + BT - 1 + p.window) / BT + 1;
   } else {
-    begin = p.tile_start[b * nt + t];
-    end = begin + p.tile_count[b * nt + t];
+    const int at = b * nt + t;
+    begin = BOUNDS_OK(kid, bounds::START, at, 1) ? p.tile_start[at] : 0;
+    end = begin + (BOUNDS_OK(kid, bounds::COUNT, at, 1) ? p.tile_count[at] : 0);
   }
+  // a range read from the tensors must lie in [0, nt]; the checked build records one that does not and visits
+  // nothing
+  if (!(IN_RANGE(kid, bounds::TILE, begin, nt + 1) && IN_RANGE(kid, bounds::TILE, end, nt + 1) &&
+        IN_RANGE(kid, bounds::TILE, end - begin, nt + 1)))
+    begin = end = 0;
 }
 
 // What both kernels share: shared memory, the barriers, the producer and the ranges. res holds consumer w's
@@ -193,7 +199,7 @@ struct Block {
 };
 
 template <bool WINDOW>
-__device__ __forceinline__ Block setup(const Params& p, unsigned char* smem_raw, int t0, int b) {
+__device__ __forceinline__ Block setup(const Params& p, unsigned char* smem_raw, int t0, int b, int kid) {
   Block k;
   k.res = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   k.ring = k.res + RES_BYTES;
@@ -204,8 +210,8 @@ __device__ __forceinline__ Block setup(const Params& p, unsigned char* smem_raw,
   // hands the others straight back), so no stage is refilled before both released it and each parity wait tells
   // its phase.
   const int nt = (p.L + BT - 1) / BT;
-  tile_range<WINDOW>(p, b, t0, nt, k.rb[0], k.re[0]);
-  tile_range<WINDOW>(p, b, t0 + 1, nt, k.rb[1], k.re[1]);
+  tile_range<WINDOW>(p, b, t0, nt, k.rb[0], k.re[0], kid);
+  tile_range<WINDOW>(p, b, t0 + 1, nt, k.rb[1], k.re[1], kid);
   const bool e0 = k.re[0] > k.rb[0], e1 = k.re[1] > k.rb[1];
   k.ub = e0 ? (e1 ? min(k.rb[0], k.rb[1]) : k.rb[0]) : (e1 ? k.rb[1] : 0);
   k.ue = max(e0 ? k.re[0] : 0, e1 ? k.re[1] : 0);
@@ -224,7 +230,9 @@ __device__ __forceinline__ Block setup(const Params& p, unsigned char* smem_raw,
 
 // The producer warpgroup: one thread issues every load.
 __device__ __forceinline__ void produce(const Block& k, const CUtensorMap* r0, const CUtensorMap* r1,
-                                        const CUtensorMap* s0, const CUtensorMap* s1, int t0, int h, int b) {
+                                        const CUtensorMap* s0, const CUtensorMap* s1, int t0, int h, int b,
+                                        const Params& p, int kid) {
+  const int nt = (p.L + BT - 1) / BT;
   regs_dealloc<40>();
   if (threadIdx.x != 256) return;
   prefetch_map(r0);
@@ -232,12 +240,18 @@ __device__ __forceinline__ void produce(const Block& k, const CUtensorMap* r0, c
   prefetch_map(s0);
   prefetch_map(s1);
   mbar_expect_tx(k.res_full, (k.two ? 4 : 2) * TILE_BYTES);
+  IN_RANGE(kid, bounds::HEAD, h, p.H);
+  IN_RANGE(kid, bounds::ROW, b, gridDim.z);
   for (int w = 0; w < (k.two ? 2 : 1); ++w) {
+    IN_RANGE(kid, bounds::TILE, t0 + w, nt);
     tma_load_4d(k.res + 2 * w * TILE_BYTES, r0, k.res_full, 0, (t0 + w) * BT, h, b);
     tma_load_4d(k.res + (2 * w + 1) * TILE_BYTES, r1, k.res_full, 0, (t0 + w) * BT, h, b);
   }
   for (int t = k.ub; t < k.ue; ++t) {
-    const int idx = t - k.ub, s = idx % STAGES;
+    const int idx = t - k.ub;
+    int s = idx % STAGES;
+    if (!IN_RANGE(kid, bounds::STAGE, s, STAGES)) s = 0;
+    IN_RANGE(kid, bounds::TILE, t, nt);
     mbar_wait(&k.empty[s], ((idx / STAGES) & 1) ^ 1);
     mbar_expect_tx(&k.full[s], STAGE_BYTES);
     unsigned char* st = k.ring + s * STAGE_BYTES;
@@ -247,8 +261,10 @@ __device__ __forceinline__ void produce(const Block& k, const CUtensorMap* r0, c
 }
 
 // A consumer's hand-back of a stage it does not compute on (ub: the first streamed tile of the block).
-__device__ __forceinline__ void hand_back(const Block& k, int ub, int t, int lane) {
-  const int idx = t - ub, s = idx % STAGES;
+__device__ __forceinline__ void hand_back(const Block& k, int ub, int t, int lane, int kid) {
+  const int idx = t - ub;
+  int s = idx % STAGES;
+  if (!IN_RANGE(kid, bounds::STAGE, s, STAGES)) s = 0;
   mbar_wait_wg(&k.full[s], (idx / STAGES) & 1);
   __syncwarp();
   if (lane == 0) mbar_arrive(&k.empty[s]);
@@ -260,14 +276,15 @@ __global__ void __launch_bounds__(THREADS, 1)
                         const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                         const Params p) {
   extern __shared__ unsigned char smem_raw[];
+  constexpr int KID = WINDOW ? bounds::DQ_WINDOW : bounds::DQ_SEGMENT;
   const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const Block blk = setup<WINDOW>(p, smem_raw, 2 * qb, b);
+  const Block blk = setup<WINDOW>(p, smem_raw, 2 * qb, b, KID);
   const int L = p.L, H = p.H, q0 = qb * ROWS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);  // warp-uniform, as the compiler can see
   if (wg == 2) {
-    produce(blk, &map_q, &map_do, &map_k, &map_v, 2 * qb, h, b);
+    produce(blk, &map_q, &map_do, &map_k, &map_v, 2 * qb, h, b, p, KID);
     return;
   }
 
@@ -287,10 +304,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int hr = 0; hr < 2; ++hr) {
     qi[hr] = qw0 + rw + g + 8 * hr;
     const bool in = qi[hr] < L;
-    qs[hr] = in ? p.qseg[(long long)b * L + qi[hr]] : -1;
-    const long long li = ((long long)b * H + h) * L + qi[hr];
-    lsr[hr] = in ? p.lse[li] : 0.f;
-    dlr[hr] = in ? p.delta[li] : 0.f;
+    const long long si = (long long)b * L + qi[hr], li = ((long long)b * H + h) * L + qi[hr];
+    qs[hr] = in && BOUNDS_OK(KID, bounds::QSEG, si, 1) ? p.qseg[si] : -1;
+    lsr[hr] = in && BOUNDS_OK(KID, bounds::LSE, li, 1) ? p.lse[li] : 0.f;
+    dlr[hr] = in && BOUNDS_OK(KID, bounds::DELTA, li, 1) ? p.delta[li] : 0.f;
   }
   if (me == mb) {  // no key reaches these queries: dq = 0
 #pragma unroll
@@ -298,7 +315,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (qi[hr] >= L) continue;
       const long long o = (((long long)b * L + qi[hr]) * H + h) * D + 2 * t4;
 #pragma unroll
-      for (int dt = 0; dt < 8; ++dt) *reinterpret_cast<uint32_t*>(p.dq + o + 8 * dt) = 0u;
+      for (int dt = 0; dt < 8; ++dt)
+        if (BOUNDS_OK(KID, bounds::DQ, o + 8 * dt, 2)) *reinterpret_cast<uint32_t*>(p.dq + o + 8 * dt) = 0u;
     }
   }
   // the segment all 16 queries of this warp share (> 0), else -2, which no key segment equals
@@ -308,15 +326,19 @@ __global__ void __launch_bounds__(THREADS, 1)
   unsigned char* sq = blk.res + 2 * wg * TILE_BYTES;
   const uint64_t dqd = desc_sw128(sq), dod = desc_sw128(sq + TILE_BYTES);
   mbar_wait_wg(blk.res_full, 0);
-  for (int kt = ubw; kt < mb; ++kt) hand_back(blk, ubw, kt, lane);
+  for (int kt = ubw; kt < mb; ++kt) hand_back(blk, ubw, kt, lane, KID);
   // dq is written first by the first key tile's products (scale-d 0): zeroing it before the loop makes ptxas
   // serialise every wgmma of the kernel (C7514)
   float dq[32];
   for (int kt = mb; kt < me; ++kt) {
-    const int idx = kt - ubw, s = idx % STAGES, k0 = kt * BT;
+    const int idx = kt - ubw, k0 = kt * BT;
+    int s = idx % STAGES;
+    if (!IN_RANGE(KID, bounds::STAGE, s, STAGES)) s = 0;
     // lane l holds the segments of keys k0 + 2 l and k0 + 2 l + 1 (0 past L), loaded while the stage lands
     const int j0 = k0 + 2 * lane;
-    const int kx = j0 < L ? __ldg(kseg + j0) : 0, ky = j0 + 1 < L ? __ldg(kseg + j0 + 1) : 0;
+    const long long kat = (long long)b * L + j0;
+    const int kx = j0 < L && BOUNDS_OK(KID, bounds::KSEG, kat, 1) ? __ldg(kseg + j0) : 0;
+    const int ky = j0 + 1 < L && BOUNDS_OK(KID, bounds::KSEG, kat + 1, 1) ? __ldg(kseg + j0 + 1) : 0;
     mbar_wait_wg(&blk.full[s], (idx / STAGES) & 1);
     unsigned char* st = blk.ring + s * STAGE_BYTES;
     const uint64_t dkd = desc_sw128(st), dvd = desc_sw128(st + TILE_BYTES);
@@ -376,7 +398,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&blk.empty[s]);
   }
-  for (int kt = me; kt < uew; ++kt) hand_back(blk, ubw, kt, lane);
+  for (int kt = me; kt < uew; ++kt) hand_back(blk, ubw, kt, lane, KID);
   if (me == mb) return;
 
   // dq (in the rope form counter-rotated: rope's transpose at each query's position, on the fp32 accumulators;
@@ -393,8 +415,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (ROPE && qi[hr] < L) {
         const int pd = dt ^ 4, c = 8 * (dt & 3) + 2 * t4;  // the partner accumulators; the tables' column
         const float y0 = dq[4 * pd + 2 * hr], y1 = dq[4 * pd + 2 * hr + 1];
-        const float2 cs = __ldg(reinterpret_cast<const float2*>(p.cos_t + (long long)qi[hr] * (D / 2) + c));
-        const float2 sn = __ldg(reinterpret_cast<const float2*>(p.sin_t + (long long)qi[hr] * (D / 2) + c));
+        const long long ti = (long long)qi[hr] * (D / 2) + c;
+        const float2 zero = make_float2(0.f, 0.f);
+        const float2 cs = BOUNDS_OK(KID, bounds::COS, ti, 2) ? __ldg(reinterpret_cast<const float2*>(p.cos_t + ti)) : zero;
+        const float2 sn = BOUNDS_OK(KID, bounds::SIN, ti, 2) ? __ldg(reinterpret_cast<const float2*>(p.sin_t + ti)) : zero;
         // first half: g1 cos + g2 sin; second half: g2 cos - g1 sin (x is this half's value, y its partner's)
         const float sgn = dt < 4 ? 1.f : -1.f;
         x0 = x0 * cs.x + sgn * (y0 * sn.x);
@@ -407,8 +431,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int i = threadIdx.x & 127; i < BT * 8; i += 128) {
     const int r = i >> 3, c = i & 7;
     if (qw0 + r >= L) break;
-    *reinterpret_cast<uint4*>(p.dq + (((long long)b * L + qw0 + r) * H + h) * D + 8 * c) =
-        *reinterpret_cast<const uint4*>(sq + swizzle128(r, 16 * c));
+    const long long o = (((long long)b * L + qw0 + r) * H + h) * D + 8 * c;
+    if (BOUNDS_OK(KID, bounds::DQ, o, 8))
+      *reinterpret_cast<uint4*>(p.dq + o) = *reinterpret_cast<const uint4*>(sq + swizzle128(r, 16 * c));
   }
 }
 
@@ -418,14 +443,15 @@ __global__ void __launch_bounds__(THREADS, 1)
                          const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                          const Params p) {
   extern __shared__ unsigned char smem_raw[];
+  constexpr int KID = WINDOW ? bounds::DKV_WINDOW : bounds::DKV_SEGMENT;
   const int kb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const Block blk = setup<WINDOW>(p, smem_raw, 2 * kb, b);
+  const Block blk = setup<WINDOW>(p, smem_raw, 2 * kb, b, KID);
   const int L = p.L, H = p.H, k0 = kb * ROWS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
   const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);  // warp-uniform, as the compiler can see
   if (wg == 2) {
-    produce(blk, &map_k, &map_v, &map_q, &map_do, 2 * kb, h, b);
+    produce(blk, &map_k, &map_v, &map_q, &map_do, 2 * kb, h, b, p, KID);
     return;
   }
 
@@ -443,7 +469,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     kj[hr] = kw0 + rw + g + 8 * hr;
-    ks[hr] = kj[hr] < L ? p.kseg[(long long)b * L + kj[hr]] : 0;
+    const long long si = (long long)b * L + kj[hr];
+    ks[hr] = kj[hr] < L && BOUNDS_OK(KID, bounds::KSEG, si, 1) ? p.kseg[si] : 0;
   }
   if (me == mb) {  // no query sees these keys: dk = dv = 0
 #pragma unroll
@@ -452,8 +479,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       const long long o = (((long long)b * L + kj[hr]) * H + h) * D + 2 * t4;
 #pragma unroll
       for (int dt = 0; dt < 8; ++dt) {
-        *reinterpret_cast<uint32_t*>(p.dk + o + 8 * dt) = 0u;
-        *reinterpret_cast<uint32_t*>(p.dv + o + 8 * dt) = 0u;
+        if (BOUNDS_OK(KID, bounds::DK, o + 8 * dt, 2)) *reinterpret_cast<uint32_t*>(p.dk + o + 8 * dt) = 0u;
+        if (BOUNDS_OK(KID, bounds::DV, o + 8 * dt, 2)) *reinterpret_cast<uint32_t*>(p.dv + o + 8 * dt) = 0u;
       }
     }
   }
@@ -466,18 +493,25 @@ __global__ void __launch_bounds__(THREADS, 1)
   unsigned char* sk = blk.res + 2 * wg * TILE_BYTES;
   const uint64_t dkd = desc_sw128(sk), dvd = desc_sw128(sk + TILE_BYTES);
   mbar_wait_wg(blk.res_full, 0);
-  for (int qt = ubw; qt < mb; ++qt) hand_back(blk, ubw, qt, lane);
+  for (int qt = ubw; qt < mb; ++qt) hand_back(blk, ubw, qt, lane, KID);
   // dk and dv are written first by the first query tile's products (scale-d 0): zeroing them before the
   // loop makes ptxas serialise every wgmma of the kernel (C7514)
   float dk[32], dv[32];
   for (int qt = mb; qt < me; ++qt) {
-    const int idx = qt - ubw, s = idx % STAGES, q0 = qt * BT;
+    const int idx = qt - ubw, q0 = qt * BT;
+    int s = idx % STAGES;
+    if (!IN_RANGE(KID, bounds::STAGE, s, STAGES)) s = 0;
     // lane l holds the segment (-1 past L), lse and delta of queries q0 + 2 l and q0 + 2 l + 1, loaded while
     // the stage lands
     const int j0 = q0 + 2 * lane;
-    const int qx = j0 < L ? __ldg(qseg + j0) : -1, qy = j0 + 1 < L ? __ldg(qseg + j0 + 1) : -1;
-    const float lx = j0 < L ? __ldg(lse + j0) : 0.f, ly = j0 + 1 < L ? __ldg(lse + j0 + 1) : 0.f;
-    const float dx = j0 < L ? __ldg(delta + j0) : 0.f, dy = j0 + 1 < L ? __ldg(delta + j0 + 1) : 0.f;
+    const long long sat = (long long)b * L + j0, lat = ((long long)b * H + h) * L + j0;
+    const bool x_in = j0 < L, y_in = j0 + 1 < L;
+    const int qx = x_in && BOUNDS_OK(KID, bounds::QSEG, sat, 1) ? __ldg(qseg + j0) : -1;
+    const int qy = y_in && BOUNDS_OK(KID, bounds::QSEG, sat + 1, 1) ? __ldg(qseg + j0 + 1) : -1;
+    const float lx = x_in && BOUNDS_OK(KID, bounds::LSE, lat, 1) ? __ldg(lse + j0) : 0.f;
+    const float ly = y_in && BOUNDS_OK(KID, bounds::LSE, lat + 1, 1) ? __ldg(lse + j0 + 1) : 0.f;
+    const float dx = x_in && BOUNDS_OK(KID, bounds::DELTA, lat, 1) ? __ldg(delta + j0) : 0.f;
+    const float dy = y_in && BOUNDS_OK(KID, bounds::DELTA, lat + 1, 1) ? __ldg(delta + j0 + 1) : 0.f;
     mbar_wait_wg(&blk.full[s], (idx / STAGES) & 1);
     unsigned char* st = blk.ring + s * STAGE_BYTES;
     const uint64_t dqd = desc_sw128(st), dod = desc_sw128(st + TILE_BYTES);
@@ -549,7 +583,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(&blk.empty[s]);
   }
-  for (int qt = me; qt < uew; ++qt) hand_back(blk, ubw, qt, lane);
+  for (int qt = me; qt < uew; ++qt) hand_back(blk, ubw, qt, lane, KID);
   if (me == mb) return;
 
   // dk (in the rope form counter-rotated, as dq is) and dv. The accumulators are only read here: writing them
@@ -564,14 +598,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (ROPE) {
         const int pd = dt ^ 4, c = 8 * (dt & 3) + 2 * t4;  // the partner accumulators; the tables' column
         const float y0 = dk[4 * pd + 2 * hr], y1 = dk[4 * pd + 2 * hr + 1];
-        const float2 cs = __ldg(reinterpret_cast<const float2*>(p.cos_t + (long long)kj[hr] * (D / 2) + c));
-        const float2 sn = __ldg(reinterpret_cast<const float2*>(p.sin_t + (long long)kj[hr] * (D / 2) + c));
+        const long long ti = (long long)kj[hr] * (D / 2) + c;
+        const float2 zero = make_float2(0.f, 0.f);
+        const float2 cs = BOUNDS_OK(KID, bounds::COS, ti, 2) ? __ldg(reinterpret_cast<const float2*>(p.cos_t + ti)) : zero;
+        const float2 sn = BOUNDS_OK(KID, bounds::SIN, ti, 2) ? __ldg(reinterpret_cast<const float2*>(p.sin_t + ti)) : zero;
         const float sgn = dt < 4 ? 1.f : -1.f;
         x0 = x0 * cs.x + sgn * (y0 * sn.x);
         x1 = x1 * cs.y + sgn * (y1 * sn.y);
       }
-      *reinterpret_cast<uint32_t*>(p.dk + o + 8 * dt) = pack_bf16(x0 * SCALE, x1 * SCALE);
-      *reinterpret_cast<uint32_t*>(p.dv + o + 8 * dt) = pack_bf16(dv[4 * dt + 2 * hr], dv[4 * dt + 2 * hr + 1]);
+      if (BOUNDS_OK(KID, bounds::DK, o + 8 * dt, 2))
+        *reinterpret_cast<uint32_t*>(p.dk + o + 8 * dt) = pack_bf16(x0 * SCALE, x1 * SCALE);
+      if (BOUNDS_OK(KID, bounds::DV, o + 8 * dt, 2))
+        *reinterpret_cast<uint32_t*>(p.dv + o + 8 * dt) = pack_bf16(dv[4 * dt + 2 * hr], dv[4 * dt + 2 * hr + 1]);
     }
   }
 }
@@ -583,10 +621,12 @@ __global__ void __launch_bounds__(cm3p::attn::ROPE_BLOCK)
                    long long k_bstride, long long k_pstride, const float* cos_t, const float* sin_t,
                    __nv_bfloat16* rot, int B, int L, int H) {
   const long long n = 4ll * B * L * H, i = (long long)blockIdx.x * cm3p::attn::ROPE_BLOCK + threadIdx.x;
+  const long long half = (long long)B * L * H * D;  // elements of each rotated buffer
   if (i < n)
-    cm3p::attn::rope_item(q, q_bstride, q_pstride, cos_t, sin_t, rot, L, H, i);
+    cm3p::attn::rope_item(q, q_bstride, q_pstride, cos_t, sin_t, rot, L, H, i, bounds::ROPE_QK, bounds::Q, 0);
   else if (i < 2 * n)
-    cm3p::attn::rope_item(k, k_bstride, k_pstride, cos_t, sin_t, rot + (long long)B * L * H * D, L, H, i - n);
+    cm3p::attn::rope_item(k, k_bstride, k_pstride, cos_t, sin_t, rot + half, L, H, i - n, bounds::ROPE_QK, bounds::K,
+                          half);
 }
 
 // In the rope form q and k are read from rot (two (B, L, H, 64) buffers), where the rope pass put them.

@@ -128,7 +128,7 @@ __device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
 __device__ __forceinline__ void rope_row8(float (&x)[8], float (&y)[8], const float* cos_t, const float* sin_t,
                                           int pos, int c) {
   float cs[8], sn[8];
-  cm3p::attn::load_tables(cos_t, sin_t, pos, c, cs, sn);
+  cm3p::attn::load_tables(cos_t, sin_t, pos, c, cs, sn, cm3p::bounds::NONE);
   cm3p::attn::rope8(x, y, cs, sn);
 }
 

@@ -13,6 +13,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bounds.cuh"
 #include "ln_rows.cuh"
 
 namespace cm3p {
@@ -100,12 +101,16 @@ __device__ __forceinline__ void rope8(float x[8], float y[8], const float* ct, c
   }
 }
 
-// The (L, 32) tables' entries c .. c + 7 at position pos.
+// The (L, 32) tables' entries c .. c + 7 at position pos (zeros where the checked build refuses the read).
 __device__ __forceinline__ void load_tables(const float* cos_t, const float* sin_t, int pos, int c, float (&cs)[8],
-                                            float (&sn)[8]) {
-  const float4* cp = reinterpret_cast<const float4*>(cos_t + (long long)pos * (D / 2) + c);
-  const float4* sp = reinterpret_cast<const float4*>(sin_t + (long long)pos * (D / 2) + c);
-  const float4 c0 = __ldg(cp), c1 = __ldg(cp + 1), s0 = __ldg(sp), s1 = __ldg(sp + 1);
+                                            float (&sn)[8], int kid) {
+  const long long at = (long long)pos * (D / 2) + c;
+  const float4* cp = reinterpret_cast<const float4*>(cos_t + at);
+  const float4* sp = reinterpret_cast<const float4*>(sin_t + at);
+  const bool cok = BOUNDS_OK(kid, bounds::COS, at, 8), sok = BOUNDS_OK(kid, bounds::SIN, at, 8);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 c0 = cok ? __ldg(cp) : zero, c1 = cok ? __ldg(cp + 1) : zero;
+  const float4 s0 = sok ? __ldg(sp) : zero, s1 = sok ? __ldg(sp + 1) : zero;
   cs[0] = c0.x, cs[1] = c0.y, cs[2] = c0.z, cs[3] = c0.w, cs[4] = c1.x, cs[5] = c1.y, cs[6] = c1.z, cs[7] = c1.w;
   sn[0] = s0.x, sn[1] = s0.y, sn[2] = s0.z, sn[3] = s0.w, sn[4] = s1.x, sn[5] = s1.y, sn[6] = s1.z, sn[7] = s1.w;
 }
@@ -127,23 +132,29 @@ __device__ __forceinline__ void rope_packed(uint4& ux, uint4& uy, const float (&
 // the backward's q and k pass (rope_qk_kernel, csrc/attention_bwd.cu).
 constexpr int ROPE_BLOCK = 256;  // threads of a rope pass's block, one item each
 
+// In the checked build kid names the pass, src_t the tensor src points into (Q or K) and out0 the element offset
+// of out in the rot scratch.
 __device__ __forceinline__ void rope_item(const __nv_bfloat16* src, long long bstride, long long pstride,
                                           const float* cos_t, const float* sin_t, __nv_bfloat16* out, int L, int H,
-                                          long long i) {
+                                          long long i, int kid, int src_t, long long out0) {
   const int c = (int)(i & 3) * 8;
   i >>= 2;
   const int h = (int)(i % H);
   i /= H;
   const int pos = (int)(i % L);
   const int b = (int)(i / L);
-  const __nv_bfloat16* row = src + b * bstride + pos * pstride + h * D;
-  uint4 ux = *reinterpret_cast<const uint4*>(row + c), uy = *reinterpret_cast<const uint4*>(row + c + D / 2);
+  const long long at = b * bstride + pos * pstride + h * D;
+  const __nv_bfloat16* row = src + at;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  uint4 ux = BOUNDS_OK(kid, src_t, at + c, 8) ? *reinterpret_cast<const uint4*>(row + c) : zero;
+  uint4 uy = BOUNDS_OK(kid, src_t, at + c + D / 2, 8) ? *reinterpret_cast<const uint4*>(row + c + D / 2) : zero;
   float cs[8], sn[8];
-  load_tables(cos_t, sin_t, pos, c, cs, sn);
+  load_tables(cos_t, sin_t, pos, c, cs, sn, kid);
   rope_packed(ux, uy, cs, sn);
-  __nv_bfloat16* dst = out + (((long long)b * L + pos) * H + h) * D;
-  *reinterpret_cast<uint4*>(dst + c) = ux;
-  *reinterpret_cast<uint4*>(dst + c + D / 2) = uy;
+  const long long to = (((long long)b * L + pos) * H + h) * D;
+  __nv_bfloat16* dst = out + to;
+  if (BOUNDS_OK(kid, bounds::ROT, out0 + to + c, 8)) *reinterpret_cast<uint4*>(dst + c) = ux;
+  if (BOUNDS_OK(kid, bounds::ROT, out0 + to + c + D / 2, 8)) *reinterpret_cast<uint4*>(dst + c + D / 2) = uy;
 }
 
 }  // namespace attn

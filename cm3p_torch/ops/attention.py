@@ -77,9 +77,19 @@ bf16, as the JAX trainer does, and has no fp32 backward kernel). The
 epilogue forms at fp32 run the fp32 attention kernel, then the fp32 LN-matmul
 kernel's residual form (``res + o @ Wo^T``, int8 with ``wo_q``): the unfused
 route the bf16 epilogue replaces, and the same function.
+
+The bounds-checked build (:func:`checked_kernels`): inside that context the
+bf16 forward, backward, rope and tile-range wrappers load
+``csrc/attention.cu`` and ``csrc/attention_bwd.cu`` built with
+``ops._build.CHECKED_FLAGS`` (``csrc/bounds.cuh``), fill every output and
+scratch buffer a launch writes with 0xFF bytes first (NaN in bf16 and fp32,
+-1 in int32), pass the extents of the tensors a launch addresses, and after
+the launch synchronise and raise on the kernel's fault record or on an output
+element still holding the fill. Nothing else selects that build.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
@@ -347,9 +357,10 @@ def key_tile_ranges(qseg: torch.Tensor, kseg: torch.Tensor):
     # start, count, then the kernel's scratch: each row's tile bounds (low and high ends, query then key tiles)
     out = torch.empty(2 * b * nq + 2 * b * (nq + nk), dtype=torch.int32, device=qseg.device)
     start, count, bounds = out[:b * nq].view(b, nq), out[b * nq:2 * b * nq].view(b, nq), out[2 * b * nq:]
-    err = _lib().cm3p_key_tile_ranges(qseg.data_ptr(), kseg.data_ptr(), start.data_ptr(), count.data_ptr(),
-                                      bounds.data_ptr(), b, lq, lk, _stream(qseg))
-    _build.check(err, "cm3p_key_tile_ranges")
+    _launch("attention", _SIGNATURES, "cm3p_key_tile_ranges",
+            (qseg.data_ptr(), kseg.data_ptr(), start.data_ptr(), count.data_ptr(), bounds.data_ptr(), b, lq, lk,
+             _stream(qseg)),
+            dict(qseg=qseg, kseg=kseg), dict(start=start, count=count, range_scratch=bounds))
     return start, count
 
 
@@ -399,16 +410,117 @@ def _common_args(q, k, v, qseg, kseg, rope_theta):
     return (*_qkv_args(q, k, v), qseg.data_ptr(), kseg.data_ptr(), *_tables(q, rope_theta))
 
 
+def _table_tensors(q, rope_theta) -> dict:
+    """The rope tables for (B, L, H, D) q by their ``BOUNDS_TENSORS`` names (none without rope)."""
+    if rope_theta is None:
+        return {}
+    cos, sin = rope_tables(q.shape[1], q.shape[3], float(rope_theta), str(q.device))
+    return dict(cos=cos, sin=sin)
+
+
 def _tables(q, rope_theta):
     """The rope tables' pointers for (B, L, H, D) q, or two nulls without rope."""
-    if rope_theta is None:
-        return None, None
-    cos, sin = rope_tables(q.shape[1], q.shape[3], float(rope_theta), str(q.device))
-    return cos.data_ptr(), sin.data_ptr()
+    tables = _table_tensors(q, rope_theta)
+    return (tables["cos"].data_ptr(), tables["sin"].data_ptr()) if tables else (None, None)
 
 
-def _lib():
-    return _build.library("attention", _SIGNATURES)
+def _forward_outputs(out, lse, rot) -> dict:
+    """What a bf16 forward launch writes whole: out, lse when asked for, and the rotated k with rope."""
+    return {name: t for name, t in (("out", out), ("lse", lse), ("rot", rot)) if t is not None}
+
+
+# ------------------------------------------------------------ the bounds-checked build
+
+_checked = False  # set by checked_kernels(): the wrappers below load the checked build
+# the names of csrc/bounds.cuh's enums, in their order: what a check names (tensors, then ranges) and the kernels
+BOUNDS_TENSORS = ("q", "k", "v", "dout", "qseg", "kseg", "cos", "sin", "start", "count", "range_scratch", "out",
+                  "lse", "delta", "dq", "dk", "dv", "rot")
+BOUNDS_RANGES = ("tile", "head", "row", "stage")
+BOUNDS_KERNELS = (
+    None, "key_tile_ranges_kernel (attention.cu)", "rope_k_kernel (attention.cu)",
+    "sm90_attn::attention_kernel<true> (attention.cu)", "sm90_attn::attention_kernel<false> (attention.cu)",
+    "sm90_bwd::rope_qk_kernel (attention_bwd.cu)", "sm90_bwd::attention_dq_kernel<true> (attention_bwd.cu)",
+    "sm90_bwd::attention_dq_kernel<false> (attention_bwd.cu)", "sm90_bwd::attention_dkv_kernel<true> (attention_bwd.cu)",
+    "sm90_bwd::attention_dkv_kernel<false> (attention_bwd.cu)",
+)
+_BOUNDS_SIGNATURES = {"cm3p_bounds_arm": [_P, _P], "cm3p_bounds_fault": [_P]}
+
+
+class BoundsFault(ctypes.Structure):
+    """csrc/bounds.cuh's fault record: the first checked access of a launch that failed (kernel 0: none)."""
+
+    _fields_ = [("kernel", ctypes.c_int), ("line", ctypes.c_int), ("what", ctypes.c_int), ("thread", ctypes.c_int),
+                ("block", ctypes.c_int * 3), ("pad", ctypes.c_int), ("index", ctypes.c_longlong),
+                ("extent", ctypes.c_longlong)]
+
+    def __str__(self) -> str:
+        kernel = BOUNDS_KERNELS[self.kernel] if 0 < self.kernel < len(BOUNDS_KERNELS) else f"kernel {self.kernel}"
+        names = BOUNDS_TENSORS + BOUNDS_RANGES
+        what = names[self.what] if 0 <= self.what < len(names) else f"#{self.what}"
+        return (f"{kernel}, line {self.line}: {what} index {self.index} outside [0, {self.extent}) in block "
+                f"({self.block[0]}, {self.block[1]}, {self.block[2]}), thread {self.thread}")
+
+
+@contextlib.contextmanager
+def checked_kernels():
+    """Run the bf16 attention wrappers on the bounds-checked build (see the module note) while inside; for
+    finding a kernel that reads or writes outside its tensors, never for a main path. The switch is global
+    (the backward runs on autograd's thread)."""
+    global _checked
+    before, _checked = _checked, True
+    try:
+        yield
+    finally:
+        _checked = before
+
+
+def _extent(t: Optional[torch.Tensor]) -> int:
+    """Elements from t's first element to the end of its storage (0 for no tensor): what a kernel may address
+    from the pointer it was given."""
+    if t is None:
+        return 0
+    return t.untyped_storage().nbytes() // t.element_size() - t.storage_offset()
+
+
+def _poison_view(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """t as integers of its width, and the value of the poison (all bytes 0xFF: NaN in bf16 and fp32, -1 in
+    int32) in them."""
+    dtype, value = {1: (torch.uint8, 0xFF), 2: (torch.int16, -1), 4: (torch.int32, -1)}[t.element_size()]
+    return t.view(dtype), value
+
+
+def _launch(source: str, signatures: dict, entry: str, args: tuple, tensors: Optional[dict] = None,
+            outputs: Optional[dict] = None) -> None:
+    """``entry`` of ``csrc/<source>.cu`` on ``args``, raising on its error code. Under :func:`checked_kernels` the
+    checked build: the ``outputs`` (name -> tensor the launch must write whole) filled with the poison, the
+    extents of ``tensors`` (name in ``BOUNDS_TENSORS`` -> the tensor whose pointer the launch takes, or None; the
+    first is a tensor) armed, and
+    after the launch the fault record and the outputs read back; either raises, naming the kernel."""
+    if not _checked:
+        _build.check(getattr(_build.library(source, signatures), entry)(*args), entry)
+        return
+    lib = _build.library(source, {**signatures, **_BOUNDS_SIGNATURES}, checked=True)
+    tensors, outputs = dict(tensors or {}), dict(outputs or {})
+    tensors.update(outputs)
+    ref = next(iter(tensors.values()))
+    for t in outputs.values():
+        view, value = _poison_view(t)
+        view.fill_(value)
+    extents = (ctypes.c_longlong * len(BOUNDS_TENSORS))(*(_extent(tensors.get(n)) for n in BOUNDS_TENSORS))
+    _build.check(lib.cm3p_bounds_arm(extents, _stream(ref)), "cm3p_bounds_arm")
+    _build.check(getattr(lib, entry)(*args), entry)
+    torch.cuda.synchronize(ref.device)
+    record = BoundsFault()
+    _build.check(lib.cm3p_bounds_fault(ctypes.byref(record)), "cm3p_bounds_fault")
+    if record.kernel != 0:
+        raise RuntimeError(f"{entry}: bounds check failed: {record}")
+    for name, t in outputs.items():
+        view, value = _poison_view(t)
+        left = view == value
+        if bool(left.any()):
+            first = tuple(int(i) for i in left.nonzero()[0])
+            raise RuntimeError(f"{entry}: {int(left.sum())} of {t.numel()} elements of {name} {tuple(t.shape)} left "
+                               f"unwritten (still the poison), the first at {first}")
 
 
 def _rope_scratch(k, rope_theta):
@@ -481,11 +593,10 @@ def window_attention(q, k, v, qseg, kseg, window: int, rope_theta: Optional[floa
     b, length, heads, _ = q.shape
     out, lse = _outputs(q, return_lse)
     rot = _rope_scratch(k, rope_theta)
-    err = _lib().cm3p_window_attention(
+    _launch("attention", _SIGNATURES, "cm3p_window_attention", (
         *_common_args(q, k, v, qseg, kseg, rope_theta), None if rot is None else rot.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), b, length, heads, int(window), _stream(q),
-    )
-    _build.check(err, "cm3p_window_attention")
+    ), dict(q=q, k=k, v=v, qseg=qseg, kseg=kseg, **_table_tensors(q, rope_theta)), _forward_outputs(out, lse, rot))
     window_attention.launches += 1
     return (out, lse) if return_lse else out
 
@@ -505,12 +616,12 @@ def _launch_segment(q, k, v, qseg, kseg, rope_theta, return_lse):
         return out
     out, lse = _outputs(q, return_lse)
     rot = _rope_scratch(k, rope_theta)
-    err = _lib().cm3p_segment_attention(
+    _launch("attention", _SIGNATURES, "cm3p_segment_attention", (
         *_common_args(q, k, v, qseg, kseg, rope_theta), start.data_ptr(), count.data_ptr(),
         None if rot is None else rot.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(), b, length,
         k.shape[1], heads, _stream(q),
-    )
-    _build.check(err, "cm3p_segment_attention")
+    ), dict(q=q, k=k, v=v, qseg=qseg, kseg=kseg, start=start, count=count, **_table_tensors(q, rope_theta)),
+        _forward_outputs(out, lse, rot))
     return (out, lse) if return_lse else out
 
 
@@ -550,10 +661,10 @@ def backward_rope_pass(q, k, rope_theta: float) -> torch.Tensor:
         raise ValueError(f"the rope pass takes head dim {HEAD_DIM} with heads {HEAD_DIM} elements apart")
     b, length, heads, _ = q.shape
     rot = torch.empty((2, *q.shape), dtype=q.dtype, device=q.device)
-    err = _build.library("attention_bwd", _BWD_SIGNATURES).cm3p_attention_rope_qk(
+    _launch("attention_bwd", _BWD_SIGNATURES, "cm3p_attention_rope_qk", (
         q.data_ptr(), k.data_ptr(), q.stride(0), k.stride(0), q.stride(1), k.stride(1), *_tables(q, rope_theta),
-        rot.data_ptr(), b, length, heads, _stream(q))
-    _build.check(err, "cm3p_attention_rope_qk")
+        rot.data_ptr(), b, length, heads, _stream(q),
+    ), dict(q=q, k=k, **_table_tensors(q, rope_theta)), dict(rot=rot))
     return rot
 
 
@@ -573,15 +684,16 @@ def _launch_bwd(entry, q, k, v, dout, lse, delta, qseg, kseg, window, ranges, ro
             raise ValueError("rotated must be the rope pass's contiguous (2, B, L, H, D) output on q's device")
         else:
             rot = rotated
-    err = getattr(_build.library("attention_bwd", _BWD_SIGNATURES), entry)(
+    _launch("attention_bwd", _BWD_SIGNATURES, entry, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         *_qkv_args(q, k, v)[3:], lse.data_ptr(), delta.data_ptr(), qseg.data_ptr(), kseg.data_ptr(),
         None if start is None else start.data_ptr(), None if count is None else count.data_ptr(), *tables,
         None if dq is None else dq.data_ptr(), None if dk is None else dk.data_ptr(),
         None if dv is None else dv.data_ptr(), None if rot is None else rot.data_ptr(), b, length, heads,
         int(window or 0), _stream(q),
-    )
-    _build.check(err, entry)
+    ), dict(q=q, k=k, v=v, dout=dout, lse=lse, delta=delta, qseg=qseg, kseg=kseg, start=start, count=count, rot=rot,
+            **_table_tensors(q, rope_theta)),
+        {name: t for name, t in (("dq", dq), ("dk", dk), ("dv", dv)) if t is not None})
 
 
 # the fp32 forms of the forward (csrc/attention_f32.cu): each counted under its own name
